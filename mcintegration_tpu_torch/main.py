@@ -1,0 +1,208 @@
+"""``integrate`` — the user entry point of the PyTorch port.
+
+Counterpart of ``mcintegration_tpu/main.py:214-600`` for ``solver="vegas"``
+and of the reference's ``integrate`` (src/main.jl:71-218): niter rounds of
+(blocks -> reduce -> train), on one device.  Host-side per-iteration math
+(block statistics src/main.jl:296-320, grid training) runs in float64 numpy.
+"""
+
+from __future__ import annotations
+
+import copy
+import sys
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .configuration import Configuration
+from .ops.rng import block_keys
+from .solvers.engine import Spec
+from .solvers.vegas import VegasIteration
+from .statistics import Result, mean_std, report
+from .utils import ProgressBar, StopWatch, red, yellow
+
+_SOLVER_ITEMS = {"vegasmc": 11, "mcmc": 12, "vegas+": 13, "vegasplus": 13}
+
+
+def _standardize_block(neval, nblock, nworker=1):
+    """Round block count to a multiple of the worker count.
+
+    Reference: _standardize_block (src/main.jl:220-234); the port runs on
+    one device, so ``nworker`` is 1.
+    """
+    neval = int(neval)
+    nblock = int(nblock)
+    if neval <= nblock:
+        raise ValueError(f"neval={neval} should be larger than block={nblock}")
+    if nblock > nworker:
+        nblock = (nblock // nworker) * nworker
+    else:
+        nblock = nworker
+    nevalperblock = neval // nblock
+    return nevalperblock, nblock
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but no CUDA device is available; pass "
+                "device='cpu' to run the kernels' plain PyTorch versions")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def _not_ported(what: str, item: int):
+    raise NotImplementedError(
+        f"{what} is not ported to mcintegration_tpu_torch yet (ROADMAP.md, "
+        f"queue 1, item {item}); mcintegration_tpu serves it")
+
+
+def integrate(integrand: Callable, *,
+              solver: str = "vegasmc",
+              config: Optional[Configuration] = None,
+              neval=1e4,
+              niter: int = 10,
+              block: int = 16,
+              verbose: int = -1,
+              gamma: float = 1.0,
+              adapt: bool = True,
+              debug: bool = False,
+              reweight_goal=None,
+              ignore: Optional[int] = None,
+              measure: Optional[Callable] = None,
+              measurefreq: int = 1,
+              inplace: bool = False,
+              print: int = -1,  # legacy alias of verbose (src/main.jl:92-93)
+              timer=None,
+              mesh=None,
+              device="cuda",
+              **kwargs):
+    """Calculate the integrals; returns a :class:`Result`.
+
+    Mirrors ``mcintegration_tpu.integrate`` (and the reference keyword
+    surface, src/main.jl:71-90) for ``solver="vegas"`` on ``Continuous``
+    pools.  ``device`` names the device explicitly: ``"cuda"`` (the
+    default) runs the hand-written kernels and raises when no card is
+    present; ``"cpu"`` runs their plain PyTorch versions.  The integrand is
+    a torch function ``f(x, c)``; ``x[k]`` is slot ``k``'s values as a
+    tensor of any batch shape.
+
+    Inputs the port does not serve yet raise ``NotImplementedError`` naming
+    the ROADMAP.md item that will port them: other solvers, custom
+    ``measure``, ``measurefreq != 1``, ``type=complex``, ``mesh`` and
+    ``debug``.
+
+    ``result.backend`` is ``"cuda"`` or ``"torch"``; ``backend_reason``
+    says why, when the integrand runs per sample under ``torch.func.vmap``.
+    """
+    solver = str(solver).lstrip(":")
+    if solver != "vegas":
+        if solver in _SOLVER_ITEMS:
+            _not_ported(f"solver={solver!r}", _SOLVER_ITEMS[solver])
+        raise ValueError(f"Solver {solver} is not supported!")
+    if measure is not None:
+        _not_ported("a custom measure", 14)
+    if measurefreq != 1:
+        _not_ported(f"measurefreq={measurefreq}", 14)
+    if mesh is not None:
+        _not_ported("mesh (multi-device runs)", 15)
+    if debug:
+        _not_ported("debug=True (integrand probes)", 16)
+    dev = _resolve_device(device)
+
+    verbose = max(print, verbose)
+    if config is None:
+        config = Configuration(**kwargs)
+    if config.type is complex:
+        _not_ported("type=complex", 14)
+    if gamma > 1.0 and verbose >= 0:
+        sys.stderr.write(red("learning rate gamma should be less than 1.0") + "\n")
+    if ignore is None:
+        ignore = 1 if adapt else 0
+
+    timers = list(timer) if timer is not None else []
+    if verbose > 0:
+        timers.append(StopWatch(verbose, lambda cfg, *_: cfg.report()))
+
+    nevalperblock, block = _standardize_block(neval, block)
+    spec = Spec(config, dev)
+    it_kernel = VegasIteration(spec, integrand, inplace=inplace, block=block,
+                               nevalperblock=nevalperblock)
+    backend_reason = it_kernel.backend_reason
+    if verbose >= 0 and backend_reason:
+        sys.stdout.write(yellow(f"vegas: {backend_reason}\n"))
+
+    progress = ProgressBar(niter * block, desc="iters x blocks: ",
+                           enabled=(verbose >= -1))
+    start = time.time()
+    results, iter_times = [], []
+    for it in range(niter):
+        t_it = time.time()
+        # one iteration shape whatever the timers: they are polled between
+        # iterations, so a progress report never changes the numbers
+        kd = block_keys(config.seed, it, 0, block)
+        stats = it_kernel.run(spec.device_params(), kd)
+        # ---- merge device statistics into the host config (the
+        # reference's addConfig!/MPIreduceConfig!, configuration.jl:238-299)
+        config.neval += stats["neval"]
+        for lidx, (_, leaf) in enumerate(config.var_leaves()):
+            leaf.add_statistics(stats["hists"][lidx])
+
+        norm_b = stats["norm_blocks"]
+        if not np.all(norm_b > 0):
+            raise RuntimeError(
+                f"Block normalization = {norm_b.min()} is not positively defined!")
+        config.normalization += float(norm_b.sum())
+
+        # ---- block statistics (src/main.jl:275-287, 296-320) ----
+        m = stats["obs_blocks"] / norm_b[:, None]          # [block, N]
+        means, stds = mean_std(list(m.sum(axis=0)), list((m ** 2).sum(axis=0)),
+                               block)
+
+        # ---- self-learning (src/main.jl:183-199) ----
+        if adapt:
+            for v in config.var:
+                v.train()
+
+        results.append((means, stds, _snapshot_config(config, stats["neval"])))
+        iter_times.append(time.time() - t_it)
+        progress.update(block, evals=stats["neval"])
+        for t in timers:
+            t.check(config)
+
+    result = Result(results, ignore, config=config)
+    result.backend = it_kernel.backend
+    result.backend_reason = backend_reason
+    result.wall_time = time.time() - start
+    result.evals_per_s = result.neval / max(result.wall_time, 1e-12)
+    result.iteration_times = iter_times
+    if verbose >= 0:
+        report(result)
+        if verbose > 0:
+            sys.stdout.write(yellow(
+                f"Total time: {time.time() - start:.2f} seconds.\n"))
+    return result
+
+
+def _snapshot_config(config, iter_neval: int):
+    """Full per-iteration config snapshot for the Result history.
+
+    A deep copy of the Configuration — trained grids, reweight, tallies —
+    like the reference's per-iteration deep-copied configs
+    (src/main.jl:296-320).  ``neval`` is THIS iteration's eval count so
+    ``Result.neval`` sums correctly.  ``userdata`` is shared by reference.
+    """
+    ud = config.userdata
+    config.userdata = None
+    try:
+        snap = copy.deepcopy(config)
+    finally:
+        config.userdata = ud
+    snap.userdata = ud
+    snap.neval = int(iter_neval)
+    return snap

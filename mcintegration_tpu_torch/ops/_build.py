@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with a
+plain C interface, at first use, into ``build/torch_kernels/`` beside the
+package; the file name carries a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads at once.  The library is
+loaded with ``ctypes``; every pointer and the stream are ``c_void_p``
+arguments (without explicit argtypes ctypes would cut them to 32 bits).
+
+No PyTorch header is included, so a build takes seconds, not minutes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC",
+              # no fused multiply-add: x = g + dy*inc must round like the
+              # plain torch version (a separate multiply and add)
+              "--fmad=false"]
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # kd, t0, B, T, nb, m, nslots, atab, grid, inc, slot_leaf, x, invp, perm, stream
+    "mci_vegas_sample": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem, R, nb, m,
+    # obs_rows, hrow, stream
+    "mci_vegas_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I,
+                         _P, _P, _P],
+}
+
+_lib = None
+build_seconds = None   # wall time of this process's build, None if cached
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return str(path)
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmci_kernels_{h.hexdigest()[:16]}.so"
+
+
+def load(verbose: bool = False):
+    """The loaded kernel library, built first if needed.
+
+    ``verbose`` prints nvcc's output, including ``-Xptxas -v``'s registers
+    and spills per kernel.
+    """
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    out = library_path()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        build_seconds = time.perf_counter() - t0
+        if verbose:
+            print(proc.stdout + proc.stderr)
+        os.replace(tmp, out)      # atomic: a concurrent loader sees all or nothing
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.mci_error_string.argtypes = [ctypes.c_int]
+    lib.mci_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(lib, err: int, name: str):
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({lib.mci_error_string(err).decode()})")

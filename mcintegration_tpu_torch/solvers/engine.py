@@ -1,0 +1,271 @@
+"""Configuration → static :class:`Spec`, and the integrand contract.
+
+Counterpart of ``mcintegration_tpu/solvers/engine.py:35-286``.  A
+:class:`~mcintegration_tpu_torch.configuration.Configuration` compiles into
+a static :class:`Spec` (leaf layout, dof and padding masks) plus
+per-iteration device parameters (each leaf's float32 grid and increments).
+
+User integrands are torch functions ``f(x, c)`` where ``x[k]`` is slot
+``k``'s values, a tensor of any batch shape (the batched call of
+``pallas_vegas.make_eval_batched`` written in torch).  An integrand that is
+not elementwise across samples is detected by :meth:`Spec.probe_batched`
+and then evaluated per sample under ``torch.func.vmap``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+
+from ..configuration import Configuration
+from ..models.variable import CompositeVar, leaves_of
+
+
+class UserConfig:
+    """The lightweight config object passed into user integrands.
+
+    Exposes the commonly used attributes of the reference ``Configuration``
+    (userdata, dof, N, norm, maxdof).
+    """
+
+    def __init__(self, cfg: Configuration):
+        self.userdata = cfg.userdata
+        self.dof = cfg.dof
+        self.N = cfg.N
+        self.norm = cfg.norm
+        self.maxdof = cfg.maxdof
+
+
+class WeightBuffer:
+    """Mutable weights buffer for ``inplace=True`` integrands.
+
+    The reference's inplace mode writes weights into a preallocated array
+    (src/vegas/montecarlo.jl:141-144); here the integrand assigns one
+    tensor (or number) per integrand index.
+    """
+
+    def __init__(self, n: int):
+        self.n = n
+        self._vals = [0.0] * n
+
+    def __setitem__(self, i, v):
+        self._vals[i] = v
+
+    def __getitem__(self, i):
+        return self._vals[i]
+
+    def __len__(self):
+        return self.n
+
+
+@dataclasses.dataclass
+class LeafInfo:
+    group: int          # which var-type (dof column) this leaf belongs to
+    leaf: Any           # the host-side variable object
+    offset: int         # leading user-pinned slots
+    ndraw: int          # = maxdof of the group: slots the MC owns
+    nslots: int         # offset + ndraw (visible to the integrand)
+    nhist: int          # histogram bins
+
+
+class Spec:
+    """Static compilation of a Configuration for the device path."""
+
+    def __init__(self, cfg: Configuration, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.N = cfg.N
+        self.norm = cfg.norm
+        self.nvar = cfg.nvar
+        self.maxdof = list(cfg.maxdof)
+        self.uconfig = UserConfig(cfg)
+
+        self.leaves: List[LeafInfo] = []
+        self.group_leaves: List[List[int]] = [[] for _ in range(cfg.nvar)]
+        for gi, v in enumerate(cfg.var):
+            for leaf in leaves_of(v):
+                li = LeafInfo(
+                    group=gi,
+                    leaf=leaf,
+                    offset=getattr(leaf, "offset", 0),
+                    ndraw=cfg.maxdof[gi],
+                    nslots=getattr(leaf, "offset", 0) + cfg.maxdof[gi],
+                    nhist=leaf.nhist,
+                )
+                self.group_leaves[gi].append(len(self.leaves))
+                self.leaves.append(li)
+
+        nd = cfg.N + 1
+        # dof mask [nd, nvar, max_maxdof]: True where slot pos < dof[i][v]
+        mm = max(max(self.maxdof), 1)
+        used = np.zeros((nd, cfg.nvar, mm), dtype=bool)
+        for i in range(nd):
+            for v in range(cfg.nvar):
+                used[i, v, : cfg.dof[i][v]] = True
+        self.mask_used = used
+        # padding mask: slot used by the FULL space but not by integrand i
+        full = np.zeros((cfg.nvar, mm), dtype=bool)
+        for v in range(cfg.nvar):
+            full[v, : cfg.maxdof[v]] = True
+        self.mask_pad = full[None, :, :] & ~used
+        # integrands whose dof == maxdof need no padding factor
+        self.pad_trivial = [bool(np.all(~self.mask_pad[i])) for i in range(nd)]
+
+    # ------------------------------------------------------------------
+    def device_params(self):
+        """Per-iteration device constants: each leaf's (grid, inc) + reweight."""
+        return {
+            "leaf": [li.leaf.device_params(self.device) for li in self.leaves],
+            "reweight": torch.as_tensor(self.cfg.reweight, dtype=torch.float32,
+                                        device=self.device),
+        }
+
+    def view(self, leaf_vals):
+        """User-facing variable view over leaf values ``[ndraw, *batch]``.
+
+        Offset (user-pinned) slots are prepended as constants broadcast to
+        the batch shape; CompositeVar groups become tuples of member views.
+        Works per sample (``batch == ()``, also under ``torch.func.vmap``)
+        and batched.
+        """
+        views = []
+        for gi, v in enumerate(self.cfg.var):
+            member_views = []
+            for lidx in self.group_leaves[gi]:
+                li = self.leaves[lidx]
+                drawn = leaf_vals[lidx]
+                if li.offset > 0:
+                    batch = tuple(drawn.shape[1:])
+                    fixed = torch.as_tensor(li.leaf.fixed_values()[: li.offset],
+                                            device=drawn.device)
+                    fixed = fixed.reshape((li.offset,) + (1,) * len(batch))
+                    full = torch.cat([fixed.expand((li.offset,) + batch), drawn])
+                else:
+                    full = drawn
+                member_views.append(full)
+            if isinstance(v, CompositeVar):
+                views.append(tuple(member_views))
+            else:
+                views.append(member_views[0])
+        if len(views) == 1:
+            return views[0]
+        return tuple(views)
+
+    # ------------------------------------------------------------------
+    # integrand evaluation
+    # ------------------------------------------------------------------
+    def _call(self, integrand, inplace, leaf_vals):
+        v = self.view(leaf_vals)
+        if inplace:
+            buf = WeightBuffer(self.N)
+            integrand(v, buf, self.uconfig)
+            return [buf[i] for i in range(self.N)]
+        return integrand(v, self.uconfig)
+
+    def make_eval(self, integrand: Callable, inplace: bool):
+        """Per-sample evaluation: f(leaf_vals [ndraw]) -> weights [N]."""
+        def _eval(leaf_vals):
+            w = self._call(integrand, inplace, leaf_vals)
+            return _finite_guard(pack_weights(w, self.N, self.device))
+
+        return _eval
+
+    def make_eval_batched(self, integrand: Callable, inplace: bool):
+        """Batched evaluation: f(leaf_vals [ndraw, *batch]) -> [N, *batch].
+
+        Reference-style integrands are elementwise in the sample axes, so
+        one call on the batched tensors evaluates every sample at once.
+        """
+        n = self.N
+
+        def _eval(leaf_vals):
+            shape = tuple(leaf_vals[0].shape[1:])
+            w = self._call(integrand, inplace, leaf_vals)
+            ws = list(w) if isinstance(w, (tuple, list)) else [w]
+            if len(ws) == 1 and n > 1:
+                ws = [ws[0][i] for i in range(n)]
+            if len(ws) != n:
+                raise ValueError(f"integrand returned {len(ws)} weights, want {n}")
+            return torch.stack([
+                torch.broadcast_to(_finite_guard(_as_weight(wi, self.device)), shape)
+                for wi in ws])
+
+        return _eval
+
+    def make_eval_vmapped(self, integrand: Callable, inplace: bool):
+        """Per-sample evaluation under ``torch.func.vmap`` over the batch:
+        f(leaf_vals [ndraw, *batch]) -> [N, *batch]."""
+        per_sample = self.make_eval(integrand, inplace)
+
+        def _eval(leaf_vals):
+            shape = tuple(leaf_vals[0].shape[1:])
+            flat = [v.reshape(v.shape[0], -1) for v in leaf_vals]
+            w = torch.func.vmap(per_sample, in_dims=(1,), out_dims=1)(flat)
+            return w.reshape((self.N,) + shape)
+
+        return _eval
+
+    def probe_batched(self, eval_batched, eval_vmapped):
+        """Does the batched call reproduce the per-sample one?
+
+        Evaluates both on a small in-domain batch (the reference's
+        ``validate_batched``, pallas_vegas.py:237-274).  Returns ``(ok,
+        reason)``; ``reason`` is empty when ``ok``.
+        """
+        rng = np.random.default_rng(12345)
+        leaf_vals = []
+        for li in self.leaves:
+            lo, rg = li.leaf.lower, li.leaf.range
+            u = rng.uniform(0.05, 0.95, (li.ndraw, 4, 2))
+            leaf_vals.append(torch.as_tensor(lo + rg * u, dtype=torch.float32,
+                                             device=self.device))
+        try:
+            wv = eval_vmapped(leaf_vals)
+        except Exception as e:  # the user's integrand, any failure
+            return True, (f"the per-sample probe failed under torch.func.vmap "
+                          f"({type(e).__name__}: {e}); the batched call runs "
+                          "unchecked")
+        try:
+            wb = eval_batched(leaf_vals)
+        except Exception as e:  # the user's integrand, any failure
+            return False, (f"the batched integrand call failed "
+                           f"({type(e).__name__}: {e}); the integrand runs "
+                           "per sample under torch.func.vmap")
+        if wb.shape == wv.shape and torch.allclose(wb, wv, rtol=1e-5, atol=1e-6):
+            return True, ""
+        return False, ("the batched-integrand probe did not reproduce the "
+                       "per-sample evaluation (integrand not elementwise); "
+                       "the integrand runs per sample under torch.func.vmap")
+
+
+def _as_weight(w, device):
+    if isinstance(w, torch.Tensor):
+        return w.to(torch.float32)
+    return torch.tensor(w, dtype=torch.float32, device=device)
+
+
+def _finite_guard(w):
+    """Zero out non-finite integrand values.
+
+    In float32 a singular integrand can overflow to inf within ~1 ulp of its
+    singular point; an inf/NaN weight would poison every accumulator.  The
+    zeroed region is O(ulp)-measure, far below the statistical error.
+    """
+    return torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+
+
+def pack_weights(w, n: int, device):
+    """Normalize a user integrand return (scalar/tuple/list/tensor) to [n]."""
+    if isinstance(w, (tuple, list)):
+        if len(w) != n:
+            raise ValueError(f"integrand returned {len(w)} weights, expected {n}")
+        return torch.stack([_as_weight(x, device) for x in w])
+    w = _as_weight(w, device)
+    if w.ndim == 0 and n == 1:
+        return w[None]
+    if tuple(w.shape) != (n,):
+        raise ValueError(f"integrand returned shape {tuple(w.shape)}, expected ({n},)")
+    return w
