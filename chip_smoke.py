@@ -3,15 +3,22 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``mcintegration_tpu_torch/csrc``
-with nvcc, holds each against its plain PyTorch version on the card, drives
-``integrate(solver="vegas", device="cuda")`` on the 2-D pi problem at 2^30
-evals per iteration, checks adaptive and multi-integrand runs against their
-exact values, and times the kernels beside their plain versions.  Any
-failed phase raises, so the exit code is non-zero.
+with nvcc and drives both ported paths on the card.
 
-Last, it traces three iterations of the main path with ``torch.profiler``:
-wall time, device busy time, the device's idle share and device time per
-kernel name.
+- :vegas (phases 3-7): ``vegas_sample`` and ``vegas_reduce`` against their
+  plain PyTorch versions, ``integrate(solver="vegas", device="cuda")`` on the
+  2-D pi problem at 2^30 evals per iteration, adaptive and multi-integrand
+  runs against their exact values, kernel times beside the plain versions,
+  and a ``torch.profiler`` trace of three iterations.
+- :vegasmc, the default solver (phases 3b-7b): ``chain_propose`` and
+  ``chain_accept`` against their plain versions from one state and over a
+  whole iteration, ``integrate(solver="vegasmc", device="cuda")`` on the 2-D
+  pi problem at 2^28 evals per iteration with 2^20 walkers, adaptive,
+  Discrete and reweighted runs against their exact values, time per chain
+  step, and a profile of three iterations.
+
+Each path's launch counts are set to 0 just before its main path runs and
+read just after.  Any failed phase raises, so the exit code is non-zero.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -27,6 +34,7 @@ import numpy as np
 
 SEED = 20260817
 REL_TOL_REDUCE = 1e-9   # same float32 products, float64 sums in another order
+REL_TOL_HIST = 1e-9     # chain histograms: float64 atomics in another order
 
 
 def _pi(x, c):
@@ -222,6 +230,27 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps, queue_s=0.2):
+    """Device time per call of ``fn``: the calls are queued behind a sleep
+    kernel of about ``queue_s`` seconds, so the card runs them back to back
+    however slowly the host issues them (time_ms would time the host)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(queue_s * 2e9))        # cycles: ~queue_s at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if end.query():
+        raise AssertionError("device_ms: the queue drained before the host issued "
+                             "every call (a call waits for the device, or queue_s "
+                             "is too short)")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def timings(mt, vk, shape, card):
     """Phase 6: per-launch times at the main path's launch shape, the
     kernels in turns with their plain versions (plain, kernel, kernel, plain)."""
@@ -268,15 +297,13 @@ def timings(mt, vk, shape, card):
             "vegas_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"])}
 
 
-def profile_main_path(mt, card, niter=3):
-    """Phase 7: torch.profiler over integrate() at the main path's size
-    (phase 4 ran it already, so nothing is built or touched first here)."""
+def profile_main_path(mt, card, phase, kw, niter=3):
+    """Phase 7/7b: torch.profiler over integrate() at a main path's size
+    (phase 4 or 4b ran it already, so nothing is built or touched first here)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kw = dict(dof=[[2]], neval=2 ** 30, block=16, solver="vegas", device="cuda",
-              seed=SEED, verbose=-2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -299,11 +326,260 @@ def profile_main_path(mt, card, niter=3):
     busy_s = busy * 1e-6
     mean, err = float(res.mean[0]), float(res.stdev[0])
     assert res.backend == "cuda" and abs(mean - np.pi / 4) < 5 * err, (mean, err)
-    print(f"phase 7: profile of {niter} iterations of {res.iterations[0][2].neval} "
+    print(f"phase {phase}: profile of {niter} iterations of {res.iterations[0][2].neval} "
           f"evals: wall {wall!r} s, device busy {busy_s!r} s, idle share "
           f"{1 - busy_s / wall!r} [{card}]")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"phase 7: {us * 1e-3!r} ms on the device in {name[:90]}")
+        print(f"phase {phase}: {us * 1e-3!r} ms on the device in {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# :vegasmc, the default solver
+# ---------------------------------------------------------------------------
+
+def _chain_two(x, c):
+    """Two integrands over a (Continuous, Discrete) CompositeVar slot pair;
+    integrand 1 pads integrand 0's single slot."""
+    import torch
+    a, b = x
+    return (a[0] * b[0].to(torch.float32) / 50.5,
+            torch.where(a[0] ** 2 + a[1] ** 2 < 1.0, 1.0, 0.0) * (b[1] <= 50))
+
+
+def chain_config(mt):
+    """Phase 3b's configuration: a trained ninc=1024 Continuous map and a
+    trained Discrete(1, 100) in one CompositeVar, dof=[[1], [2]]."""
+    rng = np.random.default_rng(2)
+    c = mt.Continuous(0.0, 1.0)
+    c.histogram = rng.gamma(0.5, 1.0, c.ninc) + 1e-3
+    c.train()
+    d = mt.Discrete(1, 100)
+    d.histogram = rng.gamma(0.5, 1.0, d.nbin) + 1e-3
+    d.train()
+    return mt.Configuration(var=mt.CompositeVar(c, d), dof=[[1], [2]], seed=SEED)
+
+
+def state_bits_equal(a, b, what):
+    """Every field of two ChainStates bit-equal but the histogram, which
+    must agree to REL_TOL_HIST; returns the max abs error over the float
+    fields (slot values excepted: a Discrete slot holds int32 bits)."""
+    import dataclasses
+    err = 0.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "hist":
+            rel = rel_err(x.cpu(), y.cpu())
+            if rel > REL_TOL_HIST:
+                raise AssertionError(f"{what}: hist rel {rel:.3g} > {REL_TOL_HIST}")
+        elif not torch_equal_bits(x, y):
+            raise AssertionError(f"{what}: {f.name} differs from the plain version")
+        if x.is_floating_point() and not f.name.endswith("_val"):
+            err = max(err, float((x - y).abs().max()))
+    return err
+
+
+def torch_equal_bits(x, y):
+    import torch
+    if x.dtype == torch.float64:
+        return torch.equal(x.view(torch.int64), y.view(torch.int64))
+    return torch.equal(bits(x), bits(y))
+
+
+class plain_chain:
+    """Within the block, VegasMCIteration runs the chain kernels' plain
+    torch versions on the card (the wrappers would launch the kernels)."""
+
+    def __init__(self, ck):
+        self.ck = ck
+
+    def __enter__(self):
+        ck = self.ck
+        self.saved = ck.chain_propose, ck.chain_accept
+        ck.chain_propose, ck.chain_accept = ck.chain_propose_plain, ck.chain_accept_plain
+
+    def __exit__(self, *exc):
+        self.ck.chain_propose, self.ck.chain_accept = self.saved
+
+
+def chain_vs_plain(mt, ck, card):
+    """Phase 3b: one chain_propose and one chain_accept from the same state,
+    bit for bit, at 2^20 walkers; then a whole iteration through the kernels
+    against one through the plain versions."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration
+
+    spec = Spec(chain_config(mt), "cuda")
+    it = VegasMCIteration(spec, _chain_two, block=16, nevalperblock=2 ** 24,
+                          nwalkers=2 ** 20)
+    lay, params = it.layout, spec.device_params()
+    kd = it.seeds(block_keys(SEED, 0, 0, it.block))
+    tab, rw, st = it.start(params, kd)
+    for t in range(4):
+        it.step(tab, rw, kd, st, t)
+    ref = st.clone()
+    ck.chain_propose(lay, tab, kd, 4, st)
+    ck.chain_propose_plain(lay, tab, kd, 4, ref)
+    torch.cuda.synchronize()
+    err_propose = state_bits_equal(st, ref, "chain_propose")
+    nw = it.weights(st)
+    ck.chain_accept(lay, rw, kd, 4, st, nw, measure=True)
+    ck.chain_accept_plain(lay, rw, kd, 4, ref, nw, measure=True)
+    torch.cuda.synchronize()
+    err_accept = state_bits_equal(st, ref, "chain_accept")
+    moved = int(st.ac.sum())
+    print(f"phase 3b: one step from the same state at W={lay.W} ({lay.S} slots, "
+          f"Discrete(1, 100) + ninc=1024, dof=[[1],[2]]): state, prop, weights, "
+          f"pads, p, tallies and float64 accumulators bit-equal; hist max abs err "
+          f"{err_accept!r}; {moved} accepted moves so far")
+
+    it = VegasMCIteration(spec, _chain_two, block=16, nevalperblock=2 ** 20,
+                          nwalkers=2 ** 18)
+    kd = block_keys(SEED, 1, 0, it.block)
+    got = it.run(params, kd)
+    with plain_chain(ck):
+        want = it.run(params, kd)
+    for key in ("obs_blocks", "norm_blocks", "visited", "propose", "accept"):
+        if not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"whole iteration: {key} differs from the plain "
+                                 f"versions (rel {rel_err(got[key], want[key]):.3g})")
+    e_hist = max(rel_err(h, r) for h, r in zip(got["hists"], want["hists"]))
+    if e_hist > REL_TOL_HIST:
+        raise AssertionError(f"whole iteration: hist rel {e_hist:.3g} > {REL_TOL_HIST}")
+    print(f"phase 3b: whole iteration (W={it.nwalkers}, {it.nsteps} steps): obs, norm, "
+          f"visited and tallies equal (rel 0), hist rel {e_hist:.3g}")
+    return err_propose, err_accept
+
+
+def chain_main_path(mt, ck, card):
+    """Phase 4b: integrate(solver="vegasmc") at 2^28 evals per iteration with
+    2^20 walkers through the chain kernels."""
+    niter, block, neval, W = 10, 16, 2 ** 28, 2 ** 20
+    nsteps = neval // W
+    expected = niter * (nsteps + 1)          # nsteps steps and one init launch
+    ck.reset_launch_counts()
+    res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=neval,
+                       niter=niter, block=block, solver="vegasmc", nwalkers=W,
+                       device="cuda", seed=SEED, verbose=-2)
+    counts = dict(ck.launch_counts)
+    mean, err = float(res.mean[0]), float(res.stdev[0])
+    assert res.backend == "cuda", res.backend
+    assert all(n == expected for n in counts.values()), (counts, expected)
+    assert abs(mean - np.pi / 4) < 5 * err, (mean, err)
+    evals = [h[2].neval for h in res.iterations]
+    steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+    print(f"phase 4b: pi/4 = {mean!r} +- {err!r} ({(mean - np.pi / 4) / err:+.2f} sigma), "
+          f"{niter} iterations of {evals[0]} evals ({W} walkers x {nsteps} steps), "
+          f"launches {counts} (expected {expected} each), backend {res.backend}")
+    print(f"phase 4b: steady-state {steady!r} evals/s (iterations 2-{niter}; "
+          f"per-iteration s {res.iteration_times}) [{card}]")
+    return counts
+
+
+def chain_checks(mt):
+    """Phase 5b: adaptive, Discrete and reweighted :vegasmc runs within 7 sigma."""
+    import torch
+
+    def singular(x, c):
+        return torch.log(x[0]) / torch.sqrt(x[0])
+
+    def disc(x, c):
+        return x[0].to(torch.float32)
+
+    def td(x, c):
+        t, d = x
+        return t[0] * d[0].to(torch.float32)
+
+    def balls(x, c):
+        r2 = x[0] ** 2 + x[1] ** 2
+        return (torch.where(r2 < 1.0, 1.0, 0.0), torch.where(r2 + x[2] ** 2 < 1.0, 1.0, 0.0))
+
+    # the unit balls run with warmup=0.1: at 256 steps per walker the
+    # reference's 1% burn-in leaves a -5 sigma start-up transient on this
+    # case, in the JAX package's XLA route as in the port (PERF.md)
+    runs = [("singular log(x)/sqrt(x)", singular, mt.Continuous(0.0, 1.0), [[1]], [-4.0], 0.01),
+            ("Discrete(1, 3), f = x", disc, mt.Discrete(1, 3), [[1]], [6.0], 0.01),
+            ("(Continuous, Discrete(1, 4)), f = t*d", td,
+             (mt.Continuous(0.0, 1.0), mt.Discrete(1, 4)), [[1, 1]], [5.0], 0.01),
+            ("unit balls, dof=[[2],[3]], warmup=0.1", balls, mt.Continuous(0.0, 1.0),
+             [[2], [3]], [np.pi / 4, np.pi / 6], 0.1)]
+    for name, f, var, dof, exact, warmup in runs:
+        res = mt.integrate(f, var=var, dof=dof, neval=2 ** 24, niter=10, block=16,
+                           solver="vegasmc", warmup=warmup, device="cuda", seed=SEED,
+                           verbose=-2)
+        for i, e in enumerate(exact):
+            m, s = float(res.mean[i]), float(res.stdev[i])
+            assert abs(m - e) < 7 * s, (name, i, m, s, e)
+            print(f"phase 5b: {name}, integral {i}: {m!r} +- {s!r} vs {e!r} "
+                  f"({(m - e) / s:+.2f} sigma)")
+        print(f"phase 5b: {name}: reweight {res.config.reweight.tolist()}, "
+              f"acceptance {res.config.accept[1, 0, 0] / res.config.propose[1, 0, 0]!r}")
+
+
+def chain_timings(mt, ck, card):
+    """Phase 6b: time per chain step at the main path's shape, each kernel in
+    turns with its plain version (plain, kernel, kernel, plain); then evals/s
+    at the default walker count."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration, choose_walkers
+
+    spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED), "cuda")
+    it = VegasMCIteration(spec, _pi, block=16, nevalperblock=2 ** 24, nwalkers=2 ** 20)
+    lay = it.layout
+    kd = it.seeds(block_keys(SEED, 0, 0, it.block))
+    tab, rw, st = it.start(spec.device_params(), kd)
+    for t in range(4):
+        it.step(tab, rw, kd, st, t)
+    ref = st.clone()
+    ck.chain_propose(lay, tab, kd, 4, st)
+    ck.chain_propose_plain(lay, tab, kd, 4, ref)
+    err_propose = state_bits_equal(st, ref, "chain_propose at the main path's shape")
+    nw = it.weights(st)
+    ck.chain_accept(lay, rw, kd, 4, st, nw, measure=True)
+    ck.chain_accept_plain(lay, rw, kd, 4, ref, nw, measure=True)
+    err_accept = state_bits_equal(st, ref, "chain_accept at the main path's shape")
+
+    ms = {"propose": [], "propose_plain": [], "accept": [], "accept_plain": []}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for kind in order:
+            sfx = "" if kind == "kernel" else "_plain"
+            reps = 20 if kind == "kernel" else 5
+            prop = getattr(ck, "chain_propose" + sfx)
+            acc = getattr(ck, "chain_accept" + sfx)
+            ms["propose" + sfx].append(device_ms(lambda: prop(lay, tab, kd, 5, st), reps))
+            ms["accept" + sfx].append(
+                device_ms(lambda: acc(lay, rw, kd, 5, st, nw, measure=True), reps))
+    ms = {k: float(np.mean(v)) for k, v in ms.items()}
+    ms_integrand = device_ms(lambda: it.weights(st), 20)
+    ms_step_dev = device_ms(lambda: it.step(tab, rw, kd, st, 6), 20)
+    ms_step = time_ms(lambda: it.step(tab, rw, kd, st, 6), 20)
+    print(f"phase 6b: one step = {lay.W} walkers x {lay.S} slots; device time per "
+          f"call, calls queued behind a sleep kernel [{card}]")
+    print(f"phase 6b: chain_propose {ms['propose']!r} ms/step, plain torch "
+          f"{ms['propose_plain']!r} ms [{card}]")
+    print(f"phase 6b: integrand (torch) {ms_integrand!r} ms/step [{card}]")
+    print(f"phase 6b: chain_accept {ms['accept']!r} ms/step, plain torch "
+          f"{ms['accept_plain']!r} ms [{card}]")
+    print(f"phase 6b: whole step on the device {ms_step_dev!r} ms; as the host issues "
+          f"it {ms_step!r} ms, {lay.W / ms_step * 1e3!r} evals/s [{card}]")
+
+    neval, block = 2 ** 28, 16
+    W, nsteps = choose_walkers(neval, block, None, 256)
+    res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=neval,
+                       niter=3, block=block, solver="vegasmc", device="cuda", seed=SEED,
+                       verbose=-2)
+    assert abs(float(res.mean[0]) - np.pi / 4) < 5 * float(res.stdev[0])
+    evals = [h[2].neval for h in res.iterations]
+    steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+    print(f"phase 6b: default walker count ({W} walkers x {nsteps} steps at 2^28 evals): "
+          f"{steady!r} evals/s steady state (iterations 2-3, per-iteration s "
+          f"{res.iteration_times}) [{card}]")
+    print(f"phase 6b: peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    return {"chain_propose": (err_propose, ms["propose"], ms["propose_plain"]),
+            "chain_accept": (err_accept, ms["accept"], ms["accept_plain"])}
 
 
 def main() -> int:
@@ -316,27 +592,38 @@ def main() -> int:
     print(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     import mcintegration_tpu_torch as mt
-    from mcintegration_tpu_torch.ops import _build, vegas_kernels as vk
+    from mcintegration_tpu_torch.ops import _build, chain_kernels as ck, vegas_kernels as vk
 
     t0 = time.perf_counter()                                  # phase 2
     _build.load(verbose=True)
     print(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds} s) from {_build.library_path().name}")
+          f"(nvcc {_build.build_seconds} s, one process per source) from "
+          f"{_build.library_path().name}")
 
     kernel_vs_plain(mt, vk, card)                             # phase 3
+    chain_vs_plain(mt, ck, card)                              # phase 3b
     counts, shape = main_path(mt, vk, card)                   # phase 4
+    counts.update(chain_main_path(mt, ck, card))              # phase 4b
     adaptive_checks(mt)                                       # phase 5
+    chain_checks(mt)                                          # phase 5b
     measured = timings(mt, vk, shape, card)                   # phase 6
-    profile_main_path(mt, card)                               # phase 7
+    measured.update(chain_timings(mt, ck, card))              # phase 6b
+    common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2)
+    profile_main_path(mt, card, "7", dict(neval=2 ** 30, solver="vegas", **common))
+    profile_main_path(mt, card, "7b", dict(neval=2 ** 28, solver="vegasmc",
+                                           nwalkers=2 ** 20, **common))
 
+    replaces = {"vegas_sample": "mcintegration_tpu/ops/pallas_vegas.py:343",
+                "vegas_reduce": "mcintegration_tpu/ops/pallas_vegas.py:343",
+                "chain_propose": "mcintegration_tpu/ops/pallas_chain.py:410",
+                "chain_accept": "mcintegration_tpu/ops/pallas_chain.py:410"}
     kernels = []
-    for name in ("vegas_sample", "vegas_reduce"):
+    for name, where in replaces.items():
         err, ms, plain_ms = measured[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"mcintegration_tpu_torch/csrc/{name}.cu",
-                        "replaces": "mcintegration_tpu/ops/pallas_vegas.py:343",
-                        "launches": counts[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "replaces": where, "launches": counts[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

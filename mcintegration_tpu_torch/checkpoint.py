@@ -1,8 +1,10 @@
 """Checkpoint / resume of trained integration state.
 
 Counterpart of ``mcintegration_tpu/checkpoint.py`` with the same npz keys
-(``reweight``, ``seed``, ``leaf{i}_grid``, ``leaf{i}_histogram``), so a
-state saved by either package loads into the other.
+(``reweight``, ``seed``, ``leaf{i}_histogram``, and ``leaf{i}_grid`` for a
+Continuous leaf or ``leaf{i}_distribution`` and ``leaf{i}_accumulation``
+for a Discrete one), so a state saved by either package loads into the
+other.
 
 The reference has no serialization; its warm-start pattern is passing
 ``config=result.config`` into a new ``integrate`` call
@@ -16,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from .configuration import Configuration
-from .models.variable import Continuous
+from .models.variable import Continuous, Discrete
 
 
 def state_dict(config: Configuration) -> dict:
@@ -24,6 +26,9 @@ def state_dict(config: Configuration) -> dict:
     for i, (_, leaf) in enumerate(config.var_leaves()):
         if isinstance(leaf, Continuous):
             out[f"leaf{i}_grid"] = leaf.grid.copy()
+        elif isinstance(leaf, Discrete):
+            out[f"leaf{i}_distribution"] = leaf.distribution.copy()
+            out[f"leaf{i}_accumulation"] = leaf.accumulation.copy()
         out[f"leaf{i}_histogram"] = leaf.histogram.copy()
     return out
 
@@ -33,6 +38,9 @@ def load_state_dict(config: Configuration, state: dict):
     for i, (_, leaf) in enumerate(config.var_leaves()):
         if isinstance(leaf, Continuous):
             leaf.grid = np.asarray(state[f"leaf{i}_grid"], dtype=np.float64)
+        elif isinstance(leaf, Discrete):
+            leaf.distribution = np.asarray(state[f"leaf{i}_distribution"], np.float64)
+            leaf.accumulation = np.asarray(state[f"leaf{i}_accumulation"], np.float64)
         leaf.histogram = np.asarray(state[f"leaf{i}_histogram"], dtype=np.float64)
     return config
 
@@ -50,20 +58,28 @@ def params_from_jax(jax_params, spec):
     """The port's device params from ``mcintegration_tpu``'s.
 
     ``jax_params`` is ``Spec.device_params()`` of the JAX package converted
-    to numpy: each leaf's ``tab`` is the ``[L, L*2]`` table packed by
-    ``ops/lookup.py:pack_table``.  Returns the port's ``{"leaf": [(grid,
-    inc), ...], "reweight": ...}`` on the spec's device, so that both
+    to numpy.  A Continuous leaf's ``tab`` is the ``[L, L*2]`` table of
+    ``(grid, inc)`` rows packed by ``ops/lookup.py:pack_table``; a Discrete
+    leaf carries ``cdf [nbin+1]`` and ``dist_tab``, its ``[nbin]`` masses
+    packed the same way.  Returns the port's ``{"leaf": [(grid, inc) or
+    (cdf, dist), ...], "reweight": ...}`` on the spec's device, so that both
     packages sample through the identical float32 map.
     """
     import torch
 
+    def f32(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=spec.device)
+
     leaves = []
     for li, p in zip(spec.leaves, jax_params["leaf"]):
+        if isinstance(li.leaf, Discrete):
+            nbin = li.leaf.nbin
+            dist = np.asarray(p["dist_tab"], dtype=np.float32).reshape(-1)[:nbin]
+            leaves.append((f32(p["cdf"]), f32(dist)))
+            continue
         nb = li.leaf.ninc
         tab = np.asarray(p["tab"], dtype=np.float32).reshape(-1, 2)[:nb]
-        leaves.append(tuple(
-            torch.as_tensor(np.ascontiguousarray(tab[:, c]), device=spec.device)
-            for c in (0, 1)))
+        leaves.append((f32(tab[:, 0]), f32(tab[:, 1])))
     return {"leaf": leaves,
             "reweight": torch.tensor(np.asarray(jax_params["reweight"]),
                                      dtype=torch.float32, device=spec.device)}

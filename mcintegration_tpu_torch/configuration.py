@@ -22,7 +22,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
-from .models.variable import CompositeVar, Continuous, is_variable, leaves_of
+from .models.variable import CompositeVar, Continuous, Discrete, is_variable, leaves_of
 from .utils.color import green, yellow
 
 
@@ -249,6 +249,8 @@ class Configuration:
 def _typestr(v):
     if isinstance(v, Continuous):
         return "Continuous"
+    if isinstance(v, Discrete):
+        return "Discrete"
     if isinstance(v, CompositeVar):
         return "Composite"
     return type(v).__name__

@@ -1,9 +1,10 @@
 """``integrate`` — the user entry point of the PyTorch port.
 
 Counterpart of ``mcintegration_tpu/main.py:214-600`` for ``solver="vegas"``
-and of the reference's ``integrate`` (src/main.jl:71-218): niter rounds of
-(blocks -> reduce -> train), on one device.  Host-side per-iteration math
-(block statistics src/main.jl:296-320, grid training) runs in float64 numpy.
+and ``solver="vegasmc"`` and of the reference's ``integrate``
+(src/main.jl:71-218): niter rounds of (blocks -> reduce -> reweight ->
+train), on one device.  Host-side per-iteration math (block statistics
+src/main.jl:296-320, reweighting, grid training) runs in float64 numpy.
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ from .configuration import Configuration
 from .ops.rng import block_keys
 from .solvers.engine import Spec
 from .solvers.vegas import VegasIteration
+from .solvers.vegasmc import VegasMCIteration
 from .statistics import Result, mean_std, report
 from .utils import ProgressBar, StopWatch, red, yellow
 
-_SOLVER_ITEMS = {"vegasmc": 11, "mcmc": 12, "vegas+": 13, "vegasplus": 13}
+_SOLVER_ITEMS = {"mcmc": 12, "vegas+": 13, "vegasplus": 13}
 
 
 def _standardize_block(neval, nblock, nworker=1):
@@ -42,6 +44,21 @@ def _standardize_block(neval, nblock, nworker=1):
         nblock = nworker
     nevalperblock = neval // nblock
     return nevalperblock, nblock
+
+
+def do_reweight(config: Configuration, gamma: float, reweight_goal):
+    """Visited-count reweighting (src/main.jl:322-346)."""
+    avgstep = float(np.sum(config.visited))
+    for vi in range(len(config.visited)):
+        v = config.visited[vi]
+        if v <= 1:
+            config.reweight[vi] *= avgstep**gamma
+        else:
+            config.reweight[vi] *= (avgstep / v) ** gamma
+    if reweight_goal is not None:
+        goal = np.asarray(reweight_goal, dtype=np.float64)
+        config.reweight *= goal / goal.sum()
+    config.reweight /= config.reweight.sum()
 
 
 def _resolve_device(device) -> torch.device:
@@ -80,35 +97,42 @@ def integrate(integrand: Callable, *,
               print: int = -1,  # legacy alias of verbose (src/main.jl:92-93)
               timer=None,
               mesh=None,
+              nwalkers: Optional[int] = None,
+              min_steps_per_walker: int = 256,
+              warmup: Optional[float] = None,
               device="cuda",
               **kwargs):
     """Calculate the integrals; returns a :class:`Result`.
 
     Mirrors ``mcintegration_tpu.integrate`` (and the reference keyword
-    surface, src/main.jl:71-90) for ``solver="vegas"`` on ``Continuous``
-    pools.  ``device`` names the device explicitly: ``"cuda"`` (the
-    default) runs the hand-written kernels and raises when no card is
-    present; ``"cpu"`` runs their plain PyTorch versions.  The integrand is
-    a torch function ``f(x, c)``; ``x[k]`` is slot ``k``'s values as a
-    tensor of any batch shape.
+    surface, src/main.jl:71-90) for ``solver="vegasmc"`` (the default) on
+    ``Continuous`` and ``Discrete`` pools and for ``solver="vegas"`` on
+    ``Continuous`` pools, also bundled in a ``CompositeVar``.  ``device``
+    names the device explicitly: ``"cuda"`` (the default) runs the
+    hand-written kernels and raises when no card is present; ``"cpu"`` runs
+    their plain PyTorch versions.  The integrand is a torch function
+    ``f(x, c)``; ``x[k]`` is slot ``k``'s values as a tensor of any batch
+    shape (int32 for a Discrete pool).  ``nwalkers``,
+    ``min_steps_per_walker`` and ``warmup`` (the burn-in fraction of each
+    chain, default 0.01) shape the :vegasmc chains as in the JAX package.
 
     Inputs the port does not serve yet raise ``NotImplementedError`` naming
     the ROADMAP.md item that will port them: other solvers, custom
-    ``measure``, ``measurefreq != 1``, ``type=complex``, ``mesh`` and
-    ``debug``.
+    ``measure``, ``measurefreq != 1`` on :vegas, ``type=complex``, ``mesh``
+    and ``debug``.
 
     ``result.backend`` is ``"cuda"`` or ``"torch"``; ``backend_reason``
     says why, when the integrand runs per sample under ``torch.func.vmap``.
     """
     solver = str(solver).lstrip(":")
-    if solver != "vegas":
+    if solver not in ("vegas", "vegasmc"):
         if solver in _SOLVER_ITEMS:
             _not_ported(f"solver={solver!r}", _SOLVER_ITEMS[solver])
         raise ValueError(f"Solver {solver} is not supported!")
     if measure is not None:
         _not_ported("a custom measure", 14)
-    if measurefreq != 1:
-        _not_ported(f"measurefreq={measurefreq}", 14)
+    if measurefreq != 1 and solver == "vegas":
+        _not_ported(f"measurefreq={measurefreq} on :vegas", 14)
     if mesh is not None:
         _not_ported("mesh (multi-device runs)", 15)
     if debug:
@@ -131,11 +155,18 @@ def integrate(integrand: Callable, *,
 
     nevalperblock, block = _standardize_block(neval, block)
     spec = Spec(config, dev)
-    it_kernel = VegasIteration(spec, integrand, inplace=inplace, block=block,
-                               nevalperblock=nevalperblock)
+    if solver == "vegasmc":
+        it_kernel = VegasMCIteration(
+            spec, integrand, inplace=inplace, measurefreq=measurefreq,
+            block=block, nevalperblock=nevalperblock, nwalkers=nwalkers,
+            min_steps_per_walker=min_steps_per_walker,
+            warmup=0.01 if warmup is None else warmup)
+    else:
+        it_kernel = VegasIteration(spec, integrand, inplace=inplace, block=block,
+                                   nevalperblock=nevalperblock)
     backend_reason = it_kernel.backend_reason
     if verbose >= 0 and backend_reason:
-        sys.stdout.write(yellow(f"vegas: {backend_reason}\n"))
+        sys.stdout.write(yellow(f"{solver}: {backend_reason}\n"))
 
     progress = ProgressBar(niter * block, desc="iters x blocks: ",
                            enabled=(verbose >= -1))
@@ -152,6 +183,10 @@ def integrate(integrand: Callable, *,
         config.neval += stats["neval"]
         for lidx, (_, leaf) in enumerate(config.var_leaves()):
             leaf.add_statistics(stats["hists"][lidx])
+        if "visited" in stats:
+            config.visited += stats["visited"]
+            config.propose += stats["propose"]
+            config.accept += stats["accept"]
 
         norm_b = stats["norm_blocks"]
         if not np.all(norm_b > 0):
@@ -165,6 +200,8 @@ def integrate(integrand: Callable, *,
                                block)
 
         # ---- self-learning (src/main.jl:183-199) ----
+        if solver == "vegasmc":
+            do_reweight(config, gamma, reweight_goal)
         if adapt:
             for v in config.var:
                 v.train()

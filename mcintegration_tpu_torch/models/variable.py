@@ -1,9 +1,10 @@
 """Variable pools (the adaptive-distribution models) of the PyTorch port.
 
 Counterpart of ``mcintegration_tpu/models/variable.py``.  A pool is a
-*spec + trained state* object on the host (numpy float64 grid and
-histogram, trained once per iteration); sampling happens on the device
-through the hand-written kernels of ``ops/vegas_kernels.py``.
+*spec + trained state* object on the host (numpy float64 grid or
+categorical distribution and histogram, trained once per iteration);
+sampling happens on the device through the hand-written kernels of
+``ops/vegas_kernels.py`` and ``ops/chain_kernels.py``.
 
 Semantics preserved from the reference (src/distribution/variable.jl):
 
@@ -15,8 +16,10 @@ Semantics preserved from the reference (src/distribution/variable.jl):
 - ``CompositeVar`` bundles pools that are drawn jointly with product
   probability (variable.jl:397-507).
 
-``Discrete`` and ``FermiK`` pools are not ported yet (ROADMAP.md, queue 1,
-items 12 and 14); constructing one raises ``NotImplementedError``.
+``Discrete`` pools (a learned categorical map, variable.jl:272-328) run on
+the :vegasmc solver; :vegas does not serve them yet.  ``FermiK`` pools are
+not ported (ROADMAP.md, queue 1, item 12); constructing one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,16 +28,41 @@ import numpy as np
 import torch
 
 from ..common import MAX_ORDER
-from ..ops.grid import train_grid
+from ..ops.grid import build_cdf, train_discrete, train_grid
 
 HIST_FLOOR = 1.0e-10  # clearStatistics! floor (variable.jl:565)
 
 
 def is_variable(v) -> bool:
-    return isinstance(v, (Continuous, CompositeVar))
+    return isinstance(v, (Continuous, Discrete, CompositeVar))
 
 
-class Continuous:
+class _LeafVar:
+    """Histogram state shared by the leaf pools."""
+
+    @property
+    def nhist(self) -> int:
+        return self.histogram.shape[0]
+
+    def clear_statistics(self):
+        self.histogram.fill(HIST_FLOOR)
+
+    def add_statistics(self, histogram):
+        """Merge a device-produced histogram into the host accumulator.
+
+        Non-finite bins are replaced by the largest finite bin — training
+        consumes ratios, so this only caps how fast a bin can attract grid
+        nodes.
+        """
+        h = np.asarray(histogram, dtype=np.float64)
+        if not np.all(np.isfinite(h)):
+            finite = h[np.isfinite(h)]
+            cap = finite.max() if finite.size else 1.0
+            h = np.nan_to_num(h, nan=cap, posinf=cap, neginf=0.0)
+        self.histogram += h
+
+
+class Continuous(_LeafVar):
     """Pool of floats in [lower, upper) sampled through a learned Vegas map.
 
     Mirrors ``Dist.Continuous`` (variable.jl:87-153).  ``Continuous(bounds)``
@@ -93,28 +121,7 @@ class Continuous:
         tag = "Adaptive" if self.adapt else "Nonadaptive"
         return f"{tag} Continuous variable in [{self.lower}, {self.upper})."
 
-    @property
-    def nhist(self) -> int:
-        return self.histogram.shape[0]
-
     # ---- host side --------------------------------------------------
-    def clear_statistics(self):
-        self.histogram.fill(HIST_FLOOR)
-
-    def add_statistics(self, histogram):
-        """Merge a device-produced histogram into the host accumulator.
-
-        Non-finite bins are replaced by the largest finite bin — training
-        consumes ratios, so this only caps how fast a bin can attract grid
-        nodes.
-        """
-        h = np.asarray(histogram, dtype=np.float64)
-        if not np.all(np.isfinite(h)):
-            finite = h[np.isfinite(h)]
-            cap = finite.max() if finite.size else 1.0
-            h = np.nan_to_num(h, nan=cap, posinf=cap, neginf=0.0)
-        self.histogram += h
-
     def train(self):
         """Grid refinement (variable.jl:206-239)."""
         if not self.adapt:
@@ -143,13 +150,79 @@ class Continuous:
         return t.astype(dtype)
 
 
-class Discrete:
-    """Not ported yet: raises ``NotImplementedError``."""
+class Discrete(_LeafVar):
+    """Pool of integers in [lower, upper] with a learned categorical map.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Discrete pools are not ported to the PyTorch package yet "
-            "(ROADMAP.md, queue 1, item 14); use mcintegration_tpu")
+    Mirrors ``Dist.Discrete`` (variable.jl:272-328).  ``Discrete(bounds)``
+    with a list of (lower, upper) pairs returns a :class:`CompositeVar`
+    (variable.jl:342-353); ``Discrete((lower, upper))`` is one pool.
+    """
+
+    def __new__(cls, lower=None, upper=None, size=MAX_ORDER, **kwargs):
+        if lower is None:
+            return super().__new__(cls)  # copy/pickle protocol path
+        if isinstance(lower, (list, tuple)) and not np.isscalar(lower):
+            if isinstance(lower[0], (list, tuple, np.ndarray)):
+                bounds = lower
+                dists = kwargs.pop("distribution", [None] * len(bounds))
+                members = [
+                    Discrete(int(b[0]), int(b[1]), size, distribution=dists[i], **kwargs)
+                    for i, b in enumerate(bounds)
+                ]
+                return CompositeVar(
+                    *members,
+                    adapt=kwargs.get("adapt", True),
+                    offset=kwargs.get("offset", 0),
+                    size=size,
+                )
+        return super().__new__(cls)
+
+    def __init__(self, lower, upper=None, size=MAX_ORDER, *, distribution=None,
+                 offset=0, alpha=2.0, adapt=True):
+        if isinstance(lower, (list, tuple)) and not np.isscalar(lower):
+            if isinstance(lower[0], (list, tuple, np.ndarray)):
+                return  # composite path handled in __new__
+            lower, upper = int(lower[0]), int(lower[1])  # (l, u) tuple form
+        lower, upper = int(lower), int(upper)
+        assert upper >= lower
+        assert offset + 1 < size
+        self.lower = lower
+        self.upper = upper
+        self.nbin = upper - lower + 1
+        self.offset = int(offset)
+        self.alpha = float(alpha)
+        self.adapt = bool(adapt)
+        self.size = int(size)
+        self.histogram = np.full(self.nbin, HIST_FLOOR, dtype=np.float64)
+        if distribution is None:
+            distribution = np.ones(self.nbin, dtype=np.float64)
+        else:
+            distribution = np.asarray(distribution, dtype=np.float64)
+            assert distribution.shape[0] == self.nbin
+        self.distribution, self.accumulation = build_cdf(distribution)
+
+    def __repr__(self):
+        tag = "Adaptive" if self.adapt else "Nonadaptive"
+        return f"{tag} Discrete variable in [{self.lower}, ..., {self.upper}]."
+
+    # ---- host side --------------------------------------------------
+    def train(self):
+        """Categorical refinement (variable.jl:369-382)."""
+        if not self.adapt:
+            return
+        self.distribution, self.accumulation = train_discrete(self.histogram, self.alpha)
+        self.clear_statistics()
+
+    def device_params(self, device):
+        """(cdf [nbin+1], dist [nbin]) float32 tensors on ``device``."""
+        return (torch.as_tensor(self.accumulation, dtype=torch.float32, device=device),
+                torch.as_tensor(self.distribution, dtype=torch.float32, device=device))
+
+    def fixed_values(self, dtype=np.int32):
+        """Deterministic values for offset (user-pinned) slots."""
+        n = self.size
+        vals = self.lower + (np.arange(n) % self.nbin)
+        return vals.astype(dtype)
 
 
 class FermiK:
@@ -170,8 +243,8 @@ class CompositeVar:
     """
 
     def __init__(self, *members, adapt=True, offset=0, size=MAX_ORDER):
-        assert all(isinstance(v, Continuous) for v in members), \
-            "CompositeVar members must be Continuous pools in the PyTorch port"
+        assert all(isinstance(v, (Continuous, Discrete)) for v in members), \
+            "CompositeVar members must be Continuous or Discrete pools in the PyTorch port"
         for v in members:
             v.adapt = adapt
             v.offset = offset

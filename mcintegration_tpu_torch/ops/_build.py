@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with a
-plain C interface, at first use, into ``build/torch_kernels/`` beside the
-package; the file name carries a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads at once.  The library is
-loaded with ``ctypes``; every pointer and the stream are ``c_void_p``
-arguments (without explicit argtypes ctypes would cut them to 32 bits).
+``nvcc`` compiles every ``csrc/*.cu`` file into an object, one process per
+file, all started together, and then links the objects into one shared
+library with a plain C interface, at first use, into ``build/torch_kernels/``
+beside the package; the file name carries a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one loads at once.  The
+library is loaded with ``ctypes``; every pointer and the stream are
+``c_void_p`` arguments (without explicit argtypes ctypes would cut them to
+32 bits).
 
 No PyTorch header is included, so a build takes seconds, not minutes.
 """
@@ -17,14 +19,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC",
-              # no fused multiply-add: x = g + dy*inc must round like the
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              # no fused multiply-add: every a*b + c must round like the
               # plain torch version (a separate multiply and add)
               "--fmad=false"]
 
@@ -36,6 +39,16 @@ _SIGNATURES = {
     # obs_rows, hrow, stream
     "mci_vegas_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I,
                          _P, _P, _P],
+    # kd, t, init, W, wb, L, S, nvar, nelig, meta, tab, smem_floats, cur_val,
+    # cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob, prop, move, stream
+    "mci_chain_propose": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # kd, t, init, measure, W, wb, L, S, nvar, nelig, N, meta, rw, H,
+    # hist_smem, prp_val, prp_gidx, prp_prob, cur_val, cur_gidx, cur_prob,
+    # nw, prop, move, w, pad, p, obs, nrm, vis, pc, ac, hist, stream
+    "mci_chain_accept": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -55,7 +68,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):          # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmci_kernels_{h.hexdigest()[:16]}.so"
@@ -73,18 +86,32 @@ def load(verbose: bool = False):
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            nvcc = _nvcc()
+            ptxas = ["-Xptxas", "-v"] if verbose else []
+            procs, objs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = Path(tmpdir) / f"{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                objs.append(str(obj))
+            logs = [proc.communicate()[0] for _, proc in procs]   # wait for all
+            for (cmd, proc), log in zip(procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                                       f"{' '.join(cmd)}\n{log}")
+            tmp = Path(tmpdir) / out.name
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed with code {proc.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            if verbose:
+                print("".join(logs) + proc.stdout + proc.stderr)
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         build_seconds = time.perf_counter() - t0
-        if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, out)      # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -101,3 +128,16 @@ def check(lib, err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib.mci_error_string(err).decode()})")
+
+
+def check_tensor(t, name: str, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel takes through a bare pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -13,10 +13,13 @@ The formulas reproduce the reference semantics exactly:
 - ``sample_continuous`` : inverse-CDF Vegas-map draw, y∈[0,1) → bin
   iy=floor(y·N), linear interpolation, prob = 1/(N·Δx_iy)
   (reference src/distribution/sampler.jl:293-305)
+- ``sample_discrete``   : CDF-inversion draw of a Discrete bin
+  (reference src/distribution/sampler.jl:13-22)
 
 The training functions run on the host in float64 — they are O(ninc) with
 ninc≈1000, far too small to benefit from a GPU — while the sampling
-primitive is a plain gather over large sample batches on device.
+primitives are plain gathers over large sample batches on device; they are
+the plain versions of the chain kernel's draws (``ops/chain_kernels.py``).
 """
 
 from __future__ import annotations
@@ -153,11 +156,12 @@ def sample_continuous(y: torch.Tensor, grid: torch.Tensor, inc: torch.Tensor):
     Returns ``(x, gidx, prob)`` where ``prob = 1/(N·Δx_iy)`` is the sampling
     density (inverse Jacobian).  Reference: src/distribution/sampler.jl:293-305.
 
-    ``grid`` has shape [N+1]; ``inc`` = grid[1:] - grid[:-1], precomputed in
-    float64 on the host and cast, so adjacent-node cancellation never happens
-    in float32.  The per-bin lookup is a plain gather.
+    ``inc`` [N] = grid[1:] - grid[:-1], precomputed in float64 on the host
+    and cast, so adjacent-node cancellation never happens in float32;
+    ``grid`` has shape [N+1] or [N] (only its first N nodes are read).  The
+    per-bin lookup is a plain gather.
     """
-    n = grid.shape[0] - 1
+    n = inc.shape[0]
     t = y * n
     iy = torch.clamp(t.to(torch.int32), 0, n - 1)
     dy = t - iy.to(t.dtype)
@@ -165,3 +169,19 @@ def sample_continuous(y: torch.Tensor, grid: torch.Tensor, inc: torch.Tensor):
     x = grid[iy.long()] + dy * dx
     prob = 1.0 / (n * dx)
     return x, iy, prob
+
+
+def sample_discrete(u: torch.Tensor, cdf: torch.Tensor, dist: torch.Tensor):
+    """Discrete draw by CDF inversion for a batch of uniforms ``u``.
+
+    ``gidx = #{k: u >= cdf[k+1]}`` (``mcintegration_tpu/ops/grid.py:
+    sample_discrete_cdf``, reference sampler.jl:13-22), found by a binary
+    search over the non-decreasing ``cdf [nbin+1]``, then clamped into the
+    last real bin: when float32 rounding leaves ``cdf[nbin] < 1``, a ``u``
+    above it would otherwise index past the table
+    (``pallas_chain.py:137-144``).  Returns ``(gidx, prob)`` with gidx int32
+    (value = lower + gidx) and ``prob = dist[gidx]``, the bin's mass.
+    """
+    nbin = dist.shape[0]
+    gidx = torch.searchsorted(cdf[1:], u, right=True).clamp_(max=nbin - 1)
+    return gidx.to(torch.int32), dist[gidx]

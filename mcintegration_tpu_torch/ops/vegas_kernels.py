@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._build import check_tensor as _check
 from .rng import chunk_keys, draw
 
 N_MULT = 64          # multiplier-table width (solvers/vegas.py)
@@ -46,17 +47,6 @@ launch_counts = {"vegas_sample": 0, "vegas_reduce": 0}
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 Counterpart of ``mcintegration_tpu/solvers/engine.py:35-286``.  A
 :class:`~mcintegration_tpu_torch.configuration.Configuration` compiles into
 a static :class:`Spec` (leaf layout, dof and padding masks) plus
-per-iteration device parameters (each leaf's float32 grid and increments).
+per-iteration device parameters (each leaf's float32 grid and increments,
+or CDF and masses).  The walker probability algebra (``slot_probs``,
+``padding_probability``, ``probability``, ``joint_probability``) works on
+``[..., W]`` tensors with the slot axis leading; it is the plain version of
+the padding factors and joint density inside ``csrc/chain_accept.cu``.
 
 User integrands are torch functions ``f(x, c)`` where ``x[k]`` is slot
 ``k``'s values, a tensor of any batch shape (the batched call of
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from ..configuration import Configuration
-from ..models.variable import CompositeVar, leaves_of
+from ..models.variable import CompositeVar, Discrete, leaves_of
 
 
 class UserConfig:
@@ -97,6 +101,9 @@ class Spec:
                 )
                 self.group_leaves[gi].append(len(self.leaves))
                 self.leaves.append(li)
+        # values of the user-pinned offset slots, on the device once
+        self.fixed = [torch.as_tensor(li.leaf.fixed_values()[: li.offset], device=self.device)
+                      for li in self.leaves]
 
         nd = cfg.N + 1
         # dof mask [nd, nvar, max_maxdof]: True where slot pos < dof[i][v]
@@ -116,7 +123,8 @@ class Spec:
 
     # ------------------------------------------------------------------
     def device_params(self):
-        """Per-iteration device constants: each leaf's (grid, inc) + reweight."""
+        """Per-iteration device constants: each leaf's (grid, inc), or (cdf,
+        dist) for a Discrete leaf, and the reweight vector."""
         return {
             "leaf": [li.leaf.device_params(self.device) for li in self.leaves],
             "reweight": torch.as_tensor(self.cfg.reweight, dtype=torch.float32,
@@ -128,8 +136,8 @@ class Spec:
 
         Offset (user-pinned) slots are prepended as constants broadcast to
         the batch shape; CompositeVar groups become tuples of member views.
-        Works per sample (``batch == ()``, also under ``torch.func.vmap``)
-        and batched.
+        Discrete values are int32 and pass through as they are.  Works per
+        sample (``batch == ()``, also under ``torch.func.vmap``) and batched.
         """
         views = []
         for gi, v in enumerate(self.cfg.var):
@@ -139,9 +147,7 @@ class Spec:
                 drawn = leaf_vals[lidx]
                 if li.offset > 0:
                     batch = tuple(drawn.shape[1:])
-                    fixed = torch.as_tensor(li.leaf.fixed_values()[: li.offset],
-                                            device=drawn.device)
-                    fixed = fixed.reshape((li.offset,) + (1,) * len(batch))
+                    fixed = self.fixed[lidx].reshape((li.offset,) + (1,) * len(batch))
                     full = torch.cat([fixed.expand((li.offset,) + batch), drawn])
                 else:
                     full = drawn
@@ -153,6 +159,59 @@ class Spec:
         if len(views) == 1:
             return views[0]
         return tuple(views)
+
+    # ------------------------------------------------------------------
+    # walker probability algebra (reference variable.jl:587-678)
+    # ------------------------------------------------------------------
+    def slot_probs(self, probs):
+        """Per-group slot probabilities ``[nvar, mm, *batch]``, padded with 1.
+
+        ``probs[lidx]`` is leaf ``lidx``'s ``[ndraw, *batch]`` slot
+        probabilities; a CompositeVar group multiplies its members' in leaf
+        order (``mcintegration_tpu/solvers/engine.py:195-209``).
+        """
+        batch = tuple(probs[0].shape[1:])
+        mm = max(max(self.maxdof), 1)
+        out = []
+        for gi in range(self.nvar):
+            lidxs = self.group_leaves[gi]
+            p = probs[lidxs[0]]
+            for lidx in lidxs[1:]:
+                p = p * probs[lidx]
+            ndraw = self.leaves[lidxs[0]].ndraw
+            if ndraw < mm:
+                p = torch.cat([p, torch.ones((mm - ndraw,) + batch, dtype=p.dtype,
+                                             device=p.device)])
+            out.append(p)
+        return torch.stack(out)
+
+    @staticmethod
+    def _masked_prod(slotp, mask):
+        """Product of ``slotp[g, s]`` over the True entries of ``mask``, in
+        (group, slot) order, as the accept kernel multiplies them."""
+        f = torch.ones(slotp.shape[2:], dtype=slotp.dtype, device=slotp.device)
+        for g, s in zip(*np.nonzero(mask)):
+            f = f * slotp[g, s]
+        return f
+
+    def padding_probability(self, slotp, i: int):
+        """prod of probs over slots NOT used by integrand i (variable.jl:628-641)."""
+        return self._masked_prod(slotp, self.mask_pad[i])
+
+    def probability(self, slotp, i: int):
+        """prod of probs over slots used by integrand i (variable.jl:606-619)."""
+        return self._masked_prod(slotp, self.mask_used[i])
+
+    def joint_probability(self, weights, pads, reweight):
+        """p = r_norm*pad_norm + sum_i |w_i|*r_i*pad_i (montecarlo.jl:161-166).
+
+        ``weights [N, *batch]``, ``pads [nd, *batch]``, ``reweight [nd]``;
+        the terms are added in integrand order.
+        """
+        p = reweight[self.norm] * pads[self.norm]
+        for i in range(self.N):
+            p = p + torch.abs(weights[i]) * reweight[i] * pads[i]
+        return p
 
     # ------------------------------------------------------------------
     # integrand evaluation
@@ -218,6 +277,10 @@ class Spec:
         rng = np.random.default_rng(12345)
         leaf_vals = []
         for li in self.leaves:
+            if isinstance(li.leaf, Discrete):
+                v = rng.integers(li.leaf.lower, li.leaf.upper + 1, (li.ndraw, 4, 2))
+                leaf_vals.append(torch.as_tensor(v, dtype=torch.int32, device=self.device))
+                continue
             lo, rg = li.leaf.lower, li.leaf.range
             u = rng.uniform(0.05, 0.95, (li.ndraw, 4, 2))
             leaf_vals.append(torch.as_tensor(lo + rg * u, dtype=torch.float32,

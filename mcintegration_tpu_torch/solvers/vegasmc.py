@@ -1,0 +1,163 @@
+"""The :vegasmc solver — hybrid Vegas + Markov chain over W walkers.
+
+Counterpart of ``mcintegration_tpu/solvers/vegasmc.py`` on the law of its
+XLA route (lines 250-450); reference semantics src/vegas_mc/montecarlo.jl:
+112-241 and updates.jl:45-106.  One walker samples the joint density
+
+    p(x) = r_norm * pad_norm(x) + sum_i |w_i(x)| * r_i * pad_i(x)
+
+with the single update changeVariable: redraw one random slot of one random
+variable group through the learned maps, re-evaluate all integrand weights
+and Metropolis-accept with R = prop * p_new / p_old.  Measurements after a
+warmup accumulate ``obs[i] += w_i * pad_i / p`` and ``norm += pad_norm / p``;
+visited tallies drive reweighting; the per-slot histogram weight is
+``(|w_i|^2 / prob_i) * pad_i / p``.
+
+One step is two kernel launches with the integrand between them:
+``chain_propose`` → the integrand as torch ops on the proposed state →
+``chain_accept`` (ops/chain_kernels.py); an iteration adds one launch of
+each for the walkers' first draw.  The walkers are grouped into ``block`` lanes of
+``W / block`` for the reference's block error bars; each walker keeps
+float64 accumulators, summed per block in a fixed order at the end.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..models.variable import Continuous, Discrete
+from ..ops import chain_kernels
+from ..ops.chain_kernels import ChainLayout, ChainState
+from .engine import Spec
+
+
+def choose_walkers(neval: int, block: int, nwalkers, min_steps: int,
+                   max_walkers: int = 65536):
+    """Pick (W, nsteps) with W a multiple of block and W*nsteps ≈ neval."""
+    if nwalkers is None:
+        w = max(block, min(int(neval) // max(min_steps, 1), max_walkers))
+    else:
+        w = max(int(nwalkers), block)
+    w = (w // block) * block
+    nsteps = max(int(neval) // w, 8)
+    return w, nsteps
+
+
+def check_supported(spec: Spec):
+    """The specs the chain kernels serve; anything else raises."""
+    drawn = [li for li in spec.leaves if li.ndraw > 0]
+    if not drawn:
+        raise ValueError("no MC-owned slots to draw (every dof is 0)")
+    for li in drawn:
+        if not isinstance(li.leaf, (Continuous, Discrete)):
+            raise NotImplementedError(
+                f"{type(li.leaf).__name__} pools are not ported to :vegasmc "
+                "(ROADMAP.md, queue 1, item 12)")
+
+
+class VegasMCIteration:
+    """One :vegasmc iteration over ``block`` blocks on ``spec.device``."""
+
+    def __init__(self, spec: Spec, integrand: Callable, *, inplace=False,
+                 measurefreq=1, block=16, nevalperblock=10000, nwalkers=None,
+                 min_steps_per_walker=256, warmup=0.01):
+        check_supported(spec)
+        if not 0.0 <= warmup < 1.0:
+            raise ValueError(f"warmup fraction must be in [0,1), got {warmup}")
+        if int(measurefreq) < 1:
+            raise ValueError(f"measurefreq must be >= 1, got {measurefreq}")
+        self.spec = spec
+        self.block = block
+        self.measurefreq = int(measurefreq)
+        W, self.nsteps = choose_walkers(nevalperblock * block, block, nwalkers,
+                                        min_steps_per_walker)
+        self.nwalkers = W
+        self.neval = W * self.nsteps
+        # burn-in discard: measure only after `warmup` of each chain
+        # (reference: fixed 1%, montecarlo.jl:213)
+        self.warmup = int(self.nsteps * warmup)
+        self.layout = ChainLayout.build(spec, block, W // block)
+
+        # ---- the integrand: batched, or per sample under vmap ----
+        eval_b = spec.make_eval_batched(integrand, inplace)
+        eval_v = spec.make_eval_vmapped(integrand, inplace)
+        ok, self.backend_reason = spec.probe_batched(eval_b, eval_v)
+        self.evaluate = eval_b if ok else eval_v
+        self.backend = "cuda" if spec.device.type == "cuda" else "torch"
+
+    # ------------------------------------------------------------------
+    def leaf_values(self, val: torch.Tensor):
+        """Per spec leaf, its ``[ndraw, W]`` values from a slot field
+        (int32 for a Discrete leaf)."""
+        out = []
+        for li, rows in zip(self.spec.leaves, self.layout.leaf_rows(val)):
+            out.append(rows.view(torch.int32) if isinstance(li.leaf, Discrete) else rows)
+        return out
+
+    def weights(self, st: ChainState) -> torch.Tensor:
+        """The integrand on the proposed state: ``[N, W]`` float32."""
+        return self.evaluate(self.leaf_values(st.prp_val)).contiguous()
+
+    def seeds(self, kd: np.ndarray) -> torch.Tensor:
+        """Per-block seeds ``kd [block, 2]`` uint32 as the int32 bit
+        patterns the chain kernels take, on the device."""
+        return torch.as_tensor(np.asarray(kd, np.uint32).view(np.int32),
+                               device=self.spec.device)
+
+    def start(self, params, kd: torch.Tensor):
+        """``(tab, rw, state)``: this iteration's tables and the walkers
+        after their first draw (init launches of both kernels)."""
+        lay = self.layout
+        tab = lay.tables(params)
+        rw = params["reweight"].to(torch.float32).contiguous()
+        st = ChainState.zeros(lay)
+        chain_kernels.chain_propose(lay, tab, kd, 0, st, init=True)
+        chain_kernels.chain_accept(lay, rw, kd, 0, st, self.weights(st), init=True)
+        return tab, rw, st
+
+    def step(self, tab, rw, kd: torch.Tensor, st: ChainState, t: int):
+        """Chain step ``t`` of every walker, in place on ``st``."""
+        lay = self.layout
+        chain_kernels.chain_propose(lay, tab, kd, t, st)
+        measured = t % self.measurefreq == 0 and t >= self.warmup
+        chain_kernels.chain_accept(lay, rw, kd, t, st, self.weights(st),
+                                   measure=measured)
+
+    def run(self, params, kd: np.ndarray):
+        """Execute one iteration with per-block seeds ``kd [block, 2]``
+        uint32; returns host-side numpy statistics."""
+        spec, lay = self.spec, self.layout
+        kd = self.seeds(kd)
+        tab, rw, st = self.start(params, kd)
+        for t in range(self.nsteps):
+            self.step(tab, rw, kd, st, t)
+
+        n, nd, nvar, B = spec.N, spec.N + 1, spec.nvar, self.block
+        obs_b = st.obs.view(n, B, lay.wb).sum(dim=-1).T.cpu().numpy()
+        norm_b = st.nrm.view(B, lay.wb).sum(dim=-1).cpu().numpy()
+        visited = st.vis.sum(dim=-1).cpu().numpy()
+        pc = st.pc.sum(dim=-1).cpu().numpy().astype(np.float64)
+        ac = st.ac.sum(dim=-1).cpu().numpy().astype(np.float64)
+        hist = st.hist.cpu().numpy()
+        hists = []
+        for lidx, li in enumerate(spec.leaves):
+            off = (int(lay.leaf[lay.dleaf.index(lidx), 6])
+                   if lidx in lay.dleaf else -1)
+            hists.append(hist[off:off + li.nhist].copy() if off >= 0
+                         else np.zeros(li.nhist, np.float64))
+        propose = np.zeros((3, nd, max(nd, nvar)))
+        accept = np.zeros((3, nd, max(nd, nvar)))
+        propose[1, 0, :nvar] = pc
+        accept[1, 0, :nvar] = ac
+        return {
+            "obs_blocks": obs_b,       # [block, N]
+            "norm_blocks": norm_b,     # [block]
+            "visited": visited,        # [nd]
+            "hists": hists,            # per-leaf histogram sums
+            "propose": propose,
+            "accept": accept,
+            "neval": self.neval,
+        }

@@ -34,7 +34,8 @@ def _python(code_or_args, cwd):
 def test_port_imports_no_jax():
     code = ("import sys, mcintegration_tpu_torch, mcintegration_tpu_torch.main, "
             "mcintegration_tpu_torch.ops.vegas_kernels, mcintegration_tpu_torch.ops._build, "
-            "mcintegration_tpu_torch.checkpoint\n"
+            "mcintegration_tpu_torch.ops.chain_kernels, "
+            "mcintegration_tpu_torch.solvers.vegasmc, mcintegration_tpu_torch.checkpoint\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'mcintegration_tpu.'))]\n"
             "assert not bad, bad\n")
@@ -50,7 +51,7 @@ def test_cuda_device_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"solver": "vegasmc"}, "item 11"),
+    ({"solver": "vegasmc", "measure": lambda v, relw, c: relw}, "item 14"),
     ({"solver": ":mcmc"}, "item 12"),
     ({"solver": "vegasplus"}, "item 13"),
     ({"measure": lambda v, relw, c: relw}, "item 14"),
@@ -70,40 +71,61 @@ def test_unported_options_raise(kwargs, item):
 
 
 def test_default_solver_is_not_served_and_unknown_solver_fails():
-    with pytest.raises(NotImplementedError, match="vegasmc"):
-        mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], device="cpu")
+    """The default solver (:vegasmc) now runs; an unknown solver fails."""
+    res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 12,
+                       niter=2, device="cpu", verbose=-2, seed=1)
+    assert res.backend == "torch" and res.neval == 2 * 2 ** 12
+    assert abs(float(res.mean[0]) - np.pi / 4) < 7 * float(res.stdev[0])
     with pytest.raises(ValueError, match="not supported"):
         mt.integrate(_pi, solver="nope", device="cpu")
 
 
 @pytest.mark.parametrize("cls,item", [(Discrete, "item 14"), (FermiK, "item 12")])
 def test_unported_pools_raise(cls, item):
+    """FermiK is not ported; a Discrete pool runs on :vegasmc but not on the
+    :vegas kernels."""
     with pytest.raises(NotImplementedError, match=item):
-        cls(1, 10)
+        if cls is Discrete:
+            mt.integrate(lambda x, c: x[0], var=cls(1, 10), dof=[[1]], neval=2 ** 12,
+                         solver="vegas", device="cpu", verbose=-2)
+        else:
+            cls(1, 10)
+
+
+def _vars(pkg):
+    """Two Continuous pools in a CompositeVar, and a Discrete pool."""
+    return (pkg.Continuous([(0.0, 1.0), (0.0, 2.0)], ninc=64), pkg.Discrete(1, 7))
+
+
+def _same_leaf_state(a, b):
+    if hasattr(b, "grid"):
+        assert np.array_equal(a.grid, b.grid)
+    else:
+        assert np.array_equal(a.distribution, b.distribution)
+        assert np.array_equal(a.accumulation, b.accumulation)
+    assert np.array_equal(a.histogram, b.histogram)
 
 
 def test_state_moves_between_packages(tmp_path):
     rng = np.random.default_rng(0)
-    jc = mj.Configuration(var=mj.Continuous([(0.0, 1.0), (0.0, 2.0)], ninc=64),
-                          dof=[[1], [2]], seed=9, reweight=[1.0, 2.0, 3.0])
+    jc = mj.Configuration(var=_vars(mj), dof=[[1, 1], [2, 0]], seed=9,
+                          reweight=[1.0, 2.0, 3.0])
     for _, leaf in jc.var_leaves():
-        leaf.histogram = rng.gamma(0.5, 1.0, 64) + 1e-3
+        leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
         leaf.train()
-        leaf.histogram = rng.gamma(0.5, 1.0, 64)
+        leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist)
     mj.save_state(jc, tmp_path / "jax.npz")
-    tc = mt.Configuration(var=mt.Continuous([(0.0, 1.0), (0.0, 2.0)], ninc=64),
-                          dof=[[1], [2]], seed=9)
+    tc = mt.Configuration(var=_vars(mt), dof=[[1, 1], [2, 0]], seed=9)
     mt.load_state(tc, tmp_path / "jax.npz")
     assert np.array_equal(tc.reweight, jc.reweight)
     for (_, a), (_, b) in zip(tc.var_leaves(), jc.var_leaves()):
-        assert np.array_equal(a.grid, b.grid) and np.array_equal(a.histogram, b.histogram)
+        _same_leaf_state(a, b)
 
     mt.save_state(tc, tmp_path / "torch.npz")
-    jc2 = mj.Configuration(var=mj.Continuous([(0.0, 1.0), (0.0, 2.0)], ninc=64),
-                           dof=[[1], [2]], seed=9)
+    jc2 = mj.Configuration(var=_vars(mj), dof=[[1, 1], [2, 0]], seed=9)
     mj.load_state(jc2, tmp_path / "torch.npz")
     for (_, a), (_, b) in zip(jc2.var_leaves(), jc.var_leaves()):
-        assert np.array_equal(a.grid, b.grid) and np.array_equal(a.histogram, b.histogram)
+        _same_leaf_state(a, b)
     with np.load(tmp_path / "torch.npz") as t, np.load(tmp_path / "jax.npz") as j:
         assert sorted(t.files) == sorted(j.files)
 
