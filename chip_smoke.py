@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port (mcintegration_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --burnin-scan     # the bubble's bins against its burn-in
 
 Builds the hand-written CUDA kernels from ``mcintegration_tpu_torch/csrc``
 with nvcc and drives both ported paths on the card.
@@ -16,12 +17,20 @@ with nvcc and drives both ported paths on the card.
   pi problem at 2^28 evals per iteration with 2^20 walkers, adaptive,
   Discrete and reweighted runs against their exact values, time per chain
   step, and a profile of three iterations.
+- :mcmc with FermiK pools and a custom measure (phases 3c-7c):
+  ``mcmc_propose``, ``mcmc_accept`` and ``mcmc_measure`` against their plain
+  versions from one state at 2^20 walkers and over a whole iteration,
+  ``integrate(solver="mcmc", device="cuda")`` on the Lindhard bubble at 2^28
+  evals per iteration with 2^18 walkers against the Lindhard function, pi,
+  the unit balls, a Discrete pool and the FermiK shells against their exact
+  values, time per step, and a profile of one iteration.
 
 Each path's launch counts are set to 0 just before its main path runs and
 read just after.  Any failed phase raises, so the exit code is non-zero.
 
 Prints the card's name and power limit, one JSON line describing each
-kernel, and as the last line ``{"ok": true, "device": {...}}``.  Exits
+kernel (with its bound: the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s), and as the last line ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a result when no CUDA device is available.  Imports no JAX.
 """
 
@@ -285,6 +294,15 @@ def timings(mt, vk, shape, card):
     ms = {k: float(np.mean(v)) for k, v in ms.items()}
     ms_integrand = time_ms(lambda: it.evaluate(it.leaf_values(x)), 10)
     n = it.block * T * it.chunk
+    nslots = len(it.slot_map)
+    obs, hrow = vk.vegas_reduce(w, invp, perm, *args)
+    sample_bytes = sum(t.numel() * t.element_size() for t in (*inputs.values(), x, invp, perm)
+                       if isinstance(t, torch.Tensor))
+    reduce_bytes = sum(t.numel() * t.element_size() for t in (w, invp, perm, *args, obs, hrow))
+    # about 20 operations per drawn value (two hashes, the map) and 8 per
+    # sample and integrand in the reduction
+    b_sample = bound(sample_bytes, 20 * n * nslots)
+    b_reduce = bound(reduce_bytes, 8 * n * (w.shape[0] + nslots))
     print(f"phase 6: one launch = {it.block} blocks x {T} chunks x {it.chunk} "
           f"samples ({n} evals, {len(it.slot_map)} slots) [{card}]")
     print(f"phase 6: vegas_sample {ms['sample']!r} ms/launch, plain torch "
@@ -292,14 +310,18 @@ def timings(mt, vk, shape, card):
     print(f"phase 6: integrand (torch) {ms_integrand!r} ms/launch [{card}]")
     print(f"phase 6: vegas_reduce {ms['reduce']!r} ms/launch, plain torch "
           f"{ms['reduce_plain']!r} ms [{card}]")
+    print(f"phase 6: vegas_sample bound {b_sample[0]!r} ms ({sample_bytes} bytes, by "
+          f"{b_sample[1]}); vegas_reduce bound {b_reduce[0]!r} ms ({reduce_bytes} bytes, "
+          f"by {b_reduce[1]})")
     print(f"phase 6: peak device memory {torch.cuda.max_memory_allocated()} bytes")
-    return {"vegas_sample": (err_sample, ms["sample"], ms["sample_plain"]),
-            "vegas_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"])}
+    return {"vegas_sample": (err_sample, ms["sample"], ms["sample_plain"], *b_sample),
+            "vegas_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"], *b_reduce)}
 
 
-def profile_main_path(mt, card, phase, kw, niter=3):
-    """Phase 7/7b: torch.profiler over integrate() at a main path's size
-    (phase 4 or 4b ran it already, so nothing is built or touched first here)."""
+def profile_main_path(card, phase, run):
+    """Phase 7/7b/7c: torch.profiler over ``run()``, iterations of
+    integrate() at a main path's size (phase 4, 4b or 4c ran it already, so
+    nothing is built or touched first here); returns its Result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -307,7 +329,7 @@ def profile_main_path(mt, card, phase, kw, niter=3):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), niter=niter, **kw)
+        res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
@@ -324,13 +346,14 @@ def profile_main_path(mt, card, phase, kw, niter=3):
             busy += b - max(a, reach)
             reach = b
     busy_s = busy * 1e-6
-    mean, err = float(res.mean[0]), float(res.stdev[0])
-    assert res.backend == "cuda" and abs(mean - np.pi / 4) < 5 * err, (mean, err)
-    print(f"phase {phase}: profile of {niter} iterations of {res.iterations[0][2].neval} "
+    assert res.backend == "cuda", res.backend
+    print(f"phase {phase}: profile of {len(res.iterations)} iterations of "
+          f"{res.iterations[0][2].neval} "
           f"evals: wall {wall!r} s, device busy {busy_s!r} s, idle share "
           f"{1 - busy_s / wall!r} [{card}]")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"phase {phase}: {us * 1e-3!r} ms on the device in {name[:90]}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -359,18 +382,19 @@ def chain_config(mt):
     return mt.Configuration(var=mt.CompositeVar(c, d), dof=[[1], [2]], seed=SEED)
 
 
-def state_bits_equal(a, b, what):
-    """Every field of two ChainStates bit-equal but the histogram, which
-    must agree to REL_TOL_HIST; returns the max abs error over the float
-    fields (slot values excepted: a Discrete slot holds int32 bits)."""
+def state_bits_equal(a, b, what, hist_rel=REL_TOL_HIST):
+    """Every field of two ChainStates (or McmcStates) bit-equal but the
+    histogram, which must agree to ``hist_rel`` (the :mcmc kernels add exact
+    1.0s: 0); returns the max abs error over the float fields (slot values
+    excepted: a Discrete slot holds int32 bits)."""
     import dataclasses
     err = 0.0
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if f.name == "hist":
+        if f.name == "hist" and hist_rel > 0:
             rel = rel_err(x.cpu(), y.cpu())
-            if rel > REL_TOL_HIST:
-                raise AssertionError(f"{what}: hist rel {rel:.3g} > {REL_TOL_HIST}")
+            if rel > hist_rel:
+                raise AssertionError(f"{what}: hist rel {rel:.3g} > {hist_rel}")
         elif not torch_equal_bits(x, y):
             raise AssertionError(f"{what}: {f.name} differs from the plain version")
         if x.is_floating_point() and not f.name.endswith("_val"):
@@ -385,20 +409,22 @@ def torch_equal_bits(x, y):
     return torch.equal(bits(x), bits(y))
 
 
-class plain_chain:
-    """Within the block, VegasMCIteration runs the chain kernels' plain
-    torch versions on the card (the wrappers would launch the kernels)."""
+class plain_versions:
+    """Within the block, the named wrappers of ``module`` are their plain
+    torch versions, so a solver runs them on the card (the wrappers would
+    launch the kernels)."""
 
-    def __init__(self, ck):
-        self.ck = ck
+    def __init__(self, module, *names):
+        self.module, self.names = module, names
 
     def __enter__(self):
-        ck = self.ck
-        self.saved = ck.chain_propose, ck.chain_accept
-        ck.chain_propose, ck.chain_accept = ck.chain_propose_plain, ck.chain_accept_plain
+        self.saved = [getattr(self.module, n) for n in self.names]
+        for n in self.names:
+            setattr(self.module, n, getattr(self.module, n + "_plain"))
 
     def __exit__(self, *exc):
-        self.ck.chain_propose, self.ck.chain_accept = self.saved
+        for n, f in zip(self.names, self.saved):
+            setattr(self.module, n, f)
 
 
 def chain_vs_plain(mt, ck, card):
@@ -438,7 +464,7 @@ def chain_vs_plain(mt, ck, card):
                           nwalkers=2 ** 18)
     kd = block_keys(SEED, 1, 0, it.block)
     got = it.run(params, kd)
-    with plain_chain(ck):
+    with plain_versions(ck, "chain_propose", "chain_accept"):
         want = it.run(params, kd)
     for key in ("obs_blocks", "norm_blocks", "visited", "propose", "accept"):
         if not np.array_equal(got[key], want[key]):
@@ -565,6 +591,17 @@ def chain_timings(mt, ck, card):
           f"{ms['accept_plain']!r} ms [{card}]")
     print(f"phase 6b: whole step on the device {ms_step_dev!r} ms; as the host issues "
           f"it {ms_step!r} ms, {lay.W / ms_step * 1e3!r} evals/s [{card}]")
+    # bytes per walker and step: propose reads the old prob of the chosen slot
+    # and writes the proposed slot, prop and move; accept reads the proposed
+    # probs, nw, prop, move and p, copies the changed slot, updates the
+    # tallies, reads the state for the histogram weight and, on a measured
+    # step, reads and writes the float64 accumulators
+    S, n, nd = lay.S, lay.spec.N, lay.spec.N + 1
+    b_prop = bound(lay.W * (4 + 12 + 4 + 8), 60 * lay.W)
+    b_acc = bound(lay.W * (4 * S + 4 * n + 16 + 36 + 16 + 8 * S + 4 * n + 4 * nd
+                           + 16 * n + 16 * nd + 16), 80 * lay.W)
+    print(f"phase 6b: chain_propose bound {b_prop[0]!r} ms, chain_accept bound "
+          f"{b_acc[0]!r} ms (by {b_prop[1]}, {b_acc[1]})")
 
     neval, block = 2 ** 28, 16
     W, nsteps = choose_walkers(neval, block, None, 256)
@@ -578,8 +615,392 @@ def chain_timings(mt, ck, card):
           f"{steady!r} evals/s steady state (iterations 2-3, per-iteration s "
           f"{res.iteration_times}) [{card}]")
     print(f"phase 6b: peak device memory {torch.cuda.max_memory_allocated()} bytes")
-    return {"chain_propose": (err_propose, ms["propose"], ms["propose_plain"]),
-            "chain_accept": (err_accept, ms["accept"], ms["accept_plain"])}
+    return {"chain_propose": (err_propose, ms["propose"], ms["propose_plain"], *b_prop),
+            "chain_accept": (err_accept, ms["accept"], ms["accept_plain"], *b_acc)}
+
+
+# ---------------------------------------------------------------------------
+# :mcmc, with FermiK pools and custom measures
+# ---------------------------------------------------------------------------
+
+QSIZE = 4                                   # the Lindhard bubble (examples/bubble.py)
+RS, BETA, SPIN, ME = 1.0, 25.0, 2, 0.5
+KF = (9 * np.pi / (2 * SPIN)) ** (1 / 3) / RS
+BETA_PHYS = BETA / (KF ** 2 / (2 * ME))
+EXTQ = np.array([[q, 0.0, 0.0] for q in np.linspace(0.0, 1.5 * KF, QSIZE)])
+
+
+def lindhard(q):
+    density = ME * KF / (2 * np.pi ** 2)
+    q = max(q, 1e-6)
+    x = q / 2 / KF
+    p = 1 + (1 - x ** 2) * np.log1p(4 * x / ((1 - x) ** 2)) / 4 / x if abs(q - 2 * KF) > 1e-6 else 1.0
+    return -p * density * SPIN / 2
+
+
+def _green(tau, omega, beta):
+    import torch
+    pos = tau >= 0.0
+    gp = torch.where(omega > 0.0, torch.exp(-omega * tau) / (1 + torch.exp(-omega * beta)),
+                     torch.exp(omega * (beta - tau)) / (1 + torch.exp(omega * beta)))
+    gn = torch.where(omega > 0.0, -torch.exp(-omega * (tau + beta)) / (1 + torch.exp(-omega * beta)),
+                     -torch.exp(-omega * tau) / (1 + torch.exp(omega * beta)))
+    return torch.where(pos, gp, gn)
+
+
+def make_bubble(device):
+    """The polarisation bubble, batched (``k[0]`` is ``[3, *batch]``), with
+    its q table on ``device`` once: a copy from the host in every call
+    would wait for the device and stall the step loop."""
+    import torch
+    extq = torch.as_tensor(EXTQ, dtype=torch.float32, device=device)
+
+    def bubble(idx, vars, c):
+        t, k, ext = vars
+        kvec = k[0]
+        kq = kvec + extq[ext[0] - 1].movedim(-1, 0)
+        w1 = ((kvec * kvec).sum(0) - KF ** 2) / (2 * ME)
+        w2 = ((kq * kq).sum(0) - KF ** 2) / (2 * ME)
+        return _green(t[0], w1, BETA_PHYS) * _green(-t[0], w2, BETA_PHYS) * SPIN / (2 * np.pi) ** 3
+
+    return bubble
+
+
+def _bubble_measure(idx, vars, relw, c):
+    from mcintegration_tpu_torch import onehot
+    return [onehot(vars[-1][0], 1, QSIZE, relw.dtype, like=relw) * relw]
+
+
+# Burn-in of the main path: as many steps as it measures.  At the JAX test's
+# thermal_ratio=0.3 (307 steps before 1024 measured ones) the walkers, which
+# start from fresh shell draws, have not yet filled the regions where |k+q|
+# is near kF, and the q > 0 bins come out 10-16 sigma above the Lindhard
+# function at 2^28 evals per iteration; a longer burn-in removes it
+# (``--burnin-scan``, PERF.md, ROADMAP.md section 3).
+BUBBLE_THERMAL = 1.0
+
+
+def bubble_kw(mt, thermal_ratio=BUBBLE_THERMAL):
+    """integrate() keywords of the bubble (tests/test_bubble_fermik.py:81-97)."""
+    var = (mt.Continuous(0.0, BETA_PHYS, alpha=3.0), mt.FermiK(3, KF, 0.2 * KF, 10.0 * KF),
+           mt.Discrete(1, QSIZE, adapt=False))
+    return dict(measure=_bubble_measure, var=var, dof=[[1, 1, 1]], obs=[np.zeros(QSIZE)],
+                solver="mcmc", block=16, thermal_ratio=thermal_ratio)
+
+
+def bubble_z(res):
+    """Each q bin's distance from the Lindhard function, in its sigma."""
+    avg, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+    return [(avg[i] - lindhard(EXTQ[i][0])) / std[i] for i in range(QSIZE)]
+
+
+def burnin_scan(mt, card, niter=6):
+    """The bubble's q bins against the Lindhard function as the burn-in
+    grows: 2^18 walkers x 1024 measured steps with 307, 1024 and 3072
+    burn-in steps, and 2^16 walkers x 4096 steps with 1228."""
+    for W, nsteps, thermal in ((2 ** 18, 1024, 0.3), (2 ** 18, 1024, 1.0),
+                               (2 ** 18, 1024, 3.0), (2 ** 16, 4096, 0.3)):
+        t0 = time.perf_counter()
+        res = mt.integrate(make_bubble("cuda"), neval=W * nsteps, niter=niter, nwalkers=W,
+                           device="cuda", seed=SEED, verbose=-2, **bubble_kw(mt, thermal))
+        print(f"burn-in scan: {W} walkers x {nsteps} steps, thermal_ratio {thermal} "
+              f"({int(nsteps * thermal)} burn-in steps), {niter} iterations: sigma from "
+              f"Lindhard {[round(z, 2) for z in bubble_z(res)]}, stdev "
+              f"{np.asarray(res.stdev[0]).tolist()} ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+
+def mcmc_allbranch(mt, W):
+    """Phase 3c's spec: a trained ninc=1024 map and Discrete(-3, 2000) (a CDF
+    searched in device memory) in one CompositeVar, FermiK pools in 3-D and
+    2-D, two integrands of different dof with groups of two slots (swap),
+    and a custom measure of two components per integrand."""
+    import torch
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.mcmc import MCMCIteration
+
+    rng = np.random.default_rng(3)
+    c, d = mt.Continuous(0.0, 1.0), mt.Discrete(-3, 2000)
+    for leaf in (c, d):
+        leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
+        leaf.train()
+    var = (mt.CompositeVar(c, d), mt.FermiK(3, 1.0, 0.3, 10.0), mt.FermiK(2, 1.0, 0.3, 10.0))
+    obs = [np.zeros(2), np.zeros(2)]
+
+    def f(i, x, cc):
+        (a, dd), k3, k2 = x
+        w = a[0] * (1.0 + dd[0].to(torch.float32).abs() / 2000.0)
+        if i == 0:
+            return w * torch.exp(-(k3[0] * k3[0]).sum(0))
+        return w * torch.exp(-(k2[0] * k2[0]).sum(0) - (k3[1] * k3[1]).sum(0))
+
+    def meas(i, x, relw, cc):
+        out = [torch.zeros((2,) + relw.shape, device=relw.device)] * 2
+        out[i] = torch.stack([relw, relw * x[0][0][0]])
+        return out
+
+    spec = Spec(mt.Configuration(var=var, dof=[[2, 1, 0], [1, 2, 1]], seed=SEED, obs=obs),
+                "cuda")
+    return MCMCIteration(spec, f, measure=meas, obs_proto=obs, block=16,
+                         nevalperblock=W * 64 // 16, nwalkers=W, thermal_ratio=0.1)
+
+
+def mcmc_one_step(it, mk, st, tab, rw, kd, sched, group, t, what):
+    """One step of each :mcmc kernel from ``st`` against its plain version
+    on a copy: (max abs err of propose, accept, measure).  ``st`` advances."""
+    import torch
+    lay = it.layout
+    ref = st.clone()
+    mk.mcmc_propose(lay, tab, kd, sched, t, st)
+    mk.mcmc_propose_plain(lay, tab, kd, sched, t, ref)
+    torch.cuda.synchronize()
+    e_prop = state_bits_equal(st, ref, f"mcmc_propose {what}", hist_rel=0.0)
+    nw = it.weights(st, group)
+    mk.mcmc_accept(lay, tab, rw, kd, sched, t, st, nw, measure=True)
+    mk.mcmc_accept_plain(lay, tab, rw, kd, sched, t, ref, nw, measure=True)
+    torch.cuda.synchronize()
+    e_acc = state_bits_equal(st, ref, f"mcmc_accept {what}", hist_rel=0.0)
+    vals = lay.leaf_values(st.cur_val)
+    for i, m in enumerate(it.measure):
+        out = m(vals, st.relw).contiguous()
+        mk.mcmc_measure(lay, i, out, st)
+        mk.mcmc_measure_plain(lay, i, out, ref)
+    torch.cuda.synchronize()
+    e_meas = state_bits_equal(st, ref, f"mcmc_measure {what}", hist_rel=0.0)
+    return e_prop, e_acc, e_meas
+
+
+def mcmc_vs_plain(mt, mk, card):
+    """Phase 3c: one step of each :mcmc kernel from the same state, bit for
+    bit, at 2^20 walkers of a spec with every branch; then a whole iteration
+    at 2^18 walkers x 64 steps through the kernels against one through the
+    plain versions."""
+    from mcintegration_tpu_torch.ops.rng import block_keys
+
+    it = mcmc_allbranch(mt, 2 ** 20)
+    lay = it.layout
+    assert (lay.smem_floats, it.backend_reason) == (0, ""), (lay.smem_floats, it.backend_reason)
+    kd_np = block_keys(SEED, 0, 0, it.block)
+    sched, groups = it.schedule(kd_np)
+    kd = it.seeds(kd_np)
+    tab, rw, st = it.start(it.spec.device_params(), kd, sched)
+    for t in range(5):
+        it.step(tab, rw, kd, sched, groups[t], st, t)
+    errs = mcmc_one_step(it, mk, st, tab, rw, kd, sched, groups[5], 5, "(phase 3c)")
+    roles = np.bincount(st.move[0].cpu().numpy(), minlength=5).tolist()
+    print(f"phase 3c: one step from the same state at W={lay.W} ({lay.S} slots, "
+          f"{lay.V} value rows: ninc=1024 + Discrete(-3, 2000) in device memory, FermiK 3-D "
+          f"and 2-D, dof=[[2,1,0],[1,2,1]], custom measure): every field bit-equal; roles "
+          f"none/CV/swap/CI/NJ {roles}; {int(st.tally[1].sum())} accepted moves so far")
+
+    it = mcmc_allbranch(mt, 2 ** 18)
+    kd = block_keys(SEED, 1, 0, it.block)
+    got = it.run(it.spec.device_params(), kd)
+    with plain_versions(mk, "mcmc_propose", "mcmc_accept", "mcmc_measure"):
+        want = it.run(it.spec.device_params(), kd)
+    for key in ("obs_blocks", "norm_blocks", "visited", "propose", "accept"):
+        a, b = got[key], want[key]
+        same = (all(np.array_equal(x, y) for x, y in zip(a, b)) if isinstance(a, list)
+                else np.array_equal(a, b))
+        if not same:
+            raise AssertionError(f"whole :mcmc iteration: {key} differs from the plain versions")
+    if not all(np.array_equal(h, r) for h, r in zip(got["hists"], want["hists"])):
+        raise AssertionError("whole :mcmc iteration: hists differ from the plain versions")
+    print(f"phase 3c: whole iteration (W={it.nwalkers}, {it.nsteps} + {it.nburnin} steps): "
+          f"obs, norm, visited, tallies and histograms equal (rel 0)")
+    return errs
+
+
+def mcmc_main_path(mt, mk, card, niter=10):
+    """Phase 4c: the bubble through integrate(solver="mcmc") at 2^28 evals
+    per iteration with 2^18 walkers, against the Lindhard function."""
+    from mcintegration_tpu_torch.ops.mcmc_kernels import NRETRY
+    neval, W = 2 ** 28, 2 ** 18
+    nsteps = neval // W
+    nburnin = int(nsteps * BUBBLE_THERMAL)
+    mk.reset_launch_counts()
+    res = mt.integrate(make_bubble("cuda"), neval=neval, niter=niter, nwalkers=W, device="cuda",
+                       seed=SEED, verbose=-2, **bubble_kw(mt))
+    counts = dict(mk.launch_counts)
+    expected = {"mcmc_propose": niter * (nsteps + nburnin + NRETRY + 1),
+                "mcmc_accept": niter * (nsteps + nburnin + NRETRY + 1),
+                "mcmc_measure": niter * nsteps}
+    assert res.backend == "cuda" and res.backend_reason == "", (res.backend, res.backend_reason)
+    assert counts == expected, (counts, expected)
+    avg, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+    evals = [h[2].neval for h in res.iterations]
+    steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+    print(f"phase 4c: bubble, {niter} iterations of {evals[0]} evals ({W} walkers x "
+          f"{nsteps} + {nburnin} steps), launches {counts} (expected {expected}), "
+          f"backend {res.backend}")
+    bad = []
+    for i, z in enumerate(bubble_z(res)):
+        print(f"phase 4c: q/kF = {EXTQ[i][0] / KF:.3f}: {float(avg[i])!r} +- {float(std[i])!r} "
+              f"vs Lindhard {lindhard(EXTQ[i][0])!r} ({z:+.2f} sigma), chi2 "
+              f"{float(np.asarray(res.chi2[0])[i])!r}")
+        if not abs(z) < 7:
+            bad.append(i)
+    print(f"phase 4c: steady-state {steady!r} evals/s (iterations 2-{niter}; per-iteration s "
+          f"{res.iteration_times}) [{card}]")
+    assert not bad, f"bins {bad} outside 7 sigma of the Lindhard function"
+    return counts
+
+
+def mcmc_checks(mt):
+    """Phase 5c: pi, the unit balls with reweighting, t*d with a Discrete
+    pool and the FermiK shell integrals on :mcmc, each within 7 sigma."""
+    import torch
+
+    def pi(i, x, c):
+        return torch.where(x[0] ** 2 + x[1] ** 2 < 1.0, 1.0, 0.0)
+
+    def balls(i, x, c):
+        r2 = x[0] ** 2 + x[1] ** 2 + (x[2] ** 2 if i == 1 else 0.0)
+        return torch.where(r2 < 1.0, 1.0, 0.0)
+
+    def td(i, x, c):
+        return x[0][0] * x[1][0].to(torch.float32)
+
+    def shell3(i, x, c):
+        k2 = (x[0][0] * x[0][0]).sum(0)
+        k = torch.sqrt(k2)
+        return torch.where((k > 0.8) & (k < 1.2), k2 * torch.exp(-x[1][0]), 0.0)
+
+    def shell2(i, x, c):
+        k2 = (x[0] * x[0]).sum(0)
+        k = torch.sqrt(k2)
+        return torch.where((k > 0.7) & (k < 1.3), k2, 0.0)
+
+    runs = [("pi", pi, mt.Continuous(0.0, 1.0), [[2]], [np.pi / 4]),
+            ("unit balls, dof=[[2],[3]]", balls, mt.Continuous(0.0, 1.0), [[2], [3]],
+             [np.pi / 4, np.pi / 6]),
+            ("(Continuous, Discrete(1, 4)), f = t*d", td,
+             (mt.Continuous(0.0, 1.0), mt.Discrete(1, 4)), [[1, 1]], [5.0]),
+            ("FermiK 3-D shell k^2 exp(-t)", shell3,
+             (mt.FermiK(3, 1.0, 0.2, 10.0), mt.Continuous(0.0, 1.0)), [[1, 1]],
+             [4 * np.pi / 5 * (1.2 ** 5 - 0.8 ** 5) * (1 - np.exp(-1.0))]),
+            ("FermiK 2-D shell k^2", shell2, mt.FermiK(2, 1.0, 0.3, 10.0), [[1]],
+             [np.pi / 2 * (1.3 ** 4 - 0.7 ** 4)])]
+    for name, f, var, dof, exact in runs:
+        res = mt.integrate(f, var=var, dof=dof, neval=2 ** 24, niter=10, block=16,
+                           solver="mcmc", device="cuda", seed=SEED, verbose=-2)
+        assert res.backend == "cuda" and res.backend_reason == "", (name, res.backend_reason)
+        for i, e in enumerate(exact):
+            m, s = float(res.mean[i]), float(res.stdev[i])
+            assert abs(m - e) < 7 * s, (name, i, m, s, e)
+            print(f"phase 5c: {name}, integral {i}: {m!r} +- {s!r} vs {e!r} "
+                  f"({(m - e) / s:+.2f} sigma)")
+        print(f"phase 5c: {name}: reweight {res.config.reweight.tolist()}")
+
+
+PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
+PEAK_OPS = 67e12        # float32 outside the tensor cores, operations/s
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate, the H100 SXM data sheet's peaks."""
+    tb, to = float(nbytes) / PEAK_BYTES * 1e3, float(ops) / PEAK_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def mcmc_bytes(it, st):
+    """Bytes each :mcmc kernel must move on step ``st``'s walkers (after
+    ``mcmc_propose``), from the roles they drew and the sectors they sit in:
+    each field read once and written once where the kernel touches it.
+    Returns (propose, accept, measure of sector 0)."""
+    lay = it.layout
+    W, norm = lay.W, lay.nd - 1
+    role = np.bincount(st.move[0].cpu().numpy(), minlength=5)
+    curr = st.curr.cpu().numpy()
+    n_norm, n_zero = int((curr == norm).sum()), int((curr == 0).sum())
+    fields = [lay.fields(d) for d in range(len(lay.dleaf))]
+    slot = [4 * f["width"] + 8 for f in fields]       # value rows, gidx and prob
+    grp = np.mean([sum(slot[lo:hi]) for lo, hi, _ in lay.groups if hi > lo])
+    moved = role[1] + 2 * role[2]                     # slots a CV or a swap touches
+    hist_slots = sum(f["ndraw"] for f in fields if f["hist_off"] >= 0)
+    # propose: curr, picv and dof[vi] in, prop and move out; the touched
+    # slots in and out (a CI or a jump reads or writes every slot)
+    propose = W * 32 + moved * 2 * grp + (role[3] + role[4]) * sum(slot)
+    # accept: curr, move, prop, prob, rcur, degc and nw in; weight and prob
+    # out for a move; the touched slots copied; relw out, the normalization
+    # (float64) in its sector, histogram bins elsewhere
+    accept = (W * 44 + role[1:].sum() * 8 + moved * 2 * grp + role[3] * sum(slot)
+              + n_norm * 16 + (W - n_norm) * 4 * (hist_slots + 1))
+    # measure: curr in; m in and obs (float64) in and out where curr == 0
+    measure = W * 4 + n_zero * lay.ncomp * 20
+    return propose, accept, measure
+
+
+def mcmc_timings(mt, mk, card):
+    """Phase 6c: device time per call of each :mcmc kernel at the main path's
+    shape (the bubble, 2^18 walkers), in turns with its plain version; the
+    integrand and the measure; the whole step on the device and as the host
+    issues it."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.mcmc import MCMCIteration
+
+    kw = bubble_kw(mt)
+    cfg = mt.Configuration(var=kw["var"], dof=kw["dof"], obs=kw["obs"], seed=SEED)
+    it = MCMCIteration(Spec(cfg, "cuda"), make_bubble("cuda"), measure=_bubble_measure,
+                       obs_proto=kw["obs"], block=16, nevalperblock=2 ** 28 // 16,
+                       nwalkers=2 ** 18, thermal_ratio=BUBBLE_THERMAL)
+    lay = it.layout
+    kd_np = block_keys(SEED, 0, 0, it.block)
+    sched, groups = it.schedule(kd_np)
+    kd = it.seeds(kd_np)
+    tab, rw, st = it.start(it.spec.device_params(), kd, sched)
+    for t in range(400):                     # past the start, so every role occurs
+        it.step(tab, rw, kd, sched, groups[t], st, t)
+    errs = mcmc_one_step(it, mk, st, tab, rw, kd, sched, groups[400], 400,
+                         "at the main path's shape")
+    nw = it.weights(st, groups[401])
+    vals = lay.leaf_values(st.cur_val)
+    m = it.measure[0](vals, st.relw).contiguous()
+    mk.mcmc_propose(lay, tab, kd, sched, 401, st)
+    nbytes = mcmc_bytes(it, st)
+
+    # the plain versions wait for the device (their role guards read masks on
+    # the host), so they are timed on the host's clock, the kernels on the
+    # device's with the calls queued behind a sleep kernel
+    ms = {k: [] for k in ("propose", "propose_plain", "accept", "accept_plain",
+                          "measure", "measure_plain")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for kind in order:
+            sfx, timer, reps = ("", device_ms, 20) if kind == "kernel" else ("_plain", time_ms, 5)
+            prop = getattr(mk, "mcmc_propose" + sfx)
+            acc = getattr(mk, "mcmc_accept" + sfx)
+            meas = getattr(mk, "mcmc_measure" + sfx)
+            ms["propose" + sfx].append(timer(lambda: prop(lay, tab, kd, sched, 401, st), reps))
+            ms["accept" + sfx].append(timer(
+                lambda: acc(lay, tab, rw, kd, sched, 401, st, nw, measure=True), reps))
+            ms["measure" + sfx].append(timer(lambda: meas(lay, 0, m, st), reps))
+    ms = {k: float(np.mean(v)) for k, v in ms.items()}
+    # few calls at a time behind the sleep kernel: a step issues about 60
+    # launches, and the host blocks once about a thousand are pending
+    ms_integrand = device_ms(lambda: it.weights(st, groups[402]), 5)
+    ms_measure_fn = device_ms(lambda: it.measure[0](vals, st.relw), 10)
+    ms_step_dev = device_ms(lambda: it.step(tab, rw, kd, sched, groups[403], st, 403), 5)
+    ms_step = time_ms(lambda: it.step(tab, rw, kd, sched, groups[403], st, 403), 20)
+    print(f"phase 6c: one step = {lay.W} walkers x {lay.S} slots ({lay.V} value rows); device "
+          f"time per call, calls queued behind a sleep kernel [{card}]")
+    for name, key in (("mcmc_propose", "propose"), ("mcmc_accept", "accept"),
+                      ("mcmc_measure", "measure")):
+        print(f"phase 6c: {name} {ms[key]!r} ms/step, plain torch {ms[key + '_plain']!r} ms "
+              f"(host clock) [{card}]")
+    print(f"phase 6c: integrand (torch) {ms_integrand!r} ms/step, custom measure (torch) "
+          f"{ms_measure_fn!r} ms/measured step [{card}]")
+    print(f"phase 6c: whole measured step on the device {ms_step_dev!r} ms; as the host "
+          f"issues it {ms_step!r} ms, {lay.W / ms_step * 1e3!r} evals/s [{card}]")
+    ops = (80 * lay.W, 40 * lay.W, 2 * lay.W * lay.ncomp)
+    out = {}
+    for k, (name, key) in enumerate((("mcmc_propose", "propose"), ("mcmc_accept", "accept"),
+                                     ("mcmc_measure", "measure"))):
+        b_ms, b_by = bound(nbytes[k], ops[k])
+        print(f"phase 6c: {name} bound {b_ms!r} ms ({nbytes[k]:.0f} bytes, by {b_by})")
+        out[name] = (errs[k], ms[key], ms[key + "_plain"], b_ms, b_by)
+    return out
 
 
 def main() -> int:
@@ -592,7 +1013,8 @@ def main() -> int:
     print(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     import mcintegration_tpu_torch as mt
-    from mcintegration_tpu_torch.ops import _build, chain_kernels as ck, vegas_kernels as vk
+    from mcintegration_tpu_torch.ops import (_build, chain_kernels as ck, mcmc_kernels as mk,
+                                             vegas_kernels as vk)
 
     t0 = time.perf_counter()                                  # phase 2
     _build.load(verbose=True)
@@ -600,30 +1022,56 @@ def main() -> int:
           f"(nvcc {_build.build_seconds} s, one process per source) from "
           f"{_build.library_path().name}")
 
-    kernel_vs_plain(mt, vk, card)                             # phase 3
-    chain_vs_plain(mt, ck, card)                              # phase 3b
-    counts, shape = main_path(mt, vk, card)                   # phase 4
-    counts.update(chain_main_path(mt, ck, card))              # phase 4b
-    adaptive_checks(mt)                                       # phase 5
-    chain_checks(mt)                                          # phase 5b
-    measured = timings(mt, vk, shape, card)                   # phase 6
-    measured.update(chain_timings(mt, ck, card))              # phase 6b
-    common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2)
-    profile_main_path(mt, card, "7", dict(neval=2 ** 30, solver="vegas", **common))
-    profile_main_path(mt, card, "7b", dict(neval=2 ** 28, solver="vegasmc",
-                                           nwalkers=2 ** 20, **common))
+    if "--burnin-scan" in sys.argv[1:]:
+        burnin_scan(mt, card)
+        return 0
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {phase}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed("3", kernel_vs_plain, mt, vk, card)
+    timed("3b", chain_vs_plain, mt, ck, card)
+    timed("3c", mcmc_vs_plain, mt, mk, card)
+    counts, shape = timed("4", main_path, mt, vk, card)
+    counts.update(timed("4b", chain_main_path, mt, ck, card))
+    counts.update(timed("4c", mcmc_main_path, mt, mk, card))
+    timed("5", adaptive_checks, mt)
+    timed("5b", chain_checks, mt)
+    timed("5c", mcmc_checks, mt)
+    measured = timed("6", timings, mt, vk, shape, card)
+    measured.update(timed("6b", chain_timings, mt, ck, card))
+    measured.update(timed("6c", mcmc_timings, mt, mk, card))
+    common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2, niter=3)
+    for phase, kw in (("7", dict(neval=2 ** 30, solver="vegas", **common)),
+                      ("7b", dict(neval=2 ** 28, solver="vegasmc", nwalkers=2 ** 20, **common))):
+        res = timed(phase, profile_main_path, card, phase, lambda: mt.integrate(
+            _pi, var=mt.Continuous(0.0, 1.0), **kw))
+        assert abs(float(res.mean[0]) - np.pi / 4) < 5 * float(res.stdev[0])
+    # one iteration, not three: its 2059 steps issue about 130,000 launches,
+    # and the profiler took 206 s to parse three iterations' events
+    timed("7c", profile_main_path, card, "7c", lambda: mt.integrate(
+        make_bubble("cuda"), neval=2 ** 28, nwalkers=2 ** 18, niter=1, device="cuda", seed=SEED,
+        verbose=-2, **bubble_kw(mt)))
 
     replaces = {"vegas_sample": "mcintegration_tpu/ops/pallas_vegas.py:343",
                 "vegas_reduce": "mcintegration_tpu/ops/pallas_vegas.py:343",
                 "chain_propose": "mcintegration_tpu/ops/pallas_chain.py:410",
-                "chain_accept": "mcintegration_tpu/ops/pallas_chain.py:410"}
+                "chain_accept": "mcintegration_tpu/ops/pallas_chain.py:410",
+                "mcmc_propose": "mcintegration_tpu/ops/pallas_mcmc.py:476",
+                "mcmc_accept": "mcintegration_tpu/ops/pallas_mcmc.py:476",
+                "mcmc_measure": "mcintegration_tpu/ops/pallas_mcmc.py:476"}
     kernels = []
     for name, where in replaces.items():
-        err, ms, plain_ms = measured[name]
+        err, ms, plain_ms, bound_ms, bound_by = measured[name]
+        # no single PyTorch call computes any of these functions: library_ms null
         kernels.append({"name": name, "route": "cuda",
                         "source": f"mcintegration_tpu_torch/csrc/{name}.cu",
                         "replaces": where, "launches": counts[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

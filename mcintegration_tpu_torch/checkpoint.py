@@ -3,8 +3,8 @@
 Counterpart of ``mcintegration_tpu/checkpoint.py`` with the same npz keys
 (``reweight``, ``seed``, ``leaf{i}_histogram``, and ``leaf{i}_grid`` for a
 Continuous leaf or ``leaf{i}_distribution`` and ``leaf{i}_accumulation``
-for a Discrete one), so a state saved by either package loads into the
-other.
+for a Discrete one; a FermiK leaf keeps only its floor histogram), so a
+state saved by either package loads into the other.
 
 The reference has no serialization; its warm-start pattern is passing
 ``config=result.config`` into a new ``integrate`` call
@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from .configuration import Configuration
-from .models.variable import Continuous, Discrete
+from .models.variable import Continuous, Discrete, FermiK
 
 
 def state_dict(config: Configuration) -> dict:
@@ -61,9 +61,10 @@ def params_from_jax(jax_params, spec):
     to numpy.  A Continuous leaf's ``tab`` is the ``[L, L*2]`` table of
     ``(grid, inc)`` rows packed by ``ops/lookup.py:pack_table``; a Discrete
     leaf carries ``cdf [nbin+1]`` and ``dist_tab``, its ``[nbin]`` masses
-    packed the same way.  Returns the port's ``{"leaf": [(grid, inc) or
-    (cdf, dist), ...], "reweight": ...}`` on the spec's device, so that both
-    packages sample through the identical float32 map.
+    packed the same way; a FermiK leaf its float32 ``kF`` and ``dk``.
+    Returns the port's ``{"leaf": [(grid, inc), (cdf, dist) or (kF, dk),
+    ...], "reweight": ...}`` on the spec's device, so that both packages
+    sample through the identical float32 map.
     """
     import torch
 
@@ -72,6 +73,10 @@ def params_from_jax(jax_params, spec):
 
     leaves = []
     for li, p in zip(spec.leaves, jax_params["leaf"]):
+        if isinstance(li.leaf, FermiK):
+            leaves.append(tuple(torch.tensor(float(np.float32(p[k])), dtype=torch.float64,
+                                             device=spec.device) for k in ("kF", "dk")))
+            continue
         if isinstance(li.leaf, Discrete):
             nbin = li.leaf.nbin
             dist = np.asarray(p["dist_tab"], dtype=np.float32).reshape(-1)[:nbin]

@@ -1,4 +1,5 @@
-// Helpers shared by chain_propose.cu and chain_accept.cu.
+// Helpers shared by the chain kernels (chain_*.cu) and the :mcmc kernels
+// (mcmc_*.cu, through mcmc_common.cuh).
 //
 // Random bits: the counter hash of ops/rng.py (lowbias32, as
 // mcintegration_tpu/ops/pallas_vegas.py:_mix32), with the step t in place of
@@ -38,6 +39,68 @@ __device__ __forceinline__ uint32_t walker_base(const uint32_t* kd, uint32_t t,
 __device__ __forceinline__ float uniform(uint32_t base, uint32_t c) {
   const uint32_t bits = mix32(base + c * 0x85EBCA6Bu);
   return __fmul_rn(__fadd_rn((float)(bits >> 8), 0.5f), 5.9604644775390625e-08f);
+}
+
+// #{k < n: c[k] <= u} for a non-decreasing c (upper-bound binary search).
+__device__ __forceinline__ int count_le(const float* c, int n, float u) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (c[lo + half] <= u) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
+}
+
+// The first fields of a leaf row, the same in both layouts
+// (ops/chain_kernels.py:LEAF_FIELDS, ops/mcmc_kernels.py:LEAF_FIELDS).
+constexpr int kKind = 0, kNb = 1, kTab = 2, kSm = 3, kLower = 4;
+constexpr int kDisc = 1;
+
+// Leaf f's map draw at uniform u (Continuous or Discrete): val's bits,
+// gidx, prob (ops/grid.py:sample_continuous, sample_discrete).
+//   Continuous: iy = clip(int(u*nb)), x = grid[iy] + (u*nb - iy)*inc[iy],
+//               prob = 1/(nb*inc[iy])
+//   Discrete:   gidx = #{k: u >= cdf[k+1]}, clamped to nbin-1, prob = dist[gidx]
+// A Discrete CDF is read from shared memory when the leaf has one staged
+// there (sm >= 0), else from the table in device memory.
+__device__ __forceinline__ void map_draw(const int* f, const float* tab,
+                                         const float* smem, float u, int& val,
+                                         int& gidx, float& prob) {
+  const int nb = f[kNb];
+  const float* t = tab + f[kTab];
+  if (f[kKind] == kDisc) {   // t = cdf [nb+1], then dist [nb]
+    const float* c = f[kSm] >= 0 ? smem + f[kSm] : t + 1;
+    const int g = min(count_le(c, nb, u), nb - 1);
+    gidx = g;
+    prob = t[nb + 1 + g];
+    val = f[kLower] + g;
+  } else {                   // t = grid [nb], then inc [nb]
+    const float s = __fmul_rn(u, (float)nb);
+    const int iy = min(max((int)s, 0), nb - 1);
+    const float dy = __fsub_rn(s, (float)iy);
+    const float dx = t[nb + iy];
+    gidx = iy;
+    prob = __fdiv_rn(1.0f, __fmul_rn((float)nb, dx));
+    val = __float_as_int(__fadd_rn(t[iy], __fmul_rn(dy, dx)));
+  }
+}
+
+// Stage the leaves' small Discrete CDFs (sm >= 0) in shared memory; leaf
+// rows are ``fields`` ints apart.
+__device__ __forceinline__ void stage_cdfs(const int* leaf, int L, int fields,
+                                           const float* tab, float* smem) {
+  for (int d = 0; d < L; ++d) {
+    const int* f = leaf + fields * d;
+    if (f[kKind] == kDisc && f[kSm] >= 0)
+      for (int q = threadIdx.x; q < f[kNb]; q += blockDim.x)
+        smem[f[kSm] + q] = tab[f[kTab] + 1 + q];
+  }
+  __syncthreads();
 }
 
 int num_sms() {

@@ -7,10 +7,7 @@
 // g among the eligible ones and a slot s < maxdof[g], redraws slot s of every
 // leaf of g through the leaf's map with a fresh uniform of its own, and
 // forms the Hastings factor prop = prod old_prob / new_prob.
-//   Continuous: iy = clip(int(u*nb)), x = grid[iy] + (u*nb - iy)*inc[iy],
-//               prob = 1/(nb*inc[iy])        (ops/grid.py:sample_continuous)
-//   Discrete:   gidx = #{k: u >= cdf[k+1]}, clamped to nbin-1,
-//               prob = dist[gidx]           (ops/grid.py:sample_discrete)
+// (chain_common.cuh:map_draw).
 // The proposal goes into the mirror copy prp_* of the slot state, where the
 // integrand reads it; cur_* keeps the current state.  With init = 1 the
 // kernel draws every slot once into both copies instead.
@@ -41,44 +38,6 @@ constexpr int kThreads = 256;
 constexpr uint32_t kSaltGroup = 1u, kSaltSlot = 2u, kSaltLeaf = 4u;
 constexpr uint32_t kSaltInit = 1u << 20;
 
-// #{k < n: c[k] <= u} for a non-decreasing c (upper-bound binary search).
-__device__ __forceinline__ int count_le(const float* c, int n, float u) {
-  int lo = 0;
-  while (n > 0) {
-    const int half = n >> 1;
-    if (c[lo + half] <= u) {
-      lo += half + 1;
-      n -= half + 1;
-    } else {
-      n = half;
-    }
-  }
-  return lo;
-}
-
-// Drawn leaf f's map draw at uniform u: val's bits, gidx, prob.
-__device__ __forceinline__ void draw_leaf(const int* f, const float* tab,
-                                          const float* smem, float u,
-                                          int& val, int& gidx, float& prob) {
-  const int nb = f[1];
-  const float* t = tab + f[2];
-  if (f[0] == 1) {   // Discrete: t = cdf [nb+1], then dist [nb]
-    const float* c = f[3] >= 0 ? smem + f[3] : t + 1;
-    const int g = min(count_le(c, nb, u), nb - 1);
-    gidx = g;
-    prob = t[nb + 1 + g];
-    val = f[4] + g;
-  } else {           // Continuous: t = grid [nb], then inc [nb]
-    const float s = __fmul_rn(u, (float)nb);
-    const int iy = min(max((int)s, 0), nb - 1);
-    const float dy = __fsub_rn(s, (float)iy);
-    const float dx = t[nb + iy];
-    gidx = iy;
-    prob = __fdiv_rn(1.0f, __fmul_rn((float)nb, dx));
-    val = __float_as_int(__fadd_rn(t[iy], __fmul_rn(dy, dx)));
-  }
-}
-
 __global__ void chain_propose_kernel(
     const uint32_t* __restrict__ kd, uint32_t t, int init, int W, int wb,
     int L, int S, int nvar, int nelig, const int* __restrict__ meta,
@@ -91,13 +50,7 @@ __global__ void chain_propose_kernel(
   const int* leaf = meta;                          // [L, 8]
   const int* grp = leaf + kLeafFields * L;         // [nvar, 3]: lo, hi, maxdof
   const int* elig = grp + 3 * nvar;                // [nelig]
-  for (int d = 0; d < L; ++d) {                    // stage small Discrete CDFs
-    const int* f = leaf + kLeafFields * d;
-    if (f[0] == 1 && f[3] >= 0)
-      for (int q = threadIdx.x; q < f[1]; q += blockDim.x)
-        smem[f[3] + q] = tab[f[2] + 1 + q];
-  }
-  __syncthreads();
+  stage_cdfs(leaf, L, kLeafFields, tab, smem);
 
   for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < W;
        w += gridDim.x * blockDim.x) {
@@ -110,7 +63,7 @@ __global__ void chain_propose_kernel(
         const int nd = grp[3 * f[7] + 2];
         for (int s = 0; s < nd; ++s) {
           const int k = f[5] + s;
-          draw_leaf(f, tab, smem, uniform(base, kSaltInit + (uint32_t)k), val, gidx, prob);
+          map_draw(f, tab, smem, uniform(base, kSaltInit + (uint32_t)k), val, gidx, prob);
           const long long i = (long long)k * W + w;
           cur_val[i] = prp_val[i] = val;
           cur_gidx[i] = prp_gidx[i] = gidx;
@@ -126,7 +79,7 @@ __global__ void chain_propose_kernel(
     float prop = 1.0f;
     for (int d = grp[3 * g]; d < grp[3 * g + 1]; ++d) {
       const int* f = leaf + kLeafFields * d;
-      draw_leaf(f, tab, smem, uniform(base, kSaltLeaf + (uint32_t)d), val, gidx, prob);
+      map_draw(f, tab, smem, uniform(base, kSaltLeaf + (uint32_t)d), val, gidx, prob);
       const long long i = (long long)(f[5] + s) * W + w;
       prop = __fmul_rn(prop, __fdiv_rn(cur_prob[i], prob));
       prp_val[i] = val;

@@ -1,7 +1,7 @@
 """``integrate`` — the user entry point of the PyTorch port.
 
-Counterpart of ``mcintegration_tpu/main.py:214-600`` for ``solver="vegas"``
-and ``solver="vegasmc"`` and of the reference's ``integrate``
+Counterpart of ``mcintegration_tpu/main.py:214-600`` for ``solver="vegas"``,
+``solver="vegasmc"`` and ``solver="mcmc"`` and of the reference's ``integrate``
 (src/main.jl:71-218): niter rounds of (blocks -> reduce -> reweight ->
 train), on one device.  Host-side per-iteration math (block statistics
 src/main.jl:296-320, reweighting, grid training) runs in float64 numpy.
@@ -19,13 +19,14 @@ import torch
 
 from .configuration import Configuration
 from .ops.rng import block_keys
-from .solvers.engine import Spec
+from .solvers.engine import Spec, tree_map
+from .solvers.mcmc import MCMCIteration
 from .solvers.vegas import VegasIteration
 from .solvers.vegasmc import VegasMCIteration
 from .statistics import Result, mean_std, report
 from .utils import ProgressBar, StopWatch, red, yellow
 
-_SOLVER_ITEMS = {"mcmc": 12, "vegas+": 13, "vegasplus": 13}
+_SOLVER_ITEMS = {"vegas+": 13, "vegasplus": 13}
 
 
 def _standardize_block(neval, nblock, nworker=1):
@@ -93,6 +94,7 @@ def integrate(integrand: Callable, *,
               ignore: Optional[int] = None,
               measure: Optional[Callable] = None,
               measurefreq: int = 1,
+              thermal_ratio: float = 0.1,
               inplace: bool = False,
               print: int = -1,  # legacy alias of verbose (src/main.jl:92-93)
               timer=None,
@@ -106,31 +108,39 @@ def integrate(integrand: Callable, *,
 
     Mirrors ``mcintegration_tpu.integrate`` (and the reference keyword
     surface, src/main.jl:71-90) for ``solver="vegasmc"`` (the default) on
-    ``Continuous`` and ``Discrete`` pools and for ``solver="vegas"`` on
-    ``Continuous`` pools, also bundled in a ``CompositeVar``.  ``device``
-    names the device explicitly: ``"cuda"`` (the default) runs the
-    hand-written kernels and raises when no card is present; ``"cpu"`` runs
-    their plain PyTorch versions.  The integrand is a torch function
-    ``f(x, c)``; ``x[k]`` is slot ``k``'s values as a tensor of any batch
-    shape (int32 for a Discrete pool).  ``nwalkers``,
-    ``min_steps_per_walker`` and ``warmup`` (the burn-in fraction of each
-    chain, default 0.01) shape the :vegasmc chains as in the JAX package.
+    ``Continuous`` and ``Discrete`` pools, for ``solver="mcmc"`` on those and
+    ``FermiK`` pools, and for ``solver="vegas"`` on ``Continuous`` pools;
+    ``Continuous`` and ``Discrete`` pools may be bundled in a
+    ``CompositeVar``.  ``device`` names the device explicitly: ``"cuda"``
+    (the default) runs the hand-written kernels and raises when no card is
+    present; ``"cpu"`` runs their plain PyTorch versions.  The integrand is
+    a torch function ``f(x, c)``, or ``f(idx, x, c)`` for integrand ``idx``
+    on :mcmc; ``x[k]`` is slot ``k``'s values as a tensor of any batch shape
+    (int32 for a Discrete pool, ``[D, *batch]`` for a FermiK pool).
+    ``nwalkers``, ``min_steps_per_walker`` and ``warmup`` (the burn-in
+    fraction of each chain, default 0.01) shape the :vegasmc chains as in
+    the JAX package; ``nwalkers``, ``min_steps_per_walker`` and
+    ``thermal_ratio`` (burn-in steps as a fraction of the measured ones,
+    default 0.1) the :mcmc chains.  On :mcmc a custom ``measure(idx, x,
+    relw, c)`` returns the observables' contributions, shaped like ``obs``.
 
     Inputs the port does not serve yet raise ``NotImplementedError`` naming
-    the ROADMAP.md item that will port them: other solvers, custom
-    ``measure``, ``measurefreq != 1`` on :vegas, ``type=complex``, ``mesh``
-    and ``debug``.
+    the ROADMAP.md item that will port them: :vegasplus, a custom
+    ``measure`` on :vegas and :vegasmc, ``measurefreq != 1`` on :vegas,
+    ``type=complex``, ``mesh`` and ``debug``; FermiK pools raise on :vegas
+    and :vegasmc, as in the reference.
 
     ``result.backend`` is ``"cuda"`` or ``"torch"``; ``backend_reason``
-    says why, when the integrand runs per sample under ``torch.func.vmap``.
+    says why, when the integrand or the measure runs per sample under
+    ``torch.func.vmap``.
     """
     solver = str(solver).lstrip(":")
-    if solver not in ("vegas", "vegasmc"):
+    if solver not in ("vegas", "vegasmc", "mcmc"):
         if solver in _SOLVER_ITEMS:
             _not_ported(f"solver={solver!r}", _SOLVER_ITEMS[solver])
         raise ValueError(f"Solver {solver} is not supported!")
-    if measure is not None:
-        _not_ported("a custom measure", 14)
+    if measure is not None and solver != "mcmc":
+        _not_ported(f"a custom measure on :{solver}", 14)
     if measurefreq != 1 and solver == "vegas":
         _not_ported(f"measurefreq={measurefreq} on :vegas", 14)
     if mesh is not None:
@@ -155,7 +165,13 @@ def integrate(integrand: Callable, *,
 
     nevalperblock, block = _standardize_block(neval, block)
     spec = Spec(config, dev)
-    if solver == "vegasmc":
+    if solver == "mcmc":
+        it_kernel = MCMCIteration(
+            spec, integrand, measure=measure, obs_proto=config.observable,
+            measurefreq=measurefreq, block=block, nevalperblock=nevalperblock,
+            nwalkers=nwalkers, min_steps_per_walker=min_steps_per_walker,
+            thermal_ratio=thermal_ratio)
+    elif solver == "vegasmc":
         it_kernel = VegasMCIteration(
             spec, integrand, inplace=inplace, measurefreq=measurefreq,
             block=block, nevalperblock=nevalperblock, nwalkers=nwalkers,
@@ -195,12 +211,15 @@ def integrate(integrand: Callable, *,
         config.normalization += float(norm_b.sum())
 
         # ---- block statistics (src/main.jl:275-287, 296-320) ----
-        m = stats["obs_blocks"] / norm_b[:, None]          # [block, N]
-        means, stds = mean_std(list(m.sum(axis=0)), list((m ** 2).sum(axis=0)),
-                               block)
+        obs_sum, obs_sq = [], []
+        for o in range(config.N):
+            m = _divide_norm(_component(stats["obs_blocks"], o), norm_b)
+            obs_sum.append(tree_map(lambda a: a.sum(axis=0), m))
+            obs_sq.append(tree_map(_sq_sum_blocks, m))
+        means, stds = mean_std(obs_sum, obs_sq, block)
 
         # ---- self-learning (src/main.jl:183-199) ----
-        if solver == "vegasmc":
+        if solver in ("mcmc", "vegasmc"):
             do_reweight(config, gamma, reweight_goal)
         if adapt:
             for v in config.var:
@@ -224,6 +243,28 @@ def integrate(integrand: Callable, *,
             sys.stdout.write(yellow(
                 f"Total time: {time.time() - start:.2f} seconds.\n"))
     return result
+
+
+def _component(obs_blocks, o: int):
+    """Integrand ``o``'s observable from the per-block observables: a pytree
+    with a leading [block] axis (custom measure) or an array [block, N]."""
+    if isinstance(obs_blocks, (list, tuple)):
+        return obs_blocks[o]
+    return np.asarray(obs_blocks)[:, o]
+
+
+def _divide_norm(ob, norm_b):
+    def f(a):
+        a = np.asarray(a, dtype=np.complex128 if np.iscomplexobj(a) else np.float64)
+        return a / norm_b.reshape((-1,) + (1,) * (a.ndim - 1))
+    return tree_map(f, ob)
+
+
+def _sq_sum_blocks(a):
+    """Sum over blocks of the squares (complex: re and im squared apart)."""
+    if np.iscomplexobj(a):
+        return (a.real ** 2 + 1j * a.imag ** 2).sum(axis=0)
+    return (a ** 2).sum(axis=0)
 
 
 def _snapshot_config(config, iter_neval: int):

@@ -4,7 +4,7 @@ Counterpart of ``mcintegration_tpu/models/variable.py``.  A pool is a
 *spec + trained state* object on the host (numpy float64 grid or
 categorical distribution and histogram, trained once per iteration);
 sampling happens on the device through the hand-written kernels of
-``ops/vegas_kernels.py`` and ``ops/chain_kernels.py``.
+``ops/vegas_kernels.py``, ``ops/chain_kernels.py`` and ``ops/mcmc_kernels.py``.
 
 Semantics preserved from the reference (src/distribution/variable.jl):
 
@@ -17,9 +17,10 @@ Semantics preserved from the reference (src/distribution/variable.jl):
   probability (variable.jl:397-507).
 
 ``Discrete`` pools (a learned categorical map, variable.jl:272-328) run on
-the :vegasmc solver; :vegas does not serve them yet.  ``FermiK`` pools are
-not ported (ROADMAP.md, queue 1, item 12); constructing one raises
-``NotImplementedError``.
+:vegasmc and :mcmc; :vegas does not serve them yet.  ``FermiK`` pools (a
+momentum shell, sampler.jl:109-250) run on :mcmc only, as in the reference;
+a ``CompositeVar`` bundles ``Continuous`` and ``Discrete`` pools, and a
+``FermiK`` stands alone as its own variable.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ HIST_FLOOR = 1.0e-10  # clearStatistics! floor (variable.jl:565)
 
 
 def is_variable(v) -> bool:
-    return isinstance(v, (Continuous, Discrete, CompositeVar))
+    return isinstance(v, (Continuous, Discrete, FermiK, CompositeVar))
 
 
 class _LeafVar:
@@ -225,13 +226,48 @@ class Discrete(_LeafVar):
         return vals.astype(dtype)
 
 
-class FermiK:
-    """Not ported yet: raises ``NotImplementedError``."""
+class FermiK(_LeafVar):
+    """Pool of D-dim momenta sampled near the Fermi surface |K| in (kF-dk, kF+dk).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FermiK pools come with the :mcmc solver (ROADMAP.md, queue 1, "
-            "item 12); use mcintegration_tpu")
+    Mirrors ``Dist.FermiK`` (variable.jl:1-35, sampler.jl:109-250) and the
+    JAX package's ``FermiK``.  Not adaptive (one floor histogram bin, no
+    training); served by the :mcmc solver only, as in the reference
+    (test/bubble_FermiK.jl:2).  A slot holds ``dim`` float32 components, so
+    the integrand sees a leaf as ``[nslots, dim, *batch]``.  The draw,
+    density and shift are ``ops/fermik.py``.
+    """
+
+    adapt = False
+
+    def __init__(self, dim, kF, delta_k, maxK, size=MAX_ORDER, *, offset=0):
+        assert dim in (2, 3), "FermiK supports D=2 or 3"
+        assert offset + 1 < size
+        self.dim = int(dim)
+        self.value_width = self.dim
+        self.kF = float(kF)
+        self.delta_k = float(delta_k)
+        self.maxK = float(maxK)
+        self.offset = int(offset)
+        self.size = int(size)
+        self.alpha = 0.0
+        self.histogram = np.full(1, HIST_FLOOR, dtype=np.float64)  # no adaptation
+
+    def __repr__(self):
+        return f"{self.dim}D FermiK variable in [0, {self.maxK})."
+
+    # ---- host side --------------------------------------------------
+    def train(self):
+        return
+
+    def device_params(self, device):
+        """(kF, delta_k) float64 scalars on ``device``; the solver derives
+        its float32 constants from them (ops/fermik.py:constants)."""
+        return (torch.tensor(self.kF, dtype=torch.float64, device=device),
+                torch.tensor(self.delta_k, dtype=torch.float64, device=device))
+
+    def fixed_values(self, dtype=np.float32):
+        """Values of offset (user-pinned) slots: ``[size, dim]`` at kF/sqrt(dim)."""
+        return np.full((self.size, self.dim), self.kF / np.sqrt(self.dim), dtype)
 
 
 class CompositeVar:

@@ -49,6 +49,20 @@ _SIGNATURES = {
     "mci_chain_accept": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _P],
+    # kd, sched, t, init, W, wb, L, nvar, nd, any_swap, meta, tab, smem_floats,
+    # cur_val, cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob, curr, prob,
+    # picv, dof, prop, move, stream
+    "mci_mcmc_propose": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # kd, sched, t, init, measure, custom, W, wb, L, nvar, nd, C, meta, tab,
+    # rw, nw, H, hist_smem, cnt_smem, cur_val, cur_gidx, cur_prob, prp_val,
+    # prp_gidx, prp_prob, curr, weight, prob, rcur, degc, picv, dof, prop,
+    # move, relw, obs, nrm, vis, tally, hist, stream
+    "mci_mcmc_accept": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # i, ncomp, W, m, curr, obs, stream
+    "mci_mcmc_measure": [_I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..configuration import Configuration
-from ..models.variable import CompositeVar, Discrete, leaves_of
+from ..models.variable import CompositeVar, Discrete, FermiK, leaves_of
 
 
 class UserConfig:
@@ -146,9 +146,11 @@ class Spec:
                 li = self.leaves[lidx]
                 drawn = leaf_vals[lidx]
                 if li.offset > 0:
-                    batch = tuple(drawn.shape[1:])
-                    fixed = self.fixed[lidx].reshape((li.offset,) + (1,) * len(batch))
-                    full = torch.cat([fixed.expand((li.offset,) + batch), drawn])
+                    fixed = self.fixed[lidx]            # [offset] or [offset, D]
+                    lead = tuple(fixed.shape)
+                    batch = tuple(drawn.shape[len(lead):])
+                    fixed = fixed.reshape(lead + (1,) * len(batch)).expand(lead + batch)
+                    full = torch.cat([fixed, drawn])
                 else:
                     full = drawn
                 member_views.append(full)
@@ -257,56 +259,170 @@ class Spec:
     def make_eval_vmapped(self, integrand: Callable, inplace: bool):
         """Per-sample evaluation under ``torch.func.vmap`` over the batch:
         f(leaf_vals [ndraw, *batch]) -> [N, *batch]."""
-        per_sample = self.make_eval(integrand, inplace)
+        return self._vmapped(self.make_eval(integrand, inplace), (self.N,))
 
-        def _eval(leaf_vals):
-            shape = tuple(leaf_vals[0].shape[1:])
-            flat = [v.reshape(v.shape[0], -1) for v in leaf_vals]
-            w = torch.func.vmap(per_sample, in_dims=(1,), out_dims=1)(flat)
-            return w.reshape((self.N,) + shape)
+    # ---- leaf shapes: a leaf is [ndraw, *batch], a FermiK leaf [ndraw, D, *batch]
+    def _lead(self, lidx: int) -> int:
+        return 2 if isinstance(self.leaves[lidx].leaf, FermiK) else 1
+
+    def batch_shape(self, leaf_vals) -> tuple:
+        return tuple(leaf_vals[0].shape[self._lead(0):])
+
+    def _vmapped(self, per_sample: Callable, out_lead: tuple):
+        """``per_sample(leaf_vals, *extra)`` mapped over the batch axes of
+        the leaves (and of each extra ``[*batch]`` argument) with
+        ``torch.func.vmap``; its output ``out_lead`` gains the batch axes."""
+        def _eval(leaf_vals, *extra):
+            shape = self.batch_shape(leaf_vals)
+            leads = [self._lead(i) for i in range(len(leaf_vals))]
+            flat = [v.reshape(tuple(v.shape[:k]) + (-1,)) for v, k in zip(leaf_vals, leads)]
+            ex = [e.reshape(-1) for e in extra]
+            out = torch.func.vmap(per_sample, in_dims=(leads,) + (0,) * len(ex),
+                                  out_dims=len(out_lead))(flat, *ex)
+            return out.reshape(out_lead + shape)
 
         return _eval
 
-    def probe_batched(self, eval_batched, eval_vmapped):
+    # ---- the mcmc conventions: f(idx, x, c) and measure(idx, x, relw, c) ----
+    def make_eval_batched_idx(self, integrand: Callable) -> List[Callable]:
+        """One batched evaluation per integrand index ``i`` for the mcmc
+        convention ``integrand(i, x, c)`` (pallas_mcmc.py:233-254):
+        f_i(leaf_vals [.., *batch]) -> [*batch] float32."""
+        def make(i):
+            def _eval(leaf_vals):
+                w = integrand(i, self.view(leaf_vals), self.uconfig)
+                return torch.broadcast_to(_finite_guard(_as_weight(w, self.device)),
+                                          self.batch_shape(leaf_vals))
+            return _eval
+
+        return [make(i) for i in range(self.N)]
+
+    def make_eval_vmapped_idx(self, integrand: Callable) -> List[Callable]:
+        """The per-sample ``integrand(i, x, c)`` under ``torch.func.vmap``."""
+        def make(i):
+            def per_sample(leaf_vals):
+                w = integrand(i, self.view(leaf_vals), self.uconfig)
+                return _finite_guard(_as_weight(w, self.device).reshape(()))
+            return self._vmapped(per_sample, ())
+
+        return [make(i) for i in range(self.N)]
+
+    def make_measure_batched_idx(self, measure: Callable, obs_proto) -> List[Callable]:
+        """One batched custom measure per integrand index for the mcmc
+        convention ``measure(i, x, relw, c)`` (pallas_mcmc.py:332-358):
+        m_i(leaf_vals, relw [*batch]) -> [ncomp, *batch] float32, the
+        observable pytree's leaves flattened in order."""
+        shapes = [np.shape(p) for p in tree_leaves(obs_proto)]
+
+        def make(i):
+            def _m(leaf_vals, relw):
+                out = tree_leaves(measure(i, self.view(leaf_vals), relw, self.uconfig))
+                if len(out) != len(shapes):
+                    raise ValueError(f"measure returned {len(out)} observables, "
+                                     f"want {len(shapes)}")
+                batch = tuple(relw.shape)
+                return torch.cat([
+                    torch.broadcast_to(_as_weight(z, self.device), sh + batch)
+                    .reshape((-1,) + batch) for z, sh in zip(out, shapes)])
+            return _m
+
+        return [make(i) for i in range(self.N)]
+
+    def make_measure_vmapped_idx(self, measure: Callable, obs_proto) -> List[Callable]:
+        """The per-sample custom measure under ``torch.func.vmap``."""
+        ncomp = obs_components(obs_proto)
+        batched = self.make_measure_batched_idx(measure, obs_proto)
+        return [self._vmapped(m, (ncomp,)) for m in batched]
+
+    def probe_leaf_values(self, rng: np.random.Generator, batch=(4, 2)):
+        """In-domain probe values ``[ndraw(, D), *batch]`` per leaf: map
+        interiors, Discrete values, FermiK momenta on the shell
+        (pallas_mcmc.py:206-230)."""
+        leaf_vals = []
+        for li in self.leaves:
+            leaf = li.leaf
+            if isinstance(leaf, Discrete):
+                v = rng.integers(leaf.lower, leaf.upper + 1, (li.ndraw,) + batch)
+                leaf_vals.append(torch.as_tensor(v, dtype=torch.int32, device=self.device))
+            elif isinstance(leaf, FermiK):
+                kamp = leaf.kF + (rng.uniform(size=(li.ndraw, 1) + batch) - 0.5) * leaf.delta_k
+                dirs = rng.normal(size=(li.ndraw, leaf.dim) + batch)
+                dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+                leaf_vals.append(torch.as_tensor(kamp * dirs, dtype=torch.float32,
+                                                 device=self.device))
+            else:
+                u = rng.uniform(0.05, 0.95, (li.ndraw,) + batch)
+                leaf_vals.append(torch.as_tensor(leaf.lower + leaf.range * u,
+                                                 dtype=torch.float32, device=self.device))
+        return leaf_vals
+
+    def probe_batched(self, eval_batched, eval_vmapped, *extra):
         """Does the batched call reproduce the per-sample one?
 
         Evaluates both on a small in-domain batch (the reference's
-        ``validate_batched``, pallas_vegas.py:237-274).  Returns ``(ok,
-        reason)``; ``reason`` is empty when ``ok``.
+        ``validate_batched``, pallas_vegas.py:237-274); ``extra`` arguments
+        (a custom measure's ``relw``) follow the leaf values.  Returns
+        ``(ok, reason)``; ``reason`` is empty when ``ok``.
         """
-        rng = np.random.default_rng(12345)
-        leaf_vals = []
-        for li in self.leaves:
-            if isinstance(li.leaf, Discrete):
-                v = rng.integers(li.leaf.lower, li.leaf.upper + 1, (li.ndraw, 4, 2))
-                leaf_vals.append(torch.as_tensor(v, dtype=torch.int32, device=self.device))
-                continue
-            lo, rg = li.leaf.lower, li.leaf.range
-            u = rng.uniform(0.05, 0.95, (li.ndraw, 4, 2))
-            leaf_vals.append(torch.as_tensor(lo + rg * u, dtype=torch.float32,
-                                             device=self.device))
+        leaf_vals = self.probe_leaf_values(np.random.default_rng(12345))
         try:
-            wv = eval_vmapped(leaf_vals)
+            wv = eval_vmapped(leaf_vals, *extra)
         except Exception as e:  # the user's integrand, any failure
             return True, (f"the per-sample probe failed under torch.func.vmap "
                           f"({type(e).__name__}: {e}); the batched call runs "
                           "unchecked")
         try:
-            wb = eval_batched(leaf_vals)
+            wb = eval_batched(leaf_vals, *extra)
         except Exception as e:  # the user's integrand, any failure
-            return False, (f"the batched integrand call failed "
-                           f"({type(e).__name__}: {e}); the integrand runs "
+            return False, (f"the batched call failed "
+                           f"({type(e).__name__}: {e}); it runs "
                            "per sample under torch.func.vmap")
         if wb.shape == wv.shape and torch.allclose(wb, wv, rtol=1e-5, atol=1e-6):
             return True, ""
-        return False, ("the batched-integrand probe did not reproduce the "
-                       "per-sample evaluation (integrand not elementwise); "
-                       "the integrand runs per sample under torch.func.vmap")
+        return False, ("the batched probe did not reproduce the "
+                       "per-sample evaluation (not elementwise); "
+                       "it runs per sample under torch.func.vmap")
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a list/tuple tree, depth first (an observable pytree)."""
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(proto, leaves):
+    """``leaves`` (in :func:`tree_leaves` order) in the structure of ``proto``."""
+    it = iter(leaves)
+
+    def build(p):
+        if isinstance(p, (list, tuple)):
+            return type(p)(build(x) for x in p)
+        return next(it)
+
+    return build(proto)
+
+
+def obs_components(obs_proto) -> int:
+    """Scalar components of an observable pytree."""
+    return sum(int(np.prod(np.shape(p))) for p in tree_leaves(obs_proto))
+
+
+def refuse_fermik(spec: Spec, solver: str):
+    """FermiK pools run on :mcmc only, as in the reference
+    (test/bubble_FermiK.jl:2): any other solver raises."""
+    if any(isinstance(li.leaf, FermiK) for li in spec.leaves):
+        raise NotImplementedError(f"FermiK pools run on the :mcmc solver only, not on {solver}")
+
+
+def tree_map(f, tree):
+    """``f`` applied to every leaf of a list/tuple tree."""
+    return tree_unflatten(tree, [f(x) for x in tree_leaves(tree)])
 
 
 def _as_weight(w, device):
     if isinstance(w, torch.Tensor):
-        return w.to(torch.float32)
+        return w.to(device=device, dtype=torch.float32)
     return torch.tensor(w, dtype=torch.float32, device=device)
 
 

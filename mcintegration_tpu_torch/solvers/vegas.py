@@ -30,7 +30,7 @@ import torch
 
 from ..models.variable import Continuous
 from ..ops import vegas_kernels
-from .engine import Spec
+from .engine import Spec, refuse_fermik
 
 N_MULT = vegas_kernels.N_MULT
 SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x at 4 bytes * slots * this
@@ -68,6 +68,7 @@ def check_supported(spec: Spec):
     """The specs the kernels serve; anything else raises (pallas_vegas.py:
     eligible, lines 290-340).  The strata bound is checked by
     ``vegas_kernels.vegas_sample``."""
+    refuse_fermik(spec, ":vegas")
     drawn = [li for li in spec.leaves if li.ndraw > 0]
     if not drawn:
         raise ValueError("no MC-owned slots to draw (every dof is 0)")

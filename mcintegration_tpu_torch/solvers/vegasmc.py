@@ -28,10 +28,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..models.variable import Continuous, Discrete
+from ..models.variable import Discrete
 from ..ops import chain_kernels
 from ..ops.chain_kernels import ChainLayout, ChainState
-from .engine import Spec
+from .engine import Spec, refuse_fermik
 
 
 def choose_walkers(neval: int, block: int, nwalkers, min_steps: int,
@@ -48,14 +48,9 @@ def choose_walkers(neval: int, block: int, nwalkers, min_steps: int,
 
 def check_supported(spec: Spec):
     """The specs the chain kernels serve; anything else raises."""
-    drawn = [li for li in spec.leaves if li.ndraw > 0]
-    if not drawn:
+    refuse_fermik(spec, ":vegasmc")
+    if not any(li.ndraw > 0 for li in spec.leaves):
         raise ValueError("no MC-owned slots to draw (every dof is 0)")
-    for li in drawn:
-        if not isinstance(li.leaf, (Continuous, Discrete)):
-            raise NotImplementedError(
-                f"{type(li.leaf).__name__} pools are not ported to :vegasmc "
-                "(ROADMAP.md, queue 1, item 12)")
 
 
 class VegasMCIteration:

@@ -10,7 +10,9 @@ skips ``tests/conftest.py``, which sets up JAX (not needed here):
 forms the same float32 products and sums them in float64 in another order,
 so obs and histograms agree to rel 1e-9.  ``chain_propose`` and
 ``chain_accept`` must match theirs bit for bit from one state, but for the
-chain histogram (float64 atomics in another order: rel 1e-9).
+chain histogram (float64 atomics in another order: rel 1e-9).  The :mcmc
+kernels ``mcmc_propose``, ``mcmc_accept`` and ``mcmc_measure`` match theirs
+bit for bit, histograms included (they add exact 1.0s).
 """
 
 import numpy as np
@@ -18,9 +20,10 @@ import pytest
 import torch
 
 import mcintegration_tpu_torch as mt
-from mcintegration_tpu_torch.ops import chain_kernels as ck, vegas_kernels as vk
+from mcintegration_tpu_torch.ops import chain_kernels as ck, mcmc_kernels as mk, vegas_kernels as vk
 from mcintegration_tpu_torch.ops.rng import block_keys
 from mcintegration_tpu_torch.solvers.engine import Spec
+from mcintegration_tpu_torch.solvers.mcmc import MCMCIteration
 from mcintegration_tpu_torch.solvers.vegas import VegasIteration
 from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration
 
@@ -130,4 +133,78 @@ def test_cuda_vegasmc_integrates(cuda):
                        seed=5, verbose=-2, device="cuda")
     assert res.backend == "cuda"
     assert ck.launch_counts["chain_propose"] == ck.launch_counts["chain_accept"] > 4
+    assert abs(res.mean[0] - np.pi / 4) < 7 * res.stdev[0]
+
+
+def _mcmc_iteration(device, big):
+    """Every branch of the :mcmc kernels: a trained map and a Discrete pool in
+    a CompositeVar, FermiK pools in 3-D and 2-D, groups of two slots (swap),
+    integrands of different dof and a custom measure.  ``big`` reads its
+    Discrete CDF (2004 bins) and adds its histogram (8192 bins) and its 21
+    sectors' tallies in device memory, not shared memory."""
+    rng = np.random.default_rng(5)
+    c = mt.Continuous(0.0, 1.0, ninc=8192 if big else 1000)
+    d = mt.Discrete(-3, 2000) if big else mt.Discrete(1, 40)
+    for leaf in (c, d):
+        leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
+        leaf.train()
+    var = (mt.CompositeVar(c, d), mt.FermiK(3, 1.0, 0.3, 10.0), mt.FermiK(2, 1.0, 0.3, 10.0))
+    dof = [[2, 1, 0], [1, 2, 1]] * (10 if big else 1)
+    obs = [np.zeros(2)] * len(dof)
+
+    def f(i, x, cc):
+        (a, dd), k3, k2 = x
+        w = a[0] * (1.0 + dd[0].to(torch.float32).abs() / 40.0)
+        if i % 2 == 0:
+            return w * torch.exp(-(k3[0] * k3[0]).sum(0))
+        return w * torch.exp(-(k2[0] * k2[0]).sum(0) - (k3[1] * k3[1]).sum(0))
+
+    def meas(i, x, relw, cc):
+        out = [torch.zeros((2,) + relw.shape, device=relw.device)] * len(obs)
+        out[i] = torch.stack([relw, relw * x[0][0][0]])
+        return out
+
+    spec = Spec(mt.Configuration(var=var, dof=dof, seed=2, obs=obs), device)
+    return MCMCIteration(spec, f, measure=meas, obs_proto=obs, block=4, nevalperblock=2 ** 18,
+                         nwalkers=2 ** 14, thermal_ratio=0.1)
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["shared-memory", "global-memory"])
+def test_mcmc_kernels_match_plain(cuda, big):
+    it = _mcmc_iteration(cuda, big)
+    lay = it.layout
+    assert (lay.smem_floats > 0, lay.nhist <= mk.SMEM_HIST_BINS,
+            lay.counters <= mk.SMEM_COUNTERS) == (not big,) * 3
+    kd_np = block_keys(2, 0, 0, it.block)
+    sched, groups = it.schedule(kd_np)
+    kd = it.seeds(kd_np)
+    before = dict(mk.launch_counts)
+    tab, rw, st = it.start(it.spec.device_params(), kd, sched)
+    for t in range(3):
+        it.step(tab, rw, kd, sched, groups[t], st, t)
+    ref = st.clone()
+    mk.mcmc_propose(lay, tab, kd, sched, 3, st)
+    mk.mcmc_propose_plain(lay, tab, kd, sched, 3, ref)
+    nw = it.weights(st, groups[3])
+    mk.mcmc_accept(lay, tab, rw, kd, sched, 3, st, nw, measure=True)
+    mk.mcmc_accept_plain(lay, tab, rw, kd, sched, 3, ref, nw, measure=True)
+    m = it.measure[1](lay.leaf_values(st.cur_val), st.relw).contiguous()
+    mk.mcmc_measure(lay, 1, m, st)
+    mk.mcmc_measure_plain(lay, 1, m, ref)
+    torch.cuda.synchronize()
+    for name in vars(st):
+        assert _bits_equal(getattr(st, name), getattr(ref, name)), name
+    assert int(st.tally[1].sum()) > 0 and float(st.hist.sum()) > 0
+    assert mk.launch_counts["mcmc_propose"] == before["mcmc_propose"] + 15
+    assert mk.launch_counts["mcmc_accept"] == before["mcmc_accept"] + 15
+    assert mk.launch_counts["mcmc_measure"] > before["mcmc_measure"]
+
+
+def test_cuda_mcmc_integrates(cuda):
+    f = lambda i, x, c: torch.where(x[0] ** 2 + x[1] ** 2 < 1.0, 1.0, 0.0)
+    mk.reset_launch_counts()
+    res = mt.integrate(f, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 22, niter=4,
+                       solver="mcmc", seed=5, verbose=-2, device="cuda")
+    assert res.backend == "cuda"
+    assert mk.launch_counts["mcmc_propose"] == mk.launch_counts["mcmc_accept"] > 4
     assert abs(res.mean[0] - np.pi / 4) < 7 * res.stdev[0]

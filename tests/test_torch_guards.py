@@ -34,7 +34,8 @@ def _python(code_or_args, cwd):
 def test_port_imports_no_jax():
     code = ("import sys, mcintegration_tpu_torch, mcintegration_tpu_torch.main, "
             "mcintegration_tpu_torch.ops.vegas_kernels, mcintegration_tpu_torch.ops._build, "
-            "mcintegration_tpu_torch.ops.chain_kernels, "
+            "mcintegration_tpu_torch.ops.chain_kernels, mcintegration_tpu_torch.ops.mcmc_kernels, "
+            "mcintegration_tpu_torch.ops.fermik, mcintegration_tpu_torch.solvers.mcmc, "
             "mcintegration_tpu_torch.solvers.vegasmc, mcintegration_tpu_torch.checkpoint\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'mcintegration_tpu.'))]\n"
@@ -52,7 +53,7 @@ def test_cuda_device_without_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"solver": "vegasmc", "measure": lambda v, relw, c: relw}, "item 14"),
-    ({"solver": ":mcmc"}, "item 12"),
+    ({"solver": ":mcmc", "type": complex}, "item 14"),
     ({"solver": "vegasplus"}, "item 13"),
     ({"measure": lambda v, relw, c: relw}, "item 14"),
     ({"measurefreq": 2}, "item 14"),
@@ -80,16 +81,21 @@ def test_default_solver_is_not_served_and_unknown_solver_fails():
         mt.integrate(_pi, solver="nope", device="cpu")
 
 
-@pytest.mark.parametrize("cls,item", [(Discrete, "item 14"), (FermiK, "item 12")])
+@pytest.mark.parametrize("cls,item", [(Discrete, "item 14"), (FermiK, ":mcmc solver only")],
+                         ids=["cls0-item 14", "cls1-item 12"])
 def test_unported_pools_raise(cls, item):
-    """FermiK is not ported; a Discrete pool runs on :vegasmc but not on the
-    :vegas kernels."""
-    with pytest.raises(NotImplementedError, match=item):
-        if cls is Discrete:
+    """A Discrete pool runs on :vegasmc and :mcmc but not on the :vegas
+    kernels; a FermiK pool runs on :mcmc only, and raises on :vegas and
+    :vegasmc as in the JAX package (tests/test_bubble_fermik.py:63-70)."""
+    if cls is Discrete:
+        with pytest.raises(NotImplementedError, match=item):
             mt.integrate(lambda x, c: x[0], var=cls(1, 10), dof=[[1]], neval=2 ** 12,
                          solver="vegas", device="cpu", verbose=-2)
-        else:
-            cls(1, 10)
+        return
+    for solver in ("vegas", "vegasmc"):
+        with pytest.raises(NotImplementedError, match=item):
+            mt.integrate(lambda x, c: 1.0, var=(mt.Continuous(0.0, 1.0), cls(3, 1.0, 0.2, 10.0)),
+                         dof=[[1, 1]], neval=2 ** 12, solver=solver, device="cpu", verbose=-2)
 
 
 def _vars(pkg):

@@ -137,8 +137,9 @@ def test_unported_vegasmc_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         mt.integrate(lambda x, c: x[0], var=mt.Continuous(0.0, 1.0), dof=[[1]],
                      neval=2 ** 12, solver="vegasmc", device="cpu", verbose=-2, **kwargs)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FermiK(3, 1.0, 0.5, 2.0)
+    with pytest.raises(NotImplementedError, match=":mcmc solver only"):
+        mt.integrate(lambda x, c: 1.0, var=FermiK(3, 1.0, 0.5, 2.0), dof=[[1]],
+                     neval=2 ** 12, solver="vegasmc", device="cpu", verbose=-2)
 
 
 def _estimate(it, seed):
