@@ -25,6 +25,15 @@ with nvcc and drives both ported paths on the card.
   the unit balls, a Discrete pool and the FermiK shells against their exact
   values, time per step, and a profile of one iteration.
 
+- :vegasplus (phases 3d-7d): ``vplus_sample`` and ``vplus_reduce`` against
+  their plain versions after one reallocation of the hypercube counts, at
+  the main path's shape and on a spec that takes every branch, and over a
+  whole iteration; ``integrate(solver="vegasplus", device="cuda")`` on the
+  non-separable ``singular_3d`` integrand at 2^30 evals per iteration against
+  its exact value, with its error bar beside :vegas' on the same budget; pi,
+  ``log(x)/sqrt(x)``, the 4-D Gaussians, padding and a Discrete passenger
+  against their exact values; kernel times; and a profile of two iterations.
+
 Each path's launch counts are set to 0 just before its main path runs and
 read just after.  Any failed phase raises, so the exit code is non-zero.
 
@@ -44,6 +53,7 @@ import numpy as np
 SEED = 20260817
 REL_TOL_REDUCE = 1e-9   # same float32 products, float64 sums in another order
 REL_TOL_HIST = 1e-9     # chain histograms: float64 atomics in another order
+REL_TOL_VPLUS = 1e-12   # vplus_reduce: the same float32 terms, float64 sums in another order
 
 
 def _pi(x, c):
@@ -892,6 +902,280 @@ def mcmc_checks(mt):
         print(f"phase 5c: {name}: reweight {res.config.reweight.tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# :vegasplus, hypercube stratification
+# ---------------------------------------------------------------------------
+
+SING3_EXACT = 1.3932039296856768     # benchmarks/report.py:594, the published battery
+
+
+PI_HI = float(np.float32(np.pi))     # pi = PI_HI + PI_LO to float32's double precision
+PI_LO = np.pi - PI_HI
+
+
+def _sing3(x, c):
+    """``singular_3d`` of the published battery: 1/(1 - cos a cos b cos c)/pi^3
+    on [0, pi)^3, free of cancellation in float32 at all four singular corners.
+
+    The battery writes 1 - cos a cos b cos c as s2a + ca*s2b + ca*cb*s2c with
+    s2 = 2 sin^2(./2), which is a sum of non-negative terms near the origin
+    only.  The denominator also vanishes at (pi, pi, 0), (pi, 0, pi) and
+    (0, pi, pi), where that sum cancels (2 - 2 + small) and is wrong by a
+    factor of 85 at distance 1e-2 and of 4.5e6 at 1e-3 in float32.  At 2^30
+    evaluations per iteration the stratified sampler resolves those corners
+    and trains on the rounding noise, and the estimate diverges (PERF.md).
+    So each angle is folded to its distance u from the nearer of 0 and pi,
+    |cos| = cos u, and the battery's sum runs on the folded angles (every cos
+    non-negative); an odd number of angles beyond pi/2 flips the product's
+    sign, and the denominator is then 2 minus that sum."""
+    import torch
+    u = [torch.minimum(t, (PI_HI - t) + PI_LO) for t in x]
+    ca, cb = torch.cos(u[0]), torch.cos(u[1])
+    s2a = 2 * torch.sin(u[0] / 2) ** 2
+    s2b = 2 * torch.sin(u[1] / 2) ** 2
+    s2c = 2 * torch.sin(u[2] / 2) ** 2
+    below = s2a + ca * s2b + ca * cb * s2c               # 1 - |cos a cos b cos c|
+    odd = (x[0] > np.pi / 2) ^ (x[1] > np.pi / 2) ^ (x[2] > np.pi / 2)
+    return 1.0 / torch.where(odd, 2.0 - below, below) / np.pi ** 3
+
+
+SING3_KW = dict(dof=[[3]], solver="vegasplus", neval=2 ** 30, block=16, device="cuda",
+                seed=SEED, verbose=-2)
+
+
+def _vplus_allbranch_f(x, c):
+    import torch
+    (t, d), u, v = x
+    return (t[0] * (1.0 + u[0]) + 0.1,
+            (t[0] + t[1]) * d[1].to(torch.float32) * torch.exp(-u[0] * v[0]) + 0.2)
+
+
+def vplus_allbranch(mt, nevalperblock):
+    """Phase 3d's spec: trained maps of ninc=1000 and ninc=64, a trained
+    Discrete(1, 7) passenger bundled with the first, a non-adaptive pool, and
+    two integrands of which the first leaves a slot of two groups unused."""
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
+
+    rng = np.random.default_rng(4)
+    a, b = mt.Continuous(0.0, 1.0, ninc=1000), mt.Continuous(0.0, 2.0, ninc=64)
+    d, e = mt.Discrete(1, 7), mt.Continuous(-1.0, 1.0, ninc=48, adapt=False)
+    for leaf in (a, b, d):
+        leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
+        leaf.train()
+    cfg = mt.Configuration(var=(mt.CompositeVar(a, d), b, e), dof=[[1, 1, 0], [2, 1, 1]],
+                           seed=SEED)
+    return VegasPlusIteration(Spec(cfg, "cuda"), _vplus_allbranch_f, block=16,
+                              nevalperblock=nevalperblock)
+
+
+def vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, what):
+    """One launch of both :vegasplus kernels at chunks [t0, t0+T) against
+    their plain versions on the same inputs; raises on any disagreement.
+    Returns (max abs err of the sample, of the reduce, the reduce's rel err)."""
+    import torch
+    lay = it.layout
+    x, gidx = vp.vplus_sample(lay, tab, kd, t0, T, cube)
+    xp, gidxp = vp.vplus_sample_plain(lay, tab, kd, t0, T, cube)
+    torch.cuda.synchronize()
+    if not (torch.equal(bits(x), bits(xp)) and torch.equal(gidx, gidxp)):
+        raise AssertionError(f"vplus_sample differs from the plain version ({what})")
+    err_sample = float((x - xp).abs().max())
+    del xp, gidxp
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    del x
+    got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
+    want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac)
+    torch.cuda.synchronize()
+    rels = [rel_err(a.cpu(), b.cpu()) for a, b in zip(got, want)]
+    if max(rels) > REL_TOL_VPLUS:
+        raise AssertionError(f"vplus_reduce vs plain ({what}): obs/sig/hist rel {rels} "
+                             f"> {REL_TOL_VPLUS}")
+    err_reduce = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    return err_sample, err_reduce, max(rels)
+
+
+def vplus_vs_plain(mt, vp, card):
+    """Phase 3d: both kernels against their plain versions after one
+    reallocation, at the main path's shape and on the all-branch spec; then a
+    whole iteration through the kernels against one through the plain
+    versions."""
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
+
+    cfg = mt.Configuration(var=mt.Continuous(0.0, np.pi), dof=[[3]], seed=SEED)
+    leaf = cfg.var[0]
+    leaf.histogram = np.random.default_rng(1).gamma(0.5, 1.0, leaf.ninc) + 1e-3
+    leaf.train()
+    main = VegasPlusIteration(Spec(cfg, "cuda"), _sing3, block=16, nevalperblock=2 ** 26)
+    for name, it in (("main path's shape", main), ("all-branch spec", vplus_allbranch(mt, 2 ** 20))):
+        lay, params = it.layout, it.spec.device_params()
+        it.run(params, block_keys(SEED, 0, 0, it.block))          # reallocates the counts
+        tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
+        cube, cfac = it.cube_tables()
+        T = it.chunks_per_launch
+        for t0 in (0, it.nchunks - T):
+            _, _, rel = vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, name)
+        print(f"phase 3d: {name}: {lay.S} slots ({lay.D} stratified), nstrat {it.nstrat}, "
+              f"{it.ncubes} cubes, chunk {it.chunk}, counts {int(it.counts.min())}.."
+              f"{int(it.counts.max())}, launch [{it.block},{T},{it.chunk}]: x and gidx "
+              f"bit-equal, obs/sig/hist rel {rel:.3g}")
+
+    it = vplus_allbranch(mt, 2 ** 20)
+    params = it.spec.device_params()
+    it.run(params, block_keys(SEED, 0, 0, it.block))
+    counts, kd = it.counts.copy(), block_keys(SEED, 2, 0, it.block)
+    got = it.run(params, kd)
+    got_counts, got_sig = it.counts.copy(), it.last_sig
+    it.counts = counts.copy()
+    with plain_versions(vp, "vplus_sample", "vplus_reduce"):
+        want = it.run(params, kd)
+    moved = int(np.abs(got_counts - it.counts).sum())
+    rels = [rel_err(got["obs_blocks"], want["obs_blocks"]), rel_err(got_sig, it.last_sig),
+            max(rel_err(h, r) for h, r in zip(got["hists"], want["hists"]) if r.any())]
+    # a count may differ where the rounding of sig tips a floor()
+    if max(rels) > REL_TOL_VPLUS or moved > 4 or np.array_equal(got_counts, counts):
+        raise AssertionError(f"whole :vegasplus iteration vs plain: obs/sig/hist rel {rels}, "
+                             f"{moved} samples allocated otherwise")
+    print(f"phase 3d: whole iteration ({it.nchunks} chunks of {it.chunk}, {it.launches_per_run} "
+          f"launches): obs rel {rels[0]:.3g}, sig rel {rels[1]:.3g}, hist rel {rels[2]:.3g}, "
+          f"{moved} samples allocated otherwise by the next counts")
+
+
+def vplus_main_path(mt, vp, card, niter=10):
+    """Phase 4d: singular_3d through integrate(solver="vegasplus") at 2^30
+    evals per iteration, against its exact value; then :vegas on the same
+    problem and budget, for the ratio of the error bars."""
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
+
+    var = lambda: mt.Continuous(0.0, np.pi)
+    shape = VegasPlusIteration(Spec(mt.Configuration(var=var(), dof=[[3]], seed=SEED), "cuda"),
+                               _sing3, block=16, nevalperblock=2 ** 26)
+    expected = niter * shape.launches_per_run
+    vp.reset_launch_counts()
+    res = mt.integrate(_sing3, var=var(), niter=niter, **SING3_KW)
+    counts = dict(vp.launch_counts)
+    mean, err = float(res.mean[0]), float(res.stdev[0])
+    assert res.backend == "cuda" and res.backend_reason == "", (res.backend, res.backend_reason)
+    assert expected > 0 and all(n == expected for n in counts.values()), (counts, expected)
+    evals = [h[2].neval for h in res.iterations]
+    steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+    print(f"phase 4d: singular_3d = {mean!r} +- {err!r} vs {SING3_EXACT!r} "
+          f"({(mean - SING3_EXACT) / err:+.2f} sigma), chi2 {float(res.chi2[0])!r}, {niter} "
+          f"iterations of {evals[0]} evals ({shape.ncubes} cubes, {shape.nchunks} chunks of "
+          f"{shape.chunk} per block), launches {counts} (expected {expected} each), backend "
+          f"{res.backend}")
+    print(f"phase 4d: per-iteration estimates "
+          f"{[(float(h[0][0]), float(h[1][0])) for h in res.iterations]}")
+    print(f"phase 4d: steady-state {steady!r} evals/s (iterations 2-{niter}; per-iteration s "
+          f"{res.iteration_times}) [{card}]")
+    assert abs(mean - SING3_EXACT) < 5 * err, (mean, err)
+    ref = mt.integrate(_sing3, var=var(), niter=niter, **{**SING3_KW, "solver": "vegas"})
+    rmean, rerr = float(ref.mean[0]), float(ref.stdev[0])
+    rsteady = sum(evals[1:]) / sum(ref.iteration_times[1:])
+    print(f"phase 4d: :vegas on the same problem and budget: {rmean!r} +- {rerr!r} "
+          f"({(rmean - SING3_EXACT) / rerr:+.2f} sigma), {rsteady!r} evals/s; error bar "
+          f":vegas / :vegasplus = {rerr / err!r} [{card}]")
+    return counts, shape
+
+
+def vplus_checks(mt):
+    """Phase 5d: the published battery's other anchors, padding and a
+    Discrete passenger on :vegasplus, each within 7 sigma."""
+    import torch
+
+    def logsing(x, c):
+        return torch.log(x[0]) / torch.sqrt(x[0])
+
+    def gauss4d(x, c):
+        return torch.exp(-100.0 * sum((x[k] - 0.5) ** 2 for k in range(4))) * 1013.2118364296088
+
+    def moments(x, c):
+        g = torch.exp(-200.0 * sum((x[k] - 0.5) ** 2 for k in range(4))) * 1000.0
+        return g, g * x[0], g * x[0] ** 2
+
+    def passenger(x, c):
+        t, d = x
+        return t[0] * t[1] * d[0].to(torch.float32)
+
+    def passenger_pad(x, c):
+        t, d = x
+        return t[0], t[0] * t[1] * d[0].to(torch.float32)
+
+    i0 = 1000.0 * (np.pi / 200.0) ** 2
+    cont, td = mt.Continuous(0.0, 1.0), (mt.Continuous(0.0, 1.0), mt.Discrete(1, 4))
+    runs = [("pi", _pi, cont, [[2]], [np.pi / 4]),
+            ("log(x)/sqrt(x)", logsing, cont, [[1]], [-4.0]),
+            ("gauss4d", gauss4d, cont, [[4]], [1.0]),
+            ("gauss_moments", moments, cont, [[4], [4], [4]], [i0, i0 / 2, i0 * 0.2525]),
+            ("padded pair, dof=[[1],[2]]", _two, cont, [[1], [2]], [0.5, np.pi / 4]),
+            ("Discrete(1, 4) passenger", passenger, td, [[2, 1]], [2.5]),
+            ("Discrete(1, 4) passenger with padding", passenger_pad, td, [[1, 0], [2, 1]],
+             [0.5, 2.5])]
+    for name, f, var, dof, exact in runs:
+        res = mt.integrate(f, var=var, dof=dof, neval=2 ** 24, niter=10, block=16,
+                           solver="vegasplus", device="cuda", seed=SEED, verbose=-2)
+        assert res.backend == "cuda" and res.backend_reason == "", (name, res.backend_reason)
+        for i, e in enumerate(exact):
+            m, s = float(res.mean[i]), float(res.stdev[i])
+            print(f"phase 5d: {name}, integral {i}: {m!r} +- {s!r} vs {e!r} "
+                  f"({(m - e) / s:+.2f} sigma)")
+            assert abs(m - e) < 7 * s, (name, i, m, s, e)
+
+
+def vplus_timings(mt, vp, shape, card):
+    """Phase 6d: device time per launch of each :vegasplus kernel and of the
+    integrand at the main path's launch shape, after one reallocation, the
+    kernels in turns with their plain versions (plain, kernel, kernel, plain)."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+
+    it, lay = shape, shape.layout
+    params = it.spec.device_params()
+    it.run(params, block_keys(SEED, 0, 0, it.block))              # reallocates the counts
+    tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
+    cube, cfac = it.cube_tables()
+    T = it.chunks_per_launch
+    err_sample, err_reduce, _ = vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, 0, T,
+                                                      "phase 6d")
+    x, gidx = vp.vplus_sample(lay, tab, kd, 0, T, cube)
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    ms = {"sample": [], "sample_plain": [], "reduce": [], "reduce_plain": []}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for kind in order:
+            sfx, timer, reps = ("", device_ms, 10) if kind == "kernel" else ("_plain", time_ms, 2)
+            samp, red = getattr(vp, "vplus_sample" + sfx), getattr(vp, "vplus_reduce" + sfx)
+            ms["sample" + sfx].append(timer(lambda: samp(lay, tab, kd, 0, T, cube), reps))
+            ms["reduce" + sfx].append(timer(lambda: red(lay, tab, w, gidx, cube, cfac), reps))
+    ms = {k: float(np.mean(v)) for k, v in ms.items()}
+    ms_integrand = device_ms(lambda: it.evaluate(lay.leaf_values(x)), 5)
+    n, S, N = it.block * T * it.chunk, lay.S, it.spec.N
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    obs, sig, hist = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
+    sample_bytes = nbytes(kd, cube, lay.meta, tab, x, gidx)
+    reduce_bytes = nbytes(w, gidx, cube, cfac, tab, lay.meta, obs, sig, hist)
+    # about 30 operations per drawn value (the hash, the cube's coordinate,
+    # the map) and 40 per sample, slot and integrand in the reduction
+    b_sample = bound(sample_bytes, 30 * n * S)
+    b_reduce = bound(reduce_bytes, 40 * n * (S + N))
+    print(f"phase 6d: one launch = {it.block} blocks x {T} chunks x {it.chunk} samples "
+          f"({n} evals, {S} slots, counts {int(it.counts.min())}..{int(it.counts.max())}); "
+          f"device time per call, calls queued behind a sleep kernel [{card}]")
+    print(f"phase 6d: vplus_sample {ms['sample']!r} ms/launch, plain torch "
+          f"{ms['sample_plain']!r} ms (host clock) [{card}]")
+    print(f"phase 6d: integrand (torch) {ms_integrand!r} ms/launch [{card}]")
+    print(f"phase 6d: vplus_reduce {ms['reduce']!r} ms/launch, plain torch "
+          f"{ms['reduce_plain']!r} ms (host clock) [{card}]")
+    print(f"phase 6d: vplus_sample bound {b_sample[0]!r} ms ({sample_bytes} bytes, by "
+          f"{b_sample[1]}); vplus_reduce bound {b_reduce[0]!r} ms ({reduce_bytes} bytes, by "
+          f"{b_reduce[1]})")
+    print(f"phase 6d: peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    return {"vplus_sample": (err_sample, ms["sample"], ms["sample_plain"], *b_sample),
+            "vplus_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"], *b_reduce)}
+
+
 PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
 PEAK_OPS = 67e12        # float32 outside the tensor cores, operations/s
 
@@ -1014,7 +1298,7 @@ def main() -> int:
 
     import mcintegration_tpu_torch as mt
     from mcintegration_tpu_torch.ops import (_build, chain_kernels as ck, mcmc_kernels as mk,
-                                             vegas_kernels as vk)
+                                             vegas_kernels as vk, vplus_kernels as vp)
 
     t0 = time.perf_counter()                                  # phase 2
     _build.load(verbose=True)
@@ -1035,15 +1319,20 @@ def main() -> int:
     timed("3", kernel_vs_plain, mt, vk, card)
     timed("3b", chain_vs_plain, mt, ck, card)
     timed("3c", mcmc_vs_plain, mt, mk, card)
+    timed("3d", vplus_vs_plain, mt, vp, card)
     counts, shape = timed("4", main_path, mt, vk, card)
     counts.update(timed("4b", chain_main_path, mt, ck, card))
     counts.update(timed("4c", mcmc_main_path, mt, mk, card))
+    vcounts, vshape = timed("4d", vplus_main_path, mt, vp, card)
+    counts.update(vcounts)
     timed("5", adaptive_checks, mt)
     timed("5b", chain_checks, mt)
     timed("5c", mcmc_checks, mt)
+    timed("5d", vplus_checks, mt)
     measured = timed("6", timings, mt, vk, shape, card)
     measured.update(timed("6b", chain_timings, mt, ck, card))
     measured.update(timed("6c", mcmc_timings, mt, mk, card))
+    measured.update(timed("6d", vplus_timings, mt, vp, vshape, card))
     common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2, niter=3)
     for phase, kw in (("7", dict(neval=2 ** 30, solver="vegas", **common)),
                       ("7b", dict(neval=2 ** 28, solver="vegasmc", nwalkers=2 ** 20, **common))):
@@ -1056,13 +1345,19 @@ def main() -> int:
         make_bubble("cuda"), neval=2 ** 28, nwalkers=2 ** 18, niter=1, device="cuda", seed=SEED,
         verbose=-2, **bubble_kw(mt)))
 
+    res = timed("7d", profile_main_path, card, "7d", lambda: mt.integrate(
+        _sing3, var=mt.Continuous(0.0, np.pi), niter=2, **SING3_KW))
+    assert abs(float(res.mean[0]) - SING3_EXACT) < 5 * float(res.stdev[0])
+
     replaces = {"vegas_sample": "mcintegration_tpu/ops/pallas_vegas.py:343",
                 "vegas_reduce": "mcintegration_tpu/ops/pallas_vegas.py:343",
                 "chain_propose": "mcintegration_tpu/ops/pallas_chain.py:410",
                 "chain_accept": "mcintegration_tpu/ops/pallas_chain.py:410",
                 "mcmc_propose": "mcintegration_tpu/ops/pallas_mcmc.py:476",
                 "mcmc_accept": "mcintegration_tpu/ops/pallas_mcmc.py:476",
-                "mcmc_measure": "mcintegration_tpu/ops/pallas_mcmc.py:476"}
+                "mcmc_measure": "mcintegration_tpu/ops/pallas_mcmc.py:476",
+                "vplus_sample": "mcintegration_tpu/ops/pallas_vplus.py:156",
+                "vplus_reduce": "mcintegration_tpu/ops/pallas_vplus.py:156"}
     kernels = []
     for name, where in replaces.items():
         err, ms, plain_ms, bound_ms, bound_by = measured[name]

@@ -2,11 +2,15 @@
 
 Serves ``integrate(..., solver="vegasmc")`` (the default) on ``Continuous``
 and ``Discrete`` pools, ``integrate(..., solver="mcmc")`` on those and
-``FermiK`` pools, with custom measures, and ``integrate(..., solver="vegas")``
-on ``Continuous`` pools, on one NVIDIA GPU: the chain steps' proposals and
-Metropolis accepts (:vegasmc, :mcmc), and the stratified Vegas draw and the
-observable/histogram reduction (:vegas), are hand-written CUDA kernels
-(``csrc/``); the user integrand and measure run as torch ops between them, and map training, reweighting and statistics run in float64
+``FermiK`` pools, with custom measures, ``integrate(..., solver="vegas")``
+on ``Continuous`` pools, and ``integrate(..., solver="vegasplus")`` on
+``Continuous`` pools with ``Discrete`` passengers, on one NVIDIA GPU: the
+chain steps' proposals and Metropolis accepts (:vegasmc, :mcmc), the
+stratified Vegas draw and the observable/histogram reduction (:vegas), and
+the hypercube draw and the density, second-moment and histogram reduction
+(:vegasplus) are hand-written CUDA kernels (``csrc/``); the user integrand
+and measure run as torch ops between them, and map training, reweighting,
+the reallocation of samples to hypercubes and statistics run in float64
 numpy on the host.  With ``device="cpu"`` the kernels' plain PyTorch
 versions run instead.
 

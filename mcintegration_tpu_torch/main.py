@@ -1,8 +1,8 @@
 """``integrate`` — the user entry point of the PyTorch port.
 
 Counterpart of ``mcintegration_tpu/main.py:214-600`` for ``solver="vegas"``,
-``solver="vegasmc"`` and ``solver="mcmc"`` and of the reference's ``integrate``
-(src/main.jl:71-218): niter rounds of (blocks -> reduce -> reweight ->
+``solver="vegasmc"``, ``solver="mcmc"`` and ``solver="vegasplus"`` and of the
+reference's ``integrate`` (src/main.jl:71-218): niter rounds of (blocks -> reduce -> reweight ->
 train), on one device.  Host-side per-iteration math (block statistics
 src/main.jl:296-320, reweighting, grid training) runs in float64 numpy.
 """
@@ -23,10 +23,9 @@ from .solvers.engine import Spec, tree_map
 from .solvers.mcmc import MCMCIteration
 from .solvers.vegas import VegasIteration
 from .solvers.vegasmc import VegasMCIteration
+from .solvers.vegasplus import VegasPlusIteration
 from .statistics import Result, mean_std, report
 from .utils import ProgressBar, StopWatch, red, yellow
-
-_SOLVER_ITEMS = {"vegas+": 13, "vegasplus": 13}
 
 
 def _standardize_block(neval, nblock, nworker=1):
@@ -109,7 +108,9 @@ def integrate(integrand: Callable, *,
     Mirrors ``mcintegration_tpu.integrate`` (and the reference keyword
     surface, src/main.jl:71-90) for ``solver="vegasmc"`` (the default) on
     ``Continuous`` and ``Discrete`` pools, for ``solver="mcmc"`` on those and
-    ``FermiK`` pools, and for ``solver="vegas"`` on ``Continuous`` pools;
+    ``FermiK`` pools, for ``solver="vegas"`` on ``Continuous`` pools, and for
+    ``solver="vegasplus"`` (or ``"vegas+"``) on ``Continuous`` pools with
+    ``Discrete`` pools riding along unstratified;
     ``Continuous`` and ``Discrete`` pools may be bundled in a
     ``CompositeVar``.  ``device`` names the device explicitly: ``"cuda"``
     (the default) runs the hand-written kernels and raises when no card is
@@ -125,24 +126,24 @@ def integrate(integrand: Callable, *,
     relw, c)`` returns the observables' contributions, shaped like ``obs``.
 
     Inputs the port does not serve yet raise ``NotImplementedError`` naming
-    the ROADMAP.md item that will port them: :vegasplus, a custom
-    ``measure`` on :vegas and :vegasmc, ``measurefreq != 1`` on :vegas,
-    ``type=complex``, ``mesh`` and ``debug``; FermiK pools raise on :vegas
-    and :vegasmc, as in the reference.
+    the ROADMAP.md item that will port them: a custom ``measure`` on
+    :vegas, :vegasmc and :vegasplus, ``measurefreq != 1`` on :vegas and
+    :vegasplus, ``type=complex``, ``mesh`` and ``debug``; FermiK pools raise
+    on every solver but :mcmc, as in the reference.
 
     ``result.backend`` is ``"cuda"`` or ``"torch"``; ``backend_reason``
     says why, when the integrand or the measure runs per sample under
     ``torch.func.vmap``.
     """
     solver = str(solver).lstrip(":")
-    if solver not in ("vegas", "vegasmc", "mcmc"):
-        if solver in _SOLVER_ITEMS:
-            _not_ported(f"solver={solver!r}", _SOLVER_ITEMS[solver])
+    if solver == "vegas+":
+        solver = "vegasplus"
+    if solver not in ("vegas", "vegasmc", "mcmc", "vegasplus"):
         raise ValueError(f"Solver {solver} is not supported!")
     if measure is not None and solver != "mcmc":
         _not_ported(f"a custom measure on :{solver}", 14)
-    if measurefreq != 1 and solver == "vegas":
-        _not_ported(f"measurefreq={measurefreq} on :vegas", 14)
+    if measurefreq != 1 and solver in ("vegas", "vegasplus"):
+        _not_ported(f"measurefreq={measurefreq} on :{solver}", 14)
     if mesh is not None:
         _not_ported("mesh (multi-device runs)", 15)
     if debug:
@@ -177,6 +178,9 @@ def integrate(integrand: Callable, *,
             block=block, nevalperblock=nevalperblock, nwalkers=nwalkers,
             min_steps_per_walker=min_steps_per_walker,
             warmup=0.01 if warmup is None else warmup)
+    elif solver == "vegasplus":
+        it_kernel = VegasPlusIteration(spec, integrand, inplace=inplace, block=block,
+                                       nevalperblock=nevalperblock)
     else:
         it_kernel = VegasIteration(spec, integrand, inplace=inplace, block=block,
                                    nevalperblock=nevalperblock)

@@ -63,6 +63,12 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # i, ncomp, W, m, curr, obs, stream
     "mci_mcmc_measure": [_I, _I, _I, _P, _P, _P, _P],
+    # kd, t0, B, T, c, S, nstrat, cube, meta, tab, x, gidx, stream
+    "mci_vplus_sample": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, ncubes, H, hist_smem,
+    # span, warps, obs_rows, sig, hist, stream
+    "mci_vplus_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I,
+                         _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -12,7 +12,10 @@ so obs and histograms agree to rel 1e-9.  ``chain_propose`` and
 ``chain_accept`` must match theirs bit for bit from one state, but for the
 chain histogram (float64 atomics in another order: rel 1e-9).  The :mcmc
 kernels ``mcmc_propose``, ``mcmc_accept`` and ``mcmc_measure`` match theirs
-bit for bit, histograms included (they add exact 1.0s).
+bit for bit, histograms included (they add exact 1.0s).  ``vplus_sample``
+matches its plain version bit for bit; ``vplus_reduce`` forms the same float32
+terms and sums them in float64 in another order (atomics), so obs, the
+per-cube second moments and the histograms agree to rel 1e-12.
 """
 
 import numpy as np
@@ -20,12 +23,14 @@ import pytest
 import torch
 
 import mcintegration_tpu_torch as mt
-from mcintegration_tpu_torch.ops import chain_kernels as ck, mcmc_kernels as mk, vegas_kernels as vk
+from mcintegration_tpu_torch.ops import (chain_kernels as ck, mcmc_kernels as mk,
+                                         vegas_kernels as vk, vplus_kernels as vp)
 from mcintegration_tpu_torch.ops.rng import block_keys
 from mcintegration_tpu_torch.solvers.engine import Spec
 from mcintegration_tpu_torch.solvers.mcmc import MCMCIteration
 from mcintegration_tpu_torch.solvers.vegas import VegasIteration
 from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration
+from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
 
 pytestmark = pytest.mark.cuda
 
@@ -207,4 +212,58 @@ def test_cuda_mcmc_integrates(cuda):
                        solver="mcmc", seed=5, verbose=-2, device="cuda")
     assert res.backend == "cuda"
     assert mk.launch_counts["mcmc_propose"] == mk.launch_counts["mcmc_accept"] > 4
+    assert abs(res.mean[0] - np.pi / 4) < 7 * res.stdev[0]
+
+
+def _vplus_two(x, c):
+    (t, d), u, v = x
+    return (t[0] * (1.0 + u[0]) + 0.1,
+            (t[0] + t[1]) * d[1].to(torch.float32) * torch.exp(-u[0] * v[0]) + 0.2)
+
+
+@pytest.mark.parametrize("ninc,npb", [(1000, 2 ** 16), (6000, 3000)],
+                         ids=["shared-memory", "global-memory"])
+def test_vplus_kernels_match_plain(cuda, ninc, npb):
+    """Two pools of different ninc, a Discrete passenger in a CompositeVar, a
+    non-adaptive pool, two integrands with dof < maxdof, after one
+    reallocation.  The second case adds its histogram (more than 4096 bins)
+    in device memory, and its chunk is no multiple of the kernel's span."""
+    rng = np.random.default_rng(6)
+    a, b = mt.Continuous(0.0, 1.0, ninc=ninc), mt.Continuous(0.0, 2.0, ninc=64)
+    d, e = mt.Discrete(1, 7), mt.Continuous(-1.0, 1.0, ninc=48, adapt=False)
+    for leaf in (a, b, d):
+        leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
+        leaf.train()
+    cfg = mt.Configuration(var=(mt.CompositeVar(a, d), b, e), dof=[[1, 1, 0], [2, 1, 1]], seed=3)
+    spec = Spec(cfg, cuda)
+    it = VegasPlusIteration(spec, _vplus_two, block=4, nevalperblock=npb, max_cubes=81)
+    lay, params = it.layout, spec.device_params()
+    assert (lay.nhist <= vp.SMEM_HIST_BINS) == (ninc == 1000)
+    before = dict(vp.launch_counts)
+    it.run(params, block_keys(3, 0, 0, 4))
+    assert it.counts.max() > it.counts.min()
+    tab, kd = lay.tables(params), it.seeds(block_keys(3, 1, 0, 4))
+    cube, cfac = it.cube_tables()
+    x, gidx = vp.vplus_sample(lay, tab, kd, 1, 2, cube)
+    xp, gidxp = vp.vplus_sample_plain(lay, tab, kd, 1, 2, cube)
+    assert torch.equal(x.view(torch.int32), xp.view(torch.int32)) and torch.equal(gidx, gidxp)
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
+    want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
+    assert float(got[1].sum()) > 0 and float(got[2].sum()) > 0
+    n = it.launches_per_run + 1
+    assert vp.launch_counts == {"vplus_sample": before["vplus_sample"] + n,
+                                "vplus_reduce": before["vplus_reduce"] + n}
+
+
+def test_cuda_vegasplus_integrates(cuda):
+    f = lambda x, c: torch.where(x[0] ** 2 + x[1] ** 2 < 1.0, 1.0, 0.0)
+    vp.reset_launch_counts()
+    res = mt.integrate(f, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 22, niter=4,
+                       solver="vegasplus", seed=5, verbose=-2, device="cuda")
+    assert res.backend == "cuda"
+    assert vp.launch_counts["vplus_sample"] == vp.launch_counts["vplus_reduce"] >= 4
     assert abs(res.mean[0] - np.pi / 4) < 7 * res.stdev[0]

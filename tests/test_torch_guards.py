@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
             "mcintegration_tpu_torch.ops.vegas_kernels, mcintegration_tpu_torch.ops._build, "
             "mcintegration_tpu_torch.ops.chain_kernels, mcintegration_tpu_torch.ops.mcmc_kernels, "
             "mcintegration_tpu_torch.ops.fermik, mcintegration_tpu_torch.solvers.mcmc, "
-            "mcintegration_tpu_torch.solvers.vegasmc, mcintegration_tpu_torch.checkpoint\n"
+            "mcintegration_tpu_torch.solvers.vegasmc, mcintegration_tpu_torch.checkpoint, "
+            "mcintegration_tpu_torch.ops.vplus_kernels, mcintegration_tpu_torch.solvers.vegasplus\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'mcintegration_tpu.'))]\n"
             "assert not bad, bad\n")
@@ -54,7 +55,9 @@ def test_cuda_device_without_card_raises(monkeypatch):
 @pytest.mark.parametrize("kwargs,item", [
     ({"solver": "vegasmc", "measure": lambda v, relw, c: relw}, "item 14"),
     ({"solver": ":mcmc", "type": complex}, "item 14"),
-    ({"solver": "vegasplus"}, "item 13"),
+    ({"solver": "vegasplus", "measure": lambda v, relw, c: relw}, "item 14"),
+    ({"solver": "vegas+", "measurefreq": 2}, "item 14"),
+    ({"solver": ":vegasplus", "type": complex}, "item 14"),
     ({"measure": lambda v, relw, c: relw}, "item 14"),
     ({"measurefreq": 2}, "item 14"),
     ({"type": complex}, "item 14"),
@@ -62,7 +65,8 @@ def test_cuda_device_without_card_raises(monkeypatch):
     ({"debug": True}, "item 16"),
     ({"var": (mt.Continuous(0.0, 1.0, ninc=64), mt.Continuous(0.0, 1.0, ninc=32)),
       "dof": [[1, 1]]}, "item 14"),
-], ids=["vegasmc", "mcmc", "vegasplus", "measure", "measurefreq", "complex", "mesh",
+], ids=["vegasmc", "mcmc", "vegasplus-measure", "vegasplus-measurefreq", "vegasplus-complex",
+        "measure", "measurefreq", "complex", "mesh",
         "debug", "mixed-ninc"])
 def test_unported_options_raise(kwargs, item):
     kw = {"var": mt.Continuous(0.0, 1.0), "dof": [[2]], "neval": 2 ** 12,
@@ -77,8 +81,9 @@ def test_default_solver_is_not_served_and_unknown_solver_fails():
                        niter=2, device="cpu", verbose=-2, seed=1)
     assert res.backend == "torch" and res.neval == 2 * 2 ** 12
     assert abs(float(res.mean[0]) - np.pi / 4) < 7 * float(res.stdev[0])
-    with pytest.raises(ValueError, match="not supported"):
-        mt.integrate(_pi, solver="nope", device="cpu")
+    for solver in ("nope", "vegasplusplus", ":vegas++"):
+        with pytest.raises(ValueError, match="not supported"):
+            mt.integrate(_pi, solver=solver, device="cpu")
 
 
 @pytest.mark.parametrize("cls,item", [(Discrete, "item 14"), (FermiK, ":mcmc solver only")],
