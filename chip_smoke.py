@@ -23,7 +23,9 @@ with nvcc and drives both ported paths on the card.
   ``integrate(solver="mcmc", device="cuda")`` on the Lindhard bubble at 2^28
   evals per iteration with 2^18 walkers against the Lindhard function, pi,
   the unit balls, a Discrete pool and the FermiK shells against their exact
-  values, time per step, and a profile of one iteration.
+  values, time per step (``mcmc_accept`` on measured and unmeasured steps),
+  the bounds from each step's bytes and operations, a probe of what mixed
+  var groups cost ``mcmc_propose``, and a profile of one iteration.
 
 - :vegasplus (phases 3d-7d): ``vplus_sample`` and ``vplus_reduce`` against
   their plain versions after one reallocation of the hypercube counts, at
@@ -39,7 +41,8 @@ read just after.  Any failed phase raises, so the exit code is non-zero.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel (with its bound: the larger of its bytes over 3.35 TB/s and its
-operations over 67 TFLOP/s), and as the last line ``{"ok": true, "device": {...}}``.  Exits
+operations over 67 TFLOP/s float32 or 33.5 TOP/s INT32), and as the last line
+``{"ok": true, "device": {...}}``.  Exits
 non-zero without a result when no CUDA device is available.  Imports no JAX.
 """
 
@@ -754,9 +757,10 @@ def mcmc_allbranch(mt, W):
                          nevalperblock=W * 64 // 16, nwalkers=W, thermal_ratio=0.1)
 
 
-def mcmc_one_step(it, mk, st, tab, rw, kd, sched, group, t, what):
+def mcmc_one_step(it, mk, st, tab, rw, kd, sched, group, t, what, measure=True):
     """One step of each :mcmc kernel from ``st`` against its plain version
-    on a copy: (max abs err of propose, accept, measure).  ``st`` advances."""
+    on a copy: (max abs err of propose, accept, measure; the last 0.0 on an
+    unmeasured step).  ``st`` advances."""
     import torch
     lay = it.layout
     ref = st.clone()
@@ -765,10 +769,12 @@ def mcmc_one_step(it, mk, st, tab, rw, kd, sched, group, t, what):
     torch.cuda.synchronize()
     e_prop = state_bits_equal(st, ref, f"mcmc_propose {what}", hist_rel=0.0)
     nw = it.weights(st, group)
-    mk.mcmc_accept(lay, tab, rw, kd, sched, t, st, nw, measure=True)
-    mk.mcmc_accept_plain(lay, tab, rw, kd, sched, t, ref, nw, measure=True)
+    mk.mcmc_accept(lay, tab, rw, kd, sched, t, st, nw, measure=measure)
+    mk.mcmc_accept_plain(lay, tab, rw, kd, sched, t, ref, nw, measure=measure)
     torch.cuda.synchronize()
     e_acc = state_bits_equal(st, ref, f"mcmc_accept {what}", hist_rel=0.0)
+    if not measure:
+        return e_prop, e_acc, 0.0
     vals = lay.leaf_values(st.cur_val)
     for i, m in enumerate(it.measure):
         out = m(vals, st.relw).contiguous()
@@ -788,7 +794,7 @@ def mcmc_vs_plain(mt, mk, card):
 
     it = mcmc_allbranch(mt, 2 ** 20)
     lay = it.layout
-    assert (lay.smem_floats, it.backend_reason) == (0, ""), (lay.smem_floats, it.backend_reason)
+    assert it.backend_reason == "", it.backend_reason
     kd_np = block_keys(SEED, 0, 0, it.block)
     sched, groups = it.schedule(kd_np)
     kd = it.seeds(kd_np)
@@ -1177,50 +1183,155 @@ def vplus_timings(mt, vp, shape, card):
 
 
 PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
-PEAK_OPS = 67e12        # float32 outside the tensor cores, operations/s
+# float32 outside the tensor cores, operations/s: the data sheet's, a fused
+# multiply-add counted as two (the :mcmc kernels, built with --fmad=false,
+# issue none, so for them it is twice their single-issue rate)
+PEAK_OPS = 67e12
+# INT32, one operation per lane and clock: 132 SMs x 64 lanes x 1.98 GHz
+PEAK_INT_OPS = 16.7e12
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, int_ops=0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate, the H100 SXM data sheet's peaks."""
-    tb, to = float(nbytes) / PEAK_BYTES * 1e3, float(ops) / PEAK_OPS * 1e3
+    the operations' time, float32 operations over the float32 rate or
+    integer ones over the INT32 rate, whichever is longer (the two pipes
+    issue side by side), at the H100 SXM's peaks."""
+    tb = float(nbytes) / PEAK_BYTES * 1e3
+    to = max(float(ops) / PEAK_OPS, float(int_ops) / PEAK_INT_OPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def mcmc_bytes(it, st):
+def mcmc_bytes(it, st, after):
     """Bytes each :mcmc kernel must move on step ``st``'s walkers (after
-    ``mcmc_propose``), from the roles they drew and the sectors they sit in:
-    each field read once and written once where the kernel touches it.
-    Returns (propose, accept, measure of sector 0)."""
+    ``mcmc_propose``; ``after``: the state after ``mcmc_accept``), from the
+    roles they drew, the moves accepted and the sectors they sit in: each
+    field read once and written once where the kernel touches it.  Returns
+    (propose, accept on a measured step, accept on an unmeasured one,
+    measure of sector 0)."""
     lay = it.layout
-    W, norm = lay.W, lay.nd - 1
+    W, nvar, norm = lay.W, lay.spec.nvar, lay.nd - 1
     role = np.bincount(st.move[0].cpu().numpy(), minlength=5)
-    curr = st.curr.cpu().numpy()
+    n_role = int(role[1:].sum())
+    acc = (after.tally[1] - st.tally[1]).cpu().numpy()   # [CI and NJ, CV, swap, nd, ncol]
+    n_acc, n_jump = int(acc.sum()), int(acc[0].sum())
+    curr = after.curr.cpu().numpy()
     n_norm, n_zero = int((curr == norm).sum()), int((curr == 0).sum())
     fields = [lay.fields(d) for d in range(len(lay.dleaf))]
     slot = [4 * f["width"] + 8 for f in fields]       # value rows, gidx and prob
     grp = np.mean([sum(slot[lo:hi]) for lo, hi, _ in lay.groups if hi > lo])
     moved = role[1] + 2 * role[2]                     # slots a CV or a swap touches
-    hist_slots = sum(f["ndraw"] for f in fields if f["hist_off"] >= 0)
     # propose: curr, picv and dof[vi] in, prop and move out; the touched
     # slots in and out (a CI or a jump reads or writes every slot)
     propose = W * 32 + moved * 2 * grp + (role[3] + role[4]) * sum(slot)
-    # accept: curr, move, prop, prob, rcur, degc and nw in; weight and prob
-    # out for a move; the touched slots copied; relw out, the normalization
-    # (float64) in its sector, histogram bins elsewhere
-    accept = (W * 44 + role[1:].sum() * 8 + moved * 2 * grp + role[3] * sum(slot)
-              + n_norm * 16 + (W - n_norm) * 4 * (hist_slots + 1))
+    # accept: every walker's role and curr in; a walker with a role also
+    # the other move rows, prop, nw, prob, rcur and degc in, and its touched
+    # slots copied; an accepted move writes weight and prob, a jump also
+    # curr, rcur, degc, picv and its dof row
+    accept = (W * 8 + n_role * 32 + moved * 2 * grp + role[3] * sum(slot)
+              + n_acc * 8 + n_jump * (16 + 4 * nvar))
+    # a measured step: relw out, with weight (where no move was taken) and
+    # prob (walkers without a role) in; or weight and rcur in and obs
+    # (float64) in and out outside the normalization sector; there nrm
+    # (float64) in and out, elsewhere each adaptive leaf's dof and its used
+    # slots' gidx in
+    if lay.custom:
+        measured = W * 4 + (W - n_acc) * 4 + (W - n_role) * 4
+    else:
+        measured = (W - n_norm) * 24
+    outside = curr != norm
+    for f in fields:
+        if f["hist_off"] >= 0:
+            used = np.minimum(after.dof[f["group"]].cpu().numpy(), f["ndraw"])
+            measured += 4 * int(outside.sum()) + 4 * int(used[outside].sum())
+    measured += n_norm * 16
     # measure: curr in; m in and obs (float64) in and out where curr == 0
     measure = W * 4 + n_zero * lay.ncomp * 20
-    return propose, accept, measure
+    return propose, accept + measured, accept, measure
+
+
+# Operations, (integer, float32), one per source-level operation of
+# csrc/mcmc_*.cu[h]; index arithmetic and table reads are not counted.
+MIX32 = 8                   # lowbias32: three shifts, three xors, two multiplies
+UNIFORM = (MIX32 + 2, 3)    # counter add, shift; convert, add, multiply
+BASE = 3 * MIX32 + 5        # k1 = mix32(kd ^ t*phi), k2 = mix32(kd + t), mix32(j ^ k1) + k2
+SINCOS = 23                 # quarter-turn reduction and two cephes polynomials
+COUNT = 4                   # a warp-aggregated count: match, first lane, popc, add
+RANK = 6                    # a place in the tile sort: match, first lane, add, shuffle, popc
+
+
+def _draw_ops(f):
+    """(integer, float32) operations of drawn leaf f's fresh draw."""
+    if f["kind"] == 2:                                   # FermiK: shell draw
+        n = 3 if f["nb"] == 3 else 2
+        return n * UNIFORM[0], n * UNIFORM[1] + 3 + (2 * SINCOS + 12 if n == 3 else SINCOS + 6)
+    if f["kind"] == 1:                                   # Discrete: binary search
+        levels = int(np.ceil(np.log2(f["nb"] + 1)))
+        return UNIFORM[0] + 3 * levels, UNIFORM[1] + levels
+    return UNIFORM[0] + 1, UNIFORM[1] + 6                # Continuous: one gather
+
+
+def mcmc_ops(it, mk, kd, sched, t, st, after):
+    """(integer, float32) operations each :mcmc kernel does on step ``t``'s
+    walkers, from the roles, var groups, FermiK shift branches and slot
+    counts this step's data takes (``st`` after ``mcmc_propose``, ``after``
+    after ``mcmc_accept``): (propose, accept on a measured step, accept on
+    an unmeasured one)."""
+    lay = it.layout
+    W, nvar, norm, fermi = lay.W, lay.spec.nvar, lay.nd - 1, 2
+    role, vi = st.move[0].cpu().numpy(), st.move[1].cpu().numpy()
+    jt = mk._walker_sched(lay, sched, t)[0].long()
+    dof = st.dof.cpu().numpy()
+    dof_j = lay.dof_t[jt].T.cpu().numpy()                # [nvar, W]
+    base = mk._walker_base(lay, kd, t)
+    n_u = 2 + (nvar > 1) + int(lay.any_swap)             # role, (vi), slot 1, (slot 2)
+    n_role = int((role > 0).sum())
+    pi = W * (BASE + n_u * UNIFORM[0]) + n_role * RANK
+    pf = W * (n_u * UNIFORM[1] + 8)
+    for d in range(len(lay.dleaf)):
+        f = lay.fields(d)
+        g, md, dim = f["group"], int(lay.groups[f["group"], 2]), f["nb"]
+        cv = (role == 1) & (vi == g)
+        di, df = _draw_ops(f)
+        if f["kind"] == fermi:                           # three-way shift
+            sel = mk._uniforms(base, [mk.SALT_SHIFT + 8 * d])[0].cpu().numpy()
+            nu = 3 + f["width"]
+            pi += cv.sum() * nu * UNIFORM[0]
+            pf += cv.sum() * (nu * UNIFORM[1] + 3)
+            rot = 2 * dim + SINCOS + (13 if dim == 3 else 2)
+            pf += np.where(sel < 1 / 3, dim, np.where(sel < 2 / 3, rot, 3 * dim))[cv].sum()
+        else:
+            pi += cv.sum() * di
+            pf += cv.sum() * (df + 2)
+        dens = (19 if dim == 3 else 9) if f["kind"] == fermi else 0
+        dc, dj = dof[g], np.minimum(dof_j[g], md)
+        created = np.where(role == 3, np.maximum(dj - dc, 0), 0)
+        removed = np.where(role == 3, np.maximum(dc - dj, 0), np.where(role == 4, dc, 0))
+        pi += (created * di).sum()
+        pf += (created * (df + 3)).sum() + (removed * (dens + 1)).sum()
+    # accept: every walker's visit count; a walker with a role: its base,
+    # the accept uniform, its place in the sort, |nw|, two products, its
+    # role's test and the propose tally's count; an accepted move its count
+    acc = (after.tally[1].sum() - st.tally[1].sum()).item()
+    ai = W * COUNT + n_role * (BASE + UNIFORM[0] + RANK + COUNT) + acc * COUNT
+    af = n_role * (UNIFORM[1] + 3) + (np.array([0, 4, 2, 6, 5])[role]).sum()
+    af += 2 * int(((role >= 3) & (after.curr != st.curr).cpu().numpy()).sum())
+    in_norm = (after.curr == norm).cpu().numpy()
+    hist_slots = sum(np.minimum(after.dof[f["group"]].cpu().numpy(), f["ndraw"])
+                     for f in map(lay.fields, range(len(lay.dleaf))) if f["hist_off"] >= 0)
+    mi = int(np.where(in_norm, 0, hist_slots).sum())
+    mf = int((~in_norm).sum()) * (3 if lay.custom else 5) + 2 * int(in_norm.sum())
+    return (pi, pf), (ai + mi, af + mf), (ai, af)
 
 
 def mcmc_timings(mt, mk, card):
     """Phase 6c: device time per call of each :mcmc kernel at the main path's
-    shape (the bubble, 2^18 walkers), in turns with its plain version; the
-    integrand and the measure; the whole step on the device and as the host
-    issues it."""
+    shape (the bubble, 2^18 walkers), in turns with its plain version;
+    ``mcmc_accept`` on a measured and on an unmeasured step, and their mean
+    weighted by the launches of an iteration; the integrand and the measure;
+    the whole step on the device and as the host issues it; the bounds from
+    this step's bytes and operations."""
     import torch
+    from mcintegration_tpu_torch.ops.mcmc_kernels import NRETRY
     from mcintegration_tpu_torch.ops.rng import block_keys
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.mcmc import MCMCIteration
@@ -1231,6 +1342,7 @@ def mcmc_timings(mt, mk, card):
                        obs_proto=kw["obs"], block=16, nevalperblock=2 ** 28 // 16,
                        nwalkers=2 ** 18, thermal_ratio=BUBBLE_THERMAL)
     lay = it.layout
+    assert (lay.hist_smem, lay.cnt_smem) == (True, True)
     kd_np = block_keys(SEED, 0, 0, it.block)
     sched, groups = it.schedule(kd_np)
     kd = it.seeds(kd_np)
@@ -1239,52 +1351,78 @@ def mcmc_timings(mt, mk, card):
         it.step(tab, rw, kd, sched, groups[t], st, t)
     errs = mcmc_one_step(it, mk, st, tab, rw, kd, sched, groups[400], 400,
                          "at the main path's shape")
-    nw = it.weights(st, groups[401])
+    errs_u = mcmc_one_step(it, mk, st, tab, rw, kd, sched, groups[401], 401,
+                           "at the main path's shape, unmeasured", measure=False)
+    T = 402
+    nw = it.weights(st, groups[T])
     vals = lay.leaf_values(st.cur_val)
     m = it.measure[0](vals, st.relw).contiguous()
-    mk.mcmc_propose(lay, tab, kd, sched, 401, st)
-    nbytes = mcmc_bytes(it, st)
+    mk.mcmc_propose(lay, tab, kd, sched, T, st)
+    after = st.clone()
+    mk.mcmc_accept(lay, tab, rw, kd, sched, T, after, nw, measure=True)
+    nbytes = mcmc_bytes(it, st, after)
+    ops = mcmc_ops(it, mk, kd, sched, T, st, after)
+    del after
 
     # the plain versions wait for the device (their role guards read masks on
     # the host), so they are timed on the host's clock, the kernels on the
     # device's with the calls queued behind a sleep kernel
-    ms = {k: [] for k in ("propose", "propose_plain", "accept", "accept_plain",
-                          "measure", "measure_plain")}
+    keys = ("propose", "accept", "accept_u", "measure")
+    ms = {k + sfx: [] for k in keys for sfx in ("", "_plain")}
     for order in (("plain", "kernel"), ("kernel", "plain")):
         for kind in order:
             sfx, timer, reps = ("", device_ms, 20) if kind == "kernel" else ("_plain", time_ms, 5)
             prop = getattr(mk, "mcmc_propose" + sfx)
             acc = getattr(mk, "mcmc_accept" + sfx)
             meas = getattr(mk, "mcmc_measure" + sfx)
-            ms["propose" + sfx].append(timer(lambda: prop(lay, tab, kd, sched, 401, st), reps))
+            ms["propose" + sfx].append(timer(lambda: prop(lay, tab, kd, sched, T, st), reps))
             ms["accept" + sfx].append(timer(
-                lambda: acc(lay, tab, rw, kd, sched, 401, st, nw, measure=True), reps))
+                lambda: acc(lay, tab, rw, kd, sched, T, st, nw, measure=True), reps))
+            ms["accept_u" + sfx].append(timer(
+                lambda: acc(lay, tab, rw, kd, sched, T, st, nw, measure=False), reps))
             ms["measure" + sfx].append(timer(lambda: meas(lay, 0, m, st), reps))
     ms = {k: float(np.mean(v)) for k, v in ms.items()}
     # few calls at a time behind the sleep kernel: a step issues about 60
     # launches, and the host blocks once about a thousand are pending
-    ms_integrand = device_ms(lambda: it.weights(st, groups[402]), 5)
+    ms_integrand = device_ms(lambda: it.weights(st, groups[T + 1]), 5)
     ms_measure_fn = device_ms(lambda: it.measure[0](vals, st.relw), 10)
-    ms_step_dev = device_ms(lambda: it.step(tab, rw, kd, sched, groups[403], st, 403), 5)
-    ms_step = time_ms(lambda: it.step(tab, rw, kd, sched, groups[403], st, 403), 20)
+    ms_step_dev = device_ms(lambda: it.step(tab, rw, kd, sched, groups[T + 1], st, T + 1), 5)
+    ms_step = time_ms(lambda: it.step(tab, rw, kd, sched, groups[T + 1], st, T + 1), 20)
+    # launches of an iteration: measured steps, and unmeasured ones (burn-in
+    # and the start's draw and retries)
+    n_m, n_u = it.nsteps, it.nburnin + NRETRY + 1
+    mean = lambda a, b: (n_m * a + n_u * b) / (n_m + n_u)
     print(f"phase 6c: one step = {lay.W} walkers x {lay.S} slots ({lay.V} value rows); device "
           f"time per call, calls queued behind a sleep kernel [{card}]")
-    for name, key in (("mcmc_propose", "propose"), ("mcmc_accept", "accept"),
-                      ("mcmc_measure", "measure")):
-        print(f"phase 6c: {name} {ms[key]!r} ms/step, plain torch {ms[key + '_plain']!r} ms "
-              f"(host clock) [{card}]")
+    print(f"phase 6c: mcmc_propose {ms['propose']!r} ms/step, plain torch "
+          f"{ms['propose_plain']!r} ms (host clock) [{card}]")
+    print(f"phase 6c: mcmc_accept {ms['accept']!r} ms/measured step, {ms['accept_u']!r} "
+          f"ms/unmeasured step, {mean(ms['accept'], ms['accept_u'])!r} ms weighted by the "
+          f"{n_m} measured and {n_u} unmeasured launches of an iteration; plain torch "
+          f"{ms['accept_plain']!r} and {ms['accept_u_plain']!r} ms (host clock) [{card}]")
+    print(f"phase 6c: mcmc_measure {ms['measure']!r} ms/step, plain torch "
+          f"{ms['measure_plain']!r} ms (host clock) [{card}]")
     print(f"phase 6c: integrand (torch) {ms_integrand!r} ms/step, custom measure (torch) "
           f"{ms_measure_fn!r} ms/measured step [{card}]")
     print(f"phase 6c: whole measured step on the device {ms_step_dev!r} ms; as the host "
           f"issues it {ms_step!r} ms, {lay.W / ms_step * 1e3!r} evals/s [{card}]")
-    ops = (80 * lay.W, 40 * lay.W, 2 * lay.W * lay.ncomp)
-    out = {}
-    for k, (name, key) in enumerate((("mcmc_propose", "propose"), ("mcmc_accept", "accept"),
-                                     ("mcmc_measure", "measure"))):
-        b_ms, b_by = bound(nbytes[k], ops[k])
-        print(f"phase 6c: {name} bound {b_ms!r} ms ({nbytes[k]:.0f} bytes, by {b_by})")
-        out[name] = (errs[k], ms[key], ms[key + "_plain"], b_ms, b_by)
-    return out
+    bounds = {}
+    for name, nb_, (oi, of) in (("mcmc_propose", nbytes[0], ops[0]),
+                                ("mcmc_accept measured", nbytes[1], ops[1]),
+                                ("mcmc_accept unmeasured", nbytes[2], ops[2]),
+                                ("mcmc_measure", nbytes[3], (0, 2 * lay.W * lay.ncomp))):
+        bounds[name] = bound(nb_, of, oi)
+        print(f"phase 6c: {name} bound {bounds[name][0]!r} ms ({nb_:.0f} bytes, {oi:.0f} "
+              f"integer and {of:.0f} float32 operations; by {bounds[name][1]})")
+    b_acc = mean(bounds["mcmc_accept measured"][0], bounds["mcmc_accept unmeasured"][0])
+    print(f"phase 6c: mcmc_accept bound weighted by launches {b_acc!r} ms")
+    return {"mcmc_propose": (errs[0], ms["propose"], ms["propose_plain"],
+                             *bounds["mcmc_propose"]),
+            "mcmc_accept": (max(errs[1], errs_u[1]), mean(ms["accept"], ms["accept_u"]),
+                            mean(ms["accept_plain"], ms["accept_u_plain"]), b_acc,
+                            bounds["mcmc_accept measured"][1]),
+            "mcmc_measure": (errs[2], ms["measure"], ms["measure_plain"],
+                             *bounds["mcmc_measure"])}
 
 
 def main() -> int:

@@ -23,14 +23,36 @@
 // integrand 0 for the walkers still at prob 0, and starts every walker in
 // integrand 0.
 //
-// What bounds it on the card: device-memory bytes, about 60 per walker per
-// step on the main path (read nw, the scalars and move, write the commits;
-// the float64 accumulators on measured steps), and latency at one thread
-// per walker with dependent loads.  Counters and histograms are privatised
-// per thread block in shared memory (64-bit counters, float64 bins) and
-// flushed with atomics once per launch; larger ones go straight to device
-// memory.  Every histogram increment is an exact 1.0 and every count an
-// integer, so the totals do not depend on the order of the atomics.
+// What bounds it on the card: device-memory bytes, 8 per walker without a
+// role (its role and sector; on a measured step also what its measurement
+// reads and writes), 40 per walker with one (move, curr, the scalars and
+// nw) and its commits.  At one thread per walker what costs more is (1) the
+// counts: every walker adds one to visited[curr] and one or two to a tally
+// cell, and with few sectors almost every walker of a warp
+// hits the same counter (64-bit shared atomics, which the card runs as
+// compare-and-swap loops); (2) divergence: a warp commits every kind of move
+// any of its lanes made, one after the other.  So:
+//   - counts are aggregated per warp: the lanes holding the same counter
+//     (__match_any_sync) add their number once, through one lane, into the
+//     block's 32-bit counters in shared memory (native atomics), flushed to
+//     the 64-bit totals once per launch;
+//   - histogram bins, which only ever receive exact 1.0s, are 32-bit integer
+//     counts in shared memory, converted to float64 at the flush, so the
+//     totals are bit-identical whatever the order; histograms too large for
+//     shared memory take float64 atomics in device memory;
+//   - walkers in tiles of kTile: the first pass counts every walker's visit
+//     and measures the walkers without a role in place; the others are
+//     sorted by branch class (CV or SW of each var group, CI, NJ; the
+//     lanes of a warp in one class take one shared atomic between them),
+//     and the second pass decides, tallies, commits and measures them, a
+//     warp to a class;
+//   - two blocks of kThreads on each SM, each zeroing and flushing its
+//     counters and bins once per launch.  The tables (leaf rows, groups, dof
+//     table, deg, rw) are read in device memory: staging them in shared
+//     memory measured no faster (PERF.md).
+// Every count is an integer, so the totals do not depend on the order of
+// the atomics, and sorting changes which thread computes a walker, not what
+// it computes.
 //
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding to the plain torch version's.
@@ -40,192 +62,284 @@
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWalkersPerThread = 2;
+constexpr int kTile = kThreads * kWalkersPerThread;   // walkers sorted together
+constexpr int kBlocksPerSm = 2;
 typedef unsigned long long u64;
 
-// Add one to counter q: visited [nd], then propose and accept tallies
-// [2, 3, nd, ncol]; into the block's shared counters, or device memory.
-__device__ __forceinline__ void bump(u64* cnt, u64* vis, u64* tally, int nd, int q) {
-  if (cnt) atomicAdd(cnt + q, 1ULL);
-  else if (q < nd) atomicAdd(vis + q, 1ULL);
-  else atomicAdd(tally + (q - nd), 1ULL);
+struct AcceptArgs {
+  const uint32_t* kd;
+  const int* sched;
+  uint32_t t;
+  int init, measure, custom, W, wb, L, nvar, nd, C;
+  const int* meta;
+  const float* deg;     // tab, which starts with deg [nd]
+  const float* rw;
+  const float* nw;
+  int H, hist_smem, cnt_smem;   // histogram bins and counters in shared memory
+  int* cur_val;
+  int* cur_gidx;
+  float* cur_prob;
+  int* prp_val;
+  int* prp_gidx;
+  float* prp_prob;
+  int* curr;
+  float* weight;
+  float* prob;
+  float* rcur;
+  float* degc;
+  float* picv;
+  int* dof;
+  const float* prop;
+  const int* move;
+  float* relw;
+  double* obs;
+  double* nrm;
+  u64* vis;
+  u64* tally;
+  double* hist;
+};
+
+// Add one per lane to counter key (-1: none): visited [nd], then propose
+// and accept tallies [2, 3, nd, ncol].  The lanes of a warp holding the
+// same key add their count once, into the block's shared counters or into
+// device memory.  Every lane of the warp calls it.
+__device__ __forceinline__ void count(uint32_t* cnt, u64* vis, u64* tally, int nd,
+                                      int key) {
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  if (key < 0 || (int)(threadIdx.x & 31) != __ffs(peers) - 1) return;
+  const unsigned n = __popc(peers);
+  if (cnt) atomicAdd(cnt + key, n);
+  else if (key < nd) atomicAdd(vis + key, (u64)n);
+  else atomicAdd(tally + (key - nd), (u64)n);
 }
 
 // Slot s of leaf f: cur <- prp if take, else prp <- cur.
-__device__ __forceinline__ void commit(const int* f, int s, bool take, int* cur_val,
-                                       int* cur_gidx, float* cur_prob, int* prp_val,
-                                       int* prp_gidx, float* prp_prob, int W, int w) {
+__device__ __forceinline__ void commit(const AcceptArgs& a, const int* f, int s, bool take,
+                                       int w) {
+  const int W = a.W;
   const long long k = ((long long)f[kSlot0] + s) * W + w;
   const long long r = f[kVrow0] + (long long)s * f[kWidth];
   for (int c = 0; c < f[kWidth]; ++c) {
     const long long i = (r + c) * W + w;
-    if (take) cur_val[i] = prp_val[i]; else prp_val[i] = cur_val[i];
+    if (take) a.cur_val[i] = a.prp_val[i]; else a.prp_val[i] = a.cur_val[i];
   }
   if (take) {
-    cur_gidx[k] = prp_gidx[k];
-    cur_prob[k] = prp_prob[k];
+    a.cur_gidx[k] = a.prp_gidx[k];
+    a.cur_prob[k] = a.prp_prob[k];
   } else {
-    prp_gidx[k] = cur_gidx[k];
-    prp_prob[k] = cur_prob[k];
+    a.prp_gidx[k] = a.cur_gidx[k];
+    a.prp_prob[k] = a.cur_prob[k];
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) mcmc_accept_kernel(
-    const uint32_t* __restrict__ kd, const int* __restrict__ sched, uint32_t t,
-    int init, int measure, int custom, int W, int wb, int L, int nvar, int nd,
-    int C, const int* __restrict__ meta, const float* __restrict__ tab,
-    const float* __restrict__ rw, const float* __restrict__ nw, int H,
-    int hist_smem, int cnt_smem, int* __restrict__ cur_val,
-    int* __restrict__ cur_gidx, float* __restrict__ cur_prob,
-    int* __restrict__ prp_val, int* __restrict__ prp_gidx,
-    float* __restrict__ prp_prob, int* __restrict__ curr,
-    float* __restrict__ weight, float* __restrict__ prob,
-    float* __restrict__ rcur, float* __restrict__ degc,
-    float* __restrict__ picv, int* __restrict__ dof,
-    const float* __restrict__ prop, const int* __restrict__ move,
-    float* __restrict__ relw, double* __restrict__ obs,
-    double* __restrict__ nrm, u64* __restrict__ vis, u64* __restrict__ tally,
-    double* __restrict__ hist) {
-  extern __shared__ double sh[];
-  const int* leaf = meta;                          // [L, kFields]
-  const int* grp = leaf + kFields * L;             // [nvar, 3]: dlo, dhi, maxdof
-  const int* dof_tab = grp + 3 * nvar;             // [nd, nvar]
-  const float* deg = tab;                          // [nd]
-  const int norm = nd - 1;
+// Walker w's measurement on its state after the move (lines 1208-1289):
+// sector c2, weight wt, prob p2, rcur rc2; histogram bins into hcnt
+// (shared) or a.hist.
+__device__ __forceinline__ void measure_walker(const AcceptArgs& a, const Tables& T,
+                                               uint32_t* hcnt, int w, int c2, float wt,
+                                               float p2, float rc2) {
+  const int W = a.W, norm = a.nd - 1;
+  const bool in_norm = c2 == norm;
+  if (a.custom) {
+    const bool ok = !in_norm && p2 > tiny();
+    a.relw[w] = __fmul_rn(wt, ok ? __fdiv_rn(1.0f, p2) : 0.0f);
+  } else if (!in_norm) {
+    const float sgn = wt > 0.0f ? 1.0f : (wt < 0.0f ? -1.0f : 0.0f);
+    a.obs[(long long)c2 * W + w] += (double)__fmul_rn(sgn, __fdiv_rn(1.0f, rc2));
+  }
+  if (in_norm) {
+    a.nrm[w] += (double)__fdiv_rn(1.0f, a.rw[norm]);
+    return;
+  }
+  for (int d = 0; d < a.L; ++d) {
+    const int* f = T.leaf + kFields * d;
+    if (f[kHist] < 0) continue;
+    const int dg = a.dof[(long long)f[kGroup] * W + w];
+    for (int s = 0; s < f[kNdraw] && s < dg; ++s) {
+      const int bin = f[kHist] + a.cur_gidx[((long long)f[kSlot0] + s) * W + w];
+      if (hcnt) atomicAdd(hcnt + bin, 1u);
+      else atomicAdd(a.hist + bin, 1.0);
+    }
+  }
+}
+
+// Walker w's step after a proposal with a role: acceptance, its tally keys
+// kp and ka (-1: none), commit, then its measurement on a measured step.
+__device__ __forceinline__ void accept_walker(const AcceptArgs& a, const Tables& T,
+                                              uint32_t* hcnt, int w, int& kp, int& ka) {
+  const int W = a.W, nd = a.nd, nvar = a.nvar, norm = nd - 1;
   const int ncol = max(nd, nvar);
-  const int ncnt = nd + 6 * nd * ncol;
-  const int B = W / wb;
-  double* hdst = hist_smem ? sh : hist;
-  u64* cnt = cnt_smem ? (u64*)(sh + (hist_smem ? H : 0)) : nullptr;
-  if (hist_smem)
-    for (int q = threadIdx.x; q < H; q += blockDim.x) sh[q] = 0.0;
-  if (cnt)
-    for (int q = threadIdx.x; q < ncnt; q += blockDim.x) cnt[q] = 0ULL;
+  // the walker's own fields first, then what depends on them
+  const int role = a.move[w], vi = a.move[W + w];
+  const int idx1 = a.move[2 * W + w], idx2 = a.move[3 * W + w];
+  const int c = a.curr[w];
+  const float pr = a.prop[w], nwv = a.nw[w], p_raw = a.prob[w];
+  const float p_old = fmaxf(p_raw, tiny());
+  const float rc = a.rcur[w], dc_ = a.degc[w];
+  const int jt = a.sched[(long long)a.t * (W / a.wb) + w / a.wb] >> 1;
+  const float u = uniform(walker_base(a.kd, a.t, w, a.wb), kSaltAccept);
+
+  // ---- acceptance (pallas_mcmc.py:1119-1141) ----
+  const float anw = fabsf(nwv);
+  const float p_mv = __fmul_rn(anw, rc);
+  const float r_jt = a.rw[jt], deg_jt = a.deg[jt];
+  const float p_ci = __fmul_rn(anw, r_jt);
+  bool acc = false;
+  int cell = -1, row = 0;
+  if (role == kRoleCv) {
+    acc = u < __fdiv_rn(__fmul_rn(pr, p_mv), p_old) && pr > tiny();
+    row = 1; cell = jt * ncol + vi;
+  } else if (role == kRoleSw) {
+    acc = u < __fdiv_rn(p_mv, p_old);
+    row = 2; cell = jt * ncol + vi;
+  } else if (role == kRoleCi) {
+    const float x = __fmul_rn(__fmul_rn(pr, __fdiv_rn(dc_, deg_jt)), p_ci);
+    acc = u < __fdiv_rn(x, p_old) && pr > tiny();
+    cell = c * ncol + jt;
+  } else if (role == kRoleNj) {
+    const float x = __fmul_rn(__fmul_rn(pr, __fdiv_rn(dc_, a.deg[norm])), a.rw[norm]);
+    acc = u < __fdiv_rn(x, p_old);
+    cell = c * ncol + norm;
+  }
+  if (cell >= 0) {
+    kp = nd + row * nd * ncol + cell;
+    if (acc) ka = nd + (3 + row) * nd * ncol + cell;
+  }
+
+  // ---- commit (lines 1170-1206); c2, wt, p2, rc2: the state after it ----
+  int c2 = c;
+  float wt = nwv, p2 = p_raw, rc2 = rc;
+  bool took = false;                       // weight <- nw
+  if (role == kRoleCv || role == kRoleSw) {
+    for (int d = T.grp[3 * vi]; d < T.grp[3 * vi + 1]; ++d) {
+      const int* f = T.leaf + kFields * d;
+      commit(a, f, idx1, acc, w);
+      if (role == kRoleSw) commit(a, f, idx2, acc, w);
+    }
+    if (acc) {
+      a.weight[w] = nwv;
+      a.prob[w] = p_mv;
+      took = true;
+      p2 = p_mv;
+    }
+  } else if (role == kRoleCi) {
+    for (int g = 0; g < nvar; ++g) {
+      const int dcur = a.dof[(long long)g * W + w], dj = T.dof_tab[jt * nvar + g];
+      for (int d = T.grp[3 * g]; d < T.grp[3 * g + 1]; ++d)
+        for (int s = dcur; s < dj; ++s) commit(a, T.leaf + kFields * d, s, true, w);
+    }
+    if (acc) {
+      a.weight[w] = nwv;
+      a.prob[w] = p_ci;
+      a.curr[w] = jt;
+      a.rcur[w] = r_jt;
+      a.degc[w] = deg_jt;
+      a.picv[w] = __fdiv_rn(1.0f, __fmul_rn(deg_jt, (float)a.C));
+      for (int g = 0; g < nvar; ++g) a.dof[(long long)g * W + w] = T.dof_tab[jt * nvar + g];
+      took = true;
+      c2 = jt;
+      p2 = p_ci;
+      rc2 = r_jt;
+    }
+  } else if (role == kRoleNj && acc) {
+    const float r_norm = a.rw[norm];
+    wt = __fmul_rn(a.weight[w], 0.0f);
+    a.weight[w] = wt;
+    a.prob[w] = r_norm;
+    a.curr[w] = norm;
+    a.rcur[w] = r_norm;
+    a.degc[w] = a.deg[norm];
+    a.picv[w] = __fdiv_rn(1.0f, __fmul_rn(a.deg[norm], (float)a.C));
+    for (int g = 0; g < nvar; ++g) a.dof[(long long)g * W + w] = 0;
+    took = true;
+    c2 = norm;
+    p2 = r_norm;
+    rc2 = r_norm;
+  }
+  if (!a.measure) return;
+  measure_walker(a, T, hcnt, w, c2, took ? wt : a.weight[w], p2, rc2);
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) mcmc_accept_kernel(
+    const AcceptArgs a) {
+  __shared__ int list[kTile];       // a tile's walkers with a role, by class
+  extern __shared__ uint32_t sh[];  // [H] bins, [ncnt] counters, [K] counts, [K + 1] offsets
+  const int nd = a.nd, nvar = a.nvar;
+  const int ncnt = nd + 6 * nd * max(nd, nvar);
+  const int K = 2 * nvar + 2;
+  uint32_t* hcnt = a.hist_smem && a.measure && !a.init ? sh : nullptr;
+  uint32_t* cnt = a.cnt_smem && !a.init ? sh + (a.hist_smem ? a.H : 0) : nullptr;
+  int* ccnt = (int*)(sh + (a.hist_smem ? a.H : 0) + (a.cnt_smem ? ncnt : 0));
+  int* coff = ccnt + K;
+  if (hcnt) for (int q = threadIdx.x; q < a.H; q += blockDim.x) hcnt[q] = 0u;
+  if (cnt) for (int q = threadIdx.x; q < ncnt; q += blockDim.x) cnt[q] = 0u;
+  for (int q = threadIdx.x; q < K; q += blockDim.x) ccnt[q] = 0;
   __syncthreads();
+  const Tables T = tables(a.meta, a.L, nvar, nd);
+  const int W = a.W;
+  const int stride = gridDim.x * blockDim.x;
 
-  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < W;
-       w += gridDim.x * blockDim.x) {
-    if (init) {
-      if (prob[w] <= tiny()) {
-        weight[w] = nw[w];
-        prob[w] = __fmul_rn(fabsf(nw[w]), rw[0]);
+  if (a.init) {
+    const float r0 = a.rw[0], d0 = a.deg[0];
+    const float p0 = __fdiv_rn(1.0f, __fmul_rn(d0, (float)a.C));
+    for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < W; w += stride) {
+      if (a.prob[w] <= tiny()) {
+        const float nwv = a.nw[w];
+        a.weight[w] = nwv;
+        a.prob[w] = __fmul_rn(fabsf(nwv), r0);
       }
-      curr[w] = 0;
-      rcur[w] = rw[0];
-      degc[w] = deg[0];
-      picv[w] = __fdiv_rn(1.0f, __fmul_rn(deg[0], (float)C));
-      for (int g = 0; g < nvar; ++g) dof[(long long)g * W + w] = dof_tab[g];
-      continue;
+      a.curr[w] = 0;
+      a.rcur[w] = r0;
+      a.degc[w] = d0;
+      a.picv[w] = p0;
+      for (int g = 0; g < nvar; ++g) a.dof[(long long)g * W + w] = T.dof_tab[g];
     }
-    const int jt = sched[(long long)t * B + w / wb] >> 1;
-    const int role = move[w], vi = move[W + w];
-    const int idx1 = move[2 * W + w], idx2 = move[3 * W + w];
-    const int c = curr[w];
-    bump(cnt, vis, tally, nd, c);
-
-    // ---- acceptance (pallas_mcmc.py:1119-1141) ----
-    const float u = uniform(walker_base(kd, t, w, wb), kSaltAccept);
-    const float p_old = fmaxf(prob[w], tiny());
-    const float anw = fabsf(nw[w]);
-    const float p_mv = __fmul_rn(anw, rcur[w]);
-    const float r_jt = rw[jt], deg_jt = deg[jt];
-    const float p_ci = __fmul_rn(anw, r_jt);
-    const float pr = prop[w];
-    const float dc_ = degc[w];
-    bool acc = false;
-    int cell = -1, row = 0;
-    if (role == kRoleCv) {
-      acc = u < __fdiv_rn(__fmul_rn(pr, p_mv), p_old) && pr > tiny();
-      row = 1; cell = jt * ncol + vi;
-    } else if (role == kRoleSw) {
-      acc = u < __fdiv_rn(p_mv, p_old);
-      row = 2; cell = jt * ncol + vi;
-    } else if (role == kRoleCi) {
-      const float a = __fmul_rn(__fmul_rn(pr, __fdiv_rn(dc_, deg_jt)), p_ci);
-      acc = u < __fdiv_rn(a, p_old) && pr > tiny();
-      cell = c * ncol + jt;
-    } else if (role == kRoleNj) {
-      const float a = __fmul_rn(__fmul_rn(pr, __fdiv_rn(dc_, deg[norm])), rw[norm]);
-      acc = u < __fdiv_rn(a, p_old);
-      cell = c * ncol + norm;
-    }
-    if (cell >= 0) {
-      bump(cnt, vis, tally, nd, nd + row * nd * ncol + cell);
-      if (acc) bump(cnt, vis, tally, nd, nd + (3 + row) * nd * ncol + cell);
-    }
-
-    // ---- commit (lines 1170-1206) ----
-    if (role == kRoleCv || role == kRoleSw) {
-      for (int d = grp[3 * vi]; d < grp[3 * vi + 1]; ++d) {
-        const int* f = leaf + kFields * d;
-        commit(f, idx1, acc, cur_val, cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob, W, w);
-        if (role == kRoleSw)
-          commit(f, idx2, acc, cur_val, cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob,
-                 W, w);
-      }
-      if (acc) {
-        weight[w] = nw[w];
-        prob[w] = p_mv;
-      }
-    } else if (role == kRoleCi) {
-      for (int g = 0; g < nvar; ++g) {
-        const int dcur = dof[(long long)g * W + w], dj = dof_tab[jt * nvar + g];
-        for (int d = grp[3 * g]; d < grp[3 * g + 1]; ++d)
-          for (int s = dcur; s < dj; ++s)
-            commit(leaf + kFields * d, s, true, cur_val, cur_gidx, cur_prob, prp_val,
-                   prp_gidx, prp_prob, W, w);
-      }
-      if (acc) {
-        weight[w] = nw[w];
-        prob[w] = p_ci;
-        curr[w] = jt;
-        rcur[w] = r_jt;
-        degc[w] = deg_jt;
-        picv[w] = __fdiv_rn(1.0f, __fmul_rn(deg_jt, (float)C));
-        for (int g = 0; g < nvar; ++g) dof[(long long)g * W + w] = dof_tab[jt * nvar + g];
-      }
-    } else if (role == kRoleNj && acc) {
-      weight[w] = __fmul_rn(weight[w], 0.0f);
-      prob[w] = rw[norm];
-      curr[w] = norm;
-      rcur[w] = rw[norm];
-      degc[w] = deg[norm];
-      picv[w] = __fdiv_rn(1.0f, __fmul_rn(deg[norm], (float)C));
-      for (int g = 0; g < nvar; ++g) dof[(long long)g * W + w] = 0;
-    }
-    if (!measure) continue;
-
-    // ---- measurement on the state after the move (lines 1208-1289) ----
-    const int c2 = curr[w];
-    const bool in_norm = c2 == norm;
-    const float wt = weight[w];
-    if (custom) {
-      const float p = prob[w];
-      const bool ok = !in_norm && p > tiny();
-      relw[w] = __fmul_rn(wt, ok ? __fdiv_rn(1.0f, p) : 0.0f);
-    } else if (!in_norm) {
-      const float sgn = wt > 0.0f ? 1.0f : (wt < 0.0f ? -1.0f : 0.0f);
-      obs[(long long)c2 * W + w] += (double)__fmul_rn(sgn, __fdiv_rn(1.0f, rcur[w]));
-    }
-    if (in_norm) {
-      nrm[w] += (double)__fdiv_rn(1.0f, rw[norm]);
-      continue;
-    }
-    for (int d = 0; d < L; ++d) {
-      const int* f = leaf + kFields * d;
-      if (f[kHist] < 0) continue;
-      const int dg = dof[(long long)f[kGroup] * W + w];
-      for (int s = 0; s < f[kNdraw] && s < dg; ++s)
-        atomicAdd(hdst + f[kHist] + cur_gidx[((long long)f[kSlot0] + s) * W + w], 1.0);
-    }
+    return;
   }
 
-  if (!init && (hist_smem || cnt)) {
+  // A tile's walkers count their visit, and the ones without a role are
+  // measured in place; the others are sorted by branch class (CV or SW of
+  // each var group, CI, NJ), so a warp of the second pass commits one kind
+  // of move, not all of them in series.  Whole warps walk together, so every
+  // lane reaches the warp-wide counts.
+  const int lane = threadIdx.x & 31;
+  for (int tile0 = blockIdx.x * kTile; tile0 < W; tile0 += gridDim.x * kTile) {
+    int key[kWalkersPerThread];
+    for (int q = 0; q < kWalkersPerThread; ++q) {
+      const int w = tile0 + q * kThreads + threadIdx.x;
+      int kv = -1;
+      key[q] = -1;
+      if (w < W) {
+        const int role = a.move[w], c = a.curr[w];
+        kv = c;
+        if (role != kRoleNone) {
+          const int vi = a.move[W + w];
+          key[q] = branch_class(role, vi, nvar);
+        } else if (a.measure) {
+          measure_walker(a, T, hcnt, w, c, a.weight[w], a.prob[w], a.rcur[w]);
+        }
+      }
+      count(cnt, a.vis, a.tally, nd, kv);
+    }
+    const int n = sort_tile(key, ccnt, coff, list, K);
+    for (int s = threadIdx.x; s - lane < n; s += kThreads) {
+      int kp = -1, ka = -1;
+      if (s < n) accept_walker(a, T, hcnt, tile0 + list[s], kp, ka);
+      count(cnt, a.vis, a.tally, nd, kp);
+      count(cnt, a.vis, a.tally, nd, ka);
+    }
     __syncthreads();
-    for (int q = threadIdx.x; hist_smem && q < H; q += blockDim.x)
-      if (sh[q] != 0.0) atomicAdd(hist + q, sh[q]);
-    for (int q = threadIdx.x; cnt && q < ncnt; q += blockDim.x)
-      if (cnt[q]) atomicAdd(q < nd ? vis + q : tally + (q - nd), cnt[q]);
   }
+
+  if (!hcnt && !cnt) return;
+  __syncthreads();
+  if (hcnt)
+    for (int q = threadIdx.x; q < a.H; q += blockDim.x)
+      if (hcnt[q]) atomicAdd(a.hist + q, (double)hcnt[q]);
+  if (cnt)
+    for (int q = threadIdx.x; q < ncnt; q += blockDim.x)
+      if (cnt[q]) atomicAdd(q < nd ? a.vis + q : a.tally + (q - nd), (u64)cnt[q]);
 }
 
 }  // namespace
@@ -241,20 +355,21 @@ extern "C" int mci_mcmc_accept(const void* kd, const void* sched, int t, int ini
                                const void* prop, const void* move, void* relw,
                                void* obs, void* nrm, void* vis, void* tally,
                                void* hist, void* stream) {
-  long long blocks = ((long long)W + kThreads - 1) / kThreads;
-  const long long cap = 2LL * num_sms();
+  const AcceptArgs a{(const uint32_t*)kd, (const int*)sched, (uint32_t)t, init, measure,
+                     custom, W, wb, L, nvar, nd, C, (const int*)meta, (const float*)tab,
+                     (const float*)rw, (const float*)nw, H, hist_smem, cnt_smem,
+                     (int*)cur_val, (int*)cur_gidx, (float*)cur_prob, (int*)prp_val,
+                     (int*)prp_gidx, (float*)prp_prob, (int*)curr, (float*)weight,
+                     (float*)prob, (float*)rcur, (float*)degc, (float*)picv, (int*)dof,
+                     (const float*)prop, (const int*)move, (float*)relw, (double*)obs,
+                     (double*)nrm, (u64*)vis, (u64*)tally, (double*)hist};
+  long long blocks = ((long long)W + kTile - 1) / kTile;
+  const long long cap = (long long)kBlocksPerSm * num_sms();
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   const int ncol = nd > nvar ? nd : nvar;
-  const size_t smem = (hist_smem ? (size_t)H * sizeof(double) : 0)
-      + (cnt_smem ? (size_t)(nd + 6 * nd * ncol) * sizeof(u64) : 0);
-  mcmc_accept_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)kd, (const int*)sched, (uint32_t)t, init, measure, custom, W, wb,
-      L, nvar, nd, C, (const int*)meta, (const float*)tab, (const float*)rw,
-      (const float*)nw, H, hist_smem, cnt_smem, (int*)cur_val, (int*)cur_gidx,
-      (float*)cur_prob, (int*)prp_val, (int*)prp_gidx, (float*)prp_prob, (int*)curr,
-      (float*)weight, (float*)prob, (float*)rcur, (float*)degc, (float*)picv,
-      (int*)dof, (const float*)prop, (const int*)move, (float*)relw, (double*)obs,
-      (double*)nrm, (u64*)vis, (u64*)tally, (double*)hist);
+  const size_t words = (hist_smem ? (size_t)H : 0) + (cnt_smem ? (size_t)(nd + 6 * nd * ncol) : 0)
+      + 2 * (2 * (size_t)nvar + 2) + 1;
+  mcmc_accept_kernel<<<(unsigned)blocks, kThreads, words * 4, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

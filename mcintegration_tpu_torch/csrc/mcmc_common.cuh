@@ -1,7 +1,8 @@
 // Helpers shared by mcmc_propose.cu and mcmc_accept.cu: the layout of the
 // :mcmc meta table (ops/mcmc_kernels.py:McmcLayout) beyond the fields it
-// shares with the chain kernels' (chain_common.cuh), and the FermiK
-// momentum shell of ops/fermik.py.
+// shares with the chain kernels' (chain_common.cuh), the FermiK momentum
+// shell of ops/fermik.py, and the sort of a tile's walkers by branch class
+// that both kernels run.
 //
 // Every function computes the same float32 operations in the same order as
 // its plain torch version, with _rn intrinsics under --fmad=false, so the
@@ -129,8 +130,7 @@ __device__ __forceinline__ float fermik_shift(const float* k, int dim, float* v,
 
 // Leaf f's fresh draw from uniforms salt + c: value rows v[width] as bits,
 // gidx, prob.
-__device__ __forceinline__ void fresh_draw(const int* f, const float* tab,
-                                           const float* smem, uint32_t base,
+__device__ __forceinline__ void fresh_draw(const int* f, const float* tab, uint32_t base,
                                            uint32_t salt, int* v, int& gidx,
                                            float& prob) {
   if (f[kKind] == kFermiK) {
@@ -143,7 +143,7 @@ __device__ __forceinline__ void fresh_draw(const int* f, const float* tab,
     gidx = 0;
     return;
   }
-  map_draw(f, tab, smem, uniform(base, salt), v[0], gidx, prob);
+  map_draw(f, tab, nullptr, uniform(base, salt), v[0], gidx, prob);
 }
 
 // The removal density of slot k (value row r) of leaf f in the current
@@ -157,6 +157,67 @@ __device__ __forceinline__ float old_density(const int* f, const float* tab,
   for (int c = 0; c < f[kWidth]; ++c)
     v[c] = __int_as_float(cur_val[(long long)(r + c) * W + w]);
   return fermik_density(tab + f[kTab], f[kNb], v);
+}
+
+// The meta table's parts (ops/mcmc_kernels.py:McmcLayout).
+struct Tables {
+  const int* leaf;      // [L, kFields]
+  const int* grp;       // [nvar, 3]: dlo, dhi, maxdof
+  const int* dof_tab;   // [nd, nvar]
+  const int* adj;       // [nd, nd]
+};
+
+__device__ __forceinline__ Tables tables(const int* meta, int L, int nvar, int nd) {
+  Tables T;
+  T.leaf = meta;
+  T.grp = T.leaf + kFields * L;
+  T.dof_tab = T.grp + 3 * nvar;
+  T.adj = T.dof_tab + nd * nvar;
+  return T;
+}
+
+// The branch class of a walker with a role, by which the kernels sort a
+// tile's walkers: CV of var group vi, SW of var group vi, CI, NJ (2*nvar + 2
+// classes).
+__device__ __forceinline__ int branch_class(int role, int vi, int nvar) {
+  return role == kRoleCv ? vi : role == kRoleSw ? nvar + vi
+       : role == kRoleCi ? 2 * nvar : 2 * nvar + 1;
+}
+
+// Sorts a tile's walkers with a role by branch class.  key[q] is the class
+// of the thread's walker q (-1: none), at tile index q * blockDim.x +
+// threadIdx.x.  The lanes of a warp with the same class take one shared
+// atomic between them, through their first lane, and their places in
+// lane order.  Writes the tile indices into list in class order and returns
+// their number.  ccnt [K] (zero on entry and on return) and coff [K + 1]
+// are shared.  Every thread of the block calls it.
+template <int kW>
+__device__ __forceinline__ int sort_tile(const int (&key)[kW], int* ccnt, int* coff,
+                                         int* list, int K) {
+  const int lane = threadIdx.x & 31;
+  int pos[kW];
+  for (int q = 0; q < kW; ++q) {
+    const unsigned peers = __match_any_sync(0xffffffffu, key[q]);
+    const int first = __ffs(peers) - 1;
+    int base = 0;
+    if (key[q] >= 0 && lane == first) base = atomicAdd(ccnt + key[q], __popc(peers));
+    pos[q] = __shfl_sync(0xffffffffu, base, first) + __popc(peers & ((1u << lane) - 1u));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int k = 0; k < K; ++k) {
+      coff[k] = n;
+      n += ccnt[k];
+      ccnt[k] = 0;
+    }
+    coff[K] = n;
+  }
+  __syncthreads();
+  for (int q = 0; q < kW; ++q)
+    if (key[q] >= 0) list[coff[key[q]] + pos[q]] = q * blockDim.x + threadIdx.x;
+  __syncthreads();
+  return coff[K];
 }
 
 }  // namespace

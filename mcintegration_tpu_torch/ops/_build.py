@@ -49,10 +49,10 @@ _SIGNATURES = {
     "mci_chain_accept": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _P],
-    # kd, sched, t, init, W, wb, L, nvar, nd, any_swap, meta, tab, smem_floats,
-    # cur_val, cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob, curr, prob,
-    # picv, dof, prop, move, stream
-    "mci_mcmc_propose": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+    # kd, sched, t, init, W, wb, L, nvar, nd, any_swap, meta, tab, cur_val,
+    # cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob, curr, prob, picv, dof,
+    # prop, move, stream
+    "mci_mcmc_propose": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # kd, sched, t, init, measure, custom, W, wb, L, nvar, nd, C, meta, tab,
     # rw, nw, H, hist_smem, cnt_smem, cur_val, cur_gidx, cur_prob, prp_val,
@@ -132,14 +132,19 @@ def load(verbose: bool = False):
                 print("".join(logs) + proc.stdout + proc.stderr)
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(out))
+    _lib = bind(out)
+    return _lib
+
+
+def bind(path):
+    """The kernel library at ``path``, loaded with its C signatures."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.mci_error_string.argtypes = [ctypes.c_int]
     lib.mci_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
 
 

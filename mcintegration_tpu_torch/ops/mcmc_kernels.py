@@ -69,7 +69,7 @@ import torch
 from ..models.variable import Discrete, FermiK
 from . import _build, fermik
 from ._build import check_tensor as _check
-from .chain_kernels import SMEM_CDF_FLOATS, SMEM_CDF_NBIN, _bits, _uniform, _walker_base
+from .chain_kernels import _bits, _uniform, _walker_base
 from .grid import sample_continuous, sample_discrete
 from .rng import MASK32, mix32
 
@@ -82,8 +82,8 @@ ROLE_NONE, ROLE_CV, ROLE_SW, ROLE_CI, ROLE_NJ = 0, 1, 2, 3, 4
 KIND_CONT, KIND_DISC, KIND_FERMIK = 0, 1, 2
 TINY = fermik.TINY      # common.TINY_F32 as a float32 value
 NRETRY = 10             # masked re-draws of walkers whose start weight is 0
-SMEM_HIST_BINS = 4096   # 32 KiB of float64 histogram per thread block
-SMEM_COUNTERS = 2048    # 16 KiB of 64-bit visited and tally counters
+SMEM_HIST_BINS = 4096   # 16 KiB of 32-bit histogram counts per thread block
+SMEM_COUNTERS = 2048    # 8 KiB of 32-bit visited and tally counts
 # kind, nb, tab_off, sm_off, lower, slot0, vrow0, width, hist_off, group, ndraw
 LEAF_FIELDS = 11
 
@@ -103,13 +103,15 @@ class McmcLayout:
     ``leaf [L, LEAF_FIELDS]``: ``kind``; ``nb`` (bins, or D for FermiK);
     ``tab_off`` (its table in the float32 ``tab``: grid then inc, cdf then
     dist, or the FermiK constants of ``ops/fermik.py:constants``);
-    ``sm_off`` (its CDF staged in shared memory, -1 if read from global);
+    ``sm_off`` (-1: the kernels read every table in device memory);
     ``lower``; ``slot0`` and ``vrow0`` (first kernel slot and value row);
     ``width``; ``hist_off`` (its bins in ``hist``, -1 if not adaptive);
     ``group``; ``ndraw``.  ``groups [nvar, 3]``: drawn-leaf range and maxdof.
     ``tab`` starts with ``deg [nd]`` and ``f32(1/N)``.  ``meta`` packs
     ``leaf``, ``groups``, the dof table ``[nd, nvar]`` and the adjacency
-    ``[nd, nd]`` as int32 for the kernels.
+    ``[nd, nd]`` as int32 for the kernels.  ``mcmc_accept`` keeps its
+    histogram bins and its counters in shared memory when they fit
+    (``hist_smem``, ``cnt_smem``).
     """
 
     spec: Any
@@ -123,7 +125,6 @@ class McmcLayout:
     S: int
     V: int
     tab_size: int
-    smem_floats: int
     nhist: int
     meta: torch.Tensor      # int32 on the device
     widx: torch.Tensor      # [W] int64: walker index within its block
@@ -156,29 +157,35 @@ class McmcLayout:
         """Visited and tally counters: ``nd + 2*3*nd*ncol``."""
         return self.nd + 6 * self.nd * self.ncol
 
+    @property
+    def hist_smem(self) -> bool:
+        return self.nhist <= SMEM_HIST_BINS
+
+    @property
+    def cnt_smem(self) -> bool:
+        return self.counters <= SMEM_COUNTERS
+
     @staticmethod
     def build(spec, block: int, wb: int, ncomp: int, custom: bool) -> "McmcLayout":
         cfg = spec.cfg
         nd = spec.N + 1
         dleaf = [i for i, li in enumerate(spec.leaves) if li.ndraw > 0]
-        rows, slot0, vrow0, sm_off, h_off = [], 0, 0, 0, 0
+        rows, slot0, vrow0, h_off = [], 0, 0, 0
         tab_off = nd + 1
         for lidx in dleaf:
             li = spec.leaves[lidx]
             leaf = li.leaf
-            sm, hist = -1, -1
+            hist = -1
             if isinstance(leaf, FermiK):
                 kind, nb, width, lower, size = KIND_FERMIK, leaf.dim, leaf.dim, 0, fermik.FK_FIELDS
             elif isinstance(leaf, Discrete):
                 kind, nb, width, lower = KIND_DISC, leaf.nbin, 1, leaf.lower
                 size = 2 * nb + 1
-                if nb <= SMEM_CDF_NBIN and sm_off + nb <= SMEM_CDF_FLOATS:
-                    sm, sm_off = sm_off, sm_off + nb
             else:
                 kind, nb, width, lower, size = KIND_CONT, leaf.ninc, 1, 0, 2 * leaf.ninc
             if leaf.adapt:
                 hist, h_off = h_off, h_off + li.nhist
-            rows.append([kind, nb, tab_off, sm, lower, slot0, vrow0, width, hist,
+            rows.append([kind, nb, tab_off, -1, lower, slot0, vrow0, width, hist,
                          li.group, li.ndraw])
             tab_off += size
             slot0 += li.ndraw
@@ -200,7 +207,7 @@ class McmcLayout:
         return McmcLayout(
             spec=spec, block=block, wb=wb, ncomp=ncomp, custom=custom, dleaf=dleaf,
             leaf=leaf, groups=groups, S=slot0, V=vrow0,
-            tab_size=tab_off, smem_floats=sm_off, nhist=h_off,
+            tab_size=tab_off, nhist=h_off,
             meta=torch.as_tensor(meta, device=dev),
             widx=torch.arange(wb, dtype=torch.int64, device=dev).repeat(block),
             adj_t=torch.as_tensor(adj != 0, device=dev),
@@ -531,7 +538,7 @@ def _propose_args(lay: McmcLayout, tab, kd, sched, t: int, st: McmcState, init: 
     """The argument list of ``mci_mcmc_propose`` (without the stream)."""
     return (kd.data_ptr(), sched.data_ptr(), t, int(init), lay.W, lay.wb,
             len(lay.dleaf), lay.spec.nvar, lay.nd, int(lay.any_swap),
-            lay.meta.data_ptr(), tab.data_ptr(), lay.smem_floats,
+            lay.meta.data_ptr(), tab.data_ptr(),
             st.cur_val.data_ptr(), st.cur_gidx.data_ptr(), st.cur_prob.data_ptr(),
             st.prp_val.data_ptr(), st.prp_gidx.data_ptr(), st.prp_prob.data_ptr(),
             st.curr.data_ptr(), st.prob.data_ptr(), st.picv.data_ptr(),
@@ -671,7 +678,7 @@ def _accept_args(lay: McmcLayout, tab, rw, kd, sched, t: int, st: McmcState, nw,
     return (kd.data_ptr(), sched.data_ptr(), t, int(init), int(measure), int(lay.custom),
             lay.W, lay.wb, len(lay.dleaf), lay.spec.nvar, lay.nd, lay.C,
             lay.meta.data_ptr(), tab.data_ptr(), rw.data_ptr(), nw.data_ptr(),
-            lay.nhist, int(lay.nhist <= SMEM_HIST_BINS), int(lay.counters <= SMEM_COUNTERS),
+            lay.nhist, int(lay.hist_smem), int(lay.cnt_smem),
             st.cur_val.data_ptr(), st.cur_gidx.data_ptr(), st.cur_prob.data_ptr(),
             st.prp_val.data_ptr(), st.prp_gidx.data_ptr(), st.prp_prob.data_ptr(),
             st.curr.data_ptr(), st.weight.data_ptr(), st.prob.data_ptr(),

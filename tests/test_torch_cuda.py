@@ -144,9 +144,9 @@ def test_cuda_vegasmc_integrates(cuda):
 def _mcmc_iteration(device, big):
     """Every branch of the :mcmc kernels: a trained map and a Discrete pool in
     a CompositeVar, FermiK pools in 3-D and 2-D, groups of two slots (swap),
-    integrands of different dof and a custom measure.  ``big`` reads its
-    Discrete CDF (2004 bins) and adds its histogram (8192 bins) and its 21
-    sectors' tallies in device memory, not shared memory."""
+    integrands of different dof and a custom measure.  ``big`` adds its
+    histograms (10196 bins) and its 21 sectors' tallies in device memory, not
+    shared memory."""
     rng = np.random.default_rng(5)
     c = mt.Continuous(0.0, 1.0, ninc=8192 if big else 1000)
     d = mt.Discrete(-3, 2000) if big else mt.Discrete(1, 40)
@@ -174,12 +174,36 @@ def _mcmc_iteration(device, big):
                          nwalkers=2 ** 14, thermal_ratio=0.1)
 
 
-@pytest.mark.parametrize("big", [False, True], ids=["shared-memory", "global-memory"])
-def test_mcmc_kernels_match_plain(cuda, big):
-    it = _mcmc_iteration(cuda, big)
+def _bubble_iteration(device):
+    """The Lindhard bubble's shape (chip_smoke.py phase 4c): N = 1, a
+    Continuous leaf of 1024 bins (its histogram), a 3-D FermiK shell,
+    Discrete(1, 4, adapt=False), dof [[1, 1, 1]] and a custom measure into
+    four bins; almost every walker of a warp counts into the same counter."""
+    var = (mt.Continuous(0.0, 2.0, alpha=3.0), mt.FermiK(3, 1.0, 0.2, 10.0),
+           mt.Discrete(1, 4, adapt=False))
+    obs = [np.zeros(4)]
+
+    def f(i, x, cc):
+        t, k, e = x
+        return torch.exp(-t[0] - (k[0] * k[0]).sum(0)) * e[0].to(torch.float32)
+
+    def meas(i, x, relw, cc):
+        return [mt.onehot(x[-1][0], 1, 4, relw.dtype, like=relw) * relw]
+
+    spec = Spec(mt.Configuration(var=var, dof=[[1, 1, 1]], seed=3, obs=obs), device)
+    return MCMCIteration(spec, f, measure=meas, obs_proto=obs, block=4, nevalperblock=2 ** 18,
+                         nwalkers=2 ** 14, thermal_ratio=0.5)
+
+
+@pytest.mark.parametrize("case", ["shared-memory", "global-memory", "bubble"])
+def test_mcmc_kernels_match_plain(cuda, case):
+    """One measured and one unmeasured step from the same state, every field
+    bit-equal; ``mcmc_accept`` counts and bins in shared memory, or (the
+    global-memory case) in device memory."""
+    it = _bubble_iteration(cuda) if case == "bubble" else _mcmc_iteration(
+        cuda, case == "global-memory")
     lay = it.layout
-    assert (lay.smem_floats > 0, lay.nhist <= mk.SMEM_HIST_BINS,
-            lay.counters <= mk.SMEM_COUNTERS) == (not big,) * 3
+    assert (lay.hist_smem, lay.cnt_smem) == ((case != "global-memory"),) * 2
     kd_np = block_keys(2, 0, 0, it.block)
     sched, groups = it.schedule(kd_np)
     kd = it.seeds(kd_np)
@@ -187,21 +211,24 @@ def test_mcmc_kernels_match_plain(cuda, big):
     tab, rw, st = it.start(it.spec.device_params(), kd, sched)
     for t in range(3):
         it.step(tab, rw, kd, sched, groups[t], st, t)
-    ref = st.clone()
-    mk.mcmc_propose(lay, tab, kd, sched, 3, st)
-    mk.mcmc_propose_plain(lay, tab, kd, sched, 3, ref)
-    nw = it.weights(st, groups[3])
-    mk.mcmc_accept(lay, tab, rw, kd, sched, 3, st, nw, measure=True)
-    mk.mcmc_accept_plain(lay, tab, rw, kd, sched, 3, ref, nw, measure=True)
-    m = it.measure[1](lay.leaf_values(st.cur_val), st.relw).contiguous()
-    mk.mcmc_measure(lay, 1, m, st)
-    mk.mcmc_measure_plain(lay, 1, m, ref)
-    torch.cuda.synchronize()
-    for name in vars(st):
-        assert _bits_equal(getattr(st, name), getattr(ref, name)), name
+    for t, measure in ((3, True), (4, False)):
+        ref = st.clone()
+        mk.mcmc_propose(lay, tab, kd, sched, t, st)
+        mk.mcmc_propose_plain(lay, tab, kd, sched, t, ref)
+        nw = it.weights(st, groups[t])
+        mk.mcmc_accept(lay, tab, rw, kd, sched, t, st, nw, measure=measure)
+        mk.mcmc_accept_plain(lay, tab, rw, kd, sched, t, ref, nw, measure=measure)
+        if measure:
+            i = len(it.measure) - 1
+            m = it.measure[i](lay.leaf_values(st.cur_val), st.relw).contiguous()
+            mk.mcmc_measure(lay, i, m, st)
+            mk.mcmc_measure_plain(lay, i, m, ref)
+        torch.cuda.synchronize()
+        for name in vars(st):
+            assert _bits_equal(getattr(st, name), getattr(ref, name)), (t, name)
     assert int(st.tally[1].sum()) > 0 and float(st.hist.sum()) > 0
-    assert mk.launch_counts["mcmc_propose"] == before["mcmc_propose"] + 15
-    assert mk.launch_counts["mcmc_accept"] == before["mcmc_accept"] + 15
+    assert mk.launch_counts["mcmc_propose"] == before["mcmc_propose"] + 16
+    assert mk.launch_counts["mcmc_accept"] == before["mcmc_accept"] + 16
     assert mk.launch_counts["mcmc_measure"] > before["mcmc_measure"]
 
 
