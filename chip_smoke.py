@@ -27,6 +27,15 @@ with nvcc and drives both ported paths on the card.
   the bounds from each step's bytes and operations, a probe of what mixed
   var groups cost ``mcmc_propose``, and a profile of one iteration.
 
+- custom measures on :vegas and :vegasmc (phases 3e, 4e, 6e): ``chain_accept``
+  writing the relative weights and ``chain_measure`` at 2^20 walkers with 10
+  and 64 components, ``vegas_relw`` and ``vegas_reduce`` given the measure's
+  output at one launch of phase 4's shape, against their plain versions; the
+  identity measure against the default one over a run of each solver; the
+  quickstart's 10-bin histogram through ``integrate`` on :vegas at 2^30 evals
+  per iteration and on :vegasmc at 2^28 with 2^20 walkers, every bin against
+  its exact value, with the rates beside phases 4 and 4b; kernel times and
+  the peak memory of a launch.
 - :vegasplus (phases 3d-7d): ``vplus_sample`` and ``vplus_reduce`` against
   their plain versions after one reallocation of the hypercube counts, at
   the main path's shape and on a spec that takes every branch, and over a
@@ -209,10 +218,11 @@ def main_path(mt, vk, card):
     res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=neval,
                        niter=niter, block=block, solver="vegas", device="cuda",
                        seed=SEED, verbose=-2)
-    counts = dict(vk.launch_counts)
+    counts = {k: vk.launch_counts[k] for k in ("vegas_sample", "vegas_reduce")}
     mean, err = float(res.mean[0]), float(res.stdev[0])
     assert res.backend == "cuda", res.backend
     assert expected > 0 and all(n == expected for n in counts.values()), (counts, expected)
+    assert vk.launch_counts["vegas_relw"] == vk.launch_counts["vegas_reduce_measure"] == 0
     assert abs(mean - np.pi / 4) < 5 * err, (mean, err)
     evals = [h[2].neval for h in res.iterations]
     steady = sum(evals[1:]) / sum(res.iteration_times[1:])
@@ -221,7 +231,7 @@ def main_path(mt, vk, card):
           f"(expected {expected} each), backend {res.backend}")
     print(f"phase 6: steady-state {steady!r} evals/s (iterations 2-{niter}, "
           f"first excluded; per-iteration s {res.iteration_times}) [{card}]")
-    return counts, shape
+    return counts, shape, steady
 
 
 def adaptive_checks(mt):
@@ -410,7 +420,7 @@ def state_bits_equal(a, b, what, hist_rel=REL_TOL_HIST):
                 raise AssertionError(f"{what}: hist rel {rel:.3g} > {hist_rel}")
         elif not torch_equal_bits(x, y):
             raise AssertionError(f"{what}: {f.name} differs from the plain version")
-        if x.is_floating_point() and not f.name.endswith("_val"):
+        if x.is_floating_point() and x.numel() and not f.name.endswith("_val"):
             err = max(err, float((x - y).abs().max()))
     return err
 
@@ -501,10 +511,11 @@ def chain_main_path(mt, ck, card):
     res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=neval,
                        niter=niter, block=block, solver="vegasmc", nwalkers=W,
                        device="cuda", seed=SEED, verbose=-2)
-    counts = dict(ck.launch_counts)
+    counts = {k: ck.launch_counts[k] for k in ("chain_propose", "chain_accept")}
     mean, err = float(res.mean[0]), float(res.stdev[0])
     assert res.backend == "cuda", res.backend
     assert all(n == expected for n in counts.values()), (counts, expected)
+    assert ck.launch_counts["chain_measure"] == 0
     assert abs(mean - np.pi / 4) < 5 * err, (mean, err)
     evals = [h[2].neval for h in res.iterations]
     steady = sum(evals[1:]) / sum(res.iteration_times[1:])
@@ -513,7 +524,7 @@ def chain_main_path(mt, ck, card):
           f"launches {counts} (expected {expected} each), backend {res.backend}")
     print(f"phase 4b: steady-state {steady!r} evals/s (iterations 2-{niter}; "
           f"per-iteration s {res.iteration_times}) [{card}]")
-    return counts
+    return counts, steady
 
 
 def chain_checks(mt):
@@ -1182,6 +1193,324 @@ def vplus_timings(mt, vp, shape, card):
             "vplus_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"], *b_reduce)}
 
 
+# ---------------------------------------------------------------------------
+# custom measures on :vegas and :vegasmc
+# ---------------------------------------------------------------------------
+
+NBIN = 10                                   # the quickstart's histogram
+VEGAS_NEVAL, CHAIN_NEVAL, CHAIN_W = 2 ** 30, 2 ** 28, 2 ** 20   # phases 4 and 4b
+
+
+def _qs_f(v, c):
+    x, y = v
+    return x[0] ** 2 + y[0] ** 2
+
+
+def hist_measure(nbin):
+    """The quickstart's histogram of x over ``nbin`` bins
+    (examples/quickstart.py:75-85) in torch, written to broadcast, so that
+    one call serves a whole batch: a sample in bin b adds relw[0] * nbin to
+    component b."""
+    def measure(v, relw, c):
+        import torch
+        x, _ = v
+        b = torch.clamp((x[0] * nbin).to(torch.int32), 0, nbin - 1)
+        bins = torch.arange(nbin, device=b.device).reshape((nbin,) + (1,) * b.ndim)
+        return [(bins == b).to(relw.dtype) * relw[0] * nbin]
+    return measure
+
+
+def identity_measure(v, relw, c):
+    return [relw[0]]
+
+
+def qs_config(mt, nbin=NBIN):
+    return mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)),
+                            dof=[[1, 1]], obs=[np.zeros(nbin)], seed=SEED)
+
+
+def qs_exact(nbin=NBIN):
+    """Each bin's exact value, the mean of x^2 + 1/3 over [a, a+h), h = 1/nbin."""
+    h = 1.0 / nbin
+    a = np.arange(nbin) * h
+    return a * a + a * h + h * h / 3 + 1.0 / 3
+
+
+def qs_iterations(mt, nbin=NBIN):
+    """The :vegas and :vegasmc iterations of phase 4e's shape, with the
+    ``nbin``-bin histogram measure."""
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+    from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration
+
+    spec = Spec(qs_config(mt, nbin), "cuda")
+    kw = dict(measure=hist_measure(nbin), obs_proto=spec.cfg.observable, block=16)
+    vit = VegasIteration(spec, _qs_f, nevalperblock=VEGAS_NEVAL // 16, **kw)
+    cit = VegasMCIteration(spec, _qs_f, nevalperblock=CHAIN_NEVAL // 16, nwalkers=CHAIN_W, **kw)
+    for it in (vit, cit):
+        assert it.backend_reason == "", it.backend_reason
+    return vit, cit
+
+
+def chain_measured_state(it):
+    """(tab, rw, kd, st): the walkers of ``it`` after their start and four
+    steps, then step 4's proposal."""
+    from mcintegration_tpu_torch.ops import chain_kernels as ck
+    from mcintegration_tpu_torch.ops.rng import block_keys
+
+    kd = it.seeds(block_keys(SEED, 0, 0, it.block))
+    tab, rw, st = it.start(it.spec.device_params(), kd)
+    for t in range(4):
+        it.step(tab, rw, kd, st, t)
+    ck.chain_propose(it.layout, tab, kd, 4, st)
+    return tab, rw, kd, st
+
+
+def vegas_measured_launch(vk, it):
+    """(inputs, T, x, invp, perm, w, relw): the first launch of ``it``,
+    through vegas_relw."""
+    from mcintegration_tpu_torch.ops.rng import block_keys
+
+    inputs = it.kernel_inputs(it.spec.device_params(), block_keys(SEED, 0, 0, it.block))
+    T = it.chunks_per_launch
+    x, invp, perm = vk.vegas_sample(t0=0, T=T, m=it.m_tile, **inputs)
+    w = it.evaluate(it.leaf_values(x)).contiguous()
+    relw = vk.vegas_relw(w, invp, it.pad, it.pair_slots)
+    return inputs, T, x, invp, perm, w, relw
+
+
+def measure_vs_plain(mt, vk, ck, card):
+    """Phase 3e: the custom-measure kernels against their plain versions from
+    one state, at the main paths' shapes: chain_accept's relw output and
+    chain_measure at 2^20 walkers with 10 and 64 components, bit for bit;
+    vegas_relw (bit for bit) and vegas_reduce given m (REL_TOL_REDUCE) at
+    one launch of phase 4's shape with 10 components; then the identity
+    measure [relw[0]] against the default measure, bit for bit, in one
+    launch of vegas_reduce and over one run of each solver from the same
+    params and kd."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+    from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration
+
+    errs = {"chain_accept_relw": 0.0, "chain_measure": 0.0}
+    for nbin in (NBIN, 64):
+        _, it = qs_iterations(mt, nbin)
+        lay = it.layout
+        tab, rw, kd, st = chain_measured_state(it)
+        ref = st.clone()
+        nw = it.weights(st)
+        ck.chain_accept(lay, rw, kd, 4, st, nw, measure=True)
+        ck.chain_accept_plain(lay, rw, kd, 4, ref, nw, measure=True)
+        torch.cuda.synchronize()
+        e = state_bits_equal(st, ref, f"chain_accept with relw, {nbin} components")
+        errs["chain_accept_relw"] = max(errs["chain_accept_relw"], e)
+        m = it.measure(it.leaf_values(st.cur_val), st.relw).contiguous()
+        ck.chain_measure(lay, m, st)
+        ck.chain_measure_plain(lay, m, ref)
+        torch.cuda.synchronize()
+        if not torch_equal_bits(st.obs, ref.obs):
+            raise AssertionError(f"chain_measure, {nbin} components: obs differs from "
+                                 "the plain version")
+        errs["chain_measure"] = max(errs["chain_measure"], float((st.obs - ref.obs).abs().max()))
+        print(f"phase 3e: one measured step at W={lay.W}, {nbin} components: chain_accept "
+              f"(relw written) and chain_measure bit-equal to their plain versions, relw in "
+              f"[{float(st.relw.min())!r}, {float(st.relw.max())!r}], hist max abs err {e!r}")
+        del st, ref, m
+
+    it, _ = qs_iterations(mt)
+    masks = (it.pad, it.pair_slots, it.used)
+    _, T, x, invp, perm, w, relw = vegas_measured_launch(vk, it)
+    relw_p = vk.vegas_relw_plain(w, invp, it.pad, it.pair_slots)
+    torch.cuda.synchronize()
+    if not torch.equal(bits(relw), bits(relw_p)):
+        raise AssertionError("vegas_relw differs from the plain version")
+    errs["vegas_relw"] = float((relw - relw_p).abs().max())
+    del relw_p
+    m = it.measure(it.leaf_values(x), relw).contiguous()
+    obs, hrow = vk.vegas_reduce(w, invp, perm, *masks, m)
+    obs_p, hrow_p = vk.vegas_reduce_plain(w, invp, perm, *masks, m)
+    rel = max(rel_err(obs.cpu(), obs_p.cpu()), rel_err(hrow.cpu(), hrow_p.cpu()))
+    if rel > REL_TOL_REDUCE:
+        raise AssertionError(f"vegas_reduce given m vs plain: rel {rel:.3g} > {REL_TOL_REDUCE}")
+    errs["vegas_reduce_measure"] = float(max((obs - obs_p).abs().max(),
+                                             (hrow - hrow_p).abs().max()))
+    del m, obs_p, hrow_p
+    obs_i, hrow_i = vk.vegas_reduce(w, invp, perm, *masks, relw[:1].contiguous())
+    obs_d, hrow_d = vk.vegas_reduce(w, invp, perm, *masks)
+    if not (torch_equal_bits(obs_i, obs_d) and torch_equal_bits(hrow_i, hrow_d)):
+        raise AssertionError("vegas_reduce given m = relw[:1] differs from the default sums")
+    print(f"phase 3e: one launch of {it.block} blocks x {T} chunks x {it.chunk} samples, "
+          f"{NBIN} components: vegas_relw bit-equal, vegas_reduce given m rel {rel:.3g}; "
+          f"given m = relw[:1], bit-equal to the default sums")
+    del x, invp, perm, w, relw
+
+    pi_spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED), "cuda")
+    params = pi_spec.device_params()
+    kd = block_keys(SEED, 2, 0, 16)
+    for cls, kw in ((VegasIteration, dict(nevalperblock=VEGAS_NEVAL // 16)),
+                    (VegasMCIteration, dict(nevalperblock=CHAIN_NEVAL // 16, nwalkers=CHAIN_W))):
+        a = cls(pi_spec, _pi, block=16, **kw).run(params, kd)
+        b = cls(pi_spec, _pi, measure=identity_measure, obs_proto=pi_spec.cfg.observable,
+                block=16, **kw).run(params, kd)
+        if not np.array_equal(a["obs_blocks"][:, 0], b["obs_blocks"][0]):
+            raise AssertionError(f"{cls.__name__}: the identity measure's obs differ from the "
+                                 "default measure's")
+        same = [k for k in a if k not in ("obs_blocks", "hists", "neval")]
+        for k in same:
+            assert np.array_equal(a[k], b[k]), (cls.__name__, k)
+        e_hist = max(rel_err(h, r) for h, r in zip(a["hists"], b["hists"]))
+        assert e_hist <= REL_TOL_HIST, (cls.__name__, e_hist)
+        print(f"phase 3e: {cls.__name__}, one run of {a['neval']} evals on pi: the identity "
+              f"measure's obs bit-equal to the default measure's, {same} equal, hist rel "
+              f"{e_hist:.3g}")
+    return errs
+
+
+def measure_main_path(mt, vk, ck, card, rates):
+    """Phase 4e: the quickstart's 10-bin histogram through integrate() on
+    :vegas at phase 4's size and on :vegasmc at phase 4b's, every bin within
+    7 sigma of its exact value; the launches of each path's kernels, and its
+    steady-state rate beside phases 4 and 4b."""
+    vit, cit = qs_iterations(mt)
+    niter = 10
+    n_measured = sum(1 for t in range(cit.nsteps) if t >= cit.warmup)
+    runs = (("vegas", dict(neval=VEGAS_NEVAL), vk,
+             {"vegas_sample": niter * vit.launches_per_run, "vegas_reduce": 0,
+              "vegas_relw": niter * vit.launches_per_run,
+              "vegas_reduce_measure": niter * vit.launches_per_run}, rates["4"]),
+            ("vegasmc", dict(neval=CHAIN_NEVAL, nwalkers=CHAIN_W), ck,
+             {"chain_propose": niter * (cit.nsteps + 1), "chain_accept": niter * (cit.nsteps + 1),
+              "chain_measure": niter * n_measured}, rates["4b"]))
+    exact = qs_exact()
+    counts = {}
+    for solver, kw, mod, expected, rate0 in runs:
+        mod.reset_launch_counts()
+        res = mt.integrate(_qs_f, config=qs_config(mt), measure=hist_measure(NBIN),
+                           solver=solver, niter=niter, block=16, device="cuda", verbose=-2, **kw)
+        got = dict(mod.launch_counts)
+        assert res.backend == "cuda" and res.backend_reason == "", res.backend_reason
+        assert got == expected, (solver, got, expected)
+        mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+        z = (mean - exact) / std
+        assert mean.shape == (NBIN,) and np.all(np.isfinite(mean)) and np.all(std > 0)
+        assert np.all(np.abs(z) < 7), (solver, z.tolist())
+        evals = [h[2].neval for h in res.iterations]
+        steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+        print(f"phase 4e: {solver}, {NBIN}-bin histogram, {niter} iterations of {evals[0]} "
+              f"evals: bins {mean.tolist()} +- {std.tolist()}, sigma {np.round(z, 2).tolist()}; "
+              f"launches {got}")
+        print(f"phase 4e: {solver} steady-state {steady!r} evals/s with the measure, "
+              f"{rate0!r} without (phase {'4' if solver == 'vegas' else '4b'}), ratio "
+              f"{steady / rate0!r} (per-iteration s {res.iteration_times}) [{card}]")
+        counts.update({k: v for k, v in got.items() if k in ("vegas_relw", "vegas_reduce_measure",
+                                                             "chain_measure")})
+    return counts
+
+
+def measure_timings(mt, vk, ck, card):
+    """Phase 6e: device ms of the custom-measure kernels at phase 4e's
+    shapes, in turns with their plain versions, beside their bounds from the
+    bytes each must move; the measure's torch ops; peak device memory of a
+    :vegas launch with 10 and with 64 components."""
+    import torch
+
+    vit, cit = qs_iterations(mt)
+    masks = (vit.pad, vit.pair_slots, vit.used)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, T, x, invp, perm, w, relw = vegas_measured_launch(vk, vit)
+    vals = vit.leaf_values(x)
+    m = vit.measure(vals, relw).contiguous()
+    obs, hrow = vk.vegas_reduce(w, invp, perm, *masks, m)
+    torch.cuda.synchronize()
+    peak10 = torch.cuda.max_memory_allocated()
+    vms = {k: [] for k in ("relw", "relw_plain", "reduce_m", "reduce_m_plain")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for kind in order:
+            if kind == "kernel":
+                vms["relw"].append(time_ms(
+                    lambda: vk.vegas_relw(w, invp, vit.pad, vit.pair_slots), 10))
+                vms["reduce_m"].append(time_ms(
+                    lambda: vk.vegas_reduce(w, invp, perm, *masks, m), 10))
+            else:
+                vms["relw_plain"].append(time_ms(
+                    lambda: vk.vegas_relw_plain(w, invp, vit.pad, vit.pair_slots), 3))
+                vms["reduce_m_plain"].append(time_ms(
+                    lambda: vk.vegas_reduce_plain(w, invp, perm, *masks, m), 3))
+    vms = {k: float(np.mean(v)) for k, v in vms.items()}
+    ms_measure = time_ms(lambda: vit.measure(vals, relw), 10)
+    n, N, ncomp, nslots = w[0].numel(), w.shape[0], m.shape[0], invp.shape[0]
+    R = invp[0].numel()
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    relw_bytes = nbytes(w, invp, vit.pad, vit.pair_slots, relw)
+    reduce_bytes = nbytes(w, invp, perm, *masks, m, hrow) + 8 * R * ncomp   # obs per row
+    b_relw = bound(relw_bytes, n * N)
+    b_reduce = bound(reduce_bytes, 8 * n * (N + nslots) + 2 * n * ncomp)
+    print(f"phase 6e: one :vegas launch = {vit.block} blocks x {T} chunks x {vit.chunk} "
+          f"samples ({n} evals), {ncomp} components [{card}]")
+    print(f"phase 6e: vegas_relw {vms['relw']!r} ms/launch, plain torch "
+          f"{vms['relw_plain']!r} ms, bound {b_relw[0]!r} ms ({relw_bytes} bytes, "
+          f"by {b_relw[1]}) [{card}]")
+    print(f"phase 6e: measure (torch) {ms_measure!r} ms/launch [{card}]")
+    print(f"phase 6e: vegas_reduce given m {vms['reduce_m']!r} ms/launch, plain "
+          f"torch {vms['reduce_m_plain']!r} ms, bound {b_reduce[0]!r} ms "
+          f"({reduce_bytes} bytes, by {b_reduce[1]}) [{card}]")
+    del x, invp, perm, w, relw, vals, m, obs, hrow
+    from mcintegration_tpu_torch.solvers.vegas import MEASURE_LAUNCH_BYTES
+
+    vit64, _ = qs_iterations(mt, 64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inputs = vit64.kernel_inputs(vit64.spec.device_params(), np.zeros((16, 2), np.uint32))
+    vit64.launch(inputs, 0, vit64.chunks_per_launch)
+    torch.cuda.synchronize()
+    peak64 = torch.cuda.max_memory_allocated()
+    print(f"phase 6e: peak device memory of a launch: {peak10} bytes with {NBIN} components "
+          f"({vit.chunks_per_launch} chunks of {vit.chunk} a block), {peak64} bytes with 64 "
+          f"({vit64.chunks_per_launch} chunk of {vit64.chunk} a block: x, w, relw and m "
+          f"within {MEASURE_LAUNCH_BYTES} bytes) [{card}]")
+    del vit64, inputs
+
+    lay = cit.layout
+    tab, rw, kd, st = chain_measured_state(cit)
+    nw = cit.weights(st)
+    ck.chain_accept(lay, rw, kd, 4, st, nw, measure=True)
+    cvals = cit.leaf_values(st.cur_val)
+    m = cit.measure(cvals, st.relw).contiguous()
+    cms = {k: [] for k in ("accept", "accept_plain", "measure", "measure_plain")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for kind in order:
+            sfx = "" if kind == "kernel" else "_plain"
+            reps = 20 if kind == "kernel" else 5
+            acc = getattr(ck, "chain_accept" + sfx)
+            meas = getattr(ck, "chain_measure" + sfx)
+            cms["accept" + sfx].append(
+                device_ms(lambda: acc(lay, rw, kd, 5, st, nw, measure=True), reps))
+            cms["measure" + sfx].append(device_ms(lambda: meas(lay, m, st), reps))
+    cms = {k: float(np.mean(v)) for k, v in cms.items()}
+    ms_fn = device_ms(lambda: cit.measure(cvals, st.relw), 20)
+    S, N, nd, W, ncomp = lay.S, lay.spec.N, lay.spec.N + 1, lay.W, lay.ncomp
+    # phase 6b's bytes of a measured chain_accept, with relw written (4 bytes
+    # per integrand) in place of the float64 obs read and written (16)
+    b_acc = bound(W * (4 * S + 4 * N + 16 + 36 + 16 + 8 * S + 4 * N + 4 * nd
+                       + 4 * N + 16 * nd + 16), 80 * W)
+    b_meas = bound(20 * ncomp * W, 2 * ncomp * W)
+    print(f"phase 6e: one :vegasmc step = {W} walkers, {ncomp} components; device time per "
+          f"call, calls queued behind a sleep kernel [{card}]")
+    print(f"phase 6e: chain_accept writing relw {cms['accept']!r} ms/measured step, plain "
+          f"torch {cms['accept_plain']!r} ms, bound {b_acc[0]!r} ms (by {b_acc[1]}) [{card}]")
+    print(f"phase 6e: measure (torch) {ms_fn!r} ms/measured step [{card}]")
+    print(f"phase 6e: chain_measure {cms['measure']!r} ms/measured step, plain torch "
+          f"{cms['measure_plain']!r} ms, bound {b_meas[0]!r} ms ({20 * ncomp * W} bytes, by "
+          f"{b_meas[1]}) [{card}]")
+    # (ms, plain_ms, bound_ms, bound_by) of each kernel in the kernels line
+    return {"vegas_relw": (vms["relw"], vms["relw_plain"], *b_relw),
+            "vegas_reduce_measure": (vms["reduce_m"], vms["reduce_m_plain"], *b_reduce),
+            "chain_measure": (cms["measure"], cms["measure_plain"], *b_meas)}
+
+
 PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
 # float32 outside the tensor cores, operations/s: the data sheet's, a fused
 # multiply-add counted as two (the :mcmc kernels, built with --fmad=false,
@@ -1458,11 +1787,14 @@ def main() -> int:
     timed("3b", chain_vs_plain, mt, ck, card)
     timed("3c", mcmc_vs_plain, mt, mk, card)
     timed("3d", vplus_vs_plain, mt, vp, card)
-    counts, shape = timed("4", main_path, mt, vk, card)
-    counts.update(timed("4b", chain_main_path, mt, ck, card))
+    measure_errs = timed("3e", measure_vs_plain, mt, vk, ck, card)
+    counts, shape, rate4 = timed("4", main_path, mt, vk, card)
+    chain_counts, rate4b = timed("4b", chain_main_path, mt, ck, card)
+    counts.update(chain_counts)
     counts.update(timed("4c", mcmc_main_path, mt, mk, card))
     vcounts, vshape = timed("4d", vplus_main_path, mt, vp, card)
     counts.update(vcounts)
+    counts.update(timed("4e", measure_main_path, mt, vk, ck, card, {"4": rate4, "4b": rate4b}))
     timed("5", adaptive_checks, mt)
     timed("5b", chain_checks, mt)
     timed("5c", mcmc_checks, mt)
@@ -1471,6 +1803,8 @@ def main() -> int:
     measured.update(timed("6b", chain_timings, mt, ck, card))
     measured.update(timed("6c", mcmc_timings, mt, mk, card))
     measured.update(timed("6d", vplus_timings, mt, vp, vshape, card))
+    for name, times in timed("6e", measure_timings, mt, vk, ck, card).items():
+        measured[name] = (measure_errs[name], *times)
     common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2, niter=3)
     for phase, kw in (("7", dict(neval=2 ** 30, solver="vegas", **common)),
                       ("7b", dict(neval=2 ** 28, solver="vegasmc", nwalkers=2 ** 20, **common))):
@@ -1495,13 +1829,18 @@ def main() -> int:
                 "mcmc_accept": "mcintegration_tpu/ops/pallas_mcmc.py:476",
                 "mcmc_measure": "mcintegration_tpu/ops/pallas_mcmc.py:476",
                 "vplus_sample": "mcintegration_tpu/ops/pallas_vplus.py:156",
-                "vplus_reduce": "mcintegration_tpu/ops/pallas_vplus.py:156"}
+                "vplus_reduce": "mcintegration_tpu/ops/pallas_vplus.py:156",
+                "chain_measure": "mcintegration_tpu/ops/pallas_chain.py:410",
+                "vegas_relw": "mcintegration_tpu/ops/pallas_vegas.py:343",
+                "vegas_reduce_measure": "mcintegration_tpu/ops/pallas_vegas.py:343"}
+    # vegas_relw and vegas_reduce's measure mode are entry points of vegas_reduce.cu
+    sources = {"vegas_relw": "vegas_reduce", "vegas_reduce_measure": "vegas_reduce"}
     kernels = []
     for name, where in replaces.items():
         err, ms, plain_ms, bound_ms, bound_by = measured[name]
         # no single PyTorch call computes any of these functions: library_ms null
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"mcintegration_tpu_torch/csrc/{name}.cu",
+                        "source": f"mcintegration_tpu_torch/csrc/{sources.get(name, name)}.cu",
                         "replaces": where, "launches": counts[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})

@@ -2,11 +2,13 @@
 
 Serves ``integrate(..., solver="vegasmc")`` (the default) on ``Continuous``
 and ``Discrete`` pools, ``integrate(..., solver="mcmc")`` on those and
-``FermiK`` pools, with custom measures, ``integrate(..., solver="vegas")``
-on ``Continuous`` pools, and ``integrate(..., solver="vegasplus")`` on
-``Continuous`` pools with ``Discrete`` passengers, on one NVIDIA GPU: the
-chain steps' proposals and Metropolis accepts (:vegasmc, :mcmc), the
-stratified Vegas draw and the observable/histogram reduction (:vegas), and
+``FermiK`` pools, ``integrate(..., solver="vegas")`` on ``Continuous``
+pools, all three with custom measures, and ``integrate(...,
+solver="vegasplus")`` on ``Continuous`` pools with ``Discrete``
+passengers, on one NVIDIA GPU: the
+chain steps' proposals, Metropolis accepts and measurements (:vegasmc,
+:mcmc), the stratified Vegas draw, the relative weights and the
+observable/histogram reduction (:vegas), and
 the hypercube draw and the density, second-moment and histogram reduction
 (:vegasplus) are hand-written CUDA kernels (``csrc/``); the user integrand
 and measure run as torch ops between them, and map training, reweighting,
@@ -23,7 +25,7 @@ from .common import onehot
 from .configuration import Configuration
 from .main import integrate
 from .models.variable import CompositeVar, Continuous, Discrete, FermiK
-from .statistics import Result, report
+from .statistics import Result, average, report
 
 __version__ = "0.1.0"
 
@@ -34,6 +36,7 @@ __all__ = [
     "Discrete",
     "FermiK",
     "Result",
+    "average",
     "integrate",
     "report",
     "save_state",

@@ -18,8 +18,12 @@
 // and t >= warmup, decided by the caller) obs_i += w_i*(pad_i/p),
 // vis_i += |w_i|*pad_i*rw_i/p, nrm += pad_norm/p, vis_norm += rw_norm*
 // pad_norm/p, all into per-walker float64 accumulators (these replace the
-// TPU kernel's Kahan float32 pairs, lines 84-102).  With init = 1 the kernel
-// only takes the first state: w, pad, p.
+// TPU kernel's Kahan float32 pairs, lines 84-102).  With a custom measure
+// (custom = 1, K2's branch at lines 829-842) a measured step writes
+// relw_i = w_i*(pad_i/p) of the state after the move into relw in place of
+// the obs adds; the user's measure then runs as torch ops on that state and
+// chain_measure.cu adds its output into obs.  With init = 1 the kernel only
+// takes the first state: w, pad, p.
 //
 // What bounds it on the card: device-memory bytes, about 40 + 20*N bytes per
 // walker per step (read the slot probs, nw, w, pad, p, prop and move; write
@@ -71,7 +75,7 @@ __device__ __forceinline__ float masked_prod(const int* leaf, const int* grp,
 __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
     const uint32_t* __restrict__ kd, uint32_t t, int init, int measure, int W,
     int wb, int L, int S, int nvar, int nelig, int N,
-    const int* __restrict__ meta, const float* __restrict__ rw, int H,
+    int custom, const int* __restrict__ meta, const float* __restrict__ rw, int H,
     int hist_smem, int* __restrict__ prp_val, int* __restrict__ prp_gidx,
     float* __restrict__ prp_prob, int* __restrict__ cur_val,
     int* __restrict__ cur_gidx, float* __restrict__ cur_prob,
@@ -80,7 +84,7 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
     float* __restrict__ pad, float* __restrict__ pj,
     double* __restrict__ obs, double* __restrict__ nrm,
     double* __restrict__ vis, int* __restrict__ pc, int* __restrict__ ac,
-    double* __restrict__ hist) {
+    double* __restrict__ hist, float* __restrict__ relw) {
   extern __shared__ double hs[];
   const int nd = N + 1, norm = N;
   const int* leaf = meta;                          // [L, 8]
@@ -163,7 +167,11 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
       for (int i = 0; i < N; ++i) {
         const long long q = (long long)i * W + w;
         const float wi = wgt[q], padi = pad[q];
-        obs[q] += (double)__fmul_rn(wi, __fdiv_rn(padi, p));
+        const float r = __fmul_rn(wi, __fdiv_rn(padi, p));
+        if (custom)
+          relw[q] = r;
+        else
+          obs[q] += (double)r;
         vis[q] += (double)__fdiv_rn(__fmul_rn(__fmul_rn(fabsf(wi), padi), rw[i]), p);
       }
       const float norm_w = __fdiv_rn(pad[(long long)norm * W + w], p);
@@ -182,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
 }  // namespace
 
 extern "C" int mci_chain_accept(const void* kd, int t, int init, int measure,
-                                int W, int wb, int L, int S, int nvar,
+                                int custom, int W, int wb, int L, int S, int nvar,
                                 int nelig, int N, const void* meta,
                                 const void* rw, int H, int hist_smem,
                                 void* prp_val, void* prp_gidx, void* prp_prob,
@@ -190,7 +198,7 @@ extern "C" int mci_chain_accept(const void* kd, int t, int init, int measure,
                                 const void* nw, const void* prop,
                                 const void* move, void* w, void* pad, void* p,
                                 void* obs, void* nrm, void* vis, void* pc,
-                                void* ac, void* hist, void* stream) {
+                                void* ac, void* hist, void* relw, void* stream) {
   long long blocks = ((long long)W + kThreads - 1) / kThreads;
   const long long cap = 2LL * num_sms();
   if (blocks > cap) blocks = cap;
@@ -198,10 +206,10 @@ extern "C" int mci_chain_accept(const void* kd, int t, int init, int measure,
   const size_t smem = hist_smem ? (size_t)H * sizeof(double) : 0;
   chain_accept_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)kd, (uint32_t)t, init, measure, W, wb, L, S, nvar, nelig,
-      N, (const int*)meta, (const float*)rw, H, hist_smem, (int*)prp_val,
+      N, custom, (const int*)meta, (const float*)rw, H, hist_smem, (int*)prp_val,
       (int*)prp_gidx, (float*)prp_prob, (int*)cur_val, (int*)cur_gidx,
       (float*)cur_prob, (const float*)nw, (const float*)prop, (const int*)move,
       (float*)w, (float*)pad, (float*)p, (double*)obs, (double*)nrm,
-      (double*)vis, (int*)pc, (int*)ac, (double*)hist);
+      (double*)vis, (int*)pc, (int*)ac, (double*)hist, (float*)relw);
   return (int)cudaGetLastError();
 }

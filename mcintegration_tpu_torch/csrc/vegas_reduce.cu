@@ -1,28 +1,39 @@
-// vegas_reduce: the observable sums and training histogram of the :vegas solver.
+// vegas_reduce: the observable sums and training histogram of the :vegas solver,
+// and vegas_relw: the per-sample relative weights a custom measure reads.
 //
 // Replaces the reduction half of mcintegration_tpu/ops/pallas_vegas.py:
-// build_run_all (lines 454-532).  One thread block per stratum row
-// r = (block b, chunk t, stratum p) of m samples computes, in the kernel's
-// float32 order:
+// build_run_all (lines 454-532), custom-measure branch (lines 488-503)
+// included.  One thread block per stratum row r = (block b, chunk t,
+// stratum p) of m samples computes, in the kernel's float32 order:
 //   jac      = prod_k invp_k                              (:431-433)
 //   factor_i = jac * prod over padded (group, slot) pairs of
 //              prod over the group's leaves of 1/invp     (:434-441, :471-478)
 //   obs_rows[r, i] = sum_q w_i * factor_i                 (float64 sum)
 //   whsum_i  = sum_q min(|w_i| * jac, 1e17)^2             (:507, float64 sum)
 //   hrow[k, b, t, perm_k[p]] = sum_{i used by slot k} whsum_i
+// With a custom measure, vegas_relw first writes relw_i = w_i * factor_i
+// per sample (the same float32 product), the user's measure runs as torch
+// ops on the samples and relw, and vegas_reduce is given its output
+// m [ncomp, B, T, nb, m]: then obs_rows[r, k] = sum_q m_k (float64, in the
+// same block_sum2 order, so the identity measure m_0 = relw_0 gives the
+// default sums bit for bit), and the histogram still comes from w and jac.
+// The JAX kernel also masks the strata rows that pad a chunk up to its L x L
+// square (rowmask, :394 and :501); the port draws no padded rows.
 // The permutation is a bijection of the strata, so each histogram bin of a
 // (slot, block, chunk) is written by exactly one thread block: no atomics.
-// The kernel writes per-row partials obs_rows [B, T, nb, N], not per-(b, t)
-// sums: the wrapper's torch sum over p (giving obs [B, T, N]) is the first
+// The kernel writes per-row partials obs_rows [B, T, nb, ncomp], not per-(b, t)
+// sums: the wrapper's torch sum over p (giving obs [B, T, ncomp]) is the first
 // step of the fixed-order float64 reduction, and the solver then sums
 // chunks, blocks and slots in a fixed order, so a fixed seed reproduces a run
 // bit for bit.  This replaces the TPU kernel's Kahan carry in SMEM across the
 // in-order grid.
 //
 // What bounds it on the card: device-memory bytes, one 4-byte load of w per
-// (integrand, sample); the outputs are one double per row and integrand.
+// (integrand, sample), and of m per (component, sample) with a custom
+// measure; the outputs are one double per row and column.  vegas_relw reads
+// w and writes relw: 8 bytes per (integrand, sample).
 //
-// Deliberately simple: a warp-shuffle block reduction per integrand, no
+// Deliberately simple: a warp-shuffle block reduction per column, no
 // wgmma or TMA (nothing to multiply, no tile reuse).  Fusing the integrand,
 // so w never reaches device memory, is later work.
 
@@ -56,25 +67,13 @@ __device__ __forceinline__ void block_sum2(double& a, double& b,
   __syncthreads();
 }
 
-// shared memory: whsum [N] double, part [64] double, factor [N] float
-__global__ void vegas_reduce_kernel(const float* __restrict__ w,
-                                    const float* __restrict__ invp,
-                                    const int32_t* __restrict__ perm,
-                                    const int32_t* __restrict__ pad,
-                                    const int32_t* __restrict__ pair_slots,
-                                    const int32_t* __restrict__ used,
-                                    int N, int nslots, int npair, int maxmem,
-                                    long long R, int nb, int m,
-                                    double* __restrict__ obs_rows,
-                                    double* __restrict__ hrow) {
-  extern __shared__ double smem[];
-  double* whsum = smem;
-  double* part = smem + N;
-  float* factor = (float*)(smem + N + 64);
-
-  const long long r = blockIdx.x;
-  const int p = (int)(r % nb);
-
+// jac of stratum row r, returned to every thread, and factor_i into
+// factor[i] in shared memory, in the plain version's float32 order.
+__device__ __forceinline__ float row_factors(const float* __restrict__ invp,
+                                             const int32_t* __restrict__ pad,
+                                             const int32_t* __restrict__ pair_slots,
+                                             int N, int nslots, int npair, int maxmem,
+                                             long long R, long long r, float* factor) {
   float jac = invp[r];
   for (int k = 1; k < nslots; ++k) jac = __fmul_rn(jac, invp[k * R + r]);
 
@@ -93,22 +92,54 @@ __global__ void vegas_reduce_kernel(const float* __restrict__ w,
     factor[i] = f;
   }
   __syncthreads();
+  return jac;
+}
 
-  for (int i = 0; i < N; ++i) {
-    const float* wi = w + ((long long)i * R + r) * m;
-    const float f = factor[i];
+// shared memory: whsum [N] double, part [64] double, factor [N] float.
+// mobs (ncomp columns) is null for the default measure (ncomp == N).
+__global__ void vegas_reduce_kernel(const float* __restrict__ w,
+                                    const float* __restrict__ invp,
+                                    const int32_t* __restrict__ perm,
+                                    const int32_t* __restrict__ pad,
+                                    const int32_t* __restrict__ pair_slots,
+                                    const int32_t* __restrict__ used,
+                                    int N, int nslots, int npair, int maxmem,
+                                    long long R, int nb, int m,
+                                    const float* __restrict__ mobs, int ncomp,
+                                    double* __restrict__ obs_rows,
+                                    double* __restrict__ hrow) {
+  extern __shared__ double smem[];
+  double* whsum = smem;
+  double* part = smem + N;
+  float* factor = (float*)(smem + N + 64);
+
+  const long long r = blockIdx.x;
+  const int p = (int)(r % nb);
+  const float jac = row_factors(invp, pad, pair_slots, N, nslots, npair, maxmem, R, r,
+                                factor);
+
+  const int ncol = N > ncomp ? N : ncomp;
+  for (int i = 0; i < ncol; ++i) {
     double so = 0.0, sh = 0.0;
-    for (int q = threadIdx.x; q < m; q += blockDim.x) {
-      const float v = wi[q];
-      so += (double)__fmul_rn(v, f);
-      float a = __fmul_rn(fabsf(v), jac);
-      a = a > 1e17f ? 1e17f : a;   // NaN passes through, as torch.clamp
-      sh += (double)__fmul_rn(a, a);
+    if (i < N) {
+      const float* wi = w + ((long long)i * R + r) * m;
+      const float f = factor[i];
+      for (int q = threadIdx.x; q < m; q += blockDim.x) {
+        const float v = wi[q];
+        if (!mobs) so += (double)__fmul_rn(v, f);
+        float a = __fmul_rn(fabsf(v), jac);
+        a = a > 1e17f ? 1e17f : a;   // NaN passes through, as torch.clamp
+        sh += (double)__fmul_rn(a, a);
+      }
+    }
+    if (mobs && i < ncomp) {
+      const float* mi = mobs + ((long long)i * R + r) * m;
+      for (int q = threadIdx.x; q < m; q += blockDim.x) so += (double)mi[q];
     }
     block_sum2(so, sh, part);
     if (threadIdx.x == 0) {
-      obs_rows[r * N + i] = so;
-      whsum[i] = sh;
+      if (i < ncomp) obs_rows[r * ncomp + i] = so;
+      if (i < N) whsum[i] = sh;
     }
   }
   __syncthreads();
@@ -121,20 +152,53 @@ __global__ void vegas_reduce_kernel(const float* __restrict__ w,
   }
 }
 
+// shared memory: factor [N] float
+__global__ void vegas_relw_kernel(const float* __restrict__ w,
+                                  const float* __restrict__ invp,
+                                  const int32_t* __restrict__ pad,
+                                  const int32_t* __restrict__ pair_slots,
+                                  int N, int nslots, int npair, int maxmem,
+                                  long long R, int m, float* __restrict__ relw) {
+  extern __shared__ float factor[];
+  const long long r = blockIdx.x;
+  row_factors(invp, pad, pair_slots, N, nslots, npair, maxmem, R, r, factor);
+  for (int i = 0; i < N; ++i) {
+    const long long base = ((long long)i * R + r) * m;
+    const float f = factor[i];
+    for (int q = threadIdx.x; q < m; q += blockDim.x)
+      relw[base + q] = __fmul_rn(w[base + q], f);
+  }
+}
+
+int row_threads(int m) {
+  int threads = 32;
+  while (threads < m && threads < 256) threads *= 2;
+  return threads;
+}
+
 }  // namespace
 
 extern "C" int mci_vegas_reduce(const void* w, const void* invp,
                                 const void* perm, const void* pad,
                                 const void* pair_slots, const void* used,
                                 int N, int nslots, int npair, int maxmem,
-                                long long R, int nb, int m, void* obs_rows,
-                                void* hrow, void* stream) {
-  int threads = 32;
-  while (threads < m && threads < 256) threads *= 2;
+                                long long R, int nb, int m, const void* mobs,
+                                int ncomp, void* obs_rows, void* hrow, void* stream) {
   const size_t smem = (size_t)(N + 64) * sizeof(double) + (size_t)N * sizeof(float);
-  vegas_reduce_kernel<<<(unsigned)R, threads, smem, (cudaStream_t)stream>>>(
+  vegas_reduce_kernel<<<(unsigned)R, row_threads(m), smem, (cudaStream_t)stream>>>(
       (const float*)w, (const float*)invp, (const int32_t*)perm,
       (const int32_t*)pad, (const int32_t*)pair_slots, (const int32_t*)used,
-      N, nslots, npair, maxmem, R, nb, m, (double*)obs_rows, (double*)hrow);
+      N, nslots, npair, maxmem, R, nb, m, (const float*)mobs, mobs ? ncomp : N,
+      (double*)obs_rows, (double*)hrow);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mci_vegas_relw(const void* w, const void* invp, const void* pad,
+                              const void* pair_slots, int N, int nslots, int npair,
+                              int maxmem, long long R, int m, void* relw, void* stream) {
+  vegas_relw_kernel<<<(unsigned)R, row_threads(m), (size_t)N * sizeof(float),
+                      (cudaStream_t)stream>>>(
+      (const float*)w, (const float*)invp, (const int32_t*)pad,
+      (const int32_t*)pair_slots, N, nslots, npair, maxmem, R, m, (float*)relw);
   return (int)cudaGetLastError();
 }

@@ -79,6 +79,27 @@ def _not_ported(what: str, item: int):
         f"queue 1, item {item}); mcintegration_tpu serves it")
 
 
+def _check_keywords(dtype, backend, cache, parallel):
+    """The reference's ``dtype``, ``backend``, ``cache`` and ``parallel``
+    keywords: their defaults are served, any other value raises."""
+    if dtype is not torch.float32:
+        try:
+            f32 = np.dtype(dtype) == np.float32
+        except TypeError:
+            f32 = False
+        if not f32:
+            _not_ported(f"dtype={dtype} (only float32)", 22)
+    if backend != "auto":
+        raise NotImplementedError(
+            f"backend={backend!r}: mcintegration_tpu_torch has one route per device, "
+            "the CUDA kernels on device='cuda' and their plain PyTorch versions on "
+            "device='cpu'; pass device= instead")
+    if cache is not True:
+        _not_ported(f"cache={cache!r} (the kernel cache)", 17)
+    if parallel != "auto":
+        _not_ported(f"parallel={parallel!r} (multi-device runs)", 15)
+
+
 def integrate(integrand: Callable, *,
               solver: str = "vegasmc",
               config: Optional[Configuration] = None,
@@ -95,12 +116,16 @@ def integrate(integrand: Callable, *,
               measurefreq: int = 1,
               thermal_ratio: float = 0.1,
               inplace: bool = False,
+              parallel: str = "auto",
               print: int = -1,  # legacy alias of verbose (src/main.jl:92-93)
               timer=None,
               mesh=None,
               nwalkers: Optional[int] = None,
               min_steps_per_walker: int = 256,
               warmup: Optional[float] = None,
+              dtype=torch.float32,
+              backend: str = "auto",
+              cache: bool = True,
               device="cuda",
               **kwargs):
     """Calculate the integrals; returns a :class:`Result`.
@@ -122,14 +147,20 @@ def integrate(integrand: Callable, *,
     fraction of each chain, default 0.01) shape the :vegasmc chains as in
     the JAX package; ``nwalkers``, ``min_steps_per_walker`` and
     ``thermal_ratio`` (burn-in steps as a fraction of the measured ones,
-    default 0.1) the :mcmc chains.  On :mcmc a custom ``measure(idx, x,
-    relw, c)`` returns the observables' contributions, shaped like ``obs``.
+    default 0.1) the :mcmc chains.  A custom measure returns the
+    observables' contributions, shaped like ``obs``: ``measure(x, relw, c)``
+    on :vegas and :vegasmc, with ``relw [N, *batch]`` the integrands'
+    relative weights (``relw[0]`` reads as it does per sample), and
+    ``measure(idx, x, relw, c)`` on :mcmc.
 
-    Inputs the port does not serve yet raise ``NotImplementedError`` naming
-    the ROADMAP.md item that will port them: a custom ``measure`` on
-    :vegas, :vegasmc and :vegasplus, ``measurefreq != 1`` on :vegas and
-    :vegasplus, ``type=complex``, ``mesh`` and ``debug``; FermiK pools raise
-    on every solver but :mcmc, as in the reference.
+    ``dtype``, ``backend``, ``cache`` and ``parallel`` are the reference's
+    keywords; the port serves their defaults (float32, ``"auto"``, True,
+    ``"auto"``) and raises on any other value.  Inputs the port does not
+    serve yet raise ``NotImplementedError`` naming the ROADMAP.md item that
+    will port them: a custom ``measure`` on :vegasplus, ``measurefreq != 1``
+    on :vegas and :vegasplus, ``type=complex`` and complex observables,
+    ``mesh`` and ``debug``; FermiK pools raise on every solver but :mcmc, as
+    in the reference.
 
     ``result.backend`` is ``"cuda"`` or ``"torch"``; ``backend_reason``
     says why, when the integrand or the measure runs per sample under
@@ -140,8 +171,9 @@ def integrate(integrand: Callable, *,
         solver = "vegasplus"
     if solver not in ("vegas", "vegasmc", "mcmc", "vegasplus"):
         raise ValueError(f"Solver {solver} is not supported!")
-    if measure is not None and solver != "mcmc":
-        _not_ported(f"a custom measure on :{solver}", 14)
+    _check_keywords(dtype, backend, cache, parallel)
+    if measure is not None and solver == "vegasplus":
+        _not_ported("a custom measure on :vegasplus", 14)
     if measurefreq != 1 and solver in ("vegas", "vegasplus"):
         _not_ported(f"measurefreq={measurefreq} on :{solver}", 14)
     if mesh is not None:
@@ -174,7 +206,8 @@ def integrate(integrand: Callable, *,
             thermal_ratio=thermal_ratio)
     elif solver == "vegasmc":
         it_kernel = VegasMCIteration(
-            spec, integrand, inplace=inplace, measurefreq=measurefreq,
+            spec, integrand, measure=measure, obs_proto=config.observable,
+            inplace=inplace, measurefreq=measurefreq,
             block=block, nevalperblock=nevalperblock, nwalkers=nwalkers,
             min_steps_per_walker=min_steps_per_walker,
             warmup=0.01 if warmup is None else warmup)
@@ -182,8 +215,9 @@ def integrate(integrand: Callable, *,
         it_kernel = VegasPlusIteration(spec, integrand, inplace=inplace, block=block,
                                        nevalperblock=nevalperblock)
     else:
-        it_kernel = VegasIteration(spec, integrand, inplace=inplace, block=block,
-                                   nevalperblock=nevalperblock)
+        it_kernel = VegasIteration(spec, integrand, measure=measure,
+                                   obs_proto=config.observable, inplace=inplace,
+                                   block=block, nevalperblock=nevalperblock)
     backend_reason = it_kernel.backend_reason
     if verbose >= 0 and backend_reason:
         sys.stdout.write(yellow(f"{solver}: {backend_reason}\n"))

@@ -36,19 +36,23 @@ _SIGNATURES = {
     # kd, t0, B, T, nb, m, nslots, atab, grid, inc, slot_leaf, x, invp, perm, stream
     "mci_vegas_sample": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem, R, nb, m,
-    # obs_rows, hrow, stream
+    # mobs, ncomp, obs_rows, hrow, stream
     "mci_vegas_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I,
-                         _P, _P, _P],
+                         _P, _I, _P, _P, _P],
+    # w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, m, relw, stream
+    "mci_vegas_relw": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P, _P],
     # kd, t, init, W, wb, L, S, nvar, nelig, meta, tab, smem_floats, cur_val,
     # cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob, prop, move, stream
     "mci_chain_propose": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # kd, t, init, measure, W, wb, L, S, nvar, nelig, N, meta, rw, H,
+    # kd, t, init, measure, custom, W, wb, L, S, nvar, nelig, N, meta, rw, H,
     # hist_smem, prp_val, prp_gidx, prp_prob, cur_val, cur_gidx, cur_prob,
-    # nw, prop, move, w, pad, p, obs, nrm, vis, pc, ac, hist, stream
-    "mci_chain_accept": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+    # nw, prop, move, w, pad, p, obs, nrm, vis, pc, ac, hist, relw, stream
+    "mci_chain_accept": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _P, _P, _P, _P],
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # ncomp, W, m, obs, stream
+    "mci_chain_measure": [_I, _I, _P, _P, _P],
     # kd, sched, t, init, W, wb, L, nvar, nd, any_swap, meta, tab, cur_val,
     # cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob, curr, prob, picv, dof,
     # prop, move, stream

@@ -6,7 +6,12 @@ build_chain_run_all`` (kernel K2) as a split step: ``chain_propose`` draws
 each walker's changeVariable proposal, the user integrand runs as torch ops
 on the proposed state, and ``chain_accept`` forms the padding factors and
 the joint density, takes the Metropolis decision and accumulates tallies,
-histograms and measurements.  The law is the JAX package's XLA route
+histograms and measurements.  With a custom measure (K2's branch at
+``pallas_chain.py:829-842``), ``chain_accept`` writes each walker's
+relative weights ``relw`` on a measured step in place of the ``obs`` adds,
+the user's measure runs as torch ops on the state after the move, and
+``chain_measure`` adds its output into the float64 accumulators.  The law
+is the JAX package's XLA route
 (``mcintegration_tpu/solvers/vegasmc.py:250-450``): every walker redraws
 the chosen slot of every leaf of its chosen group through the leaf's map,
 with a fresh uniform of its own.
@@ -59,7 +64,7 @@ SMEM_CDF_FLOATS = 12288     # 48 KiB of staged CDF thresholds per thread block
 SMEM_HIST_BINS = 6144       # 48 KiB of float64 histogram per thread block
 LEAF_FIELDS = 8             # kind, nb, tab_off, sm_off, lower, slot0, hist_off, group
 
-launch_counts = {"chain_propose": 0, "chain_accept": 0}
+launch_counts = {"chain_propose": 0, "chain_accept": 0, "chain_measure": 0}
 
 
 def reset_launch_counts():
@@ -89,6 +94,8 @@ class ChainLayout:
     spec: Any
     block: int
     wb: int
+    ncomp: int              # observable components (N for the default measure)
+    custom: bool            # a custom measure: accept writes relw, not obs
     dleaf: List[int]
     leaf: np.ndarray        # [L, LEAF_FIELDS] int32
     groups: np.ndarray      # [nvar, 3] int32: glo, ghi, maxdof
@@ -112,7 +119,10 @@ class ChainLayout:
         return len(self.sleaf)
 
     @staticmethod
-    def build(spec, block: int, wb: int) -> "ChainLayout":
+    def build(spec, block: int, wb: int, ncomp=None, custom=False) -> "ChainLayout":
+        """The layout of ``spec`` for ``block`` blocks of ``wb`` walkers;
+        ``ncomp`` observable components (default ``spec.N``), ``custom``
+        for a custom measure."""
         dleaf = [i for i, li in enumerate(spec.leaves) if li.ndraw > 0]
         rows, slot0, tab_off, sm_off, h_off = [], 0, 0, 0, 0
         for d, lidx in enumerate(dleaf):
@@ -154,7 +164,9 @@ class ChainLayout:
                                usedm.ravel(), hfeed.ravel(), sleaf]).astype(np.int32)
         dev = spec.device
         widx = torch.arange(wb, dtype=torch.int64, device=dev).repeat(block)
-        return ChainLayout(spec=spec, block=block, wb=wb, dleaf=dleaf, leaf=leaf,
+        return ChainLayout(spec=spec, block=block, wb=wb,
+                           ncomp=spec.N if ncomp is None else ncomp, custom=custom,
+                           dleaf=dleaf, leaf=leaf,
                            groups=groups, elig=elig, hfeed=hfeed, sleaf=sleaf, tab_size=tab_off,
                            smem_floats=sm_off, nhist=h_off,
                            meta=torch.as_tensor(meta, device=dev), widx=widx,
@@ -187,9 +199,10 @@ class ChainState:
     Discrete slot), ``*_gidx`` int32, ``*_prob`` float32.  ``prop [W]``,
     ``move [2, W]`` (group, slot), weights ``w [N, W]``, padding factors
     ``pad [nd, W]``, joint density ``p [W]``; float64 accumulators ``obs
-    [N, W]``, ``nrm [W]``, ``vis [nd, W]``; int32 tallies ``pc``/``ac
+    [ncomp, W]``, ``nrm [W]``, ``vis [nd, W]``; int32 tallies ``pc``/``ac
     [nvar, W]``; float64 histograms ``hist [H]``, the adaptive leaves' bins
-    one after the other.
+    one after the other; with a custom measure, the relative weights
+    ``relw [N, W]`` of the last measured step (``[0, W]`` without).
     """
 
     cur_val: torch.Tensor
@@ -209,6 +222,7 @@ class ChainState:
     pc: torch.Tensor
     ac: torch.Tensor
     hist: torch.Tensor
+    relw: torch.Tensor
 
     @staticmethod
     def zeros(lay: ChainLayout) -> "ChainState":
@@ -229,9 +243,10 @@ def _state_fields(lay: ChainLayout):
     return (("cur_val", f32, (S, W)), ("cur_gidx", i32, (S, W)), ("cur_prob", f32, (S, W)),
             ("prp_val", f32, (S, W)), ("prp_gidx", i32, (S, W)), ("prp_prob", f32, (S, W)),
             ("prop", f32, (W,)), ("move", i32, (2, W)), ("w", f32, (n, W)),
-            ("pad", f32, (nd, W)), ("p", f32, (W,)), ("obs", f64, (n, W)),
+            ("pad", f32, (nd, W)), ("p", f32, (W,)), ("obs", f64, (lay.ncomp, W)),
             ("nrm", f64, (W,)), ("vis", f64, (nd, W)), ("pc", i32, (spec.nvar, W)),
-            ("ac", i32, (spec.nvar, W)), ("hist", f64, (max(lay.nhist, 1),)))
+            ("ac", i32, (spec.nvar, W)), ("hist", f64, (max(lay.nhist, 1),)),
+            ("relw", f32, (n if lay.custom else 0, W)))
 
 
 def _check_state(lay: ChainLayout, st: ChainState, dev):
@@ -400,7 +415,11 @@ def chain_accept_plain(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
             st.hist.index_add_(0, st.cur_gidx[k].long() + off, wf2)
     if measure:                                # (vegasmc.py:371-390)
         for i in range(n):
-            st.obs[i] += (st.w[i] * (st.pad[i] / st.p)).double()
+            relw = st.w[i] * (st.pad[i] / st.p)
+            if lay.custom:
+                st.relw[i] = relw
+            else:
+                st.obs[i] += relw.double()
             st.vis[i] += (torch.abs(st.w[i]) * st.pad[i] * rw[i] / st.p).double()
         norm_w = st.pad[norm] / st.p
         st.nrm.add_(norm_w.double())
@@ -410,7 +429,7 @@ def chain_accept_plain(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
 def _accept_args(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
                  init: bool, measure: bool):
     """The argument list of ``mci_chain_accept`` (without the stream)."""
-    return (kd.data_ptr(), t, int(init), int(measure), lay.W, lay.wb,
+    return (kd.data_ptr(), t, int(init), int(measure), int(lay.custom), lay.W, lay.wb,
             len(lay.dleaf), lay.S, lay.spec.nvar, len(lay.elig), lay.spec.N,
             lay.meta.data_ptr(), rw.data_ptr(), lay.nhist,
             int(lay.nhist <= SMEM_HIST_BINS), st.prp_val.data_ptr(),
@@ -419,13 +438,15 @@ def _accept_args(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
             st.prop.data_ptr(), st.move.data_ptr(), st.w.data_ptr(),
             st.pad.data_ptr(), st.p.data_ptr(), st.obs.data_ptr(),
             st.nrm.data_ptr(), st.vis.data_ptr(), st.pc.data_ptr(),
-            st.ac.data_ptr(), st.hist.data_ptr())
+            st.ac.data_ptr(), st.hist.data_ptr(), st.relw.data_ptr())
 
 
 def chain_accept(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
                  init=False, measure=False):
     """Step ``t``'s Metropolis decision on the proposal with weights ``nw
-    [N, W]``, in place on ``st``; with ``init``, take the first state."""
+    [N, W]``, in place on ``st``; with ``init``, take the first state.  On
+    a ``measure`` step the default measure adds into ``st.obs``, and a
+    custom one (``lay.custom``) writes ``st.relw``."""
     dev = _device_of(st, "chain_accept")
     if dev.type == "cpu":
         return chain_accept_plain(lay, rw, kd, t, st, nw, init, measure)
@@ -443,3 +464,28 @@ def chain_accept(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
             *_accept_args(lay, rw, kd, t, st, nw, init, measure), stream)
     _build.check(lib, err, "chain_accept")
     launch_counts["chain_accept"] += 1
+
+
+# ---------------------------------------------------------------------------
+# chain_measure
+# ---------------------------------------------------------------------------
+
+def chain_measure_plain(lay: ChainLayout, m, st: ChainState):
+    """Plain torch version of ``csrc/chain_measure.cu``."""
+    st.obs.add_(m.double())
+
+
+def chain_measure(lay: ChainLayout, m, st: ChainState):
+    """Add the custom measure's output ``m [ncomp, W]`` float32 into the
+    walkers' float64 accumulators ``st.obs``."""
+    dev = _device_of(st, "chain_measure")
+    if dev.type == "cpu":
+        return chain_measure_plain(lay, m, st)
+    _check(m, "m", torch.float32, (lay.ncomp, lay.W), dev)
+    _check(st.obs, "obs", torch.float64, (lay.ncomp, lay.W), dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mci_chain_measure(lay.ncomp, lay.W, m.data_ptr(), st.obs.data_ptr(), stream)
+    _build.check(lib, err, "chain_measure")
+    launch_counts["chain_measure"] += 1

@@ -4,7 +4,11 @@ PyTorch versions.
 Together they replace ``mcintegration_tpu/ops/pallas_vegas.py:build_run_all``
 (kernel K1) as a split path: ``vegas_sample`` draws the samples, the user
 integrand runs as torch ops on them, and ``vegas_reduce`` forms the
-observable sums and the training histogram.
+observable sums and the training histogram.  With a custom measure (K1's
+branch, ``pallas_vegas.py:488-503``), ``vegas_relw`` (the second entry
+point of ``csrc/vegas_reduce.cu``) forms the relative weights between the
+integrand and the measure, and ``vegas_reduce`` sums the measure's output
+``m`` in place of the weighted integrands.
 
 Each wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel (``csrc/*.cu``, built by ``ops/_build.py``)
@@ -17,9 +21,12 @@ Shapes (``S`` = slots, ``B`` = blocks, ``T`` = chunks of this launch,
 - ``vegas_sample(kd [B,2] i64, t0, T, atab [S,64] i32, grid/inc [L,nb] f32,
   slot_leaf [S] i32, m) -> x [S,B,T,nb,m] f32, invp [S,B,T,nb] f32,
   perm [S,B,T,nb] i32``;
+- ``vegas_relw(w [N,B,T,nb,m] f32, invp, pad, pair_slots) -> relw
+  [N,B,T,nb,m] f32``;
 - ``vegas_reduce(w [N,B,T,nb,m] f32, invp, perm, pad [N,P] i32,
-  pair_slots [P,M] i32, used [S,N] i32) -> obs [B,T,N] f64,
-  hrow [S,B,T,nb] f64``.
+  pair_slots [P,M] i32, used [S,N] i32, m=None) -> obs [B,T,N] f64,
+  hrow [S,B,T,nb] f64``; given ``m [ncomp,B,T,nb,m] f32``, obs is
+  ``[B,T,ncomp]``, the sums of ``m``.
 
 ``kd`` holds uint32 seeds in int64.  ``pad[i, g]`` says whether the
 (group, slot) pair ``g`` enters integrand ``i``'s padding factor;
@@ -41,7 +48,9 @@ HIST_CLIP = 1e17     # histogram weight clip (pallas_vegas.py:507)
 MAX_INTEGRANDS = 2048  # shared-memory bound of vegas_reduce
 MAX_STRATA = 32768     # int32 guard of (a*p + s) mod nb
 
-launch_counts = {"vegas_sample": 0, "vegas_reduce": 0}
+# "vegas_reduce_measure" counts the launches of vegas_reduce given m
+launch_counts = {"vegas_sample": 0, "vegas_reduce": 0, "vegas_relw": 0,
+                 "vegas_reduce_measure": 0}
 
 
 def reset_launch_counts():
@@ -120,16 +129,15 @@ def vegas_sample(kd, t0: int, T: int, atab, grid, inc, slot_leaf, m: int):
 # vegas_reduce
 # ---------------------------------------------------------------------------
 
-def vegas_reduce_plain(w, invp, perm, pad, pair_slots, used):
-    """Plain torch version of ``csrc/vegas_reduce.cu``: the same float32
-    products, summed in float64 in another order."""
-    N, nslots = w.shape[0], invp.shape[0]
-    pad, pair_slots, used = pad.tolist(), pair_slots.tolist(), used.tolist()
+def _row_factors(invp, pad, pair_slots):
+    """``(jac [B,T,nb], [factor_i [B,T,nb]])``: the jacobian and each
+    integrand's padding-weighted factor, in the kernels' float32 order."""
+    nslots = invp.shape[0]
     jac = invp[0]
     for k in range(1, nslots):
-        jac = jac * invp[k]                                          # [B,T,nb]
+        jac = jac * invp[k]
     gprob = []
-    for members in pair_slots:
+    for members in pair_slots.tolist():
         gp = None
         for k in members:
             if k < 0:
@@ -137,15 +145,66 @@ def vegas_reduce_plain(w, invp, perm, pad, pair_slots, used):
             q = 1.0 / invp[k]
             gp = q if gp is None else gp * q
         gprob.append(gp)
-    obs, whsum = [], []
-    for i in range(N):
+    factors = []
+    for row in pad.tolist():
         f = jac
-        for g, on in enumerate(pad[i]):
+        for g, on in enumerate(row):
             if on:
                 f = f * gprob[g]
-        obs.append((w[i] * f[..., None]).double().sum(dim=(-2, -1)))
+        factors.append(f)
+    return jac, factors
+
+
+def vegas_relw_plain(w, invp, pad, pair_slots):
+    """Plain torch version of ``vegas_relw`` (``csrc/vegas_reduce.cu``): the
+    same float32 products."""
+    _, factors = _row_factors(invp, pad, pair_slots)
+    return torch.stack([w[i] * f[..., None] for i, f in enumerate(factors)])
+
+
+def vegas_relw(w, invp, pad, pair_slots):
+    """Per-sample relative weights ``relw_i = w_i * factor_i`` (see module
+    docstring)."""
+    if w.device.type == "cpu":
+        return vegas_relw_plain(w, invp, pad, pair_slots)
+    if w.device.type != "cuda":
+        raise ValueError(f"vegas_relw: unsupported device {w.device}")
+    dev = w.device
+    N, B, T, nb, m = w.shape
+    nslots = invp.shape[0]
+    npair, maxmem = pair_slots.shape
+    _check(w, "w", torch.float32, (N, B, T, nb, m), dev)
+    _check(invp, "invp", torch.float32, (nslots, B, T, nb), dev)
+    _check(pad, "pad", torch.int32, (N, npair), dev)
+    _check(pair_slots, "pair_slots", torch.int32, (npair, maxmem), dev)
+    if N > MAX_INTEGRANDS:
+        raise ValueError(f"vegas_relw: {N} integrands > {MAX_INTEGRANDS}")
+    relw = torch.empty_like(w)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mci_vegas_relw(w.data_ptr(), invp.data_ptr(), pad.data_ptr(),
+                                 pair_slots.data_ptr(), N, nslots, npair, maxmem,
+                                 B * T * nb, m, relw.data_ptr(), stream)
+    _build.check(lib, err, "vegas_relw")
+    launch_counts["vegas_relw"] += 1
+    return relw
+
+
+def vegas_reduce_plain(w, invp, perm, pad, pair_slots, used, m=None):
+    """Plain torch version of ``csrc/vegas_reduce.cu``: the same float32
+    products, summed in float64 in another order."""
+    N, nslots = w.shape[0], invp.shape[0]
+    used = used.tolist()
+    jac, factors = _row_factors(invp, pad, pair_slots)
+    whsum = []
+    for i in range(N):
         a = torch.clamp(torch.abs(w[i]) * jac[..., None], max=HIST_CLIP)
         whsum.append((a * a).double().sum(dim=-1))
+    if m is None:
+        obs = [(w[i] * f[..., None]).double().sum(dim=(-2, -1)) for i, f in enumerate(factors)]
+    else:
+        obs = [mk.double().sum(dim=(-2, -1)) for mk in m]
     hrow = torch.empty(invp.shape, dtype=torch.float64, device=w.device)
     for k in range(nslots):
         h = torch.zeros(invp.shape[1:], dtype=torch.float64, device=w.device)
@@ -156,17 +215,17 @@ def vegas_reduce_plain(w, invp, perm, pad, pair_slots, used):
     return torch.stack(obs, dim=-1), hrow
 
 
-def vegas_reduce(w, invp, perm, pad, pair_slots, used):
+def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None):
     """Observable sums and training histogram (see module docstring)."""
     if w.device.type == "cpu":
-        return vegas_reduce_plain(w, invp, perm, pad, pair_slots, used)
+        return vegas_reduce_plain(w, invp, perm, pad, pair_slots, used, m)
     if w.device.type != "cuda":
         raise ValueError(f"vegas_reduce: unsupported device {w.device}")
     dev = w.device
-    N, B, T, nb, m = w.shape
+    N, B, T, nb, ms = w.shape
     nslots = invp.shape[0]
     npair, maxmem = pair_slots.shape
-    _check(w, "w", torch.float32, (N, B, T, nb, m), dev)
+    _check(w, "w", torch.float32, (N, B, T, nb, ms), dev)
     _check(invp, "invp", torch.float32, (nslots, B, T, nb), dev)
     _check(perm, "perm", torch.int32, (nslots, B, T, nb), dev)
     _check(pad, "pad", torch.int32, (N, npair), dev)
@@ -174,8 +233,14 @@ def vegas_reduce(w, invp, perm, pad, pair_slots, used):
     _check(used, "used", torch.int32, (nslots, N), dev)
     if N > MAX_INTEGRANDS:
         raise ValueError(f"vegas_reduce: {N} integrands > {MAX_INTEGRANDS}")
+    ncomp = N
+    if m is not None:
+        ncomp = m.shape[0]
+        _check(m, "m", torch.float32, (ncomp, B, T, nb, ms), dev)
+        if ncomp < 1:
+            raise ValueError("vegas_reduce: a measure with no components")
     R = B * T * nb
-    obs_rows = torch.empty((B, T, nb, N), dtype=torch.float64, device=dev)
+    obs_rows = torch.empty((B, T, nb, ncomp), dtype=torch.float64, device=dev)
     hrow = torch.empty((nslots, B, T, nb), dtype=torch.float64, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
@@ -183,9 +248,10 @@ def vegas_reduce(w, invp, perm, pad, pair_slots, used):
         err = lib.mci_vegas_reduce(
             w.data_ptr(), invp.data_ptr(), perm.data_ptr(), pad.data_ptr(),
             pair_slots.data_ptr(), used.data_ptr(), N, nslots, npair, maxmem,
-            R, nb, m, obs_rows.data_ptr(), hrow.data_ptr(), stream)
+            R, nb, ms, None if m is None else m.data_ptr(), ncomp,
+            obs_rows.data_ptr(), hrow.data_ptr(), stream)
     _build.check(lib, err, "vegas_reduce")
-    launch_counts["vegas_reduce"] += 1
+    launch_counts["vegas_reduce" if m is None else "vegas_reduce_measure"] += 1
     # the kernel writes one partial per stratum row; this sum over the rows
     # is the first step of the fixed-order float64 reduction
     return obs_rows.sum(dim=2), hrow

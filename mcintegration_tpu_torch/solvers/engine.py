@@ -268,16 +268,17 @@ class Spec:
     def batch_shape(self, leaf_vals) -> tuple:
         return tuple(leaf_vals[0].shape[self._lead(0):])
 
-    def _vmapped(self, per_sample: Callable, out_lead: tuple):
+    def _vmapped(self, per_sample: Callable, out_lead: tuple, extra_lead: int = 0):
         """``per_sample(leaf_vals, *extra)`` mapped over the batch axes of
-        the leaves (and of each extra ``[*batch]`` argument) with
-        ``torch.func.vmap``; its output ``out_lead`` gains the batch axes."""
+        the leaves (and of each extra ``[*lead, *batch]`` argument, with
+        ``extra_lead`` leading axes) with ``torch.func.vmap``; its output
+        ``out_lead`` gains the batch axes."""
         def _eval(leaf_vals, *extra):
             shape = self.batch_shape(leaf_vals)
             leads = [self._lead(i) for i in range(len(leaf_vals))]
             flat = [v.reshape(tuple(v.shape[:k]) + (-1,)) for v, k in zip(leaf_vals, leads)]
-            ex = [e.reshape(-1) for e in extra]
-            out = torch.func.vmap(per_sample, in_dims=(leads,) + (0,) * len(ex),
+            ex = [e.reshape(tuple(e.shape[:extra_lead]) + (-1,)) for e in extra]
+            out = torch.func.vmap(per_sample, in_dims=(leads,) + (extra_lead,) * len(ex),
                                   out_dims=len(out_lead))(flat, *ex)
             return out.reshape(out_lead + shape)
 
@@ -307,23 +308,62 @@ class Spec:
 
         return [make(i) for i in range(self.N)]
 
+    def _measure_components(self, out, shapes, batch: tuple):
+        """A measure's output pytree as ``[ncomp, *batch]`` float32: its
+        leaves flattened in order, each broadcast to ``shape + batch``."""
+        out = tree_leaves(out)
+        if len(out) != len(shapes):
+            raise ValueError(f"measure returned {len(out)} observables, want {len(shapes)}")
+        for z in out:
+            if z.is_complex() if isinstance(z, torch.Tensor) else np.iscomplexobj(z):
+                refuse_complex()
+        parts = [torch.broadcast_to(_as_weight(z, self.device), sh + batch).reshape((-1,) + batch)
+                 for z, sh in zip(out, shapes)]
+        # one leaf needs no copy: at 2^26 samples a launch, the copy of ten
+        # components would move 5 GiB
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def make_measure_batched(self, measure: Callable, obs_proto) -> Callable:
+        """The batched custom measure of the :vegas and :vegasmc convention
+        ``measure(x, relw, c)`` (pallas_chain.py:245-269): m(leaf_vals,
+        relw [N, *batch]) -> [ncomp, *batch] float32.  ``relw[i]`` is
+        integrand ``i``'s relative weight, so ``relw[0]`` reads as it does
+        per sample."""
+        shapes = obs_shapes(obs_proto)
+
+        def _m(leaf_vals, relw):
+            out = measure(self.view(leaf_vals), relw, self.uconfig)
+            return self._measure_components(out, shapes, tuple(relw.shape[1:]))
+
+        return _m
+
+    def make_measure_vmapped(self, measure: Callable, obs_proto) -> Callable:
+        """The per-sample ``measure(x, relw, c)`` under ``torch.func.vmap``."""
+        return self._vmapped(self.make_measure_batched(measure, obs_proto),
+                             (obs_components(obs_proto),), extra_lead=1)
+
+    def pick_measure(self, measure: Callable, obs_proto):
+        """``(m, reason)``: the batched custom measure where the probe
+        (pallas_chain.py:272-321) reproduces the per-sample one, else the
+        measure under ``torch.func.vmap``, and why (empty when batched)."""
+        m_b = self.make_measure_batched(measure, obs_proto)
+        m_v = self.make_measure_vmapped(measure, obs_proto)
+        relw = torch.as_tensor(np.random.default_rng(98765).uniform(0.1, 1.0, (self.N, 4, 2)),
+                               dtype=torch.float32, device=self.device)
+        ok, why = self.probe_batched(m_b, m_v, relw)
+        return (m_b if ok else m_v), (f"measure: {why}" if why else "")
+
     def make_measure_batched_idx(self, measure: Callable, obs_proto) -> List[Callable]:
         """One batched custom measure per integrand index for the mcmc
         convention ``measure(i, x, relw, c)`` (pallas_mcmc.py:332-358):
         m_i(leaf_vals, relw [*batch]) -> [ncomp, *batch] float32, the
         observable pytree's leaves flattened in order."""
-        shapes = [np.shape(p) for p in tree_leaves(obs_proto)]
+        shapes = obs_shapes(obs_proto)
 
         def make(i):
             def _m(leaf_vals, relw):
-                out = tree_leaves(measure(i, self.view(leaf_vals), relw, self.uconfig))
-                if len(out) != len(shapes):
-                    raise ValueError(f"measure returned {len(out)} observables, "
-                                     f"want {len(shapes)}")
-                batch = tuple(relw.shape)
-                return torch.cat([
-                    torch.broadcast_to(_as_weight(z, self.device), sh + batch)
-                    .reshape((-1,) + batch) for z, sh in zip(out, shapes)])
+                out = measure(i, self.view(leaf_vals), relw, self.uconfig)
+                return self._measure_components(out, shapes, tuple(relw.shape))
             return _m
 
         return [make(i) for i in range(self.N)]
@@ -406,6 +446,33 @@ def tree_unflatten(proto, leaves):
 def obs_components(obs_proto) -> int:
     """Scalar components of an observable pytree."""
     return sum(int(np.prod(np.shape(p))) for p in tree_leaves(obs_proto))
+
+
+def refuse_complex():
+    raise NotImplementedError(
+        "complex observables are not ported to mcintegration_tpu_torch yet "
+        "(ROADMAP.md, queue 1, item 14); mcintegration_tpu serves them")
+
+
+def obs_shapes(obs_proto) -> list:
+    """The shapes of the observable pytree's leaves.  A complex leaf raises:
+    the port accumulates real float64 sums, and would drop its imaginary
+    part."""
+    leaves = tree_leaves(obs_proto)
+    if any(np.iscomplexobj(p) for p in leaves):
+        refuse_complex()
+    return [np.shape(p) for p in leaves]
+
+
+def obs_tree(obs_b: np.ndarray, obs_proto):
+    """Per-block sums ``obs_b [block, ncomp]`` as the observable pytree with
+    a leading ``[block]`` axis, the JAX package's layout of ``obs_blocks``."""
+    cols, k = [], 0
+    for sh in obs_shapes(obs_proto):
+        m = int(np.prod(sh))
+        cols.append(obs_b[:, k:k + m].reshape((obs_b.shape[0],) + sh))
+        k += m
+    return tree_unflatten(obs_proto, cols)
 
 
 def refuse_fermik(spec: Spec, solver: str):

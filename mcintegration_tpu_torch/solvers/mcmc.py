@@ -36,7 +36,7 @@ from ..ops import mcmc_kernels
 from ..ops.mcmc_kernels import NRETRY, McmcLayout, McmcState
 from ..ops.rng import schedule_np
 from . import vegasmc
-from .engine import Spec, obs_components, tree_leaves, tree_unflatten
+from .engine import Spec, obs_components, obs_tree
 
 
 def choose_walkers(neval: int, block: int, nwalkers, min_steps: int, n: int, nvar: int):
@@ -190,13 +190,8 @@ class MCMCIteration:
             self.step(tab, rw, kd, sched, groups[t], st, t)
 
         obs_b = st.obs.view(lay.ncomp, B, lay.wb).sum(dim=-1).T.cpu().numpy()
-        if self.measure is not None:        # the observable pytree, leading [block]
-            cols, k = [], 0
-            for p in tree_leaves(self.obs_proto):
-                m = int(np.prod(np.shape(p)))
-                cols.append(obs_b[:, k:k + m].reshape((B,) + np.shape(p)))
-                k += m
-            obs_b = tree_unflatten(self.obs_proto, cols)
+        if self.measure is not None:
+            obs_b = obs_tree(obs_b, self.obs_proto)
         hist = st.hist.cpu().numpy()
         hists = []
         for lidx, li in enumerate(spec.leaves):

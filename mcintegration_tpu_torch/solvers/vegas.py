@@ -16,8 +16,13 @@ so the port and the JAX kernel cut an iteration into the same chunks.
 
 One iteration is a few launches, each over all blocks and a range of
 chunks holding about ``SAMPLES_PER_LAUNCH`` samples: ``vegas_sample`` →
-the integrand as torch ops → ``vegas_reduce`` (ops/vegas_kernels.py).  The
-per-(block, chunk) float64 partial sums are then added in a fixed order.
+the integrand as torch ops → ``vegas_reduce`` (ops/vegas_kernels.py).  With
+a custom ``measure(x, relw, c)`` (K1's branch, pallas_vegas.py:488-503) a
+launch is ``vegas_sample`` → the integrand → ``vegas_relw`` → the measure
+as torch ops → ``vegas_reduce`` of the measure's output, and the measure's
+``ncomp`` float32 values per sample cap the samples of a launch
+(``MEASURE_LAUNCH_BYTES``).  The per-(block, chunk) float64 partial sums
+are then added in a fixed order.
 """
 
 from __future__ import annotations
@@ -30,10 +35,14 @@ import torch
 
 from ..models.variable import Continuous
 from ..ops import vegas_kernels
-from .engine import Spec, refuse_fermik
+from .engine import Spec, obs_components, obs_tree, refuse_fermik
 
 N_MULT = vegas_kernels.N_MULT
 SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x at 4 bytes * slots * this
+# with a custom measure, x, w, relw and the measure's output m of one launch
+# (4 bytes per slot, integrand, integrand and component of a sample) stay
+# within this many bytes; the measure's own temporaries come on top
+MEASURE_LAUNCH_BYTES = 8 * 2 ** 30
 
 
 def level_size(nb: int) -> int:
@@ -86,8 +95,8 @@ def check_supported(spec: Spec):
 class VegasIteration:
     """One :vegas iteration over ``block`` blocks on ``spec.device``."""
 
-    def __init__(self, spec: Spec, integrand: Callable, *, inplace=False,
-                 block=16, nevalperblock=10000):
+    def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
+                 inplace=False, block=16, nevalperblock=10000):
         self.spec = spec
         self.block = block
         dev = spec.device
@@ -106,8 +115,12 @@ class VegasIteration:
         self.chunk = nb * m_tile
         self.nchunks = max(1, -(-nevalperblock // self.chunk))
         self.nevalperblock = self.chunk * self.nchunks
-        self.chunks_per_launch = max(1, min(
-            self.nchunks, SAMPLES_PER_LAUNCH // (block * self.chunk)))
+        samples = SAMPLES_PER_LAUNCH
+        if measure is not None:
+            nslots = sum(li.ndraw for li in spec.leaves)
+            per_sample = 4 * (nslots + 2 * spec.N + obs_components(obs_proto))
+            samples = min(samples, MEASURE_LAUNCH_BYTES // per_sample)
+        self.chunks_per_launch = max(1, min(self.nchunks, samples // (block * self.chunk)))
         self.launches_per_run = -(-self.nchunks // self.chunks_per_launch)
 
         # ---- multiplier tables, drawn in leaf order (vegas.py:100-127) ----
@@ -150,11 +163,15 @@ class VegasIteration:
                 used[k] = spec.mask_used[:n, li.group, s]
         self.pad, self.pair_slots, self.used = i32(pad), i32(pair_slots), i32(used)
 
-        # ---- the integrand: batched, or per sample under vmap ----
+        # ---- the integrand and the measure: batched, or per sample under vmap ----
         eval_b = spec.make_eval_batched(integrand, inplace)
         eval_v = spec.make_eval_vmapped(integrand, inplace)
-        ok, self.backend_reason = spec.probe_batched(eval_b, eval_v)
+        ok, why = spec.probe_batched(eval_b, eval_v)
         self.evaluate = eval_b if ok else eval_v
+        self.obs_proto = obs_proto
+        self.measure, why_m = (None, "") if measure is None else \
+            spec.pick_measure(measure, obs_proto)
+        self.backend_reason = "; ".join(r for r in (why, why_m) if r)
         self.backend = "cuda" if dev.type == "cuda" else "torch"
 
     # ------------------------------------------------------------------
@@ -179,13 +196,23 @@ class VegasIteration:
         return out
 
     def launch(self, inputs, t0: int, T: int):
-        """Chunks [t0, t0+T) of every block: obs [B,T,N], hrow [S,B,T,nb]."""
+        """Chunks [t0, t0+T) of every block: obs [B,T,ncomp], hrow [S,B,T,nb]."""
         x, invp, perm = vegas_kernels.vegas_sample(t0=t0, T=T, m=self.m_tile,
                                                    **inputs)
-        w = self.evaluate(self.leaf_values(x))
+        w = self.evaluate(self.leaf_values(x)).contiguous()
+        m = None
+        if self.measure is not None:
+            # every sample drawn is real: the JAX kernel's rowmask
+            # (pallas_vegas.py:394, :501) masks the strata rows that pad its
+            # chunk to an L x L square, and the port draws no such rows, so
+            # a measure term that does not depend on relw is summed over the
+            # same samples as in JAX
+            relw = vegas_kernels.vegas_relw(w, invp, self.pad, self.pair_slots)
+            m = self.measure(self.leaf_values(x), relw).contiguous()
+            del relw
         del x
-        return vegas_kernels.vegas_reduce(w.contiguous(), invp, perm, self.pad,
-                                          self.pair_slots, self.used)
+        return vegas_kernels.vegas_reduce(w, invp, perm, self.pad, self.pair_slots,
+                                          self.used, m)
 
     def run(self, params, kd: np.ndarray):
         """Execute one iteration; returns host-side numpy statistics."""
@@ -199,7 +226,9 @@ class VegasIteration:
             obs_part, hrow = self.launch(inputs, t0, T)
             obs_parts.append(obs_part)
             hsum += hrow.sum(dim=(1, 2))
-        obs_b = torch.cat(obs_parts, dim=1).sum(dim=1).cpu().numpy()   # [B, N]
+        obs_b = torch.cat(obs_parts, dim=1).sum(dim=1).cpu().numpy()   # [B, ncomp]
+        if self.measure is not None:
+            obs_b = obs_tree(obs_b, self.obs_proto)
         hsum = hsum.cpu().numpy()
         hists, k = [], 0
         for li in spec.leaves:
@@ -209,7 +238,7 @@ class VegasIteration:
             hists.append(h)
             k += li.ndraw
         return {
-            "obs_blocks": obs_b,      # [block, N]
+            "obs_blocks": obs_b,      # [block, N], or the observable pytree
             "norm_blocks": np.full(self.block, float(self.nevalperblock)),
             "hists": hists,           # per-leaf histogram sums
             "neval": self.block * self.nevalperblock,

@@ -11,14 +11,20 @@ variable group through the learned maps, re-evaluate all integrand weights
 and Metropolis-accept with R = prop * p_new / p_old.  Measurements after a
 warmup accumulate ``obs[i] += w_i * pad_i / p`` and ``norm += pad_norm / p``;
 visited tallies drive reweighting; the per-slot histogram weight is
-``(|w_i|^2 / prob_i) * pad_i / p``.
+``(|w_i|^2 / prob_i) * pad_i / p``.  A custom ``measure(x, relw, c)``
+takes the place of the ``obs`` sums: it sees the state after the move and
+``relw [N, *batch]``, ``relw[i] = w_i * pad_i / p``, and its output, shaped
+like the observable pytree, is added per walker.
 
 One step is two kernel launches with the integrand between them:
 ``chain_propose`` → the integrand as torch ops on the proposed state →
-``chain_accept`` (ops/chain_kernels.py); an iteration adds one launch of
-each for the walkers' first draw.  The walkers are grouped into ``block`` lanes of
-``W / block`` for the reference's block error bars; each walker keeps
-float64 accumulators, summed per block in a fixed order at the end.
+``chain_accept`` (ops/chain_kernels.py); with a custom measure, a measured
+step adds the measure as torch ops on the state after the move →
+``chain_measure``.  An iteration adds one launch of ``chain_propose`` and
+``chain_accept`` for the walkers' first draw.  The walkers are grouped into
+``block`` lanes of ``W / block`` for the reference's block error bars; each
+walker keeps float64 accumulators, summed per block in a fixed order at the
+end.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 from ..models.variable import Discrete
 from ..ops import chain_kernels
 from ..ops.chain_kernels import ChainLayout, ChainState
-from .engine import Spec, refuse_fermik
+from .engine import Spec, obs_components, obs_tree, refuse_fermik
 
 
 def choose_walkers(neval: int, block: int, nwalkers, min_steps: int,
@@ -56,9 +62,9 @@ def check_supported(spec: Spec):
 class VegasMCIteration:
     """One :vegasmc iteration over ``block`` blocks on ``spec.device``."""
 
-    def __init__(self, spec: Spec, integrand: Callable, *, inplace=False,
-                 measurefreq=1, block=16, nevalperblock=10000, nwalkers=None,
-                 min_steps_per_walker=256, warmup=0.01):
+    def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
+                 inplace=False, measurefreq=1, block=16, nevalperblock=10000,
+                 nwalkers=None, min_steps_per_walker=256, warmup=0.01):
         check_supported(spec)
         if not 0.0 <= warmup < 1.0:
             raise ValueError(f"warmup fraction must be in [0,1), got {warmup}")
@@ -74,13 +80,18 @@ class VegasMCIteration:
         # burn-in discard: measure only after `warmup` of each chain
         # (reference: fixed 1%, montecarlo.jl:213)
         self.warmup = int(self.nsteps * warmup)
-        self.layout = ChainLayout.build(spec, block, W // block)
+        self.obs_proto = obs_proto
+        ncomp = spec.N if measure is None else obs_components(obs_proto)
+        self.layout = ChainLayout.build(spec, block, W // block, ncomp, measure is not None)
 
-        # ---- the integrand: batched, or per sample under vmap ----
+        # ---- the integrand and the measure: batched, or per sample under vmap ----
         eval_b = spec.make_eval_batched(integrand, inplace)
         eval_v = spec.make_eval_vmapped(integrand, inplace)
-        ok, self.backend_reason = spec.probe_batched(eval_b, eval_v)
+        ok, why = spec.probe_batched(eval_b, eval_v)
         self.evaluate = eval_b if ok else eval_v
+        self.measure, why_m = (None, "") if measure is None else \
+            spec.pick_measure(measure, obs_proto)
+        self.backend_reason = "; ".join(r for r in (why, why_m) if r)
         self.backend = "cuda" if spec.device.type == "cuda" else "torch"
 
     # ------------------------------------------------------------------
@@ -120,6 +131,10 @@ class VegasMCIteration:
         measured = t % self.measurefreq == 0 and t >= self.warmup
         chain_kernels.chain_accept(lay, rw, kd, t, st, self.weights(st),
                                    measure=measured)
+        if measured and self.measure is not None:
+            # the state after the move: cur and prp are equal again
+            m = self.measure(self.leaf_values(st.cur_val), st.relw)
+            chain_kernels.chain_measure(lay, m.contiguous(), st)
 
     def run(self, params, kd: np.ndarray):
         """Execute one iteration with per-block seeds ``kd [block, 2]``
@@ -130,8 +145,10 @@ class VegasMCIteration:
         for t in range(self.nsteps):
             self.step(tab, rw, kd, st, t)
 
-        n, nd, nvar, B = spec.N, spec.N + 1, spec.nvar, self.block
-        obs_b = st.obs.view(n, B, lay.wb).sum(dim=-1).T.cpu().numpy()
+        nd, nvar, B = spec.N + 1, spec.nvar, self.block
+        obs_b = st.obs.view(lay.ncomp, B, lay.wb).sum(dim=-1).T.cpu().numpy()
+        if self.measure is not None:
+            obs_b = obs_tree(obs_b, self.obs_proto)
         norm_b = st.nrm.view(B, lay.wb).sum(dim=-1).cpu().numpy()
         visited = st.vis.sum(dim=-1).cpu().numpy()
         pc = st.pc.sum(dim=-1).cpu().numpy().astype(np.float64)
@@ -148,7 +165,7 @@ class VegasMCIteration:
         propose[1, 0, :nvar] = pc
         accept[1, 0, :nvar] = ac
         return {
-            "obs_blocks": obs_b,       # [block, N]
+            "obs_blocks": obs_b,       # [block, N], or the observable pytree
             "norm_blocks": norm_b,     # [block]
             "visited": visited,        # [nd]
             "hists": hists,            # per-leaf histogram sums

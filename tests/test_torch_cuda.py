@@ -15,7 +15,10 @@ kernels ``mcmc_propose``, ``mcmc_accept`` and ``mcmc_measure`` match theirs
 bit for bit, histograms included (they add exact 1.0s).  ``vplus_sample``
 matches its plain version bit for bit; ``vplus_reduce`` forms the same float32
 terms and sums them in float64 in another order (atomics), so obs, the
-per-cube second moments and the histograms agree to rel 1e-12.
+per-cube second moments and the histograms agree to rel 1e-12.  With a
+custom measure, ``chain_accept`` writing ``relw``, ``chain_measure`` and
+``vegas_relw`` match theirs bit for bit, and ``vegas_reduce`` given the
+measure's output ``m`` to rel 1e-9.
 """
 
 import numpy as np
@@ -294,3 +297,101 @@ def test_cuda_vegasplus_integrates(cuda):
     assert res.backend == "cuda"
     assert vp.launch_counts["vplus_sample"] == vp.launch_counts["vplus_reduce"] >= 4
     assert abs(res.mean[0] - np.pi / 4) < 7 * res.stdev[0]
+
+
+def _qs(device, nbin):
+    """The quickstart's histogram (examples/quickstart.py:71-91), its
+    measure written to broadcast over a batch."""
+    def f(v, c):
+        x, y = v
+        return x[0] ** 2 + y[0] ** 2
+
+    def measure(v, relw, c):
+        x, _ = v
+        b = torch.clamp((x[0] * nbin).to(torch.int32), 0, nbin - 1)
+        bins = torch.arange(nbin, device=b.device).reshape((nbin,) + (1,) * b.ndim)
+        return [(bins == b).to(relw.dtype) * relw[0] * nbin]
+
+    cfg = mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)),
+                           dof=[[1, 1]], obs=[np.zeros(nbin)], seed=6)
+    return Spec(cfg, device), f, measure
+
+
+@pytest.mark.parametrize("nbin", [10, 64])
+def test_chain_measure_kernels_match_plain(cuda, nbin):
+    """chain_accept writing relw and chain_measure, from one state, bit for
+    bit (the histogram to rel 1e-9)."""
+    spec, f, measure = _qs(cuda, nbin)
+    it = VegasMCIteration(spec, f, measure=measure, obs_proto=spec.cfg.observable, block=4,
+                          nevalperblock=2 ** 16, nwalkers=2 ** 14)
+    kd = it.seeds(block_keys(6, 0, 0, 4))
+    tab, rw, st = it.start(spec.device_params(), kd)
+    for t in range(3):
+        it.step(tab, rw, kd, st, t)
+    ck.chain_propose(it.layout, tab, kd, 3, st)
+    ref = st.clone()
+    nw = it.weights(st)
+    before = dict(ck.launch_counts)
+    ck.chain_accept(it.layout, rw, kd, 3, st, nw, measure=True)
+    ck.chain_accept_plain(it.layout, rw, kd, 3, ref, nw, measure=True)
+    m = it.measure(it.leaf_values(st.cur_val), st.relw).contiguous()
+    ck.chain_measure(it.layout, m, st)
+    ck.chain_measure_plain(it.layout, m, ref)
+    torch.cuda.synchronize()
+    for name in vars(st):
+        a, b = getattr(st, name), getattr(ref, name)
+        if name == "hist":
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=0)
+        else:
+            assert _bits_equal(a, b), name
+    assert st.obs.abs().sum() > 0
+    assert ck.launch_counts["chain_accept"] == before["chain_accept"] + 1
+    assert ck.launch_counts["chain_measure"] == before["chain_measure"] + 1
+
+
+def test_vegas_measure_kernels_match_plain(cuda):
+    """vegas_relw bit for bit; vegas_reduce given m to rel 1e-9; given m =
+    relw[:1], the default sums bit for bit."""
+    spec, f, measure = _qs(cuda, 10)
+    it = VegasIteration(spec, f, measure=measure, obs_proto=spec.cfg.observable, block=4,
+                        nevalperblock=2 ** 16)
+    inputs = it.kernel_inputs(spec.device_params(), block_keys(6, 0, 0, 4))
+    x, invp, perm = vk.vegas_sample(t0=0, T=it.chunks_per_launch, m=it.m_tile, **inputs)
+    w = it.evaluate(it.leaf_values(x)).contiguous()
+    before = dict(vk.launch_counts)
+    relw = vk.vegas_relw(w, invp, it.pad, it.pair_slots)
+    relw_p = vk.vegas_relw_plain(w, invp, it.pad, it.pair_slots)
+    masks = (it.pad, it.pair_slots, it.used)
+    m = it.measure(it.leaf_values(x), relw).contiguous()
+    obs, hrow = vk.vegas_reduce(w, invp, perm, *masks, m)
+    obs_p, hrow_p = vk.vegas_reduce_plain(w, invp, perm, *masks, m)
+    obs_i, hrow_i = vk.vegas_reduce(w, invp, perm, *masks, relw[:1].contiguous())
+    obs_d, hrow_d = vk.vegas_reduce(w, invp, perm, *masks)
+    torch.cuda.synchronize()
+    assert _bits_equal(relw, relw_p)
+    torch.testing.assert_close(obs, obs_p, rtol=1e-9, atol=0)
+    torch.testing.assert_close(hrow, hrow_p, rtol=1e-9, atol=0)
+    assert _bits_equal(obs_i, obs_d) and _bits_equal(hrow_i, hrow_d)
+    assert vk.launch_counts["vegas_relw"] == before["vegas_relw"] + 1
+    assert vk.launch_counts["vegas_reduce_measure"] == before["vegas_reduce_measure"] + 2
+    assert vk.launch_counts["vegas_reduce"] == before["vegas_reduce"] + 1
+
+
+@pytest.mark.parametrize("solver", ["vegas", "vegasmc"])
+def test_cuda_measure_integrates(cuda, solver):
+    """Every bin of the quickstart's histogram within 7 sigma of its exact
+    value, the mean of x^2 + 1/3 over the bin."""
+    spec, f, measure = _qs(cuda, 10)
+    vk.reset_launch_counts()
+    ck.reset_launch_counts()
+    res = mt.integrate(f, config=spec.cfg, measure=measure, neval=2 ** 22, niter=4,
+                       solver=solver, verbose=-2, device="cuda")
+    assert res.backend == "cuda" and res.backend_reason == ""
+    if solver == "vegas":
+        assert vk.launch_counts["vegas_relw"] == vk.launch_counts["vegas_reduce_measure"] >= 4
+    else:
+        assert ck.launch_counts["chain_measure"] > 4
+    a = np.arange(10) / 10
+    exact = a * a + a / 10 + 1 / 300 + 1 / 3
+    mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+    assert np.all(np.abs(mean - exact) < 7 * std), (mean - exact) / std

@@ -52,27 +52,82 @@ def test_cuda_device_without_card_raises(monkeypatch):
                      solver="vegas", device="cuda")
 
 
+def _complex_obs(solver):
+    if solver == "mcmc":
+        measure = lambda i, v, relw, c: [relw * torch.ones(2)]
+    else:
+        measure = lambda v, relw, c: [relw[0] * torch.ones(2)]
+    return {"solver": solver, "obs": [np.zeros(2, complex)], "measure": measure}
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    ({"solver": "vegasmc", "measure": lambda v, relw, c: relw}, "item 14"),
     ({"solver": ":mcmc", "type": complex}, "item 14"),
     ({"solver": "vegasplus", "measure": lambda v, relw, c: relw}, "item 14"),
     ({"solver": "vegas+", "measurefreq": 2}, "item 14"),
     ({"solver": ":vegasplus", "type": complex}, "item 14"),
-    ({"measure": lambda v, relw, c: relw}, "item 14"),
     ({"measurefreq": 2}, "item 14"),
     ({"type": complex}, "item 14"),
     ({"mesh": object()}, "item 15"),
     ({"debug": True}, "item 16"),
     ({"var": (mt.Continuous(0.0, 1.0, ninc=64), mt.Continuous(0.0, 1.0, ninc=32)),
       "dof": [[1, 1]]}, "item 14"),
-], ids=["vegasmc", "mcmc", "vegasplus-measure", "vegasplus-measurefreq", "vegasplus-complex",
-        "measure", "measurefreq", "complex", "mesh",
-        "debug", "mixed-ninc"])
+    ({"dtype": torch.float64}, "item 22"),
+    ({"solver": "vegasmc", "dtype": np.float16}, "item 22"),
+    ({"backend": "xla"}, "one route per device"),
+    ({"solver": "mcmc", "backend": "pallas"}, "one route per device"),
+    ({"cache": False}, "item 17"),
+    ({"parallel": "nothread"}, "item 15"),
+    (_complex_obs("vegas"), "complex observables .* item 14"),
+    (_complex_obs("vegasmc"), "complex observables .* item 14"),
+    (_complex_obs("mcmc"), "complex observables .* item 14"),
+], ids=["mcmc", "vegasplus-measure", "vegasplus-measurefreq", "vegasplus-complex",
+        "measurefreq", "complex", "mesh", "debug", "mixed-ninc", "dtype", "dtype-vegasmc",
+        "backend", "backend-mcmc", "cache", "parallel", "complex-obs-vegas",
+        "complex-obs-vegasmc", "complex-obs-mcmc"])
 def test_unported_options_raise(kwargs, item):
     kw = {"var": mt.Continuous(0.0, 1.0), "dof": [[2]], "neval": 2 ** 12,
           "solver": "vegas", "device": "cpu", "verbose": -2, **kwargs}
     with pytest.raises(NotImplementedError, match=item):
         mt.integrate(lambda x, c: x[0][0] * 1.0 if isinstance(x, tuple) else x[0], **kw)
+
+
+def test_reference_keyword_defaults_run():
+    """dtype, backend, cache and parallel at the reference's defaults (and
+    float32 named three ways) are served, not dropped in **kwargs."""
+    for dtype in (torch.float32, np.float32, "float32"):
+        res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 12,
+                           niter=2, solver="vegas", device="cpu", verbose=-2, seed=1,
+                           dtype=dtype, backend="auto", cache=True, parallel="auto")
+        assert res.backend == "torch"
+
+
+def test_average_is_exported():
+    from mcintegration_tpu_torch import average
+    from mcintegration_tpu_torch.statistics import average as stats_average
+
+    assert average is stats_average and "average" in mt.__all__
+    res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 12,
+                       niter=3, solver="vegas", device="cpu", verbose=-2, seed=1)
+    m, e, chi2 = average(res.iterations, 0, init=1)
+    assert np.isfinite(m) and e > 0 and np.isfinite(chi2)
+
+
+def test_state_round_trips_with_array_observable(tmp_path):
+    """save_state and load_state carry the trained maps of a config whose
+    observable is an array; the observable itself is not state."""
+    obs = [np.zeros(10)]
+    cfg = mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)),
+                           dof=[[1, 1]], obs=obs, seed=4)
+    for _, leaf in cfg.var_leaves():
+        leaf.histogram = np.random.default_rng(1).gamma(0.5, 1.0, leaf.nhist) + 1e-3
+        leaf.train()
+    mt.save_state(cfg, tmp_path / "s.npz")
+    back = mt.load_state(mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)),
+                                          dof=[[1, 1]], obs=[np.zeros(10)], seed=4),
+                         tmp_path / "s.npz")
+    for (_, a), (_, b) in zip(back.var_leaves(), cfg.var_leaves()):
+        assert np.array_equal(a.grid, b.grid) and np.array_equal(a.histogram, b.histogram)
+    assert np.shape(back.observable[0]) == (10,)
 
 
 def test_default_solver_is_not_served_and_unknown_solver_fails():
