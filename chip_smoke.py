@@ -4,7 +4,7 @@
     python3 chip_smoke.py --burnin-scan     # the bubble's bins against its burn-in
 
 Builds the hand-written CUDA kernels from ``mcintegration_tpu_torch/csrc``
-with nvcc and drives both ported paths on the card.
+with nvcc and drives every ported path on the card.
 
 - :vegas (phases 3-7): ``vegas_sample`` and ``vegas_reduce`` against their
   plain PyTorch versions, ``integrate(solver="vegas", device="cuda")`` on the
@@ -36,6 +36,18 @@ with nvcc and drives both ported paths on the card.
   per iteration and on :vegasmc at 2^28 with 2^20 walkers, every bin against
   its exact value, with the rates beside phases 4 and 4b; kernel times and
   the peak memory of a launch.
+- complex weights on :vegasmc and :mcmc (phases 3f, 4f, 6f):
+  ``chain_accept_complex`` and ``mcmc_accept_complex`` (the complex
+  instantiations of ``chain_accept.cu`` and ``mcmc_accept.cu``) against
+  their plain versions from one state at 2^20 walkers, with the default
+  measure on measured and unmeasured steps and with complex custom
+  measures; ``f + 0j`` against ``f`` over a run of each solver;
+  ``integrate(type=complex, device="cuda")`` on ``e^{i(x+y)}`` and on a
+  complex one-hot histogram over ``Discrete(1, 3)`` at phases 4b's and 4c's
+  sizes, the real and imaginary part of every mean against its exact value,
+  with the rates beside phases 4b and 4c; what complex weights cost a run
+  (the quarter disc ``f`` against ``f + 0j`` at those sizes, in turns); the
+  complex kernels' times and bounds at phases 6b's and 6c's shapes.
 - :vegasplus (phases 3d-7d): ``vplus_sample`` and ``vplus_reduce`` against
   their plain versions after one reallocation of the hypercube counts, at
   the main path's shape and on a spec that takes every branch, and over a
@@ -91,7 +103,11 @@ def card_line() -> str:
 
 
 def bits(t):
+    """The int32 bits of a float32 tensor, and of both parts of a complex64
+    one; other tensors as they are."""
     import torch
+    if t.dtype == torch.complex64:
+        t = torch.view_as_real(t)
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
@@ -265,22 +281,27 @@ def time_ms(fn, reps):
 def device_ms(fn, reps, queue_s=0.2):
     """Device time per call of ``fn``: the calls are queued behind a sleep
     kernel of about ``queue_s`` seconds, so the card runs them back to back
-    however slowly the host issues them (time_ms would time the host)."""
+    however slowly the host issues them (time_ms would time the host).  If
+    the queue drains before the last call is issued (the host shares its
+    cores), the measurement is taken again behind a sleep twice as long."""
     import torch
+    tries = 3
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(queue_s * 2e9))        # cycles: ~queue_s at <= 2 GHz
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    if end.query():
-        raise AssertionError("device_ms: the queue drained before the host issued "
-                             "every call (a call waits for the device, or queue_s "
-                             "is too short)")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(queue_s * 2e9))        # cycles: ~queue_s at <= 2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        drained = end.query()
+        torch.cuda.synchronize()
+        if not drained:
+            return start.elapsed_time(end) / reps
+        queue_s *= 2
+    raise AssertionError("device_ms: the queue drained before the host issued every call "
+                         f"{tries} times (a call waits for the device, or the host is slow)")
 
 
 def timings(mt, vk, shape, card):
@@ -392,9 +413,10 @@ def _chain_two(x, c):
             torch.where(a[0] ** 2 + a[1] ** 2 < 1.0, 1.0, 0.0) * (b[1] <= 50))
 
 
-def chain_config(mt):
+def chain_config(mt, **kw):
     """Phase 3b's configuration: a trained ninc=1024 Continuous map and a
-    trained Discrete(1, 100) in one CompositeVar, dof=[[1], [2]]."""
+    trained Discrete(1, 100) in one CompositeVar, dof=[[1], [2]]; ``kw``
+    goes to the Configuration (``type=complex``)."""
     rng = np.random.default_rng(2)
     c = mt.Continuous(0.0, 1.0)
     c.histogram = rng.gamma(0.5, 1.0, c.ninc) + 1e-3
@@ -402,7 +424,7 @@ def chain_config(mt):
     d = mt.Discrete(1, 100)
     d.histogram = rng.gamma(0.5, 1.0, d.nbin) + 1e-3
     d.train()
-    return mt.Configuration(var=mt.CompositeVar(c, d), dof=[[1], [2]], seed=SEED)
+    return mt.Configuration(var=mt.CompositeVar(c, d), dof=[[1], [2]], seed=SEED, **kw)
 
 
 def state_bits_equal(a, b, what, hist_rel=REL_TOL_HIST):
@@ -420,7 +442,8 @@ def state_bits_equal(a, b, what, hist_rel=REL_TOL_HIST):
                 raise AssertionError(f"{what}: hist rel {rel:.3g} > {hist_rel}")
         elif not torch_equal_bits(x, y):
             raise AssertionError(f"{what}: {f.name} differs from the plain version")
-        if x.is_floating_point() and x.numel() and not f.name.endswith("_val"):
+        if (x.is_floating_point() or x.is_complex()) and x.numel() \
+                and not f.name.endswith("_val"):
             err = max(err, float((x - y).abs().max()))
     return err
 
@@ -515,7 +538,7 @@ def chain_main_path(mt, ck, card):
     mean, err = float(res.mean[0]), float(res.stdev[0])
     assert res.backend == "cuda", res.backend
     assert all(n == expected for n in counts.values()), (counts, expected)
-    assert ck.launch_counts["chain_measure"] == 0
+    assert ck.launch_counts["chain_measure"] == ck.launch_counts["chain_accept_complex"] == 0
     assert abs(mean - np.pi / 4) < 5 * err, (mean, err)
     evals = [h[2].neval for h in res.iterations]
     steady = sum(evals[1:]) / sum(res.iteration_times[1:])
@@ -733,11 +756,14 @@ def burnin_scan(mt, card, niter=6):
               f"{np.asarray(res.stdev[0]).tolist()} ({time.perf_counter() - t0:.1f} s) [{card}]")
 
 
-def mcmc_allbranch(mt, W):
+def mcmc_allbranch(mt, W, cplx=False, phase=True, custom=True):
     """Phase 3c's spec: a trained ninc=1024 map and Discrete(-3, 2000) (a CDF
     searched in device memory) in one CompositeVar, FermiK pools in 3-D and
     2-D, two integrands of different dof with groups of two slots (swap),
-    and a custom measure of two components per integrand."""
+    and a custom measure of two components per integrand (or, without
+    ``custom``, the default measure).  With ``cplx`` the weights are
+    complex, the integrands times a phase (or, without ``phase``, plus 0j)
+    and the observables complex."""
     import torch
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.mcmc import MCMCIteration
@@ -748,24 +774,29 @@ def mcmc_allbranch(mt, W):
         leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
         leaf.train()
     var = (mt.CompositeVar(c, d), mt.FermiK(3, 1.0, 0.3, 10.0), mt.FermiK(2, 1.0, 0.3, 10.0))
-    obs = [np.zeros(2), np.zeros(2)]
+    obs = [np.zeros(2, complex if cplx else float)] * 2
 
     def f(i, x, cc):
         (a, dd), k3, k2 = x
         w = a[0] * (1.0 + dd[0].to(torch.float32).abs() / 2000.0)
         if i == 0:
-            return w * torch.exp(-(k3[0] * k3[0]).sum(0))
-        return w * torch.exp(-(k2[0] * k2[0]).sum(0) - (k3[1] * k3[1]).sum(0))
+            w = w * torch.exp(-(k3[0] * k3[0]).sum(0))
+        else:
+            w = w * torch.exp(-(k2[0] * k2[0]).sum(0) - (k3[1] * k3[1]).sum(0))
+        if cplx:
+            w = w * torch.exp(1j * (4.0 * a[0] + k3[0][0])) if phase else w + 0j
+        return w
 
     def meas(i, x, relw, cc):
         out = [torch.zeros((2,) + relw.shape, device=relw.device)] * 2
         out[i] = torch.stack([relw, relw * x[0][0][0]])
         return out
 
-    spec = Spec(mt.Configuration(var=var, dof=[[2, 1, 0], [1, 2, 1]], seed=SEED, obs=obs),
-                "cuda")
-    return MCMCIteration(spec, f, measure=meas, obs_proto=obs, block=16,
-                         nevalperblock=W * 64 // 16, nwalkers=W, thermal_ratio=0.1)
+    spec = Spec(mt.Configuration(var=var, dof=[[2, 1, 0], [1, 2, 1]], seed=SEED, obs=obs,
+                                 type=complex if cplx else float), "cuda")
+    kw = dict(measure=meas, obs_proto=obs) if custom else {}
+    return MCMCIteration(spec, f, block=16, nevalperblock=W * 64 // 16, nwalkers=W,
+                         thermal_ratio=0.1, **kw)
 
 
 def mcmc_one_step(it, mk, st, tab, rw, kd, sched, group, t, what, measure=True):
@@ -784,7 +815,7 @@ def mcmc_one_step(it, mk, st, tab, rw, kd, sched, group, t, what, measure=True):
     mk.mcmc_accept_plain(lay, tab, rw, kd, sched, t, ref, nw, measure=measure)
     torch.cuda.synchronize()
     e_acc = state_bits_equal(st, ref, f"mcmc_accept {what}", hist_rel=0.0)
-    if not measure:
+    if not measure or it.measure is None:
         return e_prop, e_acc, 0.0
     vals = lay.leaf_values(st.cur_val)
     for i, m in enumerate(it.measure):
@@ -850,7 +881,7 @@ def mcmc_main_path(mt, mk, card, niter=10):
     counts = dict(mk.launch_counts)
     expected = {"mcmc_propose": niter * (nsteps + nburnin + NRETRY + 1),
                 "mcmc_accept": niter * (nsteps + nburnin + NRETRY + 1),
-                "mcmc_measure": niter * nsteps}
+                "mcmc_measure": niter * nsteps, "mcmc_accept_complex": 0}
     assert res.backend == "cuda" and res.backend_reason == "", (res.backend, res.backend_reason)
     assert counts == expected, (counts, expected)
     avg, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
@@ -869,7 +900,7 @@ def mcmc_main_path(mt, mk, card, niter=10):
     print(f"phase 4c: steady-state {steady!r} evals/s (iterations 2-{niter}; per-iteration s "
           f"{res.iteration_times}) [{card}]")
     assert not bad, f"bins {bad} outside 7 sigma of the Lindhard function"
-    return counts
+    return counts, steady
 
 
 def mcmc_checks(mt):
@@ -1382,7 +1413,7 @@ def measure_main_path(mt, vk, ck, card, rates):
               "vegas_reduce_measure": niter * vit.launches_per_run}, rates["4"]),
             ("vegasmc", dict(neval=CHAIN_NEVAL, nwalkers=CHAIN_W), ck,
              {"chain_propose": niter * (cit.nsteps + 1), "chain_accept": niter * (cit.nsteps + 1),
-              "chain_measure": niter * n_measured}, rates["4b"]))
+              "chain_measure": niter * n_measured, "chain_accept_complex": 0}, rates["4b"]))
     exact = qs_exact()
     counts = {}
     for solver, kw, mod, expected, rate0 in runs:
@@ -1511,6 +1542,389 @@ def measure_timings(mt, vk, ck, card):
             "chain_measure": (cms["measure"], cms["measure_plain"], *b_meas)}
 
 
+# ---------------------------------------------------------------------------
+# complex weights (type=complex) on :vegasmc and :mcmc
+# ---------------------------------------------------------------------------
+
+PHASE_EXACT = np.sin(1.0) + 1j * (1.0 - np.cos(1.0))     # int_0^1 e^{it} dt
+CPLX_EXACT = PHASE_EXACT ** 2                            # e^{i(x+y)} over [0, 1)^2
+QBIN = 3                                                 # the complex one-hot measure's bins
+MCMC_NEVAL, MCMC_W = 2 ** 28, 2 ** 18                    # phase 4c's measured evals, walkers
+
+
+def _cexp(x, c):
+    import torch
+    return torch.exp(1j * (x[0] + x[1]))
+
+
+def _cexp_idx(i, x, c):
+    return _cexp(x, c)
+
+
+def _phase_t(x, c):
+    import torch
+    return torch.exp(1j * x[0][0])
+
+
+def _phase_t_idx(i, x, c):
+    return _phase_t(x, c)
+
+
+def _onehot_chain(v, relw, c):
+    """The complex one-hot measure of benchmarks/report.py:356-383: relw
+    into the bin of the Discrete(1, 3) value."""
+    from mcintegration_tpu_torch import onehot
+    return [onehot(v[1][0], 1, QBIN, relw.dtype) * relw[0]]
+
+
+def _onehot_mcmc(i, x, w, c):
+    from mcintegration_tpu_torch import onehot
+    return [onehot(x[1][0], 1, QBIN, w.dtype) * w]
+
+
+def _chain_two_complex(x, c):
+    """Phase 3b's two integrands times a phase each."""
+    import torch
+    a, _ = x
+    w0, w1 = _chain_two(x, c)
+    return w0 * torch.exp(3j * a[0]), w1 * torch.exp(-2j * a[1])
+
+
+def _qdisc(x, c):
+    """The quarter disc times e^{i(x+y)} (tests/test_pallas.py:385-420)."""
+    return _pi(x, c) * _cexp(x, c)
+
+
+def onehot_config(mt):
+    return mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Discrete(1, QBIN)),
+                            dof=[[1, 1]], obs=[np.zeros(QBIN, np.complex64)], type=complex,
+                            seed=SEED)
+
+
+def make_bubble_matsubara(device):
+    """The bubble at the first bosonic Matsubara frequency: its integrand
+    times e^{i 2 pi tau / beta}, complex."""
+    import torch
+    bubble = make_bubble(device)
+
+    def f(idx, vars, c):
+        return bubble(idx, vars, c) * torch.exp((2j * np.pi / BETA_PHYS) * vars[0][0])
+
+    return f
+
+
+def complex_vs_plain(mt, ck, mk, card):
+    """Phase 3f: the complex kernels against their plain versions from one
+    state, bit for bit (the chain histogram to REL_TOL_HIST):
+    chain_accept_complex at 2^20 walkers on phase 3b's spec with a phase
+    (measured and unmeasured) and with the complex one-hot measure (with
+    chain_measure); mcmc_accept_complex at phase 3c's 2^20 walkers on its
+    spec with a phase, measured and unmeasured with the default measure and
+    measured with a complex custom one.  Then f + 0j against f over a run of
+    each solver from the same seeds: obs real parts, norm, visited, tallies
+    and histograms equal (:vegasmc obs bit for bit, hist to REL_TOL_HIST;
+    :mcmc obs to rel 1e-6, everything else bit for bit) and imaginary parts
+    0.  Returns the max abs error of each complex kernel."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration
+
+    errs = {"chain_accept_complex": 0.0, "mcmc_accept_complex": 0.0}
+    W = 2 ** 20
+    it = VegasMCIteration(Spec(chain_config(mt, type=complex), "cuda"), _chain_two_complex,
+                          block=16, nevalperblock=2 ** 24, nwalkers=W)
+    ospec = Spec(onehot_config(mt), "cuda")
+    oit = VegasMCIteration(ospec, _phase_t, measure=_onehot_chain, obs_proto=ospec.cfg.observable,
+                           block=16, nevalperblock=2 ** 24, nwalkers=W)
+    for what, cit, measure in (("phase 3b's spec with a phase, measured", it, True),
+                               ("phase 3b's spec with a phase, unmeasured", it, False),
+                               (f"{QBIN}-bin complex one-hot measure", oit, True)):
+        lay = cit.layout
+        assert lay.spec.cplx and cit.backend_reason == "", cit.backend_reason
+        tab, rw, kd, st = chain_measured_state(cit)
+        ref = st.clone()
+        nw = cit.weights(st)
+        assert nw.dtype == torch.complex64
+        n0 = dict(ck.launch_counts)
+        ck.chain_accept(lay, rw, kd, 4, st, nw, measure=measure)
+        ck.chain_accept_plain(lay, rw, kd, 4, ref, nw, measure=measure)
+        torch.cuda.synchronize()
+        assert ck.launch_counts["chain_accept_complex"] == n0["chain_accept_complex"] + 1
+        assert ck.launch_counts["chain_accept"] == n0["chain_accept"]
+        e = state_bits_equal(st, ref, f"chain_accept_complex, {what}")
+        errs["chain_accept_complex"] = max(errs["chain_accept_complex"], e)
+        extra = ""
+        if measure and cit.measure is not None:
+            m = cit.measure(cit.leaf_values(st.cur_val), st.relw).contiguous()
+            ck.chain_measure(lay, m, st)
+            ck.chain_measure_plain(lay, m, ref)
+            torch.cuda.synchronize()
+            if not torch_equal_bits(st.obs, ref.obs):
+                raise AssertionError(f"chain_measure after chain_accept_complex, {what}: obs "
+                                     "differs from the plain version")
+            extra = f"; relw complex64 |relw| <= {float(st.relw.abs().max())!r}, chain_measure too"
+        print(f"phase 3f: chain_accept_complex, one step at W={lay.W}, {what} ({lay.ncomp} "
+              f"components): every field bit-equal to the plain version, hist max abs err "
+              f"{e!r}{extra}")
+        del st, ref, nw
+
+    for what, custom, measure in (("default measure, measured", False, True),
+                                  ("default measure, unmeasured", False, False),
+                                  ("complex custom measure, measured", True, True)):
+        mit = mcmc_allbranch(mt, W, cplx=True, custom=custom)
+        lay = mit.layout
+        assert lay.spec.cplx and mit.backend_reason == "", mit.backend_reason
+        kd_np = block_keys(SEED, 0, 0, mit.block)
+        sched, groups = mit.schedule(kd_np)
+        kd = mit.seeds(kd_np)
+        tab, rw, st = mit.start(mit.spec.device_params(), kd, sched)
+        for t in range(5):
+            mit.step(tab, rw, kd, sched, groups[t], st, t)
+        n0 = dict(mk.launch_counts)
+        e = mcmc_one_step(mit, mk, st, tab, rw, kd, sched, groups[5], 5,
+                          f"(phase 3f, {what})", measure=measure)
+        assert mk.launch_counts["mcmc_accept_complex"] == n0["mcmc_accept_complex"] + 1
+        assert mk.launch_counts["mcmc_accept"] == n0["mcmc_accept"]
+        errs["mcmc_accept_complex"] = max(errs["mcmc_accept_complex"], e[1])
+        roles = np.bincount(st.move[0].cpu().numpy(), minlength=5).tolist()
+        print(f"phase 3f: mcmc_accept_complex, one step at W={lay.W} on phase 3c's spec with a "
+              f"phase, {what} ({lay.ncomp} components): every field bit-equal to the plain "
+              f"version; roles none/CV/swap/CI/NJ {roles}")
+        del mit, st
+
+    # f + 0j against f over one run of each solver, from the same seeds
+    kd = block_keys(SEED, 3, 0, 16)
+    spec_r, spec_c = Spec(chain_config(mt), "cuda"), Spec(chain_config(mt, type=complex), "cuda")
+    kw = dict(block=16, nevalperblock=2 ** 20, nwalkers=2 ** 18)
+    a = VegasMCIteration(spec_r, _chain_two, **kw).run(spec_r.device_params(), kd)
+    b = VegasMCIteration(spec_c, lambda x, c: tuple(w + 0j for w in _chain_two(x, c)),
+                         **kw).run(spec_c.device_params(), kd)
+    if not (np.array_equal(b["obs_blocks"].real, a["obs_blocks"])
+            and np.all(b["obs_blocks"].imag == 0.0)):
+        raise AssertionError(":vegasmc f + 0j: obs differ from the real run's")
+    for k in ("norm_blocks", "visited", "propose", "accept"):
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f":vegasmc f + 0j: {k} differs from the real run's")
+    e_hist = max(rel_err(h, r) for h, r in zip(b["hists"], a["hists"]))
+    if e_hist > REL_TOL_HIST:
+        raise AssertionError(f":vegasmc f + 0j: hist rel {e_hist:.3g} > {REL_TOL_HIST}")
+    print(f"phase 3f: :vegasmc f + 0j, one run of {a['neval']} evals (phase 3b's spec): obs "
+          f"real parts, norm, visited and tallies bit-equal to the real run, imaginary parts 0, "
+          f"hist rel {e_hist:.3g}")
+    runs = []
+    for cplx in (False, True):
+        mit = mcmc_allbranch(mt, 2 ** 18, cplx=cplx, phase=False, custom=False)
+        runs.append(mit.run(mit.spec.device_params(), kd))
+    a, b = runs
+    rel = rel_err(b["obs_blocks"].real, a["obs_blocks"])
+    if not (rel <= 1e-6 and np.all(b["obs_blocks"].imag == 0.0)):
+        raise AssertionError(f":mcmc f + 0j: obs rel {rel:.3g} > 1e-6 from the real run's")
+    for k in ("norm_blocks", "visited", "propose", "accept"):
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f":mcmc f + 0j: {k} differs from the real run's")
+    if not all(np.array_equal(h, r) for h, r in zip(a["hists"], b["hists"])):
+        raise AssertionError(":mcmc f + 0j: hists differ from the real run's")
+    print(f"phase 3f: :mcmc f + 0j, one run of {a['neval']} evals (phase 3c's spec, default "
+          f"measure): norm, visited, tallies and histograms bit-equal to the real run, obs real "
+          f"parts rel {rel:.3g}, imaginary parts 0")
+    return errs
+
+
+def complex_main_path(mt, ck, mk, card, rates):
+    """Phase 4f: complex weights through integrate(type=complex,
+    device="cuda"), the complex job of benchmarks/report.py:330-383:
+    e^{i(x+y)} on [0, 1)^2 and the complex one-hot measure over
+    Discrete(1, 3), each on :vegasmc at phase 4b's size and on :mcmc at
+    phase 4c's, 16 blocks, 10 iterations, the reference's defaults; the real
+    and imaginary part of every mean within 7 sigma of its exact value; the
+    launches of the complex kernels; the rates beside phases 4b and 4c."""
+    from mcintegration_tpu_torch.ops.mcmc_kernels import NRETRY
+    niter = 10
+    csteps = CHAIN_NEVAL // CHAIN_W
+    n_measured = sum(1 for t in range(csteps) if t >= int(csteps * 0.01))
+    msteps = MCMC_NEVAL // MCMC_W
+    nburnin = int(msteps * 0.1)
+    mstep_all = msteps + nburnin + NRETRY + 1
+    cexp = dict(var=mt.Continuous(0.0, 1.0), dof=[[2]])
+    oh = dict(var=(mt.Continuous(0.0, 1.0), mt.Discrete(1, QBIN)), dof=[[1, 1]],
+              obs=[np.zeros(QBIN, np.complex64)])
+    runs = (("vegasmc", "e^{i(x+y)}", _cexp, None, cexp, CPLX_EXACT,
+             dict(neval=CHAIN_NEVAL, nwalkers=CHAIN_W), ck, "chain_accept_complex",
+             {"chain_propose": niter * (csteps + 1), "chain_accept": 0, "chain_measure": 0,
+              "chain_accept_complex": niter * (csteps + 1)}, rates["4b"], "4b"),
+            ("vegasmc", f"{QBIN}-bin one-hot", _phase_t, _onehot_chain, oh,
+             np.full(QBIN, PHASE_EXACT), dict(neval=CHAIN_NEVAL, nwalkers=CHAIN_W), ck, None,
+             {"chain_propose": niter * (csteps + 1), "chain_accept": 0,
+              "chain_measure": niter * n_measured, "chain_accept_complex": niter * (csteps + 1)},
+             rates["4b"], "4b"),
+            ("mcmc", "e^{i(x+y)}", _cexp_idx, None, cexp, CPLX_EXACT,
+             dict(neval=MCMC_NEVAL, nwalkers=MCMC_W), mk, "mcmc_accept_complex",
+             {"mcmc_propose": niter * mstep_all, "mcmc_accept": 0, "mcmc_measure": 0,
+              "mcmc_accept_complex": niter * mstep_all}, rates["4c"], "4c"),
+            ("mcmc", f"{QBIN}-bin one-hot", _phase_t_idx, _onehot_mcmc, oh,
+             np.full(QBIN, PHASE_EXACT), dict(neval=MCMC_NEVAL, nwalkers=MCMC_W), mk, None,
+             {"mcmc_propose": niter * mstep_all, "mcmc_accept": 0, "mcmc_measure": niter * msteps,
+              "mcmc_accept_complex": niter * mstep_all}, rates["4c"], "4c"))
+    counts, bad = {}, []
+    for solver, name, f, meas, var_kw, exact, kw, mod, key, expected, rate0, ph in runs:
+        mod.reset_launch_counts()
+        res = mt.integrate(f, measure=meas, type=complex, solver=solver, niter=niter, block=16,
+                           device="cuda", seed=SEED, verbose=-2, **var_kw, **kw)
+        got = dict(mod.launch_counts)
+        assert res.backend == "cuda" and res.backend_reason == "", res.backend_reason
+        assert got == expected, (solver, name, got, expected)
+        if key:
+            counts[key] = got[key]
+        mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+        assert np.iscomplexobj(mean) and mean.shape == np.shape(exact), (mean, exact)
+        assert np.all(np.isfinite(mean)) and np.all(std.real > 0) and np.all(std.imag > 0)
+        z = (mean.real - exact.real) / std.real + 1j * (mean.imag - exact.imag) / std.imag
+        if not (np.all(np.abs(z.real) < 7) and np.all(np.abs(z.imag) < 7)):
+            bad.append((solver, name, z.tolist()))
+        evals = [h[2].neval for h in res.iterations]
+        steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+        print(f"phase 4f: {solver}, {name}, {niter} iterations of {evals[0]} evals: "
+              f"{mean.tolist()} +- {std.tolist()} vs {np.asarray(exact).tolist()}, sigma "
+              f"(re, im) {[(round(v.real, 2), round(v.imag, 2)) for v in np.ravel(z)]}; "
+              f"launches {got}")
+        print(f"phase 4f: {solver}, {name}: steady-state {steady!r} evals/s, {rate0!r} for the "
+              f"real main path (phase {ph}), ratio {steady / rate0!r} (per-iteration s "
+              f"{res.iteration_times}) [{card}]")
+    assert not bad, f"complex means outside 7 sigma: {bad}"
+    return counts
+
+
+def complex_cost(mt, card):
+    """Phase 4f: what complex weights cost a Markov run.  The quarter disc
+    f against f + 0j through integrate, on :vegasmc at phase 4b's evals
+    and walkers and on :mcmc at phase 4c's (the default burn-in), in turns
+    f, f + 0j, f + 0j, f; returns the ratio of the mean steady-state rates
+    (iterations 2-5), complex over real, of each solver."""
+    niter = 5
+
+    def cplx(x, c):
+        return _pi(x, c) + 0j
+
+    cases = (("vegasmc", dict(neval=CHAIN_NEVAL, nwalkers=CHAIN_W), _pi, cplx),
+             ("mcmc", dict(neval=MCMC_NEVAL, nwalkers=MCMC_W),
+              lambda i, x, c: _pi(x, c), lambda i, x, c: cplx(x, c)))
+    ratios = {}
+    for solver, kw, f, g in cases:
+        rates = {float: [], complex: []}
+        for typ in (float, complex, complex, float):
+            res = mt.integrate(f if typ is float else g, var=mt.Continuous(0.0, 1.0),
+                               dof=[[2]], type=typ, solver=solver, niter=niter, block=16,
+                               device="cuda", seed=SEED, verbose=-2, **kw)
+            mean, std = complex(res.mean[0]), complex(res.stdev[0])
+            assert res.backend == "cuda" and res.backend_reason == "", res.backend_reason
+            assert abs(mean.real - np.pi / 4) < 7 * std.real and mean.imag == 0.0, (mean, std)
+            evals = [h[2].neval for h in res.iterations]
+            rates[typ].append(sum(evals[1:]) / sum(res.iteration_times[1:]))
+        ratios[solver] = float(np.mean(rates[complex]) / np.mean(rates[float]))
+        print(f"phase 4f: {solver}, quarter disc f against f + 0j at {kw}, {niter} iterations "
+              f"each, in turns f, f + 0j, f + 0j, f: steady-state evals/s real "
+              f"{rates[float]}, complex {rates[complex]}, complex/real {ratios[solver]!r} "
+              f"[{card}]")
+    return ratios
+
+
+def complex_timings(mt, ck, mk, card):
+    """Phase 6f: device ms of chain_accept_complex at phase 6b's shape (2^20
+    walkers, the quarter disc times e^{i(x+y)}, a measured step) and of
+    mcmc_accept_complex at phase 6c's (the bubble at the first bosonic
+    Matsubara frequency, 2^18 walkers, measured and unmeasured steps), each
+    in turns with its plain version; their bounds with 8-byte weights."""
+    import torch
+    from mcintegration_tpu_torch.ops.mcmc_kernels import NRETRY
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.mcmc import MCMCIteration
+    from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration
+
+    spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED,
+                                 type=complex), "cuda")
+    it = VegasMCIteration(spec, _qdisc, block=16, nevalperblock=2 ** 24, nwalkers=2 ** 20)
+    lay = it.layout
+    tab, rw, kd, st = chain_measured_state(it)
+    nw = it.weights(st)
+    ref = st.clone()
+    ck.chain_accept(lay, rw, kd, 4, st, nw, measure=True)
+    ck.chain_accept_plain(lay, rw, kd, 4, ref, nw, measure=True)
+    err_c = state_bits_equal(st, ref, "chain_accept_complex at phase 6b's shape")
+    del ref
+    ms = {"accept": [], "accept_plain": []}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for kind in order:
+            sfx = "" if kind == "kernel" else "_plain"
+            acc = getattr(ck, "chain_accept" + sfx)
+            ms["accept" + sfx].append(device_ms(
+                lambda: acc(lay, rw, kd, 5, st, nw, measure=True), 20 if not sfx else 5))
+    ms = {k: float(np.mean(v)) for k, v in ms.items()}
+    # phase 6b's bytes with 8-byte weights: nw read and w written 8 bytes per
+    # integrand, and the float64 obs of two components (re, im) each
+    S, n, nd = lay.S, lay.spec.N, lay.spec.N + 1
+    b_c = bound(lay.W * (4 * S + 8 * n + 16 + 36 + 16 + 8 * S + 8 * n + 4 * nd
+                         + 32 * n + 16 * nd + 16), (80 + 10 * n) * lay.W)
+    print(f"phase 6f: one :vegasmc step = {lay.W} walkers x {S} slots, complex weights: "
+          f"chain_accept_complex {ms['accept']!r} ms/measured step, plain torch "
+          f"{ms['accept_plain']!r} ms, bound {b_c[0]!r} ms (by {b_c[1]}) [{card}]")
+    del st, nw
+
+    kw = bubble_kw(mt)
+    obs = [np.zeros(QSIZE, np.complex64)]
+    cfg = mt.Configuration(var=kw["var"], dof=kw["dof"], obs=obs, seed=SEED, type=complex)
+    mit = MCMCIteration(Spec(cfg, "cuda"), make_bubble_matsubara("cuda"), measure=_bubble_measure,
+                        obs_proto=obs, block=16, nevalperblock=2 ** 28 // 16, nwalkers=2 ** 18,
+                        thermal_ratio=BUBBLE_THERMAL)
+    lay = mit.layout
+    assert lay.spec.cplx and mit.backend_reason == "", mit.backend_reason
+    kd_np = block_keys(SEED, 0, 0, mit.block)
+    sched, groups = mit.schedule(kd_np)
+    kd = mit.seeds(kd_np)
+    tab, rw, st = mit.start(mit.spec.device_params(), kd, sched)
+    for t in range(400):
+        mit.step(tab, rw, kd, sched, groups[t], st, t)
+    errs = mcmc_one_step(mit, mk, st, tab, rw, kd, sched, groups[400], 400,
+                         "complex, at the main path's shape")
+    errs_u = mcmc_one_step(mit, mk, st, tab, rw, kd, sched, groups[401], 401,
+                           "complex, at the main path's shape, unmeasured", measure=False)
+    T = 402
+    nw = mit.weights(st, groups[T])
+    mk.mcmc_propose(lay, tab, kd, sched, T, st)
+    after = st.clone()
+    mk.mcmc_accept(lay, tab, rw, kd, sched, T, after, nw, measure=True)
+    nbytes = mcmc_bytes(mit, st, after)
+    ops = mcmc_ops(mit, mk, kd, sched, T, st, after)
+    del after
+    mm = {k: [] for k in ("accept", "accept_u", "accept_plain", "accept_u_plain")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for kind in order:
+            sfx, timer, reps = ("", device_ms, 20) if kind == "kernel" else ("_plain", time_ms, 5)
+            acc = getattr(mk, "mcmc_accept" + sfx)
+            mm["accept" + sfx].append(timer(
+                lambda: acc(lay, tab, rw, kd, sched, T, st, nw, measure=True), reps))
+            mm["accept_u" + sfx].append(timer(
+                lambda: acc(lay, tab, rw, kd, sched, T, st, nw, measure=False), reps))
+    mm = {k: float(np.mean(v)) for k, v in mm.items()}
+    n_m, n_u = mit.nsteps, mit.nburnin + NRETRY + 1
+    mean = lambda a, b: (n_m * a + n_u * b) / (n_m + n_u)
+    b_m, b_u = bound(nbytes[1], ops[1][1], ops[1][0]), bound(nbytes[2], ops[2][1], ops[2][0])
+    print(f"phase 6f: one :mcmc step = {lay.W} walkers, the bubble at the first bosonic "
+          f"Matsubara frequency: mcmc_accept_complex {mm['accept']!r} ms/measured step, "
+          f"{mm['accept_u']!r} ms/unmeasured step, {mean(mm['accept'], mm['accept_u'])!r} ms "
+          f"weighted by the {n_m} measured and {n_u} unmeasured launches of an iteration; "
+          f"plain torch {mm['accept_plain']!r} and {mm['accept_u_plain']!r} ms (host clock) "
+          f"[{card}]")
+    print(f"phase 6f: mcmc_accept_complex bound {b_m[0]!r} ms measured ({nbytes[1]:.0f} bytes), "
+          f"{b_u[0]!r} ms unmeasured ({nbytes[2]:.0f} bytes), {mean(b_m[0], b_u[0])!r} weighted "
+          f"(by {b_m[1]})")
+    return {"chain_accept_complex": (err_c, ms["accept"], ms["accept_plain"], *b_c),
+            "mcmc_accept_complex": (max(errs[1], errs_u[1]), mean(mm["accept"], mm["accept_u"]),
+                                    mean(mm["accept_plain"], mm["accept_u_plain"]),
+                                    mean(b_m[0], b_u[0]), b_m[1])}
+
+
 PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
 # float32 outside the tensor cores, operations/s: the data sheet's, a fused
 # multiply-add counted as two (the :mcmc kernels, built with --fmad=false,
@@ -1555,18 +1969,20 @@ def mcmc_bytes(it, st, after):
     # accept: every walker's role and curr in; a walker with a role also
     # the other move rows, prop, nw, prob, rcur and degc in, and its touched
     # slots copied; an accepted move writes weight and prob, a jump also
-    # curr, rcur, degc, picv and its dof row
-    accept = (W * 8 + n_role * 32 + moved * 2 * grp + role[3] * sum(slot)
-              + n_acc * 8 + n_jump * (16 + 4 * nvar))
+    # curr, rcur, degc, picv and its dof row.  A weight (nw, weight, relw)
+    # is 4 bytes, 8 when complex
+    wsz = 8 if lay.spec.cplx else 4
+    accept = (W * 8 + n_role * (28 + wsz) + moved * 2 * grp + role[3] * sum(slot)
+              + n_acc * (4 + wsz) + n_jump * (16 + 4 * nvar))
     # a measured step: relw out, with weight (where no move was taken) and
     # prob (walkers without a role) in; or weight and rcur in and obs
-    # (float64) in and out outside the normalization sector; there nrm
-    # (float64) in and out, elsewhere each adaptive leaf's dof and its used
-    # slots' gidx in
+    # (float64; two components when complex) in and out outside the
+    # normalization sector; there nrm (float64) in and out, elsewhere each
+    # adaptive leaf's dof and its used slots' gidx in
     if lay.custom:
-        measured = W * 4 + (W - n_acc) * 4 + (W - n_role) * 4
+        measured = W * wsz + (W - n_acc) * wsz + (W - n_role) * 4
     else:
-        measured = (W - n_norm) * 24
+        measured = (W - n_norm) * (wsz + 4 + 16 * (2 if lay.spec.cplx else 1))
     outside = curr != norm
     for f in fields:
         if f["hist_off"] >= 0:
@@ -1642,13 +2058,17 @@ def mcmc_ops(it, mk, kd, sched, t, st, after):
     # role's test and the propose tally's count; an accepted move its count
     acc = (after.tally[1].sum() - st.tally[1].sum()).item()
     ai = W * COUNT + n_role * (BASE + UNIFORM[0] + RANK + COUNT) + acc * COUNT
-    af = n_role * (UNIFORM[1] + 3) + (np.array([0, 4, 2, 6, 5])[role]).sum()
+    # a complex |nw| is two products, a sum and a square root, not one fabs
+    af = n_role * (UNIFORM[1] + (6 if lay.spec.cplx else 3)) + (np.array([0, 4, 2, 6, 5])[role]).sum()
     af += 2 * int(((role >= 3) & (after.curr != st.curr).cpu().numpy()).sum())
     in_norm = (after.curr == norm).cpu().numpy()
     hist_slots = sum(np.minimum(after.dof[f["group"]].cpu().numpy(), f["ndraw"])
                      for f in map(lay.fields, range(len(lay.dleaf))) if f["hist_off"] >= 0)
     mi = int(np.where(in_norm, 0, hist_slots).sum())
-    mf = int((~in_norm).sum()) * (3 if lay.custom else 5) + 2 * int(in_norm.sum())
+    # the measurement: relw = w/prob (a complex w: one more product), or
+    # sign(w)/rcur (a complex w: |w|, 1/|w| and four products)
+    per = (4 if lay.custom else 11) if lay.spec.cplx else (3 if lay.custom else 5)
+    mf = int((~in_norm).sum()) * per + 2 * int(in_norm.sum())
     return (pi, pf), (ai + mi, af + mf), (ai, af)
 
 
@@ -1788,13 +2208,18 @@ def main() -> int:
     timed("3c", mcmc_vs_plain, mt, mk, card)
     timed("3d", vplus_vs_plain, mt, vp, card)
     measure_errs = timed("3e", measure_vs_plain, mt, vk, ck, card)
+    complex_errs = timed("3f", complex_vs_plain, mt, ck, mk, card)
     counts, shape, rate4 = timed("4", main_path, mt, vk, card)
     chain_counts, rate4b = timed("4b", chain_main_path, mt, ck, card)
     counts.update(chain_counts)
-    counts.update(timed("4c", mcmc_main_path, mt, mk, card))
+    mcmc_counts, rate4c = timed("4c", mcmc_main_path, mt, mk, card)
+    counts.update(mcmc_counts)
     vcounts, vshape = timed("4d", vplus_main_path, mt, vp, card)
     counts.update(vcounts)
     counts.update(timed("4e", measure_main_path, mt, vk, ck, card, {"4": rate4, "4b": rate4b}))
+    counts.update(timed("4f", complex_main_path, mt, ck, mk, card,
+                        {"4b": rate4b, "4c": rate4c}))
+    timed("4f", complex_cost, mt, card)
     timed("5", adaptive_checks, mt)
     timed("5b", chain_checks, mt)
     timed("5c", mcmc_checks, mt)
@@ -1805,6 +2230,8 @@ def main() -> int:
     measured.update(timed("6d", vplus_timings, mt, vp, vshape, card))
     for name, times in timed("6e", measure_timings, mt, vk, ck, card).items():
         measured[name] = (measure_errs[name], *times)
+    for name, (err, *times) in timed("6f", complex_timings, mt, ck, mk, card).items():
+        measured[name] = (max(err, complex_errs[name]), *times)
     common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2, niter=3)
     for phase, kw in (("7", dict(neval=2 ** 30, solver="vegas", **common)),
                       ("7b", dict(neval=2 ** 28, solver="vegasmc", nwalkers=2 ** 20, **common))):
@@ -1832,9 +2259,13 @@ def main() -> int:
                 "vplus_reduce": "mcintegration_tpu/ops/pallas_vplus.py:156",
                 "chain_measure": "mcintegration_tpu/ops/pallas_chain.py:410",
                 "vegas_relw": "mcintegration_tpu/ops/pallas_vegas.py:343",
-                "vegas_reduce_measure": "mcintegration_tpu/ops/pallas_vegas.py:343"}
-    # vegas_relw and vegas_reduce's measure mode are entry points of vegas_reduce.cu
-    sources = {"vegas_relw": "vegas_reduce", "vegas_reduce_measure": "vegas_reduce"}
+                "vegas_reduce_measure": "mcintegration_tpu/ops/pallas_vegas.py:343",
+                "chain_accept_complex": "mcintegration_tpu/ops/pallas_chain.py:410",
+                "mcmc_accept_complex": "mcintegration_tpu/ops/pallas_mcmc.py:476"}
+    # vegas_relw and vegas_reduce's measure mode are entry points of vegas_reduce.cu,
+    # the complex accept kernels instantiations of chain_accept.cu and mcmc_accept.cu
+    sources = {"vegas_relw": "vegas_reduce", "vegas_reduce_measure": "vegas_reduce",
+               "chain_accept_complex": "chain_accept", "mcmc_accept_complex": "mcmc_accept"}
     kernels = []
     for name, where in replaces.items():
         err, ms, plain_ms, bound_ms, bound_by = measured[name]

@@ -18,6 +18,7 @@ The framework splits math across two precision domains:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Reference: TINY = eps(Float64(0)) * 1e50 ≈ 4.94e-274 (MCIntegration.jl:11)
 # used as a *positive* floor for probabilities on the host side.
@@ -55,8 +56,6 @@ def onehot(idx, lo, hi, dtype=None, *, like=None):
     when ``idx`` is a scalar, e.g. the integrand index), so the same
     measure code is correct per-sample AND batched.
     """
-    import torch
-
     idx = torch.as_tensor(idx)
     ref = idx
     if like is not None and torch.as_tensor(like).ndim > idx.ndim:
@@ -65,3 +64,38 @@ def onehot(idx, lo, hi, dtype=None, *, like=None):
     oh = (rng.reshape((-1,) + (1,) * ref.ndim) == idx).expand(
         (rng.numel(),) + tuple(ref.shape))
     return oh.to(dtype) if dtype is not None else oh
+
+
+# ----------------------------------------------------------------------
+# weight algebra over float32 or complex64 weights, as the kernels form it
+# (csrc/chain_common.cuh: Weight): a complex weight is an (re, im) pair of
+# float32, and every operation is written out on the pair
+# (pallas_chain.py:459-471, pallas_mcmc.py:526-551)
+# ----------------------------------------------------------------------
+
+def weight_abs(w: torch.Tensor) -> torch.Tensor:
+    """``|w|``: a real weight's ``abs``; a complex weight's ``sqrt(re*re +
+    im*im)``, correctly rounded as ``__fsqrt_rn`` (through float64, which
+    rounds once), not ``torch.abs``' hypot."""
+    if not w.is_complex():
+        return torch.abs(w)
+    re, im = torch.view_as_real(w).unbind(-1)
+    return torch.sqrt((re * re + im * im).double()).float()
+
+
+def weight_abs2(w: torch.Tensor) -> torch.Tensor:
+    """``|w|^2`` with no square root: ``w*w``, or ``re*re + im*im``."""
+    if not w.is_complex():
+        return w * w
+    re, im = torch.view_as_real(w).unbind(-1)
+    return re * re + im * im
+
+
+def weight_scale(w: torch.Tensor, f) -> torch.Tensor:
+    """``w*f`` for a real float32 factor ``f``; a complex weight scales each
+    part alone (a complex product would add ``im*0`` terms, which can flip
+    the sign of a zero)."""
+    if not w.is_complex():
+        return w * f
+    f = f[..., None] if isinstance(f, torch.Tensor) else f
+    return torch.view_as_complex(torch.view_as_real(w) * f)

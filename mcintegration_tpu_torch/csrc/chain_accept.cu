@@ -25,12 +25,21 @@
 // chain_measure.cu adds its output into obs.  With init = 1 the kernel only
 // takes the first state: w, pad, p.
 //
+// Complex weights (type=complex, K2's branch at lines 459-488 and 818-842)
+// run the same kernel instantiated with kCplx (entry mci_chain_accept_complex):
+// nw, w and relw are complex64, read and written as interleaved (re, im)
+// float2; |w| = sqrt(re*re + im*im) in new_p and vis, the histogram weight
+// takes |w|^2 = re*re + im*im with no square root, and relw_i = (re*f, im*f)
+// with f = pad_i/p goes into obs[2i] and obs[2i+1] (the default measure) or
+// relw (a custom one).  The real instantiation is the real kernel as it was.
+//
 // What bounds it on the card: device-memory bytes, about 40 + 20*N bytes per
 // walker per step (read the slot probs, nw, w, pad, p, prop and move; write
 // the changed slot, the new weights and pads; read and write the float64
-// accumulators on measured steps), plus one hash; and latency, at one thread
-// per walker with dependent loads, so occupancy matters (launch bounds
-// below).  Histograms are privatised
+// accumulators on measured steps; with complex weights 4 more per weight read
+// or written and 16 more per measured integrand), plus one hash; and
+// latency, at one thread per walker with dependent loads, so occupancy
+// matters (launch bounds below).  Histograms are privatised
 // per thread block in shared memory as float64 and flushed with atomics once
 // per launch; blocks stride over many walkers so the flush stays small
 // against the walkers.  A histogram larger than 48 KiB in all is added
@@ -72,6 +81,7 @@ __device__ __forceinline__ float masked_prod(const int* leaf, const int* grp,
 
 // Two blocks of 512 threads per SM: the bound holds the kernel to 64
 // registers, where it would take 72 and fit one block (1.6x slower, measured).
+template <bool kCplx>
 __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
     const uint32_t* __restrict__ kd, uint32_t t, int init, int measure, int W,
     int wb, int L, int S, int nvar, int nelig, int N,
@@ -85,6 +95,7 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
     double* __restrict__ obs, double* __restrict__ nrm,
     double* __restrict__ vis, int* __restrict__ pc, int* __restrict__ ac,
     double* __restrict__ hist, float* __restrict__ relw) {
+  typedef Weight<kCplx> Wt;
   extern __shared__ double hs[];
   const int nd = N + 1, norm = N;
   const int* leaf = meta;                          // [L, 8]
@@ -108,8 +119,8 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
                                                   prp_prob, W, w));
     for (int i = 0; i < N; ++i) {
       const float npad = masked_prod(leaf, grp, nvar, padm + i * P, prp_prob, W, w);
-      new_p = __fadd_rn(new_p, __fmul_rn(__fmul_rn(fabsf(nw[(long long)i * W + w]), rw[i]),
-                                         npad));
+      new_p = __fadd_rn(new_p, __fmul_rn(__fmul_rn(Wt::load(nw, (long long)i * W + w).abs(),
+                                                    rw[i]), npad));
     }
     bool acc = true;
     if (!init) {
@@ -118,7 +129,10 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
       acc = (u < __fdiv_rn(__fmul_rn(pr, new_p), pj[w])) && (pr > 1e-38f);
     }
     if (acc) {
-      for (int i = 0; i < N; ++i) wgt[(long long)i * W + w] = nw[(long long)i * W + w];
+      for (int i = 0; i < N; ++i) {
+        const long long q = (long long)i * W + w;
+        Wt::load(nw, q).store(wgt, q);
+      }
       for (int i = 0; i < nd; ++i)
         pad[(long long)i * W + w] = masked_prod(leaf, grp, nvar, padm + i * P, prp_prob, W, w);
       pj[w] = new_p;
@@ -150,8 +164,7 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
       for (int k = 0; k < S; ++k) feeds = feeds || hfeed[k * N + i];
       if (!feeds) continue;
       const float prob_i = masked_prod(leaf, grp, nvar, usedm + i * P, cur_prob, W, w);
-      const float wi = wgt[(long long)i * W + w];
-      float a = __fdiv_rn(__fmul_rn(wi, wi), prob_i);
+      float a = __fdiv_rn(Wt::load(wgt, (long long)i * W + w).abs2(), prob_i);
       a = __fdiv_rn(__fmul_rn(a, pad[(long long)i * W + w]), p);
       a = a > 1e34f ? 1e34f : a;   // NaN passes through, as torch.clamp
       const double ad = (double)a;
@@ -166,13 +179,14 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
     if (measure) {
       for (int i = 0; i < N; ++i) {
         const long long q = (long long)i * W + w;
-        const float wi = wgt[q], padi = pad[q];
-        const float r = __fmul_rn(wi, __fdiv_rn(padi, p));
+        const Wt wi = Wt::load(wgt, q);
+        const float padi = pad[q];
+        const Wt r = wi.scale(__fdiv_rn(padi, p));
         if (custom)
-          relw[q] = r;
+          r.store(relw, q);
         else
-          obs[q] += (double)r;
-        vis[q] += (double)__fdiv_rn(__fmul_rn(__fmul_rn(fabsf(wi), padi), rw[i]), p);
+          r.add_to(obs, i, W, w);
+        vis[q] += (double)__fdiv_rn(__fmul_rn(__fmul_rn(wi.abs(), padi), rw[i]), p);
       }
       const float norm_w = __fdiv_rn(pad[(long long)norm * W + w], p);
       nrm[w] += (double)norm_w;
@@ -187,24 +201,20 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int mci_chain_accept(const void* kd, int t, int init, int measure,
-                                int custom, int W, int wb, int L, int S, int nvar,
-                                int nelig, int N, const void* meta,
-                                const void* rw, int H, int hist_smem,
-                                void* prp_val, void* prp_gidx, void* prp_prob,
-                                void* cur_val, void* cur_gidx, void* cur_prob,
-                                const void* nw, const void* prop,
-                                const void* move, void* w, void* pad, void* p,
-                                void* obs, void* nrm, void* vis, void* pc,
-                                void* ac, void* hist, void* relw, void* stream) {
+template <bool kCplx>
+int launch_accept(const void* kd, int t, int init, int measure, int custom, int W,
+                  int wb, int L, int S, int nvar, int nelig, int N, const void* meta,
+                  const void* rw, int H, int hist_smem, void* prp_val, void* prp_gidx,
+                  void* prp_prob, void* cur_val, void* cur_gidx, void* cur_prob,
+                  const void* nw, const void* prop, const void* move, void* w, void* pad,
+                  void* p, void* obs, void* nrm, void* vis, void* pc, void* ac, void* hist,
+                  void* relw, void* stream) {
   long long blocks = ((long long)W + kThreads - 1) / kThreads;
   const long long cap = 2LL * num_sms();
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   const size_t smem = hist_smem ? (size_t)H * sizeof(double) : 0;
-  chain_accept_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  chain_accept_kernel<kCplx><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)kd, (uint32_t)t, init, measure, W, wb, L, S, nvar, nelig,
       N, custom, (const int*)meta, (const float*)rw, H, hist_smem, (int*)prp_val,
       (int*)prp_gidx, (float*)prp_prob, (int*)cur_val, (int*)cur_gidx,
@@ -212,4 +222,29 @@ extern "C" int mci_chain_accept(const void* kd, int t, int init, int measure,
       (float*)w, (float*)pad, (float*)p, (double*)obs, (double*)nrm,
       (double*)vis, (int*)pc, (int*)ac, (double*)hist, (float*)relw);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define MCI_CHAIN_ACCEPT_ARGS                                                         \
+  const void *kd, int t, int init, int measure, int custom, int W, int wb, int L,    \
+      int S, int nvar, int nelig, int N, const void *meta, const void *rw, int H,    \
+      int hist_smem, void *prp_val, void *prp_gidx, void *prp_prob, void *cur_val,   \
+      void *cur_gidx, void *cur_prob, const void *nw, const void *prop,              \
+      const void *move, void *w, void *pad, void *p, void *obs, void *nrm,           \
+      void *vis, void *pc, void *ac, void *hist, void *relw, void *stream
+#define MCI_CHAIN_ACCEPT_PASS                                                         \
+  kd, t, init, measure, custom, W, wb, L, S, nvar, nelig, N, meta, rw, H, hist_smem, \
+      prp_val, prp_gidx, prp_prob, cur_val, cur_gidx, cur_prob, nw, prop, move, w,   \
+      pad, p, obs, nrm, vis, pc, ac, hist, relw, stream
+
+// float32 weights
+extern "C" int mci_chain_accept(MCI_CHAIN_ACCEPT_ARGS) {
+  return launch_accept<false>(MCI_CHAIN_ACCEPT_PASS);
+}
+
+// complex64 weights: nw, w and relw interleaved (re, im); obs [2N, W] for the
+// default measure
+extern "C" int mci_chain_accept_complex(MCI_CHAIN_ACCEPT_ARGS) {
+  return launch_accept<true>(MCI_CHAIN_ACCEPT_PASS);
 }

@@ -103,6 +103,55 @@ __device__ __forceinline__ void stage_cdfs(const int* leaf, int L, int fields,
   __syncthreads();
 }
 
+// A walker's weight (pallas_chain.py:459-471, pallas_mcmc.py:526-551):
+// float32, or with kCplx a complex64 value, read and written as an
+// interleaved (re, im) float2 (torch.view_as_real of the complex64 tensor,
+// no copy).  Its algebra is written out on the pair with _rn intrinsics:
+//   |w|   = sqrt(re*re + im*im)   (not hypot: sqrt(fl(x*x)) = |x| for a
+//                                  real x, so w + 0i gives the real run's |w|)
+//   |w|^2 = re*re + im*im
+//   w*f   = (re*f, im*f)           for a real factor f
+// The real weight's operations are the ones the real kernels always ran.
+template <bool kCplx> struct Weight;
+
+template <> struct Weight<false> {
+  float v;
+  static __device__ __forceinline__ Weight load(const float* p, long long i) {
+    return {p[i]};
+  }
+  __device__ __forceinline__ void store(float* p, long long i) const { p[i] = v; }
+  __device__ __forceinline__ float abs() const { return fabsf(v); }
+  __device__ __forceinline__ float abs2() const { return __fmul_rn(v, v); }
+  __device__ __forceinline__ Weight scale(float f) const { return {__fmul_rn(v, f)}; }
+  // obs[i] += w, walker w of the [ncomp, W] float64 accumulators
+  __device__ __forceinline__ void add_to(double* obs, int i, int W, int w) const {
+    obs[(long long)i * W + w] += (double)v;
+  }
+};
+
+template <> struct Weight<true> {
+  float re, im;
+  static __device__ __forceinline__ Weight load(const float* p, long long i) {
+    const float2 z = reinterpret_cast<const float2*>(p)[i];
+    return {z.x, z.y};
+  }
+  __device__ __forceinline__ void store(float* p, long long i) const {
+    reinterpret_cast<float2*>(p)[i] = make_float2(re, im);
+  }
+  __device__ __forceinline__ float abs2() const {
+    return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+  }
+  __device__ __forceinline__ float abs() const { return __fsqrt_rn(abs2()); }
+  __device__ __forceinline__ Weight scale(float f) const {
+    return {__fmul_rn(re, f), __fmul_rn(im, f)};
+  }
+  // obs[2i] += re, obs[2i+1] += im: the components of complex value i
+  __device__ __forceinline__ void add_to(double* obs, int i, int W, int w) const {
+    obs[(long long)(2 * i) * W + w] += (double)re;
+    obs[(long long)(2 * i + 1) * W + w] += (double)im;
+  }
+};
+
 int num_sms() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||

@@ -23,10 +23,21 @@
 // integrand 0 for the walkers still at prob 0, and starts every walker in
 // integrand 0.
 //
+// Complex weights (type=complex, K3's branch at lines 526-551 and
+// 1217-1252) run the same kernel instantiated with kCplx (entry
+// mci_mcmc_accept_complex): nw, weight and relw are complex64, read and
+// written as interleaved (re, im) float2 (chain_common.cuh: Weight).  Then
+// |nw| = sqrt(re*re + im*im) in place of fabsf in every acceptance and in
+// prob; a jump to the normalization sector zeroes both parts; the default
+// measure adds the phase (re*inv_abs*invr, im*inv_abs*invr), inv_abs =
+// 1/|w| (0 where |w| <= 1e-38), into obs[2*curr] and obs[2*curr + 1] in
+// place of sign(w)/rcur; a custom measure gets relw = (re*invp, im*invp).
+// The real instantiation is the real kernel as it was.
+//
 // What bounds it on the card: device-memory bytes, 8 per walker without a
 // role (its role and sector; on a measured step also what its measurement
 // reads and writes), 40 per walker with one (move, curr, the scalars and
-// nw) and its commits.  At one thread per walker what costs more is (1) the
+// nw; 44 with a complex nw) and its commits.  At one thread per walker what costs more is (1) the
 // counts: every walker adds one to visited[curr] and one or two to a tally
 // cell, and with few sectors almost every walker of a warp
 // hits the same counter (64-bit shared atomics, which the card runs as
@@ -136,17 +147,24 @@ __device__ __forceinline__ void commit(const AcceptArgs& a, const int* f, int s,
 // Walker w's measurement on its state after the move (lines 1208-1289):
 // sector c2, weight wt, prob p2, rcur rc2; histogram bins into hcnt
 // (shared) or a.hist.
+template <bool kCplx>
 __device__ __forceinline__ void measure_walker(const AcceptArgs& a, const Tables& T,
-                                               uint32_t* hcnt, int w, int c2, float wt,
-                                               float p2, float rc2) {
+                                               uint32_t* hcnt, int w, int c2,
+                                               Weight<kCplx> wt, float p2, float rc2) {
   const int W = a.W, norm = a.nd - 1;
   const bool in_norm = c2 == norm;
   if (a.custom) {
     const bool ok = !in_norm && p2 > tiny();
-    a.relw[w] = __fmul_rn(wt, ok ? __fdiv_rn(1.0f, p2) : 0.0f);
+    wt.scale(ok ? __fdiv_rn(1.0f, p2) : 0.0f).store(a.relw, w);
   } else if (!in_norm) {
-    const float sgn = wt > 0.0f ? 1.0f : (wt < 0.0f ? -1.0f : 0.0f);
-    a.obs[(long long)c2 * W + w] += (double)__fmul_rn(sgn, __fdiv_rn(1.0f, rc2));
+    if constexpr (kCplx) {   // the phase w/|w| (lines 1217-1233)
+      const float absw = wt.abs();
+      const float inv_abs = absw > tiny() ? __fdiv_rn(1.0f, absw) : 0.0f;
+      wt.scale(inv_abs).scale(__fdiv_rn(1.0f, rc2)).add_to(a.obs, c2, W, w);
+    } else {
+      const float sgn = wt.v > 0.0f ? 1.0f : (wt.v < 0.0f ? -1.0f : 0.0f);
+      a.obs[(long long)c2 * W + w] += (double)__fmul_rn(sgn, __fdiv_rn(1.0f, rc2));
+    }
   }
   if (in_norm) {
     a.nrm[w] += (double)__fdiv_rn(1.0f, a.rw[norm]);
@@ -166,22 +184,25 @@ __device__ __forceinline__ void measure_walker(const AcceptArgs& a, const Tables
 
 // Walker w's step after a proposal with a role: acceptance, its tally keys
 // kp and ka (-1: none), commit, then its measurement on a measured step.
+template <bool kCplx>
 __device__ __forceinline__ void accept_walker(const AcceptArgs& a, const Tables& T,
                                               uint32_t* hcnt, int w, int& kp, int& ka) {
+  typedef Weight<kCplx> Wt;
   const int W = a.W, nd = a.nd, nvar = a.nvar, norm = nd - 1;
   const int ncol = max(nd, nvar);
   // the walker's own fields first, then what depends on them
   const int role = a.move[w], vi = a.move[W + w];
   const int idx1 = a.move[2 * W + w], idx2 = a.move[3 * W + w];
   const int c = a.curr[w];
-  const float pr = a.prop[w], nwv = a.nw[w], p_raw = a.prob[w];
+  const Wt nwv = Wt::load(a.nw, w);
+  const float pr = a.prop[w], p_raw = a.prob[w];
   const float p_old = fmaxf(p_raw, tiny());
   const float rc = a.rcur[w], dc_ = a.degc[w];
   const int jt = a.sched[(long long)a.t * (W / a.wb) + w / a.wb] >> 1;
   const float u = uniform(walker_base(a.kd, a.t, w, a.wb), kSaltAccept);
 
   // ---- acceptance (pallas_mcmc.py:1119-1141) ----
-  const float anw = fabsf(nwv);
+  const float anw = nwv.abs();
   const float p_mv = __fmul_rn(anw, rc);
   const float r_jt = a.rw[jt], deg_jt = a.deg[jt];
   const float p_ci = __fmul_rn(anw, r_jt);
@@ -209,7 +230,8 @@ __device__ __forceinline__ void accept_walker(const AcceptArgs& a, const Tables&
 
   // ---- commit (lines 1170-1206); c2, wt, p2, rc2: the state after it ----
   int c2 = c;
-  float wt = nwv, p2 = p_raw, rc2 = rc;
+  Wt wt = nwv;
+  float p2 = p_raw, rc2 = rc;
   bool took = false;                       // weight <- nw
   if (role == kRoleCv || role == kRoleSw) {
     for (int d = T.grp[3 * vi]; d < T.grp[3 * vi + 1]; ++d) {
@@ -218,7 +240,7 @@ __device__ __forceinline__ void accept_walker(const AcceptArgs& a, const Tables&
       if (role == kRoleSw) commit(a, f, idx2, acc, w);
     }
     if (acc) {
-      a.weight[w] = nwv;
+      nwv.store(a.weight, w);
       a.prob[w] = p_mv;
       took = true;
       p2 = p_mv;
@@ -230,7 +252,7 @@ __device__ __forceinline__ void accept_walker(const AcceptArgs& a, const Tables&
         for (int s = dcur; s < dj; ++s) commit(a, T.leaf + kFields * d, s, true, w);
     }
     if (acc) {
-      a.weight[w] = nwv;
+      nwv.store(a.weight, w);
       a.prob[w] = p_ci;
       a.curr[w] = jt;
       a.rcur[w] = r_jt;
@@ -244,8 +266,8 @@ __device__ __forceinline__ void accept_walker(const AcceptArgs& a, const Tables&
     }
   } else if (role == kRoleNj && acc) {
     const float r_norm = a.rw[norm];
-    wt = __fmul_rn(a.weight[w], 0.0f);
-    a.weight[w] = wt;
+    wt = Wt::load(a.weight, w).scale(0.0f);
+    wt.store(a.weight, w);
     a.prob[w] = r_norm;
     a.curr[w] = norm;
     a.rcur[w] = r_norm;
@@ -258,11 +280,13 @@ __device__ __forceinline__ void accept_walker(const AcceptArgs& a, const Tables&
     rc2 = r_norm;
   }
   if (!a.measure) return;
-  measure_walker(a, T, hcnt, w, c2, took ? wt : a.weight[w], p2, rc2);
+  measure_walker<kCplx>(a, T, hcnt, w, c2, took ? wt : Wt::load(a.weight, w), p2, rc2);
 }
 
+template <bool kCplx>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) mcmc_accept_kernel(
     const AcceptArgs a) {
+  typedef Weight<kCplx> Wt;
   __shared__ int list[kTile];       // a tile's walkers with a role, by class
   extern __shared__ uint32_t sh[];  // [H] bins, [ncnt] counters, [K] counts, [K + 1] offsets
   const int nd = a.nd, nvar = a.nvar;
@@ -285,9 +309,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) mcmc_accept_kernel(
     const float p0 = __fdiv_rn(1.0f, __fmul_rn(d0, (float)a.C));
     for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < W; w += stride) {
       if (a.prob[w] <= tiny()) {
-        const float nwv = a.nw[w];
-        a.weight[w] = nwv;
-        a.prob[w] = __fmul_rn(fabsf(nwv), r0);
+        const Wt nwv = Wt::load(a.nw, w);
+        nwv.store(a.weight, w);
+        a.prob[w] = __fmul_rn(nwv.abs(), r0);
       }
       a.curr[w] = 0;
       a.rcur[w] = r0;
@@ -317,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) mcmc_accept_kernel(
           const int vi = a.move[W + w];
           key[q] = branch_class(role, vi, nvar);
         } else if (a.measure) {
-          measure_walker(a, T, hcnt, w, c, a.weight[w], a.prob[w], a.rcur[w]);
+          measure_walker<kCplx>(a, T, hcnt, w, c, Wt::load(a.weight, w), a.prob[w], a.rcur[w]);
         }
       }
       count(cnt, a.vis, a.tally, nd, kv);
@@ -325,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) mcmc_accept_kernel(
     const int n = sort_tile(key, ccnt, coff, list, K);
     for (int s = threadIdx.x; s - lane < n; s += kThreads) {
       int kp = -1, ka = -1;
-      if (s < n) accept_walker(a, T, hcnt, tile0 + list[s], kp, ka);
+      if (s < n) accept_walker<kCplx>(a, T, hcnt, tile0 + list[s], kp, ka);
       count(cnt, a.vis, a.tally, nd, kp);
       count(cnt, a.vis, a.tally, nd, ka);
     }
@@ -342,19 +366,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) mcmc_accept_kernel(
       if (cnt[q]) atomicAdd(q < nd ? a.vis + q : a.tally + (q - nd), (u64)cnt[q]);
 }
 
-}  // namespace
-
-extern "C" int mci_mcmc_accept(const void* kd, const void* sched, int t, int init,
-                               int measure, int custom, int W, int wb, int L, int nvar,
-                               int nd, int C, const void* meta, const void* tab,
-                               const void* rw, const void* nw, int H, int hist_smem,
-                               int cnt_smem, void* cur_val, void* cur_gidx,
-                               void* cur_prob, void* prp_val, void* prp_gidx,
-                               void* prp_prob, void* curr, void* weight, void* prob,
-                               void* rcur, void* degc, void* picv, void* dof,
-                               const void* prop, const void* move, void* relw,
-                               void* obs, void* nrm, void* vis, void* tally,
-                               void* hist, void* stream) {
+template <bool kCplx>
+int launch_accept(const void* kd, const void* sched, int t, int init, int measure, int custom,
+                  int W, int wb, int L, int nvar, int nd, int C, const void* meta,
+                  const void* tab, const void* rw, const void* nw, int H, int hist_smem,
+                  int cnt_smem, void* cur_val, void* cur_gidx, void* cur_prob, void* prp_val,
+                  void* prp_gidx, void* prp_prob, void* curr, void* weight, void* prob,
+                  void* rcur, void* degc, void* picv, void* dof, const void* prop,
+                  const void* move, void* relw, void* obs, void* nrm, void* vis, void* tally,
+                  void* hist, void* stream) {
   const AcceptArgs a{(const uint32_t*)kd, (const int*)sched, (uint32_t)t, init, measure,
                      custom, W, wb, L, nvar, nd, C, (const int*)meta, (const float*)tab,
                      (const float*)rw, (const float*)nw, H, hist_smem, cnt_smem,
@@ -370,6 +390,33 @@ extern "C" int mci_mcmc_accept(const void* kd, const void* sched, int t, int ini
   const int ncol = nd > nvar ? nd : nvar;
   const size_t words = (hist_smem ? (size_t)H : 0) + (cnt_smem ? (size_t)(nd + 6 * nd * ncol) : 0)
       + 2 * (2 * (size_t)nvar + 2) + 1;
-  mcmc_accept_kernel<<<(unsigned)blocks, kThreads, words * 4, (cudaStream_t)stream>>>(a);
+  mcmc_accept_kernel<kCplx><<<(unsigned)blocks, kThreads, words * 4, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define MCI_MCMC_ACCEPT_ARGS                                                          \
+  const void *kd, const void *sched, int t, int init, int measure, int custom, int W, \
+      int wb, int L, int nvar, int nd, int C, const void *meta, const void *tab,      \
+      const void *rw, const void *nw, int H, int hist_smem, int cnt_smem,             \
+      void *cur_val, void *cur_gidx, void *cur_prob, void *prp_val, void *prp_gidx,   \
+      void *prp_prob, void *curr, void *weight, void *prob, void *rcur, void *degc,   \
+      void *picv, void *dof, const void *prop, const void *move, void *relw,          \
+      void *obs, void *nrm, void *vis, void *tally, void *hist, void *stream
+#define MCI_MCMC_ACCEPT_PASS                                                          \
+  kd, sched, t, init, measure, custom, W, wb, L, nvar, nd, C, meta, tab, rw, nw, H,  \
+      hist_smem, cnt_smem, cur_val, cur_gidx, cur_prob, prp_val, prp_gidx, prp_prob, \
+      curr, weight, prob, rcur, degc, picv, dof, prop, move, relw, obs, nrm, vis,    \
+      tally, hist, stream
+
+// float32 weights
+extern "C" int mci_mcmc_accept(MCI_MCMC_ACCEPT_ARGS) {
+  return launch_accept<false>(MCI_MCMC_ACCEPT_PASS);
+}
+
+// complex64 weights: nw, weight and relw interleaved (re, im); obs [2N, W]
+// for the default measure
+extern "C" int mci_mcmc_accept_complex(MCI_MCMC_ACCEPT_ARGS) {
+  return launch_accept<true>(MCI_MCMC_ACCEPT_PASS);
 }

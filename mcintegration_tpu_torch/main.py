@@ -153,14 +153,22 @@ def integrate(integrand: Callable, *,
     relative weights (``relw[0]`` reads as it does per sample), and
     ``measure(idx, x, relw, c)`` on :mcmc.
 
+    Weights are float32, or complex64 with ``type=complex`` on :vegasmc and
+    :mcmc: the integrand may return complex values, ``|w|`` (``sqrt(re^2 +
+    im^2)``) drives the chains and reweighting, ``relw`` reaches a custom
+    measure as complex64, observables may have complex leaves, and the
+    result's means and error bars are complex, real and imaginary parts
+    estimated as independent channels (src/statistics.jl:24-55).
+
     ``dtype``, ``backend``, ``cache`` and ``parallel`` are the reference's
     keywords; the port serves their defaults (float32, ``"auto"``, True,
     ``"auto"``) and raises on any other value.  Inputs the port does not
     serve yet raise ``NotImplementedError`` naming the ROADMAP.md item that
     will port them: a custom ``measure`` on :vegasplus, ``measurefreq != 1``
-    on :vegas and :vegasplus, ``type=complex`` and complex observables,
-    ``mesh`` and ``debug``; FermiK pools raise on every solver but :mcmc, as
-    in the reference.
+    on :vegas and :vegasplus, ``type=complex`` on :vegas and :vegasplus,
+    ``mesh`` and ``debug``.  Complex observables on a real-weight run raise
+    (the reference drops their imaginary part), and FermiK pools raise on
+    every solver but :mcmc, as in the reference.
 
     ``result.backend`` is ``"cuda"`` or ``"torch"``; ``backend_reason``
     says why, when the integrand or the measure runs per sample under
@@ -185,8 +193,6 @@ def integrate(integrand: Callable, *,
     verbose = max(print, verbose)
     if config is None:
         config = Configuration(**kwargs)
-    if config.type is complex:
-        _not_ported("type=complex", 14)
     if gamma > 1.0 and verbose >= 0:
         sys.stderr.write(red("learning rate gamma should be less than 1.0") + "\n")
     if ignore is None:

@@ -75,6 +75,10 @@ _SIGNATURES = {
                          _I, _I, _I, _P, _P, _P, _P],
 }
 
+# the complex-weight instantiations take the real ones' arguments
+_SIGNATURES["mci_chain_accept_complex"] = _SIGNATURES["mci_chain_accept"]
+_SIGNATURES["mci_mcmc_accept_complex"] = _SIGNATURES["mci_mcmc_accept"]
+
 _lib = None
 build_seconds = None   # wall time of this process's build, None if cached
 

@@ -16,10 +16,23 @@ is the JAX package's XLA route
 the chosen slot of every leaf of its chosen group through the leaf's map,
 with a fresh uniform of its own.
 
+Weights are float32, or complex64 when ``spec.cplx`` (``type=complex``,
+K2's branch at ``pallas_chain.py:459-488`` and ``:818-842``): ``nw``,
+``w`` and ``relw`` are complex64 and the kernel reads them as interleaved
+(re, im) float32 pairs through ``torch.view_as_real``, with no copy.  Their
+algebra is written out on the pair (``common.py:weight_abs``): ``|w| =
+sqrt(re*re + im*im)`` in the joint density and the visited sums, ``re*re
++ im*im`` in the histogram weight, and ``(re*f, im*f)`` for a relative
+weight, whose parts the default measure adds into components ``2i`` and
+``2i+1`` of ``obs``.  ``chain_accept_complex`` is that instantiation of
+``csrc/chain_accept.cu``; ``chain_propose`` and ``chain_measure`` do not
+see weights.
+
 Each wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel (``csrc/chain_*.cu``, built by
 ``ops/_build.py``) or raises; there is no fallback.  ``launch_counts``
-counts the kernel launches of each wrapper.
+counts the kernel launches of each wrapper, the complex ``chain_accept``
+apart.
 
 Layout.  One walker per thread, structure of arrays: every field is
 ``[..., W]`` with walkers block-major, ``w = b*wb + j``.  Kernel slots are
@@ -49,8 +62,9 @@ from typing import Any, List
 import numpy as np
 import torch
 
-from ..common import TINY_F32
+from ..common import TINY_F32, weight_abs, weight_abs2, weight_scale
 from ..models.variable import Discrete
+from ..solvers.engine import obs_components
 from . import _build
 from ._build import check_tensor as _check
 from .grid import sample_continuous, sample_discrete
@@ -64,7 +78,8 @@ SMEM_CDF_FLOATS = 12288     # 48 KiB of staged CDF thresholds per thread block
 SMEM_HIST_BINS = 6144       # 48 KiB of float64 histogram per thread block
 LEAF_FIELDS = 8             # kind, nb, tab_off, sm_off, lower, slot0, hist_off, group
 
-launch_counts = {"chain_propose": 0, "chain_accept": 0, "chain_measure": 0}
+launch_counts = {"chain_propose": 0, "chain_accept": 0, "chain_measure": 0,
+                 "chain_accept_complex": 0}
 
 
 def reset_launch_counts():
@@ -94,7 +109,7 @@ class ChainLayout:
     spec: Any
     block: int
     wb: int
-    ncomp: int              # observable components (N for the default measure)
+    ncomp: int              # observable components (engine.obs_components)
     custom: bool            # a custom measure: accept writes relw, not obs
     dleaf: List[int]
     leaf: np.ndarray        # [L, LEAF_FIELDS] int32
@@ -121,8 +136,9 @@ class ChainLayout:
     @staticmethod
     def build(spec, block: int, wb: int, ncomp=None, custom=False) -> "ChainLayout":
         """The layout of ``spec`` for ``block`` blocks of ``wb`` walkers;
-        ``ncomp`` observable components (default ``spec.N``), ``custom``
-        for a custom measure."""
+        ``ncomp`` observable components (default: the default measure's,
+        ``engine.obs_components(spec)``), ``custom`` for a custom measure.
+        The weights' dtype is ``spec.wdtype``."""
         dleaf = [i for i, li in enumerate(spec.leaves) if li.ndraw > 0]
         rows, slot0, tab_off, sm_off, h_off = [], 0, 0, 0, 0
         for d, lidx in enumerate(dleaf):
@@ -164,8 +180,9 @@ class ChainLayout:
                                usedm.ravel(), hfeed.ravel(), sleaf]).astype(np.int32)
         dev = spec.device
         widx = torch.arange(wb, dtype=torch.int64, device=dev).repeat(block)
-        return ChainLayout(spec=spec, block=block, wb=wb,
-                           ncomp=spec.N if ncomp is None else ncomp, custom=custom,
+        if ncomp is None:
+            ncomp = obs_components(spec)
+        return ChainLayout(spec=spec, block=block, wb=wb, ncomp=ncomp, custom=custom,
                            dleaf=dleaf, leaf=leaf,
                            groups=groups, elig=elig, hfeed=hfeed, sleaf=sleaf, tab_size=tab_off,
                            smem_floats=sm_off, nhist=h_off,
@@ -197,7 +214,8 @@ class ChainState:
 
     Slots ``[S, W]``: ``cur_val``/``prp_val`` float32 (int32 bits for a
     Discrete slot), ``*_gidx`` int32, ``*_prob`` float32.  ``prop [W]``,
-    ``move [2, W]`` (group, slot), weights ``w [N, W]``, padding factors
+    ``move [2, W]`` (group, slot), weights ``w [N, W]`` (``spec.wdtype``,
+    as ``relw``), padding factors
     ``pad [nd, W]``, joint density ``p [W]``; float64 accumulators ``obs
     [ncomp, W]``, ``nrm [W]``, ``vis [nd, W]``; int32 tallies ``pc``/``ac
     [nvar, W]``; float64 histograms ``hist [H]``, the adaptive leaves' bins
@@ -239,14 +257,14 @@ def _state_fields(lay: ChainLayout):
     """``(name, dtype, shape)`` of every ChainState field for ``lay``."""
     spec, S, W = lay.spec, lay.S, lay.W
     n, nd = spec.N, spec.N + 1
-    f32, i32, f64 = torch.float32, torch.int32, torch.float64
+    f32, i32, f64, wt = torch.float32, torch.int32, torch.float64, spec.wdtype
     return (("cur_val", f32, (S, W)), ("cur_gidx", i32, (S, W)), ("cur_prob", f32, (S, W)),
             ("prp_val", f32, (S, W)), ("prp_gidx", i32, (S, W)), ("prp_prob", f32, (S, W)),
-            ("prop", f32, (W,)), ("move", i32, (2, W)), ("w", f32, (n, W)),
+            ("prop", f32, (W,)), ("move", i32, (2, W)), ("w", wt, (n, W)),
             ("pad", f32, (nd, W)), ("p", f32, (W,)), ("obs", f64, (lay.ncomp, W)),
             ("nrm", f64, (W,)), ("vis", f64, (nd, W)), ("pc", i32, (spec.nvar, W)),
             ("ac", i32, (spec.nvar, W)), ("hist", f64, (max(lay.nhist, 1),)),
-            ("relw", f32, (n if lay.custom else 0, W)))
+            ("relw", wt, (n if lay.custom else 0, W)))
 
 
 def _check_state(lay: ChainLayout, st: ChainState, dev):
@@ -374,8 +392,9 @@ def chain_propose(lay: ChainLayout, tab, kd, t: int, st: ChainState, init=False)
 
 def chain_accept_plain(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
                        init=False, measure=False):
-    """Plain torch version of ``csrc/chain_accept.cu``: the same float32
-    operations, and float64 histogram sums in another order."""
+    """Plain torch version of ``csrc/chain_accept.cu``, both
+    instantiations: the same float32 operations, and float64 histogram sums
+    in another order."""
     spec = lay.spec
     n, nd, norm = spec.N, spec.N + 1, spec.norm
     slotp = spec.slot_probs(lay.leaf_rows(st.prp_prob))
@@ -408,19 +427,23 @@ def chain_accept_plain(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
         if len(feeds) == 0:
             continue
         prob_i = spec.probability(slotp, i)
-        wf2 = torch.clamp(st.w[i] * st.w[i] / prob_i * st.pad[i] / st.p,
+        wf2 = torch.clamp(weight_abs2(st.w[i]) / prob_i * st.pad[i] / st.p,
                           max=HIST_CLIP).double()
         for k in feeds:
             off = int(lay.leaf[lay.sleaf[k], 6])
             st.hist.index_add_(0, st.cur_gidx[k].long() + off, wf2)
     if measure:                                # (vegasmc.py:371-390)
         for i in range(n):
-            relw = st.w[i] * (st.pad[i] / st.p)
+            relw = weight_scale(st.w[i], st.pad[i] / st.p)
             if lay.custom:
                 st.relw[i] = relw
+            elif lay.spec.cplx:
+                re, im = torch.view_as_real(relw).unbind(-1)
+                st.obs[2 * i] += re.double()
+                st.obs[2 * i + 1] += im.double()
             else:
                 st.obs[i] += relw.double()
-            st.vis[i] += (torch.abs(st.w[i]) * st.pad[i] * rw[i] / st.p).double()
+            st.vis[i] += (weight_abs(st.w[i]) * st.pad[i] * rw[i] / st.p).double()
         norm_w = st.pad[norm] / st.p
         st.nrm.add_(norm_w.double())
         st.vis[norm] += (rw[norm] * norm_w).double()
@@ -444,26 +467,28 @@ def _accept_args(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
 def chain_accept(lay: ChainLayout, rw, kd, t: int, st: ChainState, nw,
                  init=False, measure=False):
     """Step ``t``'s Metropolis decision on the proposal with weights ``nw
-    [N, W]``, in place on ``st``; with ``init``, take the first state.  On
-    a ``measure`` step the default measure adds into ``st.obs``, and a
-    custom one (``lay.custom``) writes ``st.relw``."""
+    [N, W]`` (``spec.wdtype``), in place on ``st``; with
+    ``init``, take the first state.  On a ``measure`` step the default
+    measure adds into ``st.obs``, and a custom one (``lay.custom``) writes
+    ``st.relw``."""
     dev = _device_of(st, "chain_accept")
     if dev.type == "cpu":
         return chain_accept_plain(lay, rw, kd, t, st, nw, init, measure)
     spec = lay.spec
     _check_state(lay, st, dev)
-    _check(nw, "nw", torch.float32, (spec.N, lay.W), dev)
+    _check(nw, "nw", spec.wdtype, (spec.N, lay.W), dev)
     _check(rw, "rw", torch.float32, (spec.N + 1,), dev)
     _check(kd, "kd", torch.int32, (lay.block, 2), dev)
     if not 0 <= t < 2 ** 31:
         raise ValueError(f"chain_accept: step {t} out of range")
+    name = "chain_accept_complex" if spec.cplx else "chain_accept"
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mci_chain_accept(
+        err = getattr(lib, "mci_" + name)(
             *_accept_args(lay, rw, kd, t, st, nw, init, measure), stream)
-    _build.check(lib, err, "chain_accept")
-    launch_counts["chain_accept"] += 1
+    _build.check(lib, err, name)
+    launch_counts[name] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -30,10 +30,22 @@ table, and histograms, tallies and visited counts are exact counts on
 every step (no ``HIST_EVERY`` or ``TALLY_EVERY``), in integer or float64
 accumulators (no Kahan pairs).
 
+Weights are float32, or complex64 when ``spec.cplx`` (``type=complex``,
+K3's branch at ``pallas_mcmc.py:526-551`` and ``:1217-1252``): ``nw``,
+``weight`` and ``relw`` are complex64, read by the kernel as interleaved
+(re, im) float32 pairs.  ``prob = |weight|*rcur`` stays real, with ``|w| =
+sqrt(re*re + im*im)`` (``common.py:weight_abs``); the default measure adds
+the phase ``w/|w|`` over ``rcur`` (0 where ``|w| <= 1e-38``, as in the
+normalization sector) into components ``2*curr`` and ``2*curr + 1``; a
+custom measure gets ``relw = w/prob``.  ``mcmc_accept_complex`` is that
+instantiation of ``csrc/mcmc_accept.cu``; ``mcmc_propose`` and
+``mcmc_measure`` do not see weights.
+
 Each wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel (``csrc/mcmc_*.cu``, built by
 ``ops/_build.py``) or raises; there is no fallback.  ``launch_counts``
-counts the kernel launches of each wrapper.
+counts the kernel launches of each wrapper, the complex ``mcmc_accept``
+apart.
 
 Layout.  One walker per thread, structure of arrays ``[..., W]``, walkers
 block-major (``w = b*wb + j``).  Kernel slot ``k`` is a (drawn leaf, slot)
@@ -66,7 +78,9 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from ..common import weight_abs, weight_scale
 from ..models.variable import Discrete, FermiK
+from ..solvers.engine import obs_components
 from . import _build, fermik
 from ._build import check_tensor as _check
 from .chain_kernels import _bits, _uniform, _walker_base
@@ -87,7 +101,8 @@ SMEM_COUNTERS = 2048    # 8 KiB of 32-bit visited and tally counts
 # kind, nb, tab_off, sm_off, lower, slot0, vrow0, width, hist_off, group, ndraw
 LEAF_FIELDS = 11
 
-launch_counts = {"mcmc_propose": 0, "mcmc_accept": 0, "mcmc_measure": 0}
+launch_counts = {"mcmc_propose": 0, "mcmc_accept": 0, "mcmc_measure": 0,
+                 "mcmc_accept_complex": 0}
 
 
 def reset_launch_counts():
@@ -117,7 +132,7 @@ class McmcLayout:
     spec: Any
     block: int
     wb: int
-    ncomp: int              # observable components (N for the default measure)
+    ncomp: int              # observable components (engine.obs_components)
     custom: bool            # a custom measure: accept writes relw, not obs
     dleaf: List[int]
     leaf: np.ndarray        # [L, LEAF_FIELDS] int32
@@ -166,7 +181,11 @@ class McmcLayout:
         return self.counters <= SMEM_COUNTERS
 
     @staticmethod
-    def build(spec, block: int, wb: int, ncomp: int, custom: bool) -> "McmcLayout":
+    def build(spec, block: int, wb: int, ncomp=None, custom=False) -> "McmcLayout":
+        """The layout of ``spec`` for ``block`` blocks of ``wb`` walkers;
+        ``ncomp`` observable components (default: the default measure's,
+        ``engine.obs_components(spec)``), ``custom`` for a custom measure.
+        The weights' dtype is ``spec.wdtype``."""
         cfg = spec.cfg
         nd = spec.N + 1
         dleaf = [i for i, li in enumerate(spec.leaves) if li.ndraw > 0]
@@ -205,7 +224,9 @@ class McmcLayout:
                                adj.ravel()]).astype(np.int32)
         dev = spec.device
         return McmcLayout(
-            spec=spec, block=block, wb=wb, ncomp=ncomp, custom=custom, dleaf=dleaf,
+            spec=spec, block=block, wb=wb,
+            ncomp=obs_components(spec) if ncomp is None else ncomp, custom=custom,
+            dleaf=dleaf,
             leaf=leaf, groups=groups, S=slot0, V=vrow0,
             tab_size=tab_off, nhist=h_off,
             meta=torch.as_tensor(meta, device=dev),
@@ -263,7 +284,8 @@ class McmcState:
 
     Slots: ``cur_val``/``prp_val [V, W]`` float32 (int32 bits for a Discrete
     slot), ``*_gidx [S, W]`` int32, ``*_prob [S, W]`` float32.  Per walker:
-    ``curr`` (sector), ``weight``, ``prob`` (``|weight|*rw[curr]``, or
+    ``curr`` (sector), ``weight`` (complex64 with complex weights, as
+    ``relw``), ``prob`` (``|weight|*rw[curr]``, or
     ``rw[norm]`` in the normalization sector), ``rcur``/``degc``/``picv``
     (``rw``, degree and ``1/(deg*C)`` of ``curr``), ``dof [nvar, W]`` (of
     ``curr``); the step's proposal factor ``prop`` and ``move [4, W]`` (role,
@@ -309,13 +331,13 @@ class McmcState:
 def _state_fields(lay: McmcLayout):
     """``(name, dtype, shape)`` of every McmcState field for ``lay``."""
     S, V, W, nd, nvar = lay.S, lay.V, lay.W, lay.nd, lay.spec.nvar
-    f32, i32, f64, i64 = torch.float32, torch.int32, torch.float64, torch.int64
+    f32, i32, f64, i64, wt = torch.float32, torch.int32, torch.float64, torch.int64, lay.spec.wdtype
     return (("cur_val", f32, (V, W)), ("cur_gidx", i32, (S, W)), ("cur_prob", f32, (S, W)),
             ("prp_val", f32, (V, W)), ("prp_gidx", i32, (S, W)), ("prp_prob", f32, (S, W)),
-            ("curr", i32, (W,)), ("weight", f32, (W,)), ("prob", f32, (W,)),
+            ("curr", i32, (W,)), ("weight", wt, (W,)), ("prob", f32, (W,)),
             ("rcur", f32, (W,)), ("degc", f32, (W,)), ("picv", f32, (W,)),
             ("dof", i32, (nvar, W)), ("prop", f32, (W,)), ("move", i32, (4, W)),
-            ("relw", f32, (W,)), ("obs", f64, (lay.ncomp, W)), ("nrm", f64, (W,)),
+            ("relw", wt, (W,)), ("obs", f64, (lay.ncomp, W)), ("nrm", f64, (W,)),
             ("vis", i64, (nd,)), ("tally", i64, (2, 3, nd, lay.ncol)),
             ("hist", f64, (max(lay.nhist, 1),)))
 
@@ -573,13 +595,14 @@ def _count(tab, idx, mask):
 
 def mcmc_accept_plain(lay: McmcLayout, tab, rw, kd, sched, t: int, st: McmcState, nw,
                       init=False, measure=False):
-    """Plain torch version of ``csrc/mcmc_accept.cu`` (same bits)."""
+    """Plain torch version of ``csrc/mcmc_accept.cu``, both instantiations
+    (same bits)."""
     nd, norm, nvar, C = lay.nd, lay.nd - 1, lay.spec.nvar, lay.C
     deg = lay.deg_t
     if init:
         bad = st.prob <= TINY
         st.weight.copy_(torch.where(bad, nw, st.weight))
-        st.prob.copy_(torch.where(bad, torch.abs(nw) * rw[0], st.prob))
+        st.prob.copy_(torch.where(bad, weight_abs(nw) * rw[0], st.prob))
         st.curr.fill_(0)
         st.rcur.copy_(rw[0].expand(lay.W))
         st.degc.copy_(deg[0].expand(lay.W))
@@ -593,7 +616,7 @@ def mcmc_accept_plain(lay: McmcLayout, tab, rw, kd, sched, t: int, st: McmcState
     _count(st.vis, c, torch.ones_like(role, dtype=torch.bool))
     u = _uniform(_walker_base(lay, kd, t), SALT_ACCEPT)
     p_old = torch.clamp(st.prob, min=TINY)
-    anw = torch.abs(nw)
+    anw = weight_abs(nw)
     p_mv = anw * st.rcur
     r_jt, deg_jt = rw[jl], deg[jl]
     p_ci = anw * r_jt
@@ -638,7 +661,7 @@ def mcmc_accept_plain(lay: McmcLayout, tab, rw, kd, sched, t: int, st: McmcState
     acc_mv = acc_cv | acc_sw
     r_norm, deg_norm = rw[norm], deg[norm]
     st.weight.copy_(torch.where(acc_mv | acc_ci, nw,
-                                torch.where(acc_nj, st.weight * 0.0, st.weight)))
+                                torch.where(acc_nj, weight_scale(st.weight, 0.0), st.weight)))
     st.prob.copy_(torch.where(acc_mv, p_mv, torch.where(acc_ci, p_ci,
                                                         torch.where(acc_nj, r_norm, st.prob))))
     st.rcur.copy_(torch.where(acc_ci, r_jt, torch.where(acc_nj, r_norm, st.rcur)))
@@ -656,7 +679,16 @@ def mcmc_accept_plain(lay: McmcLayout, tab, rw, kd, sched, t: int, st: McmcState
     if lay.custom:
         ok = ~in_norm & (st.prob > TINY)
         invp = torch.where(ok, 1.0 / torch.where(ok, st.prob, 1.0), 0.0)
-        st.relw.copy_(st.weight * invp)
+        st.relw.copy_(weight_scale(st.weight, invp))
+    elif lay.spec.cplx:
+        # the phase w/|w| over rcur (pallas_mcmc.py:1217-1233)
+        absw = weight_abs(st.weight)
+        inv_abs = torch.where(absw > TINY, 1.0 / torch.clamp(absw, min=TINY), 0.0)
+        phase = weight_scale(weight_scale(st.weight, inv_abs), 1.0 / st.rcur)
+        re, im = torch.view_as_real(phase).unbind(-1)
+        for i in range(lay.spec.N):
+            st.obs[2 * i] += torch.where(st.curr == i, re, 0.0).double()
+            st.obs[2 * i + 1] += torch.where(st.curr == i, im, 0.0).double()
     else:
         contrib = torch.sign(st.weight) * (1.0 / st.rcur)
         for i in range(lay.spec.N):
@@ -691,22 +723,24 @@ def _accept_args(lay: McmcLayout, tab, rw, kd, sched, t: int, st: McmcState, nw,
 def mcmc_accept(lay: McmcLayout, tab, rw, kd, sched, t: int, st: McmcState, nw,
                 init=False, measure=False):
     """Step ``t``'s Metropolis decision on the proposal, whose walkers'
-    weights under their block's sector are ``nw [W]``, in place on ``st``;
-    with ``init``, take retry ``t``'s weights of integrand 0."""
+    weights under their block's sector are ``nw [W]`` (``spec.wdtype``),
+    in place on ``st``; with ``init``, take retry ``t``'s
+    weights of integrand 0."""
     dev = _device_of(st, "mcmc_accept")
     if dev.type == "cpu":
         return mcmc_accept_plain(lay, tab, rw, kd, sched, t, st, nw, init, measure)
     _check_state(lay, st, dev)
     _check_step(lay, tab, kd, sched, t, dev, "mcmc_accept")
-    _check(nw, "nw", torch.float32, (lay.W,), dev)
+    _check(nw, "nw", lay.spec.wdtype, (lay.W,), dev)
     _check(rw, "rw", torch.float32, (lay.nd,), dev)
+    name = "mcmc_accept_complex" if lay.spec.cplx else "mcmc_accept"
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mci_mcmc_accept(
+        err = getattr(lib, "mci_" + name)(
             *_accept_args(lay, tab, rw, kd, sched, t, st, nw, init, measure), stream)
-    _build.check(lib, err, "mcmc_accept")
-    launch_counts["mcmc_accept"] += 1
+    _build.check(lib, err, name)
+    launch_counts[name] += 1
 
 
 # ---------------------------------------------------------------------------

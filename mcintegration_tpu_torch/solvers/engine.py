@@ -14,6 +14,12 @@ User integrands are torch functions ``f(x, c)`` where ``x[k]`` is slot
 ``pallas_vegas.make_eval_batched`` written in torch).  An integrand that is
 not elementwise across samples is detected by :meth:`Spec.probe_batched`
 and then evaluated per sample under ``torch.func.vmap``.
+
+Weights are float32, or complex64 for ``Configuration(type=complex)``
+(``Spec.wdtype``, as ``mcintegration_tpu/main.py:341``).  A complex
+observable leaf is two groups of real components, all its real parts and
+then all its imaginary parts (``pallas_chain.py:447-458``); the solvers
+accumulate real float64 sums and :func:`obs_tree` recombines them.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Callable, List
 import numpy as np
 import torch
 
+from ..common import weight_abs
 from ..configuration import Configuration
 from ..models.variable import CompositeVar, Discrete, FermiK, leaves_of
 
@@ -86,6 +93,10 @@ class Spec:
         self.nvar = cfg.nvar
         self.maxdof = list(cfg.maxdof)
         self.uconfig = UserConfig(cfg)
+        # the weights' dtype: complex64 for type=complex (main.py:341 of the
+        # JAX package), else float32
+        self.cplx = cfg.type is complex
+        self.wdtype = torch.complex64 if self.cplx else torch.float32
 
         self.leaves: List[LeafInfo] = []
         self.group_leaves: List[List[int]] = [[] for _ in range(cfg.nvar)]
@@ -207,12 +218,12 @@ class Spec:
     def joint_probability(self, weights, pads, reweight):
         """p = r_norm*pad_norm + sum_i |w_i|*r_i*pad_i (montecarlo.jl:161-166).
 
-        ``weights [N, *batch]``, ``pads [nd, *batch]``, ``reweight [nd]``;
-        the terms are added in integrand order.
+        ``weights [N, *batch]`` (float32 or complex64), ``pads [nd, *batch]``,
+        ``reweight [nd]``; the terms are added in integrand order.
         """
         p = reweight[self.norm] * pads[self.norm]
         for i in range(self.N):
-            p = p + torch.abs(weights[i]) * reweight[i] * pads[i]
+            p = p + weight_abs(weights[i]) * reweight[i] * pads[i]
         return p
 
     # ------------------------------------------------------------------
@@ -230,7 +241,7 @@ class Spec:
         """Per-sample evaluation: f(leaf_vals [ndraw]) -> weights [N]."""
         def _eval(leaf_vals):
             w = self._call(integrand, inplace, leaf_vals)
-            return _finite_guard(pack_weights(w, self.N, self.device))
+            return _finite_guard(pack_weights(w, self.N, self.device, self.wdtype))
 
         return _eval
 
@@ -251,7 +262,8 @@ class Spec:
             if len(ws) != n:
                 raise ValueError(f"integrand returned {len(ws)} weights, want {n}")
             return torch.stack([
-                torch.broadcast_to(_finite_guard(_as_weight(wi, self.device)), shape)
+                torch.broadcast_to(_finite_guard(_as_weight(wi, self.device, self.wdtype)),
+                                   shape)
                 for wi in ws])
 
         return _eval
@@ -288,11 +300,11 @@ class Spec:
     def make_eval_batched_idx(self, integrand: Callable) -> List[Callable]:
         """One batched evaluation per integrand index ``i`` for the mcmc
         convention ``integrand(i, x, c)`` (pallas_mcmc.py:233-254):
-        f_i(leaf_vals [.., *batch]) -> [*batch] float32."""
+        f_i(leaf_vals [.., *batch]) -> [*batch] of the weight dtype."""
         def make(i):
             def _eval(leaf_vals):
                 w = integrand(i, self.view(leaf_vals), self.uconfig)
-                return torch.broadcast_to(_finite_guard(_as_weight(w, self.device)),
+                return torch.broadcast_to(_finite_guard(_as_weight(w, self.device, self.wdtype)),
                                           self.batch_shape(leaf_vals))
             return _eval
 
@@ -303,44 +315,68 @@ class Spec:
         def make(i):
             def per_sample(leaf_vals):
                 w = integrand(i, self.view(leaf_vals), self.uconfig)
-                return _finite_guard(_as_weight(w, self.device).reshape(()))
+                return _finite_guard(_as_weight(w, self.device, self.wdtype).reshape(()))
             return self._vmapped(per_sample, ())
 
         return [make(i) for i in range(self.N)]
 
-    def _measure_components(self, out, shapes, batch: tuple):
+    def _measure_components(self, out, leaves, batch: tuple):
         """A measure's output pytree as ``[ncomp, *batch]`` float32: its
-        leaves flattened in order, each broadcast to ``shape + batch``."""
+        leaves flattened in order, each broadcast to ``shape + batch``, a
+        complex leaf as its real parts and then its imaginary parts.
+        ``leaves`` is :func:`obs_leaves` of the observable pytree."""
         out = tree_leaves(out)
-        if len(out) != len(shapes):
-            raise ValueError(f"measure returned {len(out)} observables, want {len(shapes)}")
-        for z in out:
-            if z.is_complex() if isinstance(z, torch.Tensor) else np.iscomplexobj(z):
-                refuse_complex()
-        parts = [torch.broadcast_to(_as_weight(z, self.device), sh + batch).reshape((-1,) + batch)
-                 for z, sh in zip(out, shapes)]
+        if len(out) != len(leaves):
+            raise ValueError(f"measure returned {len(out)} observables, want {len(leaves)}")
+        parts = []
+        for k, (z, (sh, cplx)) in enumerate(zip(out, leaves)):
+            if not cplx and (z.is_complex() if isinstance(z, torch.Tensor)
+                             else np.iscomplexobj(z)):
+                if not self.cplx:
+                    refuse_complex()
+                raise ValueError(f"observable leaf {k} is real, but the measure returned "
+                                 "complex values for it: declare it complex in obs")
+            z = torch.broadcast_to(_as_weight(z, self.device, torch.complex64 if cplx
+                                              else torch.float32), sh + batch)
+            if cplx:
+                parts += [p.reshape((-1,) + batch) for p in torch.view_as_real(z).unbind(-1)]
+            else:
+                parts.append(z.reshape((-1,) + batch))
         # one leaf needs no copy: at 2^26 samples a launch, the copy of ten
         # components would move 5 GiB
         return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def probe_relw(self, shape) -> torch.Tensor:
+        """The relative weights a measure's probe passes: uniform in [0.1, 1)
+        (pallas_chain.py:272-321), with imaginary parts in [-0.5, 0.5) on a
+        complex run (``validate_measure_batched_pairs``)."""
+        rng = np.random.default_rng(98765)
+        relw = torch.as_tensor(rng.uniform(0.1, 1.0, shape), dtype=torch.float32,
+                               device=self.device)
+        if self.cplx:
+            im = torch.as_tensor(rng.uniform(-0.5, 0.5, shape), dtype=torch.float32,
+                                 device=self.device)
+            relw = torch.complex(relw, im)
+        return relw
 
     def make_measure_batched(self, measure: Callable, obs_proto) -> Callable:
         """The batched custom measure of the :vegas and :vegasmc convention
         ``measure(x, relw, c)`` (pallas_chain.py:245-269): m(leaf_vals,
         relw [N, *batch]) -> [ncomp, *batch] float32.  ``relw[i]`` is
-        integrand ``i``'s relative weight, so ``relw[0]`` reads as it does
-        per sample."""
-        shapes = obs_shapes(obs_proto)
+        integrand ``i``'s relative weight (complex64 on a complex run), so
+        ``relw[0]`` reads as it does per sample."""
+        leaves = obs_leaves(obs_proto, self.cplx)
 
         def _m(leaf_vals, relw):
             out = measure(self.view(leaf_vals), relw, self.uconfig)
-            return self._measure_components(out, shapes, tuple(relw.shape[1:]))
+            return self._measure_components(out, leaves, tuple(relw.shape[1:]))
 
         return _m
 
     def make_measure_vmapped(self, measure: Callable, obs_proto) -> Callable:
         """The per-sample ``measure(x, relw, c)`` under ``torch.func.vmap``."""
         return self._vmapped(self.make_measure_batched(measure, obs_proto),
-                             (obs_components(obs_proto),), extra_lead=1)
+                             (obs_components(self, obs_proto),), extra_lead=1)
 
     def pick_measure(self, measure: Callable, obs_proto):
         """``(m, reason)``: the batched custom measure where the probe
@@ -348,9 +384,7 @@ class Spec:
         measure under ``torch.func.vmap``, and why (empty when batched)."""
         m_b = self.make_measure_batched(measure, obs_proto)
         m_v = self.make_measure_vmapped(measure, obs_proto)
-        relw = torch.as_tensor(np.random.default_rng(98765).uniform(0.1, 1.0, (self.N, 4, 2)),
-                               dtype=torch.float32, device=self.device)
-        ok, why = self.probe_batched(m_b, m_v, relw)
+        ok, why = self.probe_batched(m_b, m_v, self.probe_relw((self.N, 4, 2)))
         return (m_b if ok else m_v), (f"measure: {why}" if why else "")
 
     def make_measure_batched_idx(self, measure: Callable, obs_proto) -> List[Callable]:
@@ -358,19 +392,19 @@ class Spec:
         convention ``measure(i, x, relw, c)`` (pallas_mcmc.py:332-358):
         m_i(leaf_vals, relw [*batch]) -> [ncomp, *batch] float32, the
         observable pytree's leaves flattened in order."""
-        shapes = obs_shapes(obs_proto)
+        leaves = obs_leaves(obs_proto, self.cplx)
 
         def make(i):
             def _m(leaf_vals, relw):
                 out = measure(i, self.view(leaf_vals), relw, self.uconfig)
-                return self._measure_components(out, shapes, tuple(relw.shape))
+                return self._measure_components(out, leaves, tuple(relw.shape))
             return _m
 
         return [make(i) for i in range(self.N)]
 
     def make_measure_vmapped_idx(self, measure: Callable, obs_proto) -> List[Callable]:
         """The per-sample custom measure under ``torch.func.vmap``."""
-        ncomp = obs_components(obs_proto)
+        ncomp = obs_components(self, obs_proto)
         batched = self.make_measure_batched_idx(measure, obs_proto)
         return [self._vmapped(m, (ncomp,)) for m in batched]
 
@@ -401,8 +435,9 @@ class Spec:
 
         Evaluates both on a small in-domain batch (the reference's
         ``validate_batched``, pallas_vegas.py:237-274); ``extra`` arguments
-        (a custom measure's ``relw``) follow the leaf values.  Returns
-        ``(ok, reason)``; ``reason`` is empty when ``ok``.
+        (a custom measure's ``relw``) follow the leaf values; complex outputs
+        are compared on ``torch.view_as_real``.  Returns ``(ok, reason)``;
+        ``reason`` is empty when ``ok``.
         """
         leaf_vals = self.probe_leaf_values(np.random.default_rng(12345))
         try:
@@ -417,6 +452,8 @@ class Spec:
             return False, (f"the batched call failed "
                            f"({type(e).__name__}: {e}); it runs "
                            "per sample under torch.func.vmap")
+        if wb.is_complex() and wv.is_complex():
+            wb, wv = torch.view_as_real(wb), torch.view_as_real(wv)
         if wb.shape == wv.shape and torch.allclose(wb, wv, rtol=1e-5, atol=1e-6):
             return True, ""
         return False, ("the batched probe did not reproduce the "
@@ -443,36 +480,67 @@ def tree_unflatten(proto, leaves):
     return build(proto)
 
 
-def obs_components(obs_proto) -> int:
-    """Scalar components of an observable pytree."""
-    return sum(int(np.prod(np.shape(p))) for p in tree_leaves(obs_proto))
+def obs_components(spec: Spec, obs_proto=None) -> int:
+    """Real float64 components a run accumulates.  The default measure
+    (``obs_proto`` None): one per integrand, or two with complex weights,
+    Re w_i in component 2i and Im w_i in 2i+1 (``pallas_chain.py:459-462``).
+    A custom measure's observable pytree: one per scalar of a real leaf,
+    two per scalar of a complex one (see :func:`obs_tree`)."""
+    if obs_proto is None:
+        return 2 * spec.N if spec.cplx else spec.N
+    return sum(int(np.prod(sh)) * (2 if c else 1) for sh, c in obs_leaves(obs_proto, spec.cplx))
 
 
 def refuse_complex():
     raise NotImplementedError(
-        "complex observables are not ported to mcintegration_tpu_torch yet "
-        "(ROADMAP.md, queue 1, item 14); mcintegration_tpu serves them")
+        "complex observables on a real-weight run are not served: the JAX package's "
+        "XLA routes drop their imaginary part (ROADMAP.md, known faults in the "
+        "reference); pass type=complex on :vegasmc or :mcmc (complex :vegas and "
+        ":vegasplus: ROADMAP.md, queue 1, item 14d)")
 
 
-def obs_shapes(obs_proto) -> list:
-    """The shapes of the observable pytree's leaves.  A complex leaf raises:
-    the port accumulates real float64 sums, and would drop its imaginary
-    part."""
-    leaves = tree_leaves(obs_proto)
-    if any(np.iscomplexobj(p) for p in leaves):
-        refuse_complex()
-    return [np.shape(p) for p in leaves]
+def obs_leaves(obs_proto, cplx: bool = False) -> list:
+    """``(shape, complex)`` of each leaf of the observable pytree.  A complex
+    leaf on a real-weight run (``cplx`` False) raises."""
+    out = []
+    for p in tree_leaves(obs_proto):
+        if np.iscomplexobj(p) and not cplx:
+            refuse_complex()
+        out.append((np.shape(p), bool(np.iscomplexobj(p))))
+    return out
 
 
-def obs_tree(obs_b: np.ndarray, obs_proto):
-    """Per-block sums ``obs_b [block, ncomp]`` as the observable pytree with
-    a leading ``[block]`` axis, the JAX package's layout of ``obs_blocks``."""
-    cols, k = [], 0
-    for sh in obs_shapes(obs_proto):
+def obs_tree(obs_b: np.ndarray, spec: Spec, obs_proto=None):
+    """Per-block sums ``obs_b [block, ncomp]`` (:func:`obs_components`) as
+    ``obs_blocks``, the JAX package's layout.  The default measure
+    (``obs_proto`` None) gives ``[block, N]``, complex128 with complex
+    weights.  A custom measure gives the observable pytree with a leading
+    ``[block]`` axis: a complex leaf's group of real parts, then its group
+    of imaginary parts, recombine into complex128 (``decode_complex_numpy``,
+    ``mcintegration_tpu/solvers/engine.py:289-320``)."""
+    if obs_proto is None:
+        return obs_b[:, 0::2] + 1j * obs_b[:, 1::2] if spec.cplx else obs_b
+    cols, k, B = [], 0, obs_b.shape[0]
+    for sh, c in obs_leaves(obs_proto, spec.cplx):
         m = int(np.prod(sh))
-        cols.append(obs_b[:, k:k + m].reshape((obs_b.shape[0],) + sh))
-        k += m
+        col = obs_b[:, k:k + m].reshape((B,) + sh)
+        if c:
+            col = col + 1j * obs_b[:, k + m:k + 2 * m].reshape((B,) + sh)
+        cols.append(col)
+        k += 2 * m if c else m
     return tree_unflatten(obs_proto, cols)
+
+
+def block_sums(acc: torch.Tensor, block: int) -> np.ndarray:
+    """Per-walker float64 accumulators ``acc [ncomp, W]`` (walkers
+    block-major) summed per block: ``[block, ncomp]`` on the host.  Each
+    component is reduced alone, so its sums do not depend on how many
+    components there are (on the card, a reduction's order follows the
+    number of its outputs)."""
+    rows = [a.view(block, -1).sum(dim=-1) for a in acc]
+    if not rows:
+        return np.zeros((block, 0))
+    return torch.stack(rows, dim=1).cpu().numpy()
 
 
 def refuse_fermik(spec: Spec, solver: str):
@@ -482,15 +550,26 @@ def refuse_fermik(spec: Spec, solver: str):
         raise NotImplementedError(f"FermiK pools run on the :mcmc solver only, not on {solver}")
 
 
+def refuse_complex_weights(spec: Spec, solver: str):
+    """Complex weights run on :vegasmc and :mcmc; the reference serves them
+    on :vegas and :vegasplus only on its XLA routes
+    (``pallas_vegas.py:307-315``, ``pallas_vplus.py:90-96``)."""
+    if spec.cplx:
+        raise NotImplementedError(
+            f"type=complex on {solver} is not ported to mcintegration_tpu_torch yet "
+            "(ROADMAP.md, queue 1, item 14d); it runs on :vegasmc and :mcmc, and "
+            "mcintegration_tpu serves it on its XLA route")
+
+
 def tree_map(f, tree):
     """``f`` applied to every leaf of a list/tuple tree."""
     return tree_unflatten(tree, [f(x) for x in tree_leaves(tree)])
 
 
-def _as_weight(w, device):
+def _as_weight(w, device, dtype=torch.float32):
     if isinstance(w, torch.Tensor):
-        return w.to(device=device, dtype=torch.float32)
-    return torch.tensor(w, dtype=torch.float32, device=device)
+        return w.to(device=device, dtype=dtype)
+    return torch.tensor(w, dtype=dtype, device=device)
 
 
 def _finite_guard(w):
@@ -498,18 +577,20 @@ def _finite_guard(w):
 
     In float32 a singular integrand can overflow to inf within ~1 ulp of its
     singular point; an inf/NaN weight would poison every accumulator.  The
-    zeroed region is O(ulp)-measure, far below the statistical error.
+    zeroed region is O(ulp)-measure, far below the statistical error.  A
+    complex value is kept only if both parts are finite (``torch.isfinite``
+    of a complex tensor; ``mcintegration_tpu/solvers/engine.py:260-271``).
     """
     return torch.where(torch.isfinite(w), w, torch.zeros_like(w))
 
 
-def pack_weights(w, n: int, device):
+def pack_weights(w, n: int, device, dtype=torch.float32):
     """Normalize a user integrand return (scalar/tuple/list/tensor) to [n]."""
     if isinstance(w, (tuple, list)):
         if len(w) != n:
             raise ValueError(f"integrand returned {len(w)} weights, expected {n}")
-        return torch.stack([_as_weight(x, device) for x in w])
-    w = _as_weight(w, device)
+        return torch.stack([_as_weight(x, device, dtype) for x in w])
+    w = _as_weight(w, device, dtype)
     if w.ndim == 0 and n == 1:
         return w[None]
     if tuple(w.shape) != (n,):

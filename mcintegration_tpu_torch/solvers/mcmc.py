@@ -12,7 +12,10 @@ whatever the number of integrands.  Measurements past the burn-in
 accumulate ``sign(weight)/reweight[curr]`` into ``obs[curr]`` (or a custom
 ``measure(idx, x, relw, c)`` with ``relw = weight/probability``) and
 ``1/reweight[norm]`` into the normalization in its sector; histograms count
-the used slots of adaptive pools.
+the used slots of adaptive pools.  With ``type=complex`` the weights and
+``relw`` are complex64, ``probability = |weight|*reweight[curr]`` stays
+real, and the default measure adds the phase ``weight/|weight|`` in place of
+the sign (``mcmc_accept_complex``).
 
 One step is ``mcmc_propose`` → the scheduled sectors' integrands as torch
 ops on the proposed state → ``mcmc_accept``; on a measured step with a
@@ -36,7 +39,7 @@ from ..ops import mcmc_kernels
 from ..ops.mcmc_kernels import NRETRY, McmcLayout, McmcState
 from ..ops.rng import schedule_np
 from . import vegasmc
-from .engine import Spec, obs_components, obs_tree
+from .engine import Spec, block_sums, obs_components, obs_tree
 
 
 def choose_walkers(neval: int, block: int, nwalkers, min_steps: int, n: int, nvar: int):
@@ -84,9 +87,9 @@ class MCMCIteration:
         self.ntot = self.nsteps + self.nburnin
         # every step evaluates every walker once (pallas_mcmc.py:1291)
         self.neval = W * self.ntot
-        self.obs_proto = obs_proto
-        ncomp = spec.N if measure is None else obs_components(obs_proto)
-        self.layout = McmcLayout.build(spec, block, W // block, ncomp, measure is not None)
+        self.obs_proto = None if measure is None else obs_proto
+        self.layout = McmcLayout.build(spec, block, W // block,
+                                       obs_components(spec, self.obs_proto), measure is not None)
 
         # ---- the integrand and the measure: batched, or under vmap ----
         reasons = []
@@ -100,9 +103,7 @@ class MCMCIteration:
         if measure is not None:
             m_b = spec.make_measure_batched_idx(measure, obs_proto)
             m_v = spec.make_measure_vmapped_idx(measure, obs_proto)
-            relw = torch.as_tensor(np.random.default_rng(98765).uniform(0.1, 1.0, (4, 2)),
-                                   dtype=torch.float32, device=spec.device)
-            ok, why = spec.probe_batched(_stacked(m_b), _stacked(m_v), relw)
+            ok, why = spec.probe_batched(_stacked(m_b), _stacked(m_v), spec.probe_relw((4, 2)))
             self.measure = m_b if ok else m_v
             if why:
                 reasons.append(f"measure: {why}")
@@ -137,11 +138,11 @@ class MCMCIteration:
 
     def weights(self, st: McmcState, group) -> torch.Tensor:
         """``nw [W]``: each walker's weight under its block's sector, on the
-        proposed state."""
+        proposed state (complex64 with ``type=complex``)."""
         lay = self.layout
         if len(group) == 1 and group[0][1] is None:
             return self.evaluate[group[0][0]](lay.leaf_values(st.prp_val)).contiguous()
-        nw = torch.empty(lay.W, dtype=torch.float32, device=st.prp_val.device)
+        nw = torch.empty(lay.W, dtype=self.spec.wdtype, device=st.prp_val.device)
         rows = st.prp_val.view(lay.V, self.block, lay.wb)
         for i, blocks in group:
             vals = rows.index_select(1, blocks).reshape(lay.V, -1)
@@ -189,9 +190,7 @@ class MCMCIteration:
         for t in range(self.ntot):
             self.step(tab, rw, kd, sched, groups[t], st, t)
 
-        obs_b = st.obs.view(lay.ncomp, B, lay.wb).sum(dim=-1).T.cpu().numpy()
-        if self.measure is not None:
-            obs_b = obs_tree(obs_b, self.obs_proto)
+        obs_b = obs_tree(block_sums(st.obs, B), spec, self.obs_proto)
         hist = st.hist.cpu().numpy()
         hists = []
         for lidx, li in enumerate(spec.leaves):
@@ -200,7 +199,7 @@ class MCMCIteration:
                          else np.zeros(li.nhist, np.float64))
         tally = st.tally.cpu().numpy().astype(np.float64)
         return {
-            "obs_blocks": obs_b,       # [block, N], or the observable pytree
+            "obs_blocks": obs_b,       # [block, N] (complex128), or the observable pytree
             "norm_blocks": st.nrm.view(B, lay.wb).sum(dim=-1).cpu().numpy(),
             "visited": st.vis.cpu().numpy().astype(np.float64),
             "hists": hists,

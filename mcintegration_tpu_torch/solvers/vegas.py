@@ -35,7 +35,7 @@ import torch
 
 from ..models.variable import Continuous
 from ..ops import vegas_kernels
-from .engine import Spec, obs_components, obs_tree, refuse_fermik
+from .engine import Spec, obs_components, obs_tree, refuse_complex_weights, refuse_fermik
 
 N_MULT = vegas_kernels.N_MULT
 SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x at 4 bytes * slots * this
@@ -78,6 +78,7 @@ def check_supported(spec: Spec):
     eligible, lines 290-340).  The strata bound is checked by
     ``vegas_kernels.vegas_sample``."""
     refuse_fermik(spec, ":vegas")
+    refuse_complex_weights(spec, ":vegas")
     drawn = [li for li in spec.leaves if li.ndraw > 0]
     if not drawn:
         raise ValueError("no MC-owned slots to draw (every dof is 0)")
@@ -118,7 +119,7 @@ class VegasIteration:
         samples = SAMPLES_PER_LAUNCH
         if measure is not None:
             nslots = sum(li.ndraw for li in spec.leaves)
-            per_sample = 4 * (nslots + 2 * spec.N + obs_components(obs_proto))
+            per_sample = 4 * (nslots + 2 * spec.N + obs_components(spec, obs_proto))
             samples = min(samples, MEASURE_LAUNCH_BYTES // per_sample)
         self.chunks_per_launch = max(1, min(self.nchunks, samples // (block * self.chunk)))
         self.launches_per_run = -(-self.nchunks // self.chunks_per_launch)
@@ -228,7 +229,7 @@ class VegasIteration:
             hsum += hrow.sum(dim=(1, 2))
         obs_b = torch.cat(obs_parts, dim=1).sum(dim=1).cpu().numpy()   # [B, ncomp]
         if self.measure is not None:
-            obs_b = obs_tree(obs_b, self.obs_proto)
+            obs_b = obs_tree(obs_b, spec, self.obs_proto)
         hsum = hsum.cpu().numpy()
         hists, k = [], 0
         for li in spec.leaves:

@@ -14,7 +14,10 @@ visited tallies drive reweighting; the per-slot histogram weight is
 ``(|w_i|^2 / prob_i) * pad_i / p``.  A custom ``measure(x, relw, c)``
 takes the place of the ``obs`` sums: it sees the state after the move and
 ``relw [N, *batch]``, ``relw[i] = w_i * pad_i / p``, and its output, shaped
-like the observable pytree, is added per walker.
+like the observable pytree, is added per walker.  With ``type=complex`` the
+weights and ``relw`` are complex64, ``|w_i|`` is ``sqrt(re^2 + im^2)``, and
+the real and imaginary parts of every observable are summed as independent
+channels (``chain_accept_complex``).
 
 One step is two kernel launches with the integrand between them:
 ``chain_propose`` → the integrand as torch ops on the proposed state →
@@ -37,7 +40,7 @@ import torch
 from ..models.variable import Discrete
 from ..ops import chain_kernels
 from ..ops.chain_kernels import ChainLayout, ChainState
-from .engine import Spec, obs_components, obs_tree, refuse_fermik
+from .engine import Spec, block_sums, obs_components, obs_tree, refuse_fermik
 
 
 def choose_walkers(neval: int, block: int, nwalkers, min_steps: int,
@@ -80,9 +83,9 @@ class VegasMCIteration:
         # burn-in discard: measure only after `warmup` of each chain
         # (reference: fixed 1%, montecarlo.jl:213)
         self.warmup = int(self.nsteps * warmup)
-        self.obs_proto = obs_proto
-        ncomp = spec.N if measure is None else obs_components(obs_proto)
-        self.layout = ChainLayout.build(spec, block, W // block, ncomp, measure is not None)
+        self.obs_proto = None if measure is None else obs_proto
+        self.layout = ChainLayout.build(spec, block, W // block,
+                                        obs_components(spec, self.obs_proto), measure is not None)
 
         # ---- the integrand and the measure: batched, or per sample under vmap ----
         eval_b = spec.make_eval_batched(integrand, inplace)
@@ -104,7 +107,8 @@ class VegasMCIteration:
         return out
 
     def weights(self, st: ChainState) -> torch.Tensor:
-        """The integrand on the proposed state: ``[N, W]`` float32."""
+        """The integrand on the proposed state: ``[N, W]`` float32, or
+        complex64 with ``type=complex``."""
         return self.evaluate(self.leaf_values(st.prp_val)).contiguous()
 
     def seeds(self, kd: np.ndarray) -> torch.Tensor:
@@ -146,9 +150,7 @@ class VegasMCIteration:
             self.step(tab, rw, kd, st, t)
 
         nd, nvar, B = spec.N + 1, spec.nvar, self.block
-        obs_b = st.obs.view(lay.ncomp, B, lay.wb).sum(dim=-1).T.cpu().numpy()
-        if self.measure is not None:
-            obs_b = obs_tree(obs_b, self.obs_proto)
+        obs_b = obs_tree(block_sums(st.obs, B), spec, self.obs_proto)
         norm_b = st.nrm.view(B, lay.wb).sum(dim=-1).cpu().numpy()
         visited = st.vis.sum(dim=-1).cpu().numpy()
         pc = st.pc.sum(dim=-1).cpu().numpy().astype(np.float64)
@@ -165,7 +167,7 @@ class VegasMCIteration:
         propose[1, 0, :nvar] = pc
         accept[1, 0, :nvar] = ac
         return {
-            "obs_blocks": obs_b,       # [block, N], or the observable pytree
+            "obs_blocks": obs_b,       # [block, N] (complex128), or the observable pytree
             "norm_blocks": norm_b,     # [block]
             "visited": visited,        # [nd]
             "hists": hists,            # per-leaf histogram sums

@@ -36,7 +36,7 @@ import torch
 from ..models.variable import Discrete
 from ..ops import vplus_kernels
 from ..ops.vplus_kernels import VplusLayout
-from .engine import Spec, refuse_fermik
+from .engine import Spec, refuse_complex_weights, refuse_fermik
 
 SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x and gidx at 8 bytes * slots * this
 MAX_DIMS = 10
@@ -72,6 +72,7 @@ class VegasPlusIteration:
         self.block = block
         self.beta = beta
         refuse_fermik(spec, ":vegasplus")
+        refuse_complex_weights(spec, ":vegasplus")
         D = sum(li.ndraw for li in spec.leaves if not isinstance(li.leaf, Discrete))
         if D == 0:
             raise NotImplementedError(

@@ -18,7 +18,10 @@ terms and sums them in float64 in another order (atomics), so obs, the
 per-cube second moments and the histograms agree to rel 1e-12.  With a
 custom measure, ``chain_accept`` writing ``relw``, ``chain_measure`` and
 ``vegas_relw`` match theirs bit for bit, and ``vegas_reduce`` given the
-measure's output ``m`` to rel 1e-9.
+measure's output ``m`` to rel 1e-9.  With complex weights (``type=complex``)
+``chain_accept_complex`` and ``mcmc_accept_complex`` match their plain
+versions bit for bit, both parts of every complex field included (the chain
+histogram to rel 1e-9).
 """
 
 import numpy as np
@@ -89,6 +92,8 @@ def test_cuda_run_reproduces_and_integrates(cuda):
 
 
 def _bits_equal(a, b):
+    if a.dtype == torch.complex64:
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
     if a.dtype == torch.float64:
         return torch.equal(a.view(torch.int64), b.view(torch.int64))
     return torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 \
@@ -144,12 +149,14 @@ def test_cuda_vegasmc_integrates(cuda):
     assert abs(res.mean[0] - np.pi / 4) < 7 * res.stdev[0]
 
 
-def _mcmc_iteration(device, big):
+def _mcmc_iteration(device, big, cplx=False, custom=True):
     """Every branch of the :mcmc kernels: a trained map and a Discrete pool in
     a CompositeVar, FermiK pools in 3-D and 2-D, groups of two slots (swap),
-    integrands of different dof and a custom measure.  ``big`` adds its
-    histograms (10196 bins) and its 21 sectors' tallies in device memory, not
-    shared memory."""
+    integrands of different dof and a custom measure (or, without
+    ``custom``, the default one).  ``big`` adds its histograms (10196 bins)
+    and its 21 sectors' tallies in device memory, not shared memory;
+    ``cplx`` multiplies each integrand by a phase (complex weights and
+    observables)."""
     rng = np.random.default_rng(5)
     c = mt.Continuous(0.0, 1.0, ninc=8192 if big else 1000)
     d = mt.Discrete(-3, 2000) if big else mt.Discrete(1, 40)
@@ -158,23 +165,27 @@ def _mcmc_iteration(device, big):
         leaf.train()
     var = (mt.CompositeVar(c, d), mt.FermiK(3, 1.0, 0.3, 10.0), mt.FermiK(2, 1.0, 0.3, 10.0))
     dof = [[2, 1, 0], [1, 2, 1]] * (10 if big else 1)
-    obs = [np.zeros(2)] * len(dof)
+    obs = [np.zeros(2, complex if cplx else float)] * len(dof)
 
     def f(i, x, cc):
         (a, dd), k3, k2 = x
         w = a[0] * (1.0 + dd[0].to(torch.float32).abs() / 40.0)
         if i % 2 == 0:
-            return w * torch.exp(-(k3[0] * k3[0]).sum(0))
-        return w * torch.exp(-(k2[0] * k2[0]).sum(0) - (k3[1] * k3[1]).sum(0))
+            w = w * torch.exp(-(k3[0] * k3[0]).sum(0))
+        else:
+            w = w * torch.exp(-(k2[0] * k2[0]).sum(0) - (k3[1] * k3[1]).sum(0))
+        return w * torch.exp(1j * (4.0 * a[0] + k3[0][0])) if cplx else w
 
     def meas(i, x, relw, cc):
         out = [torch.zeros((2,) + relw.shape, device=relw.device)] * len(obs)
         out[i] = torch.stack([relw, relw * x[0][0][0]])
         return out
 
-    spec = Spec(mt.Configuration(var=var, dof=dof, seed=2, obs=obs), device)
-    return MCMCIteration(spec, f, measure=meas, obs_proto=obs, block=4, nevalperblock=2 ** 18,
-                         nwalkers=2 ** 14, thermal_ratio=0.1)
+    spec = Spec(mt.Configuration(var=var, dof=dof, seed=2, obs=obs,
+                                 type=complex if cplx else float), device)
+    kw = dict(measure=meas, obs_proto=obs) if custom else {}
+    return MCMCIteration(spec, f, block=4, nevalperblock=2 ** 18, nwalkers=2 ** 14,
+                         thermal_ratio=0.1, **kw)
 
 
 def _bubble_iteration(device):
@@ -395,3 +406,109 @@ def test_cuda_measure_integrates(cuda, solver):
     exact = a * a + a / 10 + 1 / 300 + 1 / 3
     mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
     assert np.all(np.abs(mean - exact) < 7 * std), (mean - exact) / std
+
+
+def _chain_two_complex(x, c):
+    a, _ = x
+    w0, w1 = _chain_two(x, c)
+    return w0 * torch.exp(3j * a[0]), w1 * torch.exp(-2j * a[1])
+
+
+def _phase_measure(v, relw, c):
+    return [mt.onehot(v[1][0], 1, 3, relw.dtype) * relw[0]]
+
+
+@pytest.mark.parametrize("mode", ["measured", "unmeasured", "custom"])
+def test_chain_accept_complex_matches_plain(cuda, mode):
+    """chain_accept_complex from one state: two integrands with a phase
+    each (the default measure, on a measured and an unmeasured step), or a
+    complex one-hot measure over Discrete(1, 3) (relw written, then
+    chain_measure), every field bit for bit (the histogram to rel 1e-9)."""
+    if mode == "custom":
+        obs = [np.zeros(3, np.complex64)]
+        spec = Spec(mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Discrete(1, 3)),
+                                     dof=[[1, 1]], obs=obs, type=complex, seed=3), cuda)
+        it = VegasMCIteration(spec, lambda x, c: torch.exp(1j * x[0][0]), measure=_phase_measure,
+                              obs_proto=obs, block=4, nevalperblock=2 ** 16, nwalkers=2 ** 14)
+    else:
+        var = mt.CompositeVar(mt.Continuous(0.0, 1.0, ninc=1000), mt.Discrete(1, 40))
+        spec = Spec(mt.Configuration(var=var, dof=[[1], [2]], seed=2, type=complex), cuda)
+        it = VegasMCIteration(spec, _chain_two_complex, block=4, nevalperblock=2 ** 16,
+                              nwalkers=2 ** 14)
+    assert it.spec.cplx and it.backend_reason == ""
+    kd = it.seeds(block_keys(2, 0, 0, 4))
+    tab, rw, st = it.start(spec.device_params(), kd)
+    for t in range(3):
+        it.step(tab, rw, kd, st, t)
+    ck.chain_propose(it.layout, tab, kd, 3, st)
+    ref = st.clone()
+    nw = it.weights(st)
+    assert nw.dtype == torch.complex64
+    before = dict(ck.launch_counts)
+    measure = mode != "unmeasured"
+    ck.chain_accept(it.layout, rw, kd, 3, st, nw, measure=measure)
+    ck.chain_accept_plain(it.layout, rw, kd, 3, ref, nw, measure=measure)
+    if mode == "custom":
+        m = it.measure(it.leaf_values(st.cur_val), st.relw).contiguous()
+        ck.chain_measure(it.layout, m, st)
+        ck.chain_measure_plain(it.layout, m, ref)
+    torch.cuda.synchronize()
+    for name in vars(st):
+        a, b = getattr(st, name), getattr(ref, name)
+        if name == "hist":
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=0)
+        else:
+            assert _bits_equal(a, b), name
+    assert ck.launch_counts["chain_accept_complex"] == before["chain_accept_complex"] + 1
+    assert ck.launch_counts["chain_accept"] == before["chain_accept"]
+
+
+@pytest.mark.parametrize("custom", [False, True], ids=["default", "custom"])
+def test_mcmc_accept_complex_matches_plain(cuda, custom):
+    """mcmc_accept_complex on every branch of the :mcmc kernels with a
+    phase on each integrand: one measured and one unmeasured step from the
+    same state, with the default measure or a complex custom one, every
+    field bit for bit."""
+    it = _mcmc_iteration(cuda, False, cplx=True, custom=custom)
+    lay = it.layout
+    assert lay.spec.cplx and it.backend_reason == ""
+    kd_np = block_keys(2, 0, 0, it.block)
+    sched, groups = it.schedule(kd_np)
+    kd = it.seeds(kd_np)
+    tab, rw, st = it.start(it.spec.device_params(), kd, sched)
+    for t in range(3):
+        it.step(tab, rw, kd, sched, groups[t], st, t)
+    before = dict(mk.launch_counts)
+    for t, measure in ((3, True), (4, False)):
+        ref = st.clone()
+        mk.mcmc_propose(lay, tab, kd, sched, t, st)
+        mk.mcmc_propose_plain(lay, tab, kd, sched, t, ref)
+        nw = it.weights(st, groups[t])
+        assert nw.dtype == torch.complex64
+        mk.mcmc_accept(lay, tab, rw, kd, sched, t, st, nw, measure=measure)
+        mk.mcmc_accept_plain(lay, tab, rw, kd, sched, t, ref, nw, measure=measure)
+        torch.cuda.synchronize()
+        for name in vars(st):
+            assert _bits_equal(getattr(st, name), getattr(ref, name)), (t, name)
+    assert int(st.tally[1].sum()) > 0
+    assert bool(st.relw.abs().sum() > 0) if custom else bool(st.obs.any())
+    assert mk.launch_counts["mcmc_accept_complex"] == before["mcmc_accept_complex"] + 2
+    assert mk.launch_counts["mcmc_accept"] == before["mcmc_accept"]
+
+
+@pytest.mark.parametrize("solver", ["vegasmc", "mcmc"])
+def test_cuda_complex_integrates(cuda, solver):
+    """e^{i(x+y)} over [0, 1)^2 with type=complex through the complex
+    kernels: the real and imaginary parts within 7 sigma of (sin 1 + i(1 -
+    cos 1))^2."""
+    exact = (np.sin(1.0) + 1j * (1.0 - np.cos(1.0))) ** 2
+    f = lambda x, c: torch.exp(1j * (x[0] + x[1]))
+    mod, key = (ck, "chain_accept_complex") if solver == "vegasmc" else (mk, "mcmc_accept_complex")
+    mod.reset_launch_counts()
+    res = mt.integrate(f if solver == "vegasmc" else (lambda i, x, c: f(x, c)),
+                       var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 22, niter=4,
+                       solver=solver, type=complex, seed=5, verbose=-2, device="cuda")
+    assert res.backend == "cuda" and mod.launch_counts[key] > 4
+    assert mod.launch_counts[key.replace("_complex", "")] == 0
+    m, e = res.mean[0], res.stdev[0]
+    assert abs(m.real - exact.real) < 7 * e.real and abs(m.imag - exact.imag) < 7 * e.imag

@@ -61,7 +61,6 @@ def _complex_obs(solver):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"solver": ":mcmc", "type": complex}, "item 14"),
     ({"solver": "vegasplus", "measure": lambda v, relw, c: relw}, "item 14"),
     ({"solver": "vegas+", "measurefreq": 2}, "item 14"),
     ({"solver": ":vegasplus", "type": complex}, "item 14"),
@@ -80,15 +79,28 @@ def _complex_obs(solver):
     (_complex_obs("vegas"), "complex observables .* item 14"),
     (_complex_obs("vegasmc"), "complex observables .* item 14"),
     (_complex_obs("mcmc"), "complex observables .* item 14"),
-], ids=["mcmc", "vegasplus-measure", "vegasplus-measurefreq", "vegasplus-complex",
+    ({"type": complex, "measure": lambda v, relw, c: [relw[0]], "obs": [0j]}, "item 14"),
+], ids=["vegasplus-measure", "vegasplus-measurefreq", "vegasplus-complex",
         "measurefreq", "complex", "mesh", "debug", "mixed-ninc", "dtype", "dtype-vegasmc",
         "backend", "backend-mcmc", "cache", "parallel", "complex-obs-vegas",
-        "complex-obs-vegasmc", "complex-obs-mcmc"])
+        "complex-obs-vegasmc", "complex-obs-mcmc", "complex-measure-vegas"])
 def test_unported_options_raise(kwargs, item):
     kw = {"var": mt.Continuous(0.0, 1.0), "dof": [[2]], "neval": 2 ** 12,
           "solver": "vegas", "device": "cpu", "verbose": -2, **kwargs}
     with pytest.raises(NotImplementedError, match=item):
         mt.integrate(lambda x, c: x[0][0] * 1.0 if isinstance(x, tuple) else x[0], **kw)
+
+
+@pytest.mark.parametrize("obs,value", [(np.zeros(2, complex), 1.0), (np.zeros(2), 1j)],
+                         ids=["complex-leaf", "complex-values"])
+def test_real_weight_mcmc_refuses_complex_observables(obs, value):
+    """A real-weight :mcmc run with a complex observable leaf, or whose
+    measure returns complex values for a real one, raises: the reference's
+    XLA route drops the imaginary part there."""
+    with pytest.raises(NotImplementedError, match="complex observables .* item 14"):
+        mt.integrate(lambda i, x, c: x[0] * 1.0, var=mt.Continuous(0.0, 1.0), dof=[[2]],
+                     neval=2 ** 12, niter=1, solver="mcmc", device="cpu", verbose=-2,
+                     obs=[obs], measure=lambda i, v, relw, c: [torch.stack([relw, relw]) * value])
 
 
 def test_reference_keyword_defaults_run():

@@ -131,7 +131,8 @@ def _acceptance(st):
 @pytest.mark.parametrize("case", list(CASES))
 def test_run_matches_jax(case):
     it, st = _port_run(case)
-    assert mk.launch_counts == {"mcmc_propose": 0, "mcmc_accept": 0, "mcmc_measure": 0}
+    assert mk.launch_counts == {"mcmc_propose": 0, "mcmc_accept": 0, "mcmc_measure": 0,
+                                "mcmc_accept_complex": 0}
     assert st["neval"] == W * (NSTEPS + int(NSTEPS * THERMAL)) == it.neval
     assert st["visited"].sum() == it.neval            # every walker, every step
     mean, err = _estimate(st)

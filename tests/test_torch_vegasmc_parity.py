@@ -126,7 +126,8 @@ def test_run_matches_jax_xla_route(case):
     ck.reset_launch_counts()
     st_t = tit.run(tspec.device_params(),
                    np.random.default_rng(3).integers(0, 2 ** 32, (4, 2), dtype=np.uint32))
-    assert ck.launch_counts == {"chain_propose": 0, "chain_accept": 0, "chain_measure": 0}
+    assert ck.launch_counts == {"chain_propose": 0, "chain_accept": 0, "chain_measure": 0,
+                                "chain_accept_complex": 0}
     st_j = jit.run(jspec.device_params(), jax.random.key(3))
     mt_, st_, at, vt = _summary(st_t)
     mj_, sj, aj, vj = _summary(st_j)

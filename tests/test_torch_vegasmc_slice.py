@@ -131,8 +131,7 @@ def test_same_seed_reproduces_and_measurefreq():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"measure": lambda v, relw, c: [relw[0]], "obs": [0j]}, "complex observables .* item 14"),
-    ({"type": complex}, "item 14"),
-], ids=["measure", "complex"])
+], ids=["measure"])
 def test_unported_vegasmc_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         mt.integrate(lambda x, c: x[0], var=mt.Continuous(0.0, 1.0), dof=[[1]],
