@@ -12,8 +12,8 @@ with nvcc and drives every ported path on the card.
   runs against their exact values, kernel times beside the plain versions,
   and a ``torch.profiler`` trace of three iterations.
 - :vegasmc, the default solver (phases 3b-7b): ``chain_propose`` and
-  ``chain_accept`` against their plain versions from one state and over a
-  whole iteration, ``integrate(solver="vegasmc", device="cuda")`` on the 2-D
+  ``chain_accept`` against their plain versions from one state (also with
+  every walker in one histogram bin) and over a whole iteration, ``integrate(solver="vegasmc", device="cuda")`` on the 2-D
   pi problem at 2^28 evals per iteration with 2^20 walkers, adaptive,
   Discrete and reweighted runs against their exact values, time per chain
   step, and a profile of three iterations.
@@ -50,8 +50,8 @@ with nvcc and drives every ported path on the card.
   complex kernels' times and bounds at phases 6b's and 6c's shapes.
 - :vegasplus (phases 3d-7d): ``vplus_sample`` and ``vplus_reduce`` against
   their plain versions after one reallocation of the hypercube counts, at
-  the main path's shape and on a spec that takes every branch, and over a
-  whole iteration; ``integrate(solver="vegasplus", device="cuda")`` on the
+  the main path's shape and on a spec that takes every branch (also with
+  every sample of a span in one histogram bin), and over a whole iteration; ``integrate(solver="vegasplus", device="cuda")`` on the
   non-separable ``singular_3d`` integrand at 2^30 evals per iteration against
   its exact value, with its error bar beside :vegas' on the same budget; pi,
   ``log(x)/sqrt(x)``, the 4-D Gaussians, padding and a Discrete passenger
@@ -448,6 +448,24 @@ def state_bits_equal(a, b, what, hist_rel=REL_TOL_HIST):
     return err
 
 
+def one_bin(st):
+    """Every slot of every walker, in both copies, in bin 0 of its leaf:
+    after chain_accept every walker adds into one histogram bin per leaf,
+    the worst case for the merge of a warp's lanes."""
+    st.cur_gidx.zero_()
+    st.prp_gidx.zero_()
+
+
+def one_bin_span(gidx):
+    """A copy of vplus_sample's gidx with every sample of the first span of
+    every chunk in bin 0 of each slot: one histogram bin per slot takes the
+    span's samples, the worst case for the merge of a warp's lanes."""
+    from mcintegration_tpu_torch.ops.vplus_kernels import SPAN
+    g = gidx.clone()
+    g[..., :SPAN] = 0
+    return g
+
+
 def torch_equal_bits(x, y):
     import torch
     if x.dtype == torch.float64:
@@ -505,6 +523,22 @@ def chain_vs_plain(mt, ck, card):
           f"Discrete(1, 100) + ninc=1024, dof=[[1],[2]]): state, prop, weights, "
           f"pads, p, tallies and float64 accumulators bit-equal; hist max abs err "
           f"{err_accept!r}; {moved} accepted moves so far")
+    pi_it = VegasMCIteration(Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]],
+                                                   seed=SEED), "cuda"),
+                             _pi, block=16, nevalperblock=2 ** 24, nwalkers=2 ** 20)
+    for what, hot_it in (("phase 3b's spec", it), ("the main path's spec", pi_it)):
+        tab_h, rw_h, kd_h, st = chain_measured_state(hot_it)
+        one_bin(st)
+        ref = st.clone()
+        nw = hot_it.weights(st)
+        ck.chain_accept(hot_it.layout, rw_h, kd_h, 4, st, nw, measure=True)
+        ck.chain_accept_plain(hot_it.layout, rw_h, kd_h, 4, ref, nw, measure=True)
+        torch.cuda.synchronize()
+        err_accept = max(err_accept, state_bits_equal(st, ref, f"chain_accept, one bin, {what}"))
+        print(f"phase 3b: one step of {what} ({hot_it.layout.nhist} bins) with every "
+              f"walker's slots in bin 0: bit-equal but the histogram, hist rel "
+              f"{rel_err(st.hist.cpu(), ref.hist.cpu()):.3g}")
+        del st, ref, nw
 
     it = VegasMCIteration(spec, _chain_two, block=16, nevalperblock=2 ** 20,
                           nwalkers=2 ** 18)
@@ -648,7 +682,8 @@ def chain_timings(mt, ck, card):
     b_acc = bound(lay.W * (4 * S + 4 * n + 16 + 36 + 16 + 8 * S + 4 * n + 4 * nd
                            + 16 * n + 16 * nd + 16), 80 * lay.W)
     print(f"phase 6b: chain_propose bound {b_prop[0]!r} ms, chain_accept bound "
-          f"{b_acc[0]!r} ms (by {b_prop[1]}, {b_acc[1]})")
+          f"{b_acc[0]!r} ms (by {b_prop[1]}, {b_acc[1]}); chain_accept takes "
+          f"{ms['accept'] / b_acc[0]!r} times its bound [{card}]")
 
     neval, block = 2 ** 28, 16
     W, nsteps = choose_walkers(neval, block, None, 256)
@@ -1017,10 +1052,12 @@ def vplus_allbranch(mt, nevalperblock):
                               nevalperblock=nevalperblock)
 
 
-def vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, what):
+def vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, what, hot=False):
     """One launch of both :vegasplus kernels at chunks [t0, t0+T) against
-    their plain versions on the same inputs; raises on any disagreement.
-    Returns (max abs err of the sample, of the reduce, the reduce's rel err)."""
+    their plain versions on the same inputs (with ``hot``, the reduce's
+    gidx has every sample of the first span in bin 0: one_bin_span); raises
+    on any disagreement.  Returns (max abs err of the sample, of the reduce,
+    the reduce's rel err)."""
     import torch
     lay = it.layout
     x, gidx = vp.vplus_sample(lay, tab, kd, t0, T, cube)
@@ -1032,6 +1069,8 @@ def vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, what):
     del xp, gidxp
     w = it.evaluate(lay.leaf_values(x)).contiguous()
     del x
+    if hot:
+        gidx = one_bin_span(gidx)
     got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
     want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac)
     torch.cuda.synchronize()
@@ -1065,10 +1104,14 @@ def vplus_vs_plain(mt, vp, card):
         T = it.chunks_per_launch
         for t0 in (0, it.nchunks - T):
             _, _, rel = vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, name)
+        _, _, rel_hot = vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, 0, T,
+                                              f"{name}, one bin a span", hot=True)
         print(f"phase 3d: {name}: {lay.S} slots ({lay.D} stratified), nstrat {it.nstrat}, "
               f"{it.ncubes} cubes, chunk {it.chunk}, counts {int(it.counts.min())}.."
-              f"{int(it.counts.max())}, launch [{it.block},{T},{it.chunk}]: x and gidx "
-              f"bit-equal, obs/sig/hist rel {rel:.3g}")
+              f"{int(it.counts.max())}, launch [{it.block},{T},{it.chunk}], {lay.nhist} bins "
+              f"({'shared' if lay.nhist <= vp.SMEM_HIST_BINS else 'device'} memory): x and gidx "
+              f"bit-equal, obs/sig/hist rel {rel:.3g}; with every sample of the first span in "
+              f"bin 0, rel {rel_hot:.3g}")
 
     it = vplus_allbranch(mt, 2 ** 20)
     params = it.spec.device_params()
@@ -1218,7 +1261,8 @@ def vplus_timings(mt, vp, shape, card):
           f"{ms['reduce_plain']!r} ms (host clock) [{card}]")
     print(f"phase 6d: vplus_sample bound {b_sample[0]!r} ms ({sample_bytes} bytes, by "
           f"{b_sample[1]}); vplus_reduce bound {b_reduce[0]!r} ms ({reduce_bytes} bytes, by "
-          f"{b_reduce[1]})")
+          f"{b_reduce[1]}); vplus_reduce takes {ms['reduce'] / b_reduce[0]!r} times its bound "
+          f"[{card}]")
     print(f"phase 6d: peak device memory {torch.cuda.max_memory_allocated()} bytes")
     return {"vplus_sample": (err_sample, ms["sample"], ms["sample_plain"], *b_sample),
             "vplus_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"], *b_reduce)}
@@ -1531,7 +1575,8 @@ def measure_timings(mt, vk, ck, card):
     print(f"phase 6e: one :vegasmc step = {W} walkers, {ncomp} components; device time per "
           f"call, calls queued behind a sleep kernel [{card}]")
     print(f"phase 6e: chain_accept writing relw {cms['accept']!r} ms/measured step, plain "
-          f"torch {cms['accept_plain']!r} ms, bound {b_acc[0]!r} ms (by {b_acc[1]}) [{card}]")
+          f"torch {cms['accept_plain']!r} ms, bound {b_acc[0]!r} ms (by {b_acc[1]}), "
+          f"{cms['accept'] / b_acc[0]!r} times its bound [{card}]")
     print(f"phase 6e: measure (torch) {ms_fn!r} ms/measured step [{card}]")
     print(f"phase 6e: chain_measure {cms['measure']!r} ms/measured step, plain torch "
           f"{cms['measure_plain']!r} ms, bound {b_meas[0]!r} ms ({20 * ncomp * W} bytes, by "
@@ -1868,7 +1913,8 @@ def complex_timings(mt, ck, mk, card):
                          + 32 * n + 16 * nd + 16), (80 + 10 * n) * lay.W)
     print(f"phase 6f: one :vegasmc step = {lay.W} walkers x {S} slots, complex weights: "
           f"chain_accept_complex {ms['accept']!r} ms/measured step, plain torch "
-          f"{ms['accept_plain']!r} ms, bound {b_c[0]!r} ms (by {b_c[1]}) [{card}]")
+          f"{ms['accept_plain']!r} ms, bound {b_c[0]!r} ms (by {b_c[1]}), "
+          f"{ms['accept'] / b_c[0]!r} times its bound [{card}]")
     del st, nw
 
     kw = bubble_kw(mt)

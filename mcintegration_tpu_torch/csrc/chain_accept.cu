@@ -37,17 +37,42 @@
 // walker per step (read the slot probs, nw, w, pad, p, prop and move; write
 // the changed slot, the new weights and pads; read and write the float64
 // accumulators on measured steps; with complex weights 4 more per weight read
-// or written and 16 more per measured integrand), plus one hash; and
-// latency, at one thread per walker with dependent loads, so occupancy
-// matters (launch bounds below).  Histograms are privatised
-// per thread block in shared memory as float64 and flushed with atomics once
-// per launch; blocks stride over many walkers so the flush stays small
-// against the walkers.  A histogram larger than 48 KiB in all is added
-// straight into device memory with atomics instead.
+// or written and 16 more per measured integrand), plus one hash.  At one
+// thread per walker it runs at about half that rate: each walker's step is a
+// chain of dependent reads (the proposal, then the moved slot, then the
+// state after the move), and 32 warps to an SM do not keep enough of them in
+// flight.  The design shortens the chain and moves less:
+//   - every block stages the layout once in shared memory: each (group,
+//     slot) pair's kernel slots, its group's first pair, the pad and use
+//     masks, which slots feed which histogram, rw;
+//   - a walker forms each pair's product of the proposal once, keeps the
+//     first kCache of them and of its pads in registers and stores the kept
+//     pads on accept; after the move only the moved pair's product can
+//     differ (the mirror prp_* equals cur_* on every other slot), and the
+//     slot copy forms it from the values it moves.  Pairs and pads beyond
+//     kCache are formed again where needed, with the same operations;
+//   - as soon as a walker's move is read, the lines it reads after its
+//     decision (both copies of the moved slots, the weights, pads, gidx and
+//     accumulators of the state after the move) are prefetched into L1, and
+//     the next walker's first lines into L2;
+//   - the lanes of a warp that add to one histogram bin merge their values
+//     first (chain_common.cuh:merge_by_key), and one lane adds the sum into
+//     the block's float64 histogram in shared memory, flushed once per
+//     launch; so no two lanes of a warp retry on one bin, and a hot bin
+//     costs a warp one add.  This card runs a float64 add on shared memory
+//     as a compare-and-swap loop, which now runs once per bin and warp.  A
+//     histogram larger than SMEM_HIST_BINS bins (ops/chain_kernels.py) takes
+//     native float64 atomics in device memory after the same merge; those
+//     cost more (a small histogram's adds meet on few L2 lines), so it is
+//     the exception, not the rule.
+// Measured (tools/accept_reduce_variants.py, phase 6b's shape, NVIDIA H100
+// 80GB HBM3 at 700 W): 0.115 ms a step against a bound of 0.054; the slot
+// copy takes 0.017 of it, the histogram adds 0.002, a measured step's
+// accumulators 0.027.
 //
-// The order of float64 atomics changes from run to run, so the histogram,
-// and the map trained from it, is reproducible only to rounding (rel 1e-9
-// against the plain version); everything else matches bit for bit.
+// The order of the float64 histogram sums changes from run to run, so the
+// histogram, and the map trained from it, is reproducible only to rounding
+// (rel 1e-9 against the plain version); everything else matches bit for bit.
 //
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding.
@@ -56,33 +81,71 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 4;       // at most 64 registers a thread
+constexpr int kCache = 2;             // pair products and pads kept in registers
 constexpr uint32_t kSaltAccept = 3u;
 
-// Product, in (group, slot) order, of the slot probabilities over the pairs
-// that mask[] marks; gp of a pair multiplies the group's leaves in order.
-__device__ __forceinline__ float masked_prod(const int* leaf, const int* grp,
-                                             int nvar, const int* mask,
-                                             const float* prob, int W, int w) {
+// The layout as a block reads it, staged in shared memory.
+struct Tables {
+  int P;               // (group, slot) pairs, group-major
+  const int* pstart;   // [P + 1]: pair q's kernel slots are prow[pstart[q] ..
+  const int* prow;     //   pstart[q + 1]), its group's leaves in order
+  const int* gbase;    // [nvar]: the first pair of group g
+  const int* padm;     // [nd, P]
+  const int* usedm;    // [N, P]
+  const int* hfeed;    // [S, N]
+  const int* hoff;     // [S]: the histogram offset of kernel slot k's leaf
+  const int* feeds;    // [N]: integrand i feeds some histogram
+  const float* rw;     // [nd]
+};
+
+// Ints of the staged layout for S kernel slots (P <= S pairs), nvar groups
+// and N integrands, before rw [N + 1] floats.
+__host__ __device__ constexpr int table_ints(int S, int nvar, int N) {
+  return (S + 1) + S + nvar + S + N + (N + 1) * S + N * S + S * N;
+}
+
+// gp of pair q: its leaves' slot probabilities multiplied in leaf order.
+__device__ __forceinline__ float pair_prod(const Tables& tb, int q, const float* prob,
+                                           int W, int w) {
+  float gp = 1.0f;
+  for (int n = tb.pstart[q]; n < tb.pstart[q + 1]; ++n)
+    gp = __fmul_rn(gp, prob[(long long)tb.prow[n] * W + w]);
+  return gp;
+}
+
+// Product in pair order of gp over the pairs that mask[] marks: gp from
+// gpc for the first kCache pairs, else formed from prob; pair qs's product
+// is gs (qs = -1: none).
+__device__ __forceinline__ float masked_prod(const Tables& tb, const int* mask,
+                                             const float (&gpc)[kCache], const float* prob,
+                                             int W, int w, int qs, float gs) {
   float f = 1.0f;
-  int q = 0;
-  for (int g = 0; g < nvar; ++g) {
-    const int md = grp[3 * g + 2];
-    for (int s = 0; s < md; ++s, ++q) {
-      if (!mask[q]) continue;
-      float gp = 1.0f;
-      for (int d = grp[3 * g]; d < grp[3 * g + 1]; ++d)
-        gp = __fmul_rn(gp, prob[(long long)(leaf[kLeafFields * d + 5] + s) * W + w]);
-      f = __fmul_rn(f, gp);
-    }
-  }
+#pragma unroll
+  for (int q = 0; q < kCache; ++q)
+    if (q < tb.P && mask[q]) f = __fmul_rn(f, q == qs ? gs : gpc[q]);
+  for (int q = kCache; q < tb.P; ++q)
+    if (mask[q]) f = __fmul_rn(f, q == qs ? gs : pair_prod(tb, q, prob, W, w));
   return f;
 }
 
-// Two blocks of 512 threads per SM: the bound holds the kernel to 64
-// registers, where it would take 72 and fit one block (1.6x slower, measured).
+__device__ __forceinline__ void put(float (&c)[kCache], int i, float v) {
+#pragma unroll
+  for (int j = 0; j < kCache; ++j)
+    if (i == j) c[j] = v;
+}
+
+__device__ __forceinline__ float get(const float (&c)[kCache], int i) {
+  float v = c[0];
+#pragma unroll
+  for (int j = 1; j < kCache; ++j)
+    if (i == j) v = c[j];
+  return v;
+}
+
 template <bool kCplx>
-__global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) chain_accept_kernel(
     const uint32_t* __restrict__ kd, uint32_t t, int init, int measure, int W,
     int wb, int L, int S, int nvar, int nelig, int N,
     int custom, const int* __restrict__ meta, const float* __restrict__ rw, int H,
@@ -96,45 +159,123 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
     double* __restrict__ vis, int* __restrict__ pc, int* __restrict__ ac,
     double* __restrict__ hist, float* __restrict__ relw) {
   typedef Weight<kCplx> Wt;
-  extern __shared__ double hs[];
+  extern __shared__ double hs[];       // [H] the block's histogram (hist_smem), then the layout
   const int nd = N + 1, norm = N;
+  int* ti = reinterpret_cast<int*>(hs + (hist_smem ? H : 0));
+
+  // ---- stage the layout ----
   const int* leaf = meta;                          // [L, 8]
   const int* grp = leaf + kLeafFields * L;         // [nvar, 3]: lo, hi, maxdof
   int P = 0;
   for (int g = 0; g < nvar; ++g) P += grp[3 * g + 2];
-  const int* padm = grp + 3 * nvar + nelig;        // [nd, P]
-  const int* usedm = padm + nd * P;                // [N, P]
-  const int* hfeed = usedm + N * P;                // [S, N]
-  const int* sleaf = hfeed + S * N;                // [S]
-  double* hdst = hist_smem ? hs : hist;
-  if (hist_smem) {
-    for (int q = threadIdx.x; q < H; q += blockDim.x) hs[q] = 0.0;
-    __syncthreads();
+  const int* masks = grp + 3 * nvar + nelig;       // padm [nd, P], usedm [N, P], hfeed [S, N]
+  const int nmask = nd * P + N * P + S * N;
+  const int* sleaf = masks + nmask;                // [S]
+  int* pstart = ti;
+  int* prow = pstart + S + 1;
+  int* gbase = prow + S;
+  int* hoff = gbase + nvar;
+  int* feeds = hoff + S;
+  int* smask = feeds + N;
+  float* srw = reinterpret_cast<float*>(ti + table_ints(S, nvar, N));
+  for (int q = threadIdx.x; q < nmask; q += blockDim.x) smask[q] = masks[q];
+  for (int q = threadIdx.x; q < nd; q += blockDim.x) srw[q] = rw[q];
+  for (int k = threadIdx.x; k < S; k += blockDim.x)
+    hoff[k] = leaf[kLeafFields * sleaf[k] + 6];
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    int f = 0;
+    for (int k = 0; k < S; ++k) f |= masks[nd * P + N * P + k * N + i];
+    feeds[i] = f;
   }
+  if (threadIdx.x == 0) {
+    int q = 0, n = 0;
+    for (int g = 0; g < nvar; ++g) {
+      gbase[g] = q;
+      for (int s = 0; s < grp[3 * g + 2]; ++s, ++q) {
+        pstart[q] = n;
+        for (int d = grp[3 * g]; d < grp[3 * g + 1]; ++d)
+          prow[n++] = leaf[kLeafFields * d + 5] + s;
+      }
+    }
+    pstart[q] = n;
+  }
+  if (hist_smem)
+    for (int q = threadIdx.x; q < H; q += blockDim.x) hs[q] = 0.0;
+  __syncthreads();
+  const Tables tb{P, pstart, prow, gbase, smask, smask + nd * P, smask + nd * P + N * P,
+                  hoff, feeds, srw};
 
-  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < W;
-       w += gridDim.x * blockDim.x) {
-    // ---- joint density of the proposal (pads recomputed where needed) ----
-    float new_p = __fmul_rn(rw[norm], masked_prod(leaf, grp, nvar, padm + norm * P,
-                                                  prp_prob, W, w));
+  const int stride = gridDim.x * blockDim.x;
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < W; w += stride) {
+    // the lines this walker reads after its decision (both copies of the
+    // moved slots; weights, pads, gidx and accumulators of the state after
+    // the move), and the next walker's first ones, on their way while the
+    // decision is made
+    if (!init) {
+      const int qm = tb.gbase[move[w]] + move[W + w];
+      for (int n = tb.pstart[qm]; n < tb.pstart[qm + 1]; ++n) {
+        const long long i = (long long)tb.prow[n] * W + w;
+        prefetch_l1(cur_val + i);
+        prefetch_l1(cur_gidx + i);
+        prefetch_l1(cur_prob + i);
+        prefetch_l1(prp_val + i);
+        prefetch_l1(prp_gidx + i);
+      }
+      for (int i = 0; i < nd; ++i) {
+        prefetch_l1(pad + (long long)i * W + w);
+        if (measure) prefetch_l1(vis + (long long)i * W + w);
+      }
+      const int wf = kCplx ? 2 : 1;      // floats per weight, obs components per integrand
+      for (int i = 0; i < N; ++i) {
+        prefetch_l1(wgt + wf * ((long long)i * W + w));
+        if (measure && !custom)
+          for (int j = 0; j < wf; ++j) prefetch_l1(obs + (long long)(wf * i + j) * W + w);
+      }
+      for (int k = 0; k < S; ++k) prefetch_l1(cur_gidx + (long long)k * W + w);
+      if (measure) prefetch_l1(nrm + w);
+    }
+    if (w + stride < W) {
+      prefetch_l2(move + w + stride);
+      prefetch_l2(move + W + w + stride);
+      prefetch_l2(prop + w + stride);
+      prefetch_l2(pj + w + stride);
+      for (int k = 0; k < S; ++k) prefetch_l2(prp_prob + (long long)k * W + w + stride);
+    }
+
+    // ---- the proposal's pair products, pads and joint density ----
+    float gpc[kCache], npc[kCache];
+#pragma unroll
+    for (int q = 0; q < kCache; ++q)
+      gpc[q] = q < P ? pair_prod(tb, q, prp_prob, W, w) : 1.0f;
+    float np = masked_prod(tb, tb.padm + norm * P, gpc, prp_prob, W, w, -1, 0.0f);
+    put(npc, norm, np);
+    float new_p = __fmul_rn(tb.rw[norm], np);
     for (int i = 0; i < N; ++i) {
-      const float npad = masked_prod(leaf, grp, nvar, padm + i * P, prp_prob, W, w);
+      np = masked_prod(tb, tb.padm + i * P, gpc, prp_prob, W, w, -1, 0.0f);
+      put(npc, i, np);
       new_p = __fadd_rn(new_p, __fmul_rn(__fmul_rn(Wt::load(nw, (long long)i * W + w).abs(),
-                                                    rw[i]), npad));
+                                                    tb.rw[i]), np));
     }
     bool acc = true;
+    float p = new_p;
     if (!init) {
       const float u = uniform(walker_base(kd, t, w, wb), kSaltAccept);
       const float pr = prop[w];
-      acc = (u < __fdiv_rn(__fmul_rn(pr, new_p), pj[w])) && (pr > 1e-38f);
+      const float p_old = pj[w];
+      acc = (u < __fdiv_rn(__fmul_rn(pr, new_p), p_old)) && (pr > 1e-38f);
+      if (!acc) p = p_old;
     }
+    // the pads of the state after the move: kept, formed again, or as they were
+    auto pad_after = [&](int i) {
+      return !acc ? pad[(long long)i * W + w] : i < kCache ? get(npc, i)
+          : masked_prod(tb, tb.padm + i * P, gpc, prp_prob, W, w, -1, 0.0f);
+    };
     if (acc) {
       for (int i = 0; i < N; ++i) {
         const long long q = (long long)i * W + w;
         Wt::load(nw, q).store(wgt, q);
       }
-      for (int i = 0; i < nd; ++i)
-        pad[(long long)i * W + w] = masked_prod(leaf, grp, nvar, padm + i * P, prp_prob, W, w);
+      for (int i = 0; i < nd; ++i) pad[(long long)i * W + w] = pad_after(i);
       pj[w] = new_p;
     }
     if (init) continue;
@@ -142,55 +283,62 @@ __global__ void __launch_bounds__(kThreads, 2) chain_accept_kernel(
     // ---- the changed slots: prp -> cur on accept, cur -> prp on reject ----
     const int g = move[w];
     const int s = move[W + w];
-    for (int d = grp[3 * g]; d < grp[3 * g + 1]; ++d) {
-      const long long i = (long long)(leaf[kLeafFields * d + 5] + s) * W + w;
+    const int qm = tb.gbase[g] + s;
+    float gm = 1.0f;              // the moved pair's product after the move
+    for (int n = tb.pstart[qm]; n < tb.pstart[qm + 1]; ++n) {
+      const long long i = (long long)tb.prow[n] * W + w;
+      float pb;
       if (acc) {
         cur_val[i] = prp_val[i];
         cur_gidx[i] = prp_gidx[i];
-        cur_prob[i] = prp_prob[i];
+        pb = prp_prob[i];
+        cur_prob[i] = pb;
       } else {
         prp_val[i] = cur_val[i];
         prp_gidx[i] = cur_gidx[i];
-        prp_prob[i] = cur_prob[i];
+        pb = cur_prob[i];
+        prp_prob[i] = pb;
       }
+      gm = __fmul_rn(gm, pb);
     }
     pc[(long long)g * W + w] += 1;
     if (acc) ac[(long long)g * W + w] += 1;
 
-    // ---- histogram weight of the state after the move ----
-    const float p = pj[w];
+    // ---- histogram weights and measurement of the state after the move ----
     for (int i = 0; i < N; ++i) {
-      bool feeds = false;
-      for (int k = 0; k < S; ++k) feeds = feeds || hfeed[k * N + i];
-      if (!feeds) continue;
-      const float prob_i = masked_prod(leaf, grp, nvar, usedm + i * P, cur_prob, W, w);
-      float a = __fdiv_rn(Wt::load(wgt, (long long)i * W + w).abs2(), prob_i);
-      a = __fdiv_rn(__fmul_rn(a, pad[(long long)i * W + w]), p);
-      a = a > 1e34f ? 1e34f : a;   // NaN passes through, as torch.clamp
-      const double ad = (double)a;
-      for (int k = 0; k < S; ++k) {
-        if (!hfeed[k * N + i]) continue;
-        const int off = leaf[kLeafFields * sleaf[k] + 6];
-        atomicAdd(hdst + off + cur_gidx[(long long)k * W + w], ad);
+      const long long q = (long long)i * W + w;
+      const Wt wi = Wt::load(acc ? nw : wgt, q);
+      const float padi = pad_after(i);
+      if (tb.feeds[i]) {
+        const float prob_i = masked_prod(tb, tb.usedm + i * P, gpc, cur_prob, W, w, qm, gm);
+        float a = __fdiv_rn(wi.abs2(), prob_i);
+        a = __fdiv_rn(__fmul_rn(a, padi), p);
+        a = a > 1e34f ? 1e34f : a;   // NaN passes through, as torch.clamp
+        for (int k = 0; k < S; ++k) {
+          if (!tb.hfeed[k * N + i]) continue;
+          const int bin = tb.hoff[k] + cur_gidx[(long long)k * W + w];
+          double v = (double)a;
+          if (merge_by_key(__activemask(), bin, v)) {
+            if (hist_smem)   // two adds, each to an address space the compiler knows
+              atomicAdd(hs + bin, v);
+            else
+              atomicAdd(hist + bin, v);
+          }
+        }
       }
-    }
-
-    // ---- measurement ----
-    if (measure) {
-      for (int i = 0; i < N; ++i) {
-        const long long q = (long long)i * W + w;
-        const Wt wi = Wt::load(wgt, q);
-        const float padi = pad[q];
+      if (measure) {
         const Wt r = wi.scale(__fdiv_rn(padi, p));
         if (custom)
           r.store(relw, q);
         else
           r.add_to(obs, i, W, w);
-        vis[q] += (double)__fdiv_rn(__fmul_rn(__fmul_rn(wi.abs(), padi), rw[i]), p);
+        vis[q] += (double)__fdiv_rn(__fmul_rn(__fmul_rn(wi.abs(), padi), tb.rw[i]), p);
       }
-      const float norm_w = __fdiv_rn(pad[(long long)norm * W + w], p);
+    }
+    if (measure) {
+      const float norm_w = __fdiv_rn(pad_after(norm), p);
       nrm[w] += (double)norm_w;
-      vis[(long long)norm * W + w] += (double)__fmul_rn(rw[norm], norm_w);
+      vis[(long long)norm * W + w] += (double)__fmul_rn(tb.rw[norm], norm_w);
     }
   }
 
@@ -205,15 +353,28 @@ template <bool kCplx>
 int launch_accept(const void* kd, int t, int init, int measure, int custom, int W,
                   int wb, int L, int S, int nvar, int nelig, int N, const void* meta,
                   const void* rw, int H, int hist_smem, void* prp_val, void* prp_gidx,
-                  void* prp_prob, void* cur_val, void* cur_gidx, void* cur_prob,
-                  const void* nw, const void* prop, const void* move, void* w, void* pad,
-                  void* p, void* obs, void* nrm, void* vis, void* pc, void* ac, void* hist,
+                  void* prp_prob,
+                  void* cur_val, void* cur_gidx, void* cur_prob, const void* nw,
+                  const void* prop, const void* move, void* w, void* pad, void* p,
+                  void* obs, void* nrm, void* vis, void* pc, void* ac, void* hist,
                   void* relw, void* stream) {
+  const size_t smem = (hist_smem ? (size_t)H * sizeof(double) : 0)
+      + (size_t)table_ints(S, nvar, N) * sizeof(int) + (size_t)(N + 1) * sizeof(float);
+  // the shape of the last launch on this device: every step repeats it
+  static int last_dev = -1, per_sm = 0;
+  static size_t last_smem = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != last_dev || smem != last_smem) {
+    const int err = blocks_per_sm(chain_accept_kernel<kCplx>, kThreads, smem, &per_sm);
+    if (err) return err;
+    last_dev = dev;
+    last_smem = smem;
+  }
   long long blocks = ((long long)W + kThreads - 1) / kThreads;
-  const long long cap = 2LL * num_sms();
+  const long long cap = (long long)per_sm * num_sms();
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  const size_t smem = hist_smem ? (size_t)H * sizeof(double) : 0;
   chain_accept_kernel<kCplx><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)kd, (uint32_t)t, init, measure, W, wb, L, S, nvar, nelig,
       N, custom, (const int*)meta, (const float*)rw, H, hist_smem, (int*)prp_val,
@@ -230,13 +391,15 @@ int launch_accept(const void* kd, int t, int init, int measure, int custom, int 
   const void *kd, int t, int init, int measure, int custom, int W, int wb, int L,    \
       int S, int nvar, int nelig, int N, const void *meta, const void *rw, int H,    \
       int hist_smem, void *prp_val, void *prp_gidx, void *prp_prob, void *cur_val,   \
-      void *cur_gidx, void *cur_prob, const void *nw, const void *prop,              \
-      const void *move, void *w, void *pad, void *p, void *obs, void *nrm,           \
-      void *vis, void *pc, void *ac, void *hist, void *relw, void *stream
+      void *cur_gidx,                                                                \
+      void *cur_prob, const void *nw, const void *prop, const void *move, void *w,   \
+      void *pad, void *p, void *obs, void *nrm, void *vis, void *pc, void *ac,       \
+      void *hist, void *relw, void *stream
 #define MCI_CHAIN_ACCEPT_PASS                                                         \
   kd, t, init, measure, custom, W, wb, L, S, nvar, nelig, N, meta, rw, H, hist_smem, \
-      prp_val, prp_gidx, prp_prob, cur_val, cur_gidx, cur_prob, nw, prop, move, w,   \
-      pad, p, obs, nrm, vis, pc, ac, hist, relw, stream
+      prp_val,                                                                       \
+      prp_gidx, prp_prob, cur_val, cur_gidx, cur_prob, nw, prop, move, w, pad, p,    \
+      obs, nrm, vis, pc, ac, hist, relw, stream
 
 // float32 weights
 extern "C" int mci_chain_accept(MCI_CHAIN_ACCEPT_ARGS) {

@@ -152,12 +152,58 @@ template <> struct Weight<true> {
   }
 };
 
+// The lanes of mask that hold the same key merge their values: the lowest
+// lane of each key gets true and, in v, the sum of its key's values (its
+// own first, then the others' in lane order); the others get false.  Every
+// lane of mask calls it.  So one lane per key adds into a histogram bin,
+// and no two lanes of a warp add to one bin at once: a hot bin costs a
+// warp one add, not 32.
+__device__ __forceinline__ bool merge_by_key(unsigned mask, int key, double& v) {
+  const unsigned peers = __match_any_sync(mask, key);
+  const int lane = threadIdx.x & 31;
+  const bool lead = (peers & ((1u << lane) - 1u)) == 0u;
+  unsigned rest = lead ? peers & ~(1u << lane) : 0u;
+  const double mine = v;
+  while (__any_sync(mask, rest != 0u)) {
+    const double t = __shfl_sync(mask, mine, rest ? __ffs(rest) - 1 : lane);
+    if (rest) {
+      v += t;
+      rest &= rest - 1u;
+    }
+  }
+  return lead;
+}
+
+// Ask for the line holding p in L1 (prefetch_l1) or in L2 (prefetch_l2),
+// ahead of the load that needs it.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
 int num_sms() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 132;
   return n;
+}
+
+// Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared memory
+// that one SM of the current device holds for ``kernel``, into *per_sm;
+// above 48 KiB the kernel is first allowed that much.  Returns a
+// cudaError_t.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem, int* per_sm) {
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
+  if (e == cudaSuccess && *per_sm < 1) e = cudaErrorInvalidConfiguration;
+  return (int)e;
 }
 
 }  // namespace

@@ -21,33 +21,50 @@
 // every sample feeds the histograms).
 //
 // Layout of the work.  The samples of a chunk are cube-major and every chunk
-// has the same layout, so a thread block owns one span of kSpan consecutive
-// samples and walks over many chunks (blockIdx.y strides over the B*T
-// chunks): the cubes of its span are one short contiguous range.  Hence
-//   sig:  a warp's 32 consecutive samples are sorted by cube, so a segmented
-//         warp sum leaves one value per (warp, cube) whatever the counts are
-//         (after the reallocation a few cubes hold thousands of samples, most
-//         hold 2), added into the span's float64 range in shared memory and
-//         flushed with one atomic per cube at the end;
+// has the same layout, so a thread keeps one sample position, its cube and
+// the cube's factor, and walks over many chunks (blockIdx.y strides over the
+// B*T chunks).  Warp j of block b takes the 32 samples of group j*nspan + b:
+// the warps of a block work in parts of the chunk far apart.  Hence
+//   sig:  a thread adds its sample's second moments of every chunk it walks
+//         into a register; at the end a segmented warp sum over the sorted
+//         cubes leaves one value per (warp, cube), added with a native
+//         float64 atomic into device memory;
 //   hist: privatised per thread block in shared memory as float64 (up to
-//         4096 bins; a larger histogram is added straight into device memory
-//         with atomics) and flushed once at the end;
+//         SMEM_HIST_BINS bins, ops/vplus_kernels.py; a larger histogram is
+//         added straight into device memory) and flushed once at the end.
+//         This card runs a float64 add on shared memory as a compare-and-
+//         swap loop, which retries when lanes meet on one bin: a warp's 32
+//         consecutive samples share few cubes and so a narrow window of
+//         bins, but the block's other warps are in other cubes, so a hot
+//         bin costs retries within a warp only;
 //   obs:  each warp sums its samples of a chunk by shuffles and writes one
 //         partial per (chunk, span, warp, integrand); the wrapper adds the
 //         partials in a fixed order, so the observables do not depend on the
 //         order of any atomic.
-// Shared memory stays below the 48 KiB a kernel gets without opting in
-// (2 KiB of sig, at most 32 KiB of histogram).  One sample per thread and
-// chunk keeps the kernel at 32 registers, eight blocks to an SM: it is bound
-// by latency and the warp schedulers, and more samples per thread ran slower.
+// One sample per thread and chunk keeps the kernel at 32 registers, eight
+// blocks to an SM; the grid is eight waves of them, so no SM idles long at
+// the end.
 //
 // What bounds it on the card: device-memory bytes, 4 bytes of w per sample
 // and integrand and 4 bytes of gidx per sample and slot; cube[], cfac[] and
-// the tables stay in cache.  The shared-memory float64 atomics of the
-// histogram (one per sample, slot and integrand) are what it pays beyond
-// that.
+// the tables stay in cache.  It runs at about a quarter of that rate: its
+// time falls with each part of a sample's work taken out, and not with any
+// change to how the bytes arrive, so it is held by the instructions each
+// sample issues and their latency, at 64 warps to an SM.  The adds name
+// their address space (a generic pointer made every add test it first, in
+// three code paths).  Measured
+// (tools/accept_reduce_variants.py, phase 6d's launch, NVIDIA H100 80GB
+// HBM3 at 700 W): 1.37 ms against a bound of 0.32; without the histogram
+// adds 1.11, without the integrand's part 0.55.  Slower there: merging the
+// lanes of a warp per bin before the add (__match_any_sync), native
+// float64 atomics into device memory (a small histogram's adds meet on few
+// L2 lines), the warps of a block on consecutive samples (a hot bin), a
+// prefetch of the next chunk.  No faster in this PR's trials: a float64
+// copy of the histogram per warp with no atomics (the copies cost
+// occupancy), the map tables staged in shared memory, each chunk copied
+// into shared memory ahead (cp.async), two chunks per thread.
 //
-// The order of the float64 atomics changes from run to run, so sig and hist,
+// The order of the float64 sums changes from run to run, so sig and hist,
 // and the counts and maps made from them, reproduce only to rounding (rel
 // 1e-12 against the plain version).
 //
@@ -61,6 +78,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSpan = kThreads;               // ops/vplus_kernels.py:SPAN
 constexpr int kWarps = kThreads / 32;         // ops/vplus_kernels.py:WARPS
+constexpr int kBlocksPerSm = 8;               // at most 32 registers a thread
+constexpr int kWaves = 8;                     // the grid, in blocks the card holds at once
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -68,35 +87,35 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads) vplus_reduce_kernel(
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
     const float* __restrict__ w, const int* __restrict__ gidx,
     const int* __restrict__ cube, const float* __restrict__ cfac,
     const float* __restrict__ tab, const int* __restrict__ meta, int N, int S,
     int P, int M, long long BT, int c, int H, int hist_smem,
     double* __restrict__ obs_rows, double* __restrict__ sig,
     double* __restrict__ hist) {
-  extern __shared__ double sm[];
-  double* sig_s = sm;                          // [kSpan]: cubes cube0, cube0+1, ...
-  double* hist_s = sm + kSpan;                 // [H] when hist_smem
+  extern __shared__ double hist_s[];           // [H] when hist_smem
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* slots = meta;                     // [S, 8]
   const int* pad = slots + kSlotFields * S;    // [N, P]
   const int* pair_slots = pad + N * P;         // [P, M]
   const int* used = pair_slots + P * M;        // [S, N]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long plane = BT * c;              // one slot's or integrand's samples
-  double* hdst = hist_smem ? hist_s : hist;
 
-  for (int q = threadIdx.x; q < kSpan; q += blockDim.x) sig_s[q] = 0.0;
-  if (hist_smem)
+  if (hist_smem) {
     for (int q = threadIdx.x; q < H; q += blockDim.x) hist_s[q] = 0.0;
-  __syncthreads();
+    __syncthreads();
+  }
 
-  // this thread's sample of every chunk, its cube (-1 past the chunk's end:
-  // the lane then only takes part in the shuffles) and the cube's factor
-  const int s = blockIdx.x * kSpan + threadIdx.x;
-  const int cube0 = cube[blockIdx.x * kSpan];
+  // this thread's sample of every chunk: warp j of block b takes the 32
+  // samples of group j*nspan + b, so the warps of a block work in parts of
+  // the chunk far apart and rarely add into the same bins.  Its cube (-1
+  // past the chunk's end: the lane then only takes part in the shuffles),
+  // the cube's factor, and its second moments over the chunks
+  const int s = (warp * gridDim.x + blockIdx.x) * 32 + lane;
   const int cb = s < c ? cube[s] : -1;
   const float cf = cb < 0 ? 1.0f : cfac[cb];
+  double v2 = 0.0;
 
   for (long long bt = blockIdx.y; bt < BT; bt += gridDim.y) {
     const long long at = bt * c + s;
@@ -124,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) vplus_reduce_kernel(
     }
 
     for (int i = 0; i < N; ++i) {
-      double so = 0.0;
+      double so = 0.0, sq = 0.0;
       if (cb >= 0) {
         float pad_i = 1.0f;
         for (int g = 0; g < P; ++g) {
@@ -144,40 +163,42 @@ __global__ void __launch_bounds__(kThreads) vplus_reduce_kernel(
         so = (double)relw;
         float a = fabsf(relw);
         a = a > 1e17f ? 1e17f : a;   // NaN passes through, as torch.clamp
-        const double sq = (double)__fmul_rn(a, a);
-        for (int k = 0; k < S; ++k) {
-          const int off = slots[kSlotFields * k + kHist];
-          if (off < 0 || !used[k * N + i]) continue;
-          atomicAdd(hdst + off + gidx[k * plane + at], sq);
-        }
+        sq = (double)__fmul_rn(a, a);
+      }
+      for (int k = 0; k < S; ++k) {
+        const int off = slots[kSlotFields * k + kHist];
+        if (off < 0 || !used[k * N + i]) continue;
+        const int bin = cb >= 0 ? off + gidx[k * plane + at] : -1;
+        if (bin < 0) continue;
+        if (hist_smem)   // two adds, each to an address space the compiler knows
+          atomicAdd(hist_s + bin, sq);
+        else
+          atomicAdd(hist + bin, sq);
       }
       so = warp_sum(so);
       if (lane == 0)
         obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * N + i] = so;
     }
 
-    // per-cube second moments: a segmented sum over the warp's sorted cubes
     float wj = __fdiv_rn(score, denom);
     wj = wj > 1e17f ? 1e17f : wj;
-    double v = cb < 0 ? 0.0 : (double)__fmul_rn(wj, wj);
-    for (int o = 1; o < 32; o <<= 1) {
-      const double up = __shfl_down_sync(kFull, v, o);
-      const int kup = __shfl_down_sync(kFull, cb, o);
-      if (lane + o < 32 && kup == cb) v += up;
-    }
-    const int kprev = __shfl_up_sync(kFull, cb, 1);
-    if (cb >= 0 && (lane == 0 || kprev != cb)) {
-      const int local = cb - cube0;   // < kSpan unless some cube is empty
-      atomicAdd(local >= 0 && local < kSpan ? sig_s + local : sig + cb, v);
-    }
+    if (cb >= 0) v2 += (double)__fmul_rn(wj, wj);
   }
 
-  __syncthreads();
-  for (int q = threadIdx.x; q < kSpan; q += blockDim.x)
-    if (sig_s[q] != 0.0) atomicAdd(sig + cube0 + q, sig_s[q]);
-  if (hist_smem)
+  // per-cube second moments: a segmented sum over the warp's sorted cubes
+  for (int o = 1; o < 32; o <<= 1) {
+    const double up = __shfl_down_sync(kFull, v2, o);
+    const int kup = __shfl_down_sync(kFull, cb, o);
+    if (lane + o < 32 && kup == cb) v2 += up;
+  }
+  const int kprev = __shfl_up_sync(kFull, cb, 1);
+  if (cb >= 0 && (lane == 0 || kprev != cb)) atomicAdd(sig + cb, v2);
+
+  if (hist_smem) {
+    __syncthreads();
     for (int q = threadIdx.x; q < H; q += blockDim.x)
       if (hist_s[q] != 0.0) atomicAdd(hist + q, hist_s[q]);
+  }
 }
 
 }  // namespace
@@ -192,13 +213,14 @@ extern "C" int mci_vplus_reduce(const void* w, const void* gidx,
   if (span != kSpan || warps != kWarps || c < 1 || ncubes < 1)
     return (int)cudaErrorInvalidValue;      // the wrapper sized obs_rows otherwise
   const int nspan = (c + kSpan - 1) / kSpan;
-  // many small blocks: the card holds 8 of them per SM, and a grid that is
-  // a few times larger leaves no SM idle at the end
-  long long groups = (32LL * num_sms() + nspan - 1) / nspan;
+  const size_t smem = (hist_smem ? (size_t)H : 0) * sizeof(double);
+  int per_sm = 0;
+  const int err = blocks_per_sm(vplus_reduce_kernel, kThreads, smem, &per_sm);
+  if (err) return err;
+  long long groups = ((long long)kWaves * per_sm * num_sms() + nspan - 1) / nspan;
   if (groups > BT) groups = BT;
   if (groups > 65535) groups = 65535;
   if (groups < 1) groups = 1;
-  const size_t smem = (size_t)(kSpan + (hist_smem ? H : 0)) * sizeof(double);
   dim3 grid((unsigned)nspan, (unsigned)groups);
   vplus_reduce_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,

@@ -512,3 +512,128 @@ def test_cuda_complex_integrates(cuda, solver):
     assert mod.launch_counts[key.replace("_complex", "")] == 0
     m, e = res.mean[0], res.stdev[0]
     assert abs(m.real - exact.real) < 7 * e.real and abs(m.imag - exact.imag) < 7 * e.imag
+
+
+def _chain_case(device, mode, ninc):
+    """A VegasMCIteration on one Continuous(ninc) pool of two slots (two
+    slots of two pools with a measure, which bins the first): ``mode`` real, relw (the
+    quickstart's histogram as a custom measure), complex (a phase, the
+    default measure) or complex relw (a complex one-hot measure)."""
+    kw = dict(block=4, nevalperblock=2 ** 16, nwalkers=2 ** 14)
+    cplx = mode.startswith("complex")
+    f = (lambda x, c: torch.exp(1j * (x[0] + x[1]))) if cplx else \
+        (lambda x, c: torch.where(x[0] ** 2 + x[1] ** 2 < 1.0, 1.0, 0.0))
+    if not mode.endswith("relw"):
+        cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0, ninc=ninc), dof=[[2]], seed=7,
+                               type=complex if cplx else float)
+        return VegasMCIteration(Spec(cfg, device), f, **kw)
+    if not cplx:
+        spec, g, measure = _qs(device, 10)
+        leaves = [mt.Continuous(0.0, 1.0, ninc=ninc), mt.Continuous(0.0, 1.0, ninc=ninc)]
+        cfg = mt.Configuration(var=tuple(leaves), dof=[[1, 1]], obs=[np.zeros(10)], seed=7)
+        return VegasMCIteration(Spec(cfg, device), g, measure=measure, obs_proto=cfg.observable,
+                                **kw)
+    obs = [np.zeros(3, np.complex64)]
+    cfg = mt.Configuration(var=(mt.Continuous(0.0, 1.0, ninc=ninc), mt.Discrete(1, 3)),
+                           dof=[[1, 1]], obs=obs, type=complex, seed=7)
+    return VegasMCIteration(Spec(cfg, device), lambda x, c: torch.exp(1j * x[0][0]),
+                            measure=_phase_measure, obs_proto=obs, **kw)
+
+
+def _chain_accept_vs_plain(it, hot):
+    """One measured chain_accept from the state after three steps and a
+    proposal, against the plain version: every field bit for bit, the
+    histogram to rel 1e-9.  With ``hot`` every slot of every walker, in
+    both copies, sits in bin 0 of its leaf first, and the histogram starts
+    from 0."""
+    kd = it.seeds(block_keys(7, 0, 0, 4))
+    tab, rw, st = it.start(it.spec.device_params(), kd)
+    for t in range(3):
+        it.step(tab, rw, kd, st, t)
+    ck.chain_propose(it.layout, tab, kd, 3, st)
+    if hot:
+        st.cur_gidx.zero_()
+        st.prp_gidx.zero_()
+        st.hist.zero_()
+    ref = st.clone()
+    nw = it.weights(st)
+    name = "chain_accept_complex" if it.spec.cplx else "chain_accept"
+    before = ck.launch_counts[name]
+    ck.chain_accept(it.layout, rw, kd, 3, st, nw, measure=True)
+    ck.chain_accept_plain(it.layout, rw, kd, 3, ref, nw, measure=True)
+    if it.measure is not None:
+        m = it.measure(it.leaf_values(st.cur_val), st.relw).contiguous()
+        ck.chain_measure(it.layout, m, st)
+        ck.chain_measure_plain(it.layout, m, ref)
+    torch.cuda.synchronize()
+    for field in vars(st):
+        a, b = getattr(st, field), getattr(ref, field)
+        if field == "hist":
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=0)
+        else:
+            assert _bits_equal(a, b), field
+    assert float(st.hist.sum()) > 0
+    if hot:   # every add went to bin 0 of a leaf's histogram
+        offsets = {int(off) for off in it.layout.leaf[:, 6] if off >= 0}
+        assert set(torch.nonzero(st.hist).flatten().tolist()) <= offsets
+    assert ck.launch_counts[name] == before + 1
+
+
+@pytest.mark.parametrize("hot", [False, True], ids=["spread", "one-bin"])
+@pytest.mark.parametrize("ninc", [500, 8000])
+@pytest.mark.parametrize("mode", ["real", "relw", "complex", "complex relw"])
+def test_chain_accept_histogram_paths(cuda, mode, ninc, hot):
+    """chain_accept in each mode with its histogram in shared memory and in
+    device memory (more than SMEM_HIST_BINS bins), its walkers' bins spread
+    or every walker in one bin."""
+    it = _chain_case(cuda, mode, ninc)
+    assert (it.layout.nhist <= ck.SMEM_HIST_BINS) == (ninc == 500)
+    _chain_accept_vs_plain(it, hot)
+
+
+def test_chain_accept_beyond_register_cache(cuda):
+    """Six integrands of one to six slots of one pool: more (group, slot)
+    pairs and pads than the kernel keeps in registers, so it forms the
+    others again, bit for bit."""
+    def f(x, c):
+        return tuple(torch.exp(-x[:k].sum(0)) for k in range(1, 7))
+
+    for cplx in (False, True):
+        cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0, ninc=64),
+                               dof=[[k] for k in range(1, 7)], seed=8,
+                               type=complex if cplx else float)
+        g = (lambda x, c: tuple(w * torch.exp(1j * x[0]) for w in f(x, c))) if cplx else f
+        it = VegasMCIteration(Spec(cfg, cuda), g, block=4, nevalperblock=2 ** 16,
+                              nwalkers=2 ** 14)
+        assert it.layout.spec.N + 1 > 4 and it.layout.S > 4
+        _chain_accept_vs_plain(it, hot=False)
+
+
+@pytest.mark.parametrize("hot", [False, True], ids=["spread", "one-bin"])
+@pytest.mark.parametrize("memory", ["shared", "device"])
+def test_vplus_reduce_histogram_paths(cuda, memory, hot):
+    """vplus_reduce with its histogram in the warps' copies in shared memory
+    and in device memory (more than SMEM_HIST_BINS bins), after one
+    reallocation; with ``hot`` every sample of the first span of each chunk
+    in bin 0 of each slot."""
+    ninc = 1000 if memory == "shared" else 5000
+    f = lambda x, c: 1.0 / (1.0 + 10.0 * (x[0] * x[1] + x[2]))
+    cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0, ninc=ninc), dof=[[3]], seed=9)
+    it = VegasPlusIteration(Spec(cfg, cuda), f, block=4, nevalperblock=2 ** 16)
+    lay, params = it.layout, it.spec.device_params()
+    assert (lay.nhist <= vp.SMEM_HIST_BINS) == (memory == "shared")
+    it.run(params, block_keys(9, 0, 0, 4))
+    tab, kd = lay.tables(params), it.seeds(block_keys(9, 1, 0, 4))
+    cube, cfac = it.cube_tables()
+    x, gidx = vp.vplus_sample(lay, tab, kd, 0, it.chunks_per_launch, cube)
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    if hot:
+        gidx[..., :vp.SPAN] = 0
+    before = vp.launch_counts["vplus_reduce"]
+    got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
+    want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
+    assert float(got[1].sum()) > 0 and float(got[2].sum()) > 0
+    assert vp.launch_counts["vplus_reduce"] == before + 1
