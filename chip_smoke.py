@@ -154,6 +154,62 @@ def launch_vs_plain(vk, it, inputs, t0):
     return err_sample, err_reduce, rel
 
 
+# (m, N, ncomp, B, T, nb) of phase 3's edge shapes of vegas_reduce: short
+# rows (scalar loads, several columns a warp), several integrands, more than
+# 256 (fewer rows a tile) and MAX_INTEGRANDS (one row a tile)
+REDUCE_EDGES = ((3, 1, 10, 2, 3, 37), (100, 3, 64, 2, 3, 37), (1024, 300, 10, 2, 3, 37),
+                (5, 2048, 3, 1, 2, 5))
+
+
+def reduce_inputs(m, N, ncomp, B=2, T=3, nb=37, seed=0, device="cuda"):
+    """Random inputs of vegas_reduce (three slots, four (group, slot) pairs
+    of up to two slots, random pads and uses, one histogram weight above the
+    clip) and a measure's output of ``ncomp`` components, on ``device``."""
+    import torch
+    rng = np.random.default_rng(seed)
+    S, P, M = 3, 4, 2
+    w = rng.normal(size=(N, B, T, nb, m)).astype(np.float32)
+    w[0, 0, 0, 0, 0] = 3e9
+    invp = rng.uniform(0.2, 3.0, size=(S, B, T, nb)).astype(np.float32)
+    perm = np.stack([[[rng.permutation(nb) for _ in range(T)] for _ in range(B)]
+                     for _ in range(S)])
+    pair_slots = np.full((P, M), -1)
+    for g in range(P):
+        k = rng.integers(1, M + 1)
+        pair_slots[g, :k] = rng.choice(S, size=k, replace=False)
+    pad = rng.integers(0, 2, size=(N, P))
+    used = rng.integers(0, 2, size=(S, N))
+    used[0] = 0
+    mobs = rng.normal(size=(ncomp, B, T, nb, m)).astype(np.float32)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    return (f32(w), f32(invp), i32(perm), i32(pad), i32(pair_slots), i32(used)), f32(mobs)
+
+
+def reduce_edges(vk):
+    """vegas_reduce at REDUCE_EDGES in both modes against its plain version
+    (REL_TOL_REDUCE), and given the identity measure m = relw bit-equal to
+    the default sums; raises on any disagreement."""
+    for m, N, ncomp, B, T, nb in REDUCE_EDGES:
+        args, mobs = reduce_inputs(m, N, ncomp, B, T, nb)
+        w, invp, _, pad, pair_slots, _ = args
+        rel = 0.0
+        for given in (None, mobs):
+            got, want = vk.vegas_reduce(*args, given), vk.vegas_reduce_plain(*args, given)
+            rel = max(rel, *(rel_err(a.cpu(), b.cpu()) for a, b in zip(got, want)))
+        if rel > REL_TOL_REDUCE:
+            raise AssertionError(f"vegas_reduce at m={m}, N={N}, {ncomp} components: rel "
+                                 f"{rel:.3g} > {REL_TOL_REDUCE}")
+        default = vk.vegas_reduce(*args)
+        ident = vk.vegas_reduce(*args, vk.vegas_relw(w, invp, pad, pair_slots))
+        if not all(torch_equal_bits(a, b) for a, b in zip(default, ident)):
+            raise AssertionError(f"vegas_reduce at m={m}, N={N}: given m = relw, the sums "
+                                 "differ from the default ones")
+        print(f"phase 3: vegas_reduce at m={m}, N={N}, {ncomp} components, "
+              f"{invp[0].numel()} rows: both modes rel {rel:.3g}, given m = relw bit-equal to "
+              f"the default sums")
+
+
 def trained_config(mt):
     """The pi problem's configuration on a non-uniform map (one training
     from a synthetic histogram)."""
@@ -218,6 +274,7 @@ def kernel_vs_plain(mt, vk, card):
         print(f"phase 3: main-path launch t0={t0}, T={T} of {big.nchunks} chunks "
               f"(x [{len(big.slot_map)},{big.block},{T},{big.nb},{big.m_tile}]): "
               f"x/invp/perm bit-equal, reduce rel {rel:.3g}")
+    reduce_edges(vk)
 
 
 def main_path(mt, vk, card):
@@ -329,8 +386,8 @@ def timings(mt, vk, shape, card):
     for order in (("plain", "kernel"), ("kernel", "plain")):
         for kind in order:
             if kind == "kernel":
-                ms["sample"].append(time_ms(sample, 10))
-                ms["reduce"].append(time_ms(lambda: vk.vegas_reduce(w, invp, perm, *args), 10))
+                ms["sample"].append(device_ms(sample, 10))
+                ms["reduce"].append(device_ms(lambda: vk.vegas_reduce(w, invp, perm, *args), 10))
             else:
                 ms["sample_plain"].append(time_ms(sample_plain, 3))
                 ms["reduce_plain"].append(
@@ -348,7 +405,8 @@ def timings(mt, vk, shape, card):
     b_sample = bound(sample_bytes, 20 * n * nslots)
     b_reduce = bound(reduce_bytes, 8 * n * (w.shape[0] + nslots))
     print(f"phase 6: one launch = {it.block} blocks x {T} chunks x {it.chunk} "
-          f"samples ({n} evals, {len(it.slot_map)} slots) [{card}]")
+          f"samples ({n} evals, {len(it.slot_map)} slots); kernels' device time per call, "
+          f"calls queued behind a sleep kernel [{card}]")
     print(f"phase 6: vegas_sample {ms['sample']!r} ms/launch, plain torch "
           f"{ms['sample_plain']!r} ms [{card}]")
     print(f"phase 6: integrand (torch) {ms_integrand!r} ms/launch [{card}]")
@@ -1052,6 +1110,50 @@ def vplus_allbranch(mt, nevalperblock):
                               nevalperblock=nevalperblock)
 
 
+def _first(x, c):
+    return x[0][0]
+
+
+# name, var, dof, nstrat, nevalperblock of phase 3d's edge shapes of
+# vplus_sample: 1 to 6 slots, chunks that are and are not a multiple of 4
+# (16-byte or scalar stores), a Discrete passenger, nstrat from 1 to 5000
+VPLUS_EDGES = (("1 slot, nstrat 5000, chunk 10002", lambda mt: mt.Continuous(0.0, 1.0), [[1]],
+                5000, 10002),
+               ("2 slots, nstrat 25, chunk 16384", lambda mt: mt.Continuous(0.0, 1.0), [[2]],
+                25, 2 ** 14),
+               ("3 slots, nstrat 25, chunk 40001", lambda mt: mt.Continuous(0.0, 1.0), [[3]],
+                25, 40001),
+               ("4 slots with a passenger, nstrat 1, chunk 2002",
+                lambda mt: (mt.Continuous(0.0, 1.0), mt.Discrete(1, 9)), [[3, 1]], 1, 2002),
+               ("6 slots, nstrat 3, chunk 2001", lambda mt: mt.Continuous(0.0, 1.0), [[6]], 3,
+                2001))
+
+
+def vplus_sample_edges(mt, vp):
+    """vplus_sample at VPLUS_EDGES after one reallocation, bit for bit
+    against its plain version; raises on any difference."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
+
+    for name, var, dof, nstrat, npb in VPLUS_EDGES:
+        cfg = mt.Configuration(var=var(mt), dof=dof, seed=SEED)
+        it = VegasPlusIteration(Spec(cfg, "cuda"), _first, block=16, nevalperblock=npb,
+                                nstrat=nstrat)
+        params = it.spec.device_params()
+        it.run(params, block_keys(SEED, 0, 0, it.block))
+        lay = it.layout
+        tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
+        cube, _ = it.cube_tables()
+        x, gidx = vp.vplus_sample(lay, tab, kd, 1, 2, cube)
+        xp, gidxp = vp.vplus_sample_plain(lay, tab, kd, 1, 2, cube)
+        torch.cuda.synchronize()
+        if not (torch.equal(bits(x), bits(xp)) and torch.equal(gidx, gidxp)):
+            raise AssertionError(f"vplus_sample differs from the plain version ({name})")
+        print(f"phase 3d: vplus_sample, {name}: x and gidx bit-equal")
+
+
 def vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, what, hot=False):
     """One launch of both :vegasplus kernels at chunks [t0, t0+T) against
     their plain versions on the same inputs (with ``hot``, the reduce's
@@ -1084,9 +1186,9 @@ def vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, what, hot=False):
 
 def vplus_vs_plain(mt, vp, card):
     """Phase 3d: both kernels against their plain versions after one
-    reallocation, at the main path's shape and on the all-branch spec; then a
-    whole iteration through the kernels against one through the plain
-    versions."""
+    reallocation, at the main path's shape and on the all-branch spec;
+    vplus_sample at its edge shapes; then a whole iteration through the
+    kernels against one through the plain versions."""
     from mcintegration_tpu_torch.ops.rng import block_keys
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
@@ -1112,6 +1214,8 @@ def vplus_vs_plain(mt, vp, card):
               f"({'shared' if lay.nhist <= vp.SMEM_HIST_BINS else 'device'} memory): x and gidx "
               f"bit-equal, obs/sig/hist rel {rel:.3g}; with every sample of the first span in "
               f"bin 0, rel {rel_hot:.3g}")
+
+    vplus_sample_edges(mt, vp)
 
     it = vplus_allbranch(mt, 2 ** 20)
     params = it.spec.device_params()
@@ -1358,8 +1462,9 @@ def measure_vs_plain(mt, vk, ck, card):
     """Phase 3e: the custom-measure kernels against their plain versions from
     one state, at the main paths' shapes: chain_accept's relw output and
     chain_measure at 2^20 walkers with 10 and 64 components, bit for bit;
-    vegas_relw (bit for bit) and vegas_reduce given m (REL_TOL_REDUCE) at
-    one launch of phase 4's shape with 10 components; then the identity
+    vegas_relw (bit for bit) at one launch of phase 4's shape with 10
+    components, and vegas_reduce given m (REL_TOL_REDUCE) there and at the
+    launch of phase 4e's shape with 64 components; then the identity
     measure [relw[0]] against the default measure, bit for bit, in one
     launch of vegas_reduce and over one run of each solver from the same
     params and kd."""
@@ -1394,32 +1499,37 @@ def measure_vs_plain(mt, vk, ck, card):
               f"[{float(st.relw.min())!r}, {float(st.relw.max())!r}], hist max abs err {e!r}")
         del st, ref, m
 
-    it, _ = qs_iterations(mt)
-    masks = (it.pad, it.pair_slots, it.used)
-    _, T, x, invp, perm, w, relw = vegas_measured_launch(vk, it)
-    relw_p = vk.vegas_relw_plain(w, invp, it.pad, it.pair_slots)
-    torch.cuda.synchronize()
-    if not torch.equal(bits(relw), bits(relw_p)):
-        raise AssertionError("vegas_relw differs from the plain version")
-    errs["vegas_relw"] = float((relw - relw_p).abs().max())
-    del relw_p
-    m = it.measure(it.leaf_values(x), relw).contiguous()
-    obs, hrow = vk.vegas_reduce(w, invp, perm, *masks, m)
-    obs_p, hrow_p = vk.vegas_reduce_plain(w, invp, perm, *masks, m)
-    rel = max(rel_err(obs.cpu(), obs_p.cpu()), rel_err(hrow.cpu(), hrow_p.cpu()))
-    if rel > REL_TOL_REDUCE:
-        raise AssertionError(f"vegas_reduce given m vs plain: rel {rel:.3g} > {REL_TOL_REDUCE}")
-    errs["vegas_reduce_measure"] = float(max((obs - obs_p).abs().max(),
-                                             (hrow - hrow_p).abs().max()))
-    del m, obs_p, hrow_p
-    obs_i, hrow_i = vk.vegas_reduce(w, invp, perm, *masks, relw[:1].contiguous())
-    obs_d, hrow_d = vk.vegas_reduce(w, invp, perm, *masks)
-    if not (torch_equal_bits(obs_i, obs_d) and torch_equal_bits(hrow_i, hrow_d)):
-        raise AssertionError("vegas_reduce given m = relw[:1] differs from the default sums")
-    print(f"phase 3e: one launch of {it.block} blocks x {T} chunks x {it.chunk} samples, "
-          f"{NBIN} components: vegas_relw bit-equal, vegas_reduce given m rel {rel:.3g}; "
-          f"given m = relw[:1], bit-equal to the default sums")
-    del x, invp, perm, w, relw
+    errs["vegas_reduce_measure"] = 0.0
+    for nbin in (NBIN, 64):
+        it, _ = qs_iterations(mt, nbin)
+        masks = (it.pad, it.pair_slots, it.used)
+        _, T, x, invp, perm, w, relw = vegas_measured_launch(vk, it)
+        if nbin == NBIN:
+            relw_p = vk.vegas_relw_plain(w, invp, it.pad, it.pair_slots)
+            torch.cuda.synchronize()
+            if not torch.equal(bits(relw), bits(relw_p)):
+                raise AssertionError("vegas_relw differs from the plain version")
+            errs["vegas_relw"] = float((relw - relw_p).abs().max())
+            del relw_p
+        m = it.measure(it.leaf_values(x), relw).contiguous()
+        obs, hrow = vk.vegas_reduce(w, invp, perm, *masks, m)
+        obs_p, hrow_p = vk.vegas_reduce_plain(w, invp, perm, *masks, m)
+        rel = max(rel_err(obs.cpu(), obs_p.cpu()), rel_err(hrow.cpu(), hrow_p.cpu()))
+        if rel > REL_TOL_REDUCE:
+            raise AssertionError(f"vegas_reduce given m, {nbin} components, vs plain: rel "
+                                 f"{rel:.3g} > {REL_TOL_REDUCE}")
+        errs["vegas_reduce_measure"] = max(errs["vegas_reduce_measure"], float(max(
+            (obs - obs_p).abs().max(), (hrow - hrow_p).abs().max())))
+        del m, obs_p, hrow_p
+        obs_i, hrow_i = vk.vegas_reduce(w, invp, perm, *masks, relw[:1].contiguous())
+        obs_d, hrow_d = vk.vegas_reduce(w, invp, perm, *masks)
+        if not (torch_equal_bits(obs_i, obs_d) and torch_equal_bits(hrow_i, hrow_d)):
+            raise AssertionError("vegas_reduce given m = relw[:1] differs from the default sums")
+        print(f"phase 3e: one launch of {it.block} blocks x {T} chunks x {it.chunk} samples, "
+              f"{nbin} components: {'vegas_relw bit-equal, ' if nbin == NBIN else ''}"
+              f"vegas_reduce given m rel {rel:.3g}; given m = relw[:1], bit-equal to the "
+              f"default sums")
+        del x, invp, perm, w, relw
 
     pi_spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED), "cuda")
     params = pi_spec.device_params()
@@ -1505,9 +1615,9 @@ def measure_timings(mt, vk, ck, card):
     for order in (("plain", "kernel"), ("kernel", "plain")):
         for kind in order:
             if kind == "kernel":
-                vms["relw"].append(time_ms(
+                vms["relw"].append(device_ms(
                     lambda: vk.vegas_relw(w, invp, vit.pad, vit.pair_slots), 10))
-                vms["reduce_m"].append(time_ms(
+                vms["reduce_m"].append(device_ms(
                     lambda: vk.vegas_reduce(w, invp, perm, *masks, m), 10))
             else:
                 vms["relw_plain"].append(time_ms(
@@ -1524,7 +1634,8 @@ def measure_timings(mt, vk, ck, card):
     b_relw = bound(relw_bytes, n * N)
     b_reduce = bound(reduce_bytes, 8 * n * (N + nslots) + 2 * n * ncomp)
     print(f"phase 6e: one :vegas launch = {vit.block} blocks x {T} chunks x {vit.chunk} "
-          f"samples ({n} evals), {ncomp} components [{card}]")
+          f"samples ({n} evals), {ncomp} components; kernels' device time per call, calls "
+          f"queued behind a sleep kernel [{card}]")
     print(f"phase 6e: vegas_relw {vms['relw']!r} ms/launch, plain torch "
           f"{vms['relw_plain']!r} ms, bound {b_relw[0]!r} ms ({relw_bytes} bytes, "
           f"by {b_relw[1]}) [{card}]")

@@ -121,6 +121,8 @@ class VplusLayout:
             hist_off.append(hist)
             for s in range(li.ndraw):
                 stride = 0
+                # nstrat^d for the d-th stratified slot in slot order: vplus_sample
+                # divides the cube index by nstrat once per stratified slot, in this order
                 if not disc:
                     stride, d = nstrat ** d, d + 1
                 kslot[(lidx, s)] = len(rows)

@@ -24,6 +24,9 @@ versions bit for bit, both parts of every complex field included (the chain
 histogram to rel 1e-9).
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -637,3 +640,76 @@ def test_vplus_reduce_histogram_paths(cuda, memory, hot):
         torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
     assert float(got[1].sum()) > 0 and float(got[2].sum()) > 0
     assert vp.launch_counts["vplus_reduce"] == before + 1
+
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _chip_smoke()      # the edge shapes and inputs its phases 3 and 3d check
+
+
+def _reduce_vs_plain(args, mobs):
+    """vegas_reduce in both modes against its plain version (rel 1e-9); the
+    identity measure m = relw (from vegas_relw) bit-equal to the default
+    sums; two calls bit-equal."""
+    w, invp, perm, pad, pair_slots, used = args
+    before = dict(vk.launch_counts)
+    got = vk.vegas_reduce(*args)
+    again = vk.vegas_reduce(*args)
+    got_m = vk.vegas_reduce(*args, mobs)
+    relw = vk.vegas_relw(w, invp, pad, pair_slots)
+    ident = vk.vegas_reduce(*args, relw)
+    want, want_m = vk.vegas_reduce_plain(*args), vk.vegas_reduce_plain(*args, mobs)
+    torch.cuda.synchronize()
+    for g, p in (*zip(got, want), *zip(got_m, want_m)):
+        torch.testing.assert_close(g, p, rtol=1e-9, atol=0)
+    for a, b in (*zip(got, again), *zip(got, ident)):
+        assert _bits_equal(a, b)
+    assert vk.launch_counts["vegas_reduce"] == before["vegas_reduce"] + 2
+    assert vk.launch_counts["vegas_reduce_measure"] == before["vegas_reduce_measure"] + 2
+
+
+@pytest.mark.parametrize("ncomp", [1, 10, 64])
+@pytest.mark.parametrize("N", [1, 3, 300])
+@pytest.mark.parametrize("m", [1, 3, 100, 1024])
+def test_vegas_reduce_shapes(cuda, m, N, ncomp):
+    """vegas_reduce at short rows (scalar loads, several columns a warp) and
+    long ones (16-byte loads, a warp a column), with one integrand and with
+    several (300 leave fewer rows a tile than the warps could take)."""
+    _reduce_vs_plain(*cs.reduce_inputs(m, N, ncomp, device=cuda))
+
+
+def test_vegas_reduce_most_integrands(cuda):
+    """MAX_INTEGRANDS integrands: one row a tile."""
+    _reduce_vs_plain(*cs.reduce_inputs(5, vk.MAX_INTEGRANDS, 3, 1, 2, 5, device=cuda))
+
+
+@pytest.mark.parametrize("k", range(len(cs.VPLUS_EDGES)), ids=[e[0] for e in cs.VPLUS_EDGES])
+def test_vplus_sample_shapes(cuda, k):
+    """vplus_sample bit-equal to its plain version after one reallocation
+    (chip_smoke.VPLUS_EDGES): 1 to 6 slots, chunks that are and are not a
+    multiple of 4, a Discrete
+    passenger, nstrat from 1 to 5000; two calls bit-equal."""
+    _, var, dof, nstrat, npb = cs.VPLUS_EDGES[k]
+    cfg = mt.Configuration(var=var(mt), dof=dof, seed=8)
+    it = VegasPlusIteration(Spec(cfg, cuda), cs._first, block=3, nevalperblock=npb,
+                            nstrat=nstrat)
+    lay, params = it.layout, it.spec.device_params()
+    assert it.nstrat == nstrat and lay.S == sum(map(sum, dof))
+    it.run(params, block_keys(8, 0, 0, 3))
+    tab, kd = lay.tables(params), it.seeds(block_keys(8, 1, 0, 3))
+    cube, _ = it.cube_tables()
+    before = vp.launch_counts["vplus_sample"]
+    x, gidx = vp.vplus_sample(lay, tab, kd, 1, 2, cube)
+    x2, gidx2 = vp.vplus_sample(lay, tab, kd, 1, 2, cube)
+    xp, gidxp = vp.vplus_sample_plain(lay, tab, kd, 1, 2, cube)
+    torch.cuda.synchronize()
+    assert _bits_equal(x, xp) and torch.equal(gidx, gidxp)
+    assert _bits_equal(x, x2) and torch.equal(gidx, gidx2)
+    assert vp.launch_counts["vplus_sample"] == before + 2
