@@ -7,13 +7,15 @@ Builds the hand-written CUDA kernels from ``mcintegration_tpu_torch/csrc``
 with nvcc and drives every ported path on the card.
 
 - :vegas (phases 3-7): ``vegas_sample`` and ``vegas_reduce`` against their
-  plain PyTorch versions, ``integrate(solver="vegas", device="cuda")`` on the
+  plain PyTorch versions (also at their edge shapes, ``VEGAS_EDGES`` and
+  ``REDUCE_EDGES``), ``integrate(solver="vegas", device="cuda")`` on the
   2-D pi problem at 2^30 evals per iteration, adaptive and multi-integrand
   runs against their exact values, kernel times beside the plain versions,
   and a ``torch.profiler`` trace of three iterations.
 - :vegasmc, the default solver (phases 3b-7b): ``chain_propose`` and
   ``chain_accept`` against their plain versions from one state (also with
-  every walker in one histogram bin) and over a whole iteration, ``integrate(solver="vegasmc", device="cuda")`` on the 2-D
+  every walker in one histogram bin, and ``chain_propose`` at
+  ``PROPOSE_EDGES``) and over a whole iteration, ``integrate(solver="vegasmc", device="cuda")`` on the 2-D
   pi problem at 2^28 evals per iteration with 2^20 walkers, adaptive,
   Discrete and reweighted runs against their exact values, time per chain
   step, and a profile of three iterations.
@@ -51,7 +53,8 @@ with nvcc and drives every ported path on the card.
 - :vegasplus (phases 3d-7d): ``vplus_sample`` and ``vplus_reduce`` against
   their plain versions after one reallocation of the hypercube counts, at
   the main path's shape and on a spec that takes every branch (also with
-  every sample of a span in one histogram bin), and over a whole iteration; ``integrate(solver="vegasplus", device="cuda")`` on the
+  every sample of a span in one histogram bin, and with more than 4,096
+  histogram bins at 3 seeds), and over a whole iteration; ``integrate(solver="vegasplus", device="cuda")`` on the
   non-separable ``singular_3d`` integrand at 2^30 evals per iteration against
   its exact value, with its error bar beside :vegas' on the same budget; pi,
   ``log(x)/sqrt(x)``, the 4-D Gaussians, padding and a Discrete passenger
@@ -62,7 +65,8 @@ read just after.  Any failed phase raises, so the exit code is non-zero.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel (with its bound: the larger of its bytes over 3.35 TB/s and its
-operations over 67 TFLOP/s float32 or 33.5 TOP/s INT32), and as the last line
+operations, float32 ones over 67 TFLOP/s and integer ones over 16.7 TOP/s
+INT32, the SM's 64 INT32 lanes at 1.98 GHz: ``PEAK_INT_OPS``), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a result when no CUDA device is available.  Imports no JAX.
 """
@@ -210,6 +214,58 @@ def reduce_edges(vk):
               f"the default sums")
 
 
+# name, strata nb, dof, samples per stratum m, first chunk t0, chunks T of
+# phase 3's edge shapes of vegas_sample, on two trained pools of nb bins
+# (dof [[1], [2]]: four slots, two on each leaf): one stratum, strata that
+# are and are not a power of two up to MAX_STRATA, m with scalar draws (not a
+# multiple of 4) and with quads, the main path's m, t0 > 0 and T > 1
+VEGAS_EDGES = (("nb 1, m 1", 1, [[1]], 1, 0, 1),
+               ("nb 7, m 3, t0 5, T 3", 7, [[1], [2]], 3, 5, 3),
+               ("nb 7, m 129, t0 1, T 2", 7, [[1], [2]], 129, 1, 2),
+               ("nb 32768, m 4, t0 2, T 2", 32768, [[1], [2]], 4, 2, 2),
+               ("nb 32768, m 3", 32768, [[1]], 3, 0, 1),
+               ("nb 1024, m 1024, t0 1, T 2", 1024, [[1], [2]], 1024, 1, 2))
+
+
+def _edge_f(x, c):
+    return (x[0][0], x[1][0] * x[1][1])
+
+
+def vegas_sample_edge(mt, vk, edge, device="cuda"):
+    """vegas_sample at one of VEGAS_EDGES (2 blocks), bit for bit against its
+    plain version, and two calls bit-equal; raises on any difference."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+
+    name, nb, dof, m, t0, T = edge
+    var = mt.Continuous([(0.0, 1.0), (0.0, 2.0)], ninc=nb)
+    for k, leaf in enumerate(var):
+        leaf.histogram = np.random.default_rng(nb + k).gamma(0.5, 1.0, nb) + 1e-3
+        leaf.train()
+    spec = Spec(mt.Configuration(var=var, dof=dof, seed=SEED), device)
+    it = VegasIteration(spec, _edge_f if len(dof) == 2 else _first, block=2,
+                        nevalperblock=nb * 4)
+    inputs = it.kernel_inputs(spec.device_params(), block_keys(SEED, 2, 0, it.block))
+    got = vk.vegas_sample(t0=t0, T=T, m=m, **inputs)
+    again = vk.vegas_sample(t0=t0, T=T, m=m, **inputs)
+    want = vk.vegas_sample_plain(t0=t0, T=T, m=m, **inputs)
+    torch.cuda.synchronize()
+    for what, a, b, c in zip(("x", "invp", "perm"), got, want, again):
+        if not (torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))):
+            raise AssertionError(f"vegas_sample {what} differs from the plain version ({name})")
+    return len(it.slot_map)
+
+
+def vegas_sample_edges(mt, vk):
+    """Phase 3: vegas_sample at VEGAS_EDGES."""
+    for edge in VEGAS_EDGES:
+        S = vegas_sample_edge(mt, vk, edge)
+        print(f"phase 3: vegas_sample, {edge[0]}, {S} slots: x, invp and perm bit-equal, "
+              f"repeat bit-identical")
+
+
 def trained_config(mt):
     """The pi problem's configuration on a non-uniform map (one training
     from a synthetic histogram)."""
@@ -275,6 +331,7 @@ def kernel_vs_plain(mt, vk, card):
               f"(x [{len(big.slot_map)},{big.block},{T},{big.nb},{big.m_tile}]): "
               f"x/invp/perm bit-equal, reduce rel {rel:.3g}")
     reduce_edges(vk)
+    vegas_sample_edges(mt, vk)
 
 
 def main_path(mt, vk, card):
@@ -400,9 +457,13 @@ def timings(mt, vk, shape, card):
     sample_bytes = sum(t.numel() * t.element_size() for t in (*inputs.values(), x, invp, perm)
                        if isinstance(t, torch.Tensor))
     reduce_bytes = sum(t.numel() * t.element_size() for t in (w, invp, perm, *args, obs, hrow))
-    # about 20 operations per drawn value (two hashes, the map) and 8 per
-    # sample and integrand in the reduction
-    b_sample = bound(sample_bytes, 20 * n * nslots)
+    # per drawn value, the integer work the law fixes: two lowbias32 rounds
+    # and the mixing of the draw's index (i ^ k1, + k2 + salt, & 0xFFFFFF)
+    # and 5 float32 operations (convert, add and multiply of the uniform, the
+    # map's multiply and add); a row's stratum and permutation, and a
+    # group's keys, come once per m or nb*m values.  8 float32 operations
+    # per sample and integrand in the reduction
+    b_sample = bound(sample_bytes, 5 * n * nslots, VEGAS_DRAW_INT * n * nslots)
     b_reduce = bound(reduce_bytes, 8 * n * (w.shape[0] + nslots))
     print(f"phase 6: one launch = {it.block} blocks x {T} chunks x {it.chunk} "
           f"samples ({n} evals, {len(it.slot_map)} slots); kernels' device time per call, "
@@ -413,8 +474,9 @@ def timings(mt, vk, shape, card):
     print(f"phase 6: vegas_reduce {ms['reduce']!r} ms/launch, plain torch "
           f"{ms['reduce_plain']!r} ms [{card}]")
     print(f"phase 6: vegas_sample bound {b_sample[0]!r} ms ({sample_bytes} bytes, by "
-          f"{b_sample[1]}); vegas_reduce bound {b_reduce[0]!r} ms ({reduce_bytes} bytes, "
-          f"by {b_reduce[1]})")
+          f"{b_sample[1]}; {VEGAS_DRAW_INT} integer operations a value take "
+          f"{VEGAS_DRAW_INT * n * nslots / PEAK_INT_OPS * 1e3!r} ms); vegas_reduce bound "
+          f"{b_reduce[0]!r} ms ({reduce_bytes} bytes, by {b_reduce[1]})")
     print(f"phase 6: peak device memory {torch.cuda.max_memory_allocated()} bytes")
     return {"vegas_sample": (err_sample, ms["sample"], ms["sample_plain"], *b_sample),
             "vegas_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"], *b_reduce)}
@@ -549,6 +611,87 @@ class plain_versions:
             setattr(self.module, n, f)
 
 
+def _edge_disc(x, c):
+    import torch
+    a, b = x
+    return (a[0] * b[0].to(torch.float32), torch.where(a[1] < 0.5, 1.0, 0.0) * (b[1] <= 20))
+
+
+def _edge_groups(x, c):
+    import torch
+    a, b, e, _ = x
+    return (a[0] * a[1], b[0].to(torch.float32) * e[0] * e[1])
+
+
+def _edge_disc_var(mt, upper, ninc):
+    rng = np.random.default_rng(upper)
+    c, d = mt.Continuous(0.0, 1.0, ninc=ninc), mt.Discrete(-3 if upper > 1024 else 1, upper)
+    for leaf in (c, d):
+        leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
+        leaf.train()
+    return mt.CompositeVar(c, d)
+
+
+# name, var, dof, integrand, blocks, walkers of phase 3b's edge shapes of
+# chain_propose: a Discrete CDF staged in shared memory (<= 1024 bins) and
+# one searched in device memory, groups of different maxdof with a pool never
+# drawn (fewer eligible groups than pools), and Monte Carlo blocks and walker
+# counts that are not a multiple of the kernel's 256-walker thread blocks
+PROPOSE_EDGES = (
+    ("staged CDF of 40 bins, 2 blocks of 600 walkers", lambda mt: _edge_disc_var(mt, 40, 100),
+     [[1], [2]], _edge_disc, 2, 1200),
+    ("CDF of 2004 bins in device memory, 2 blocks of 500", lambda mt: _edge_disc_var(mt, 2000, 64),
+     [[1], [2]], _edge_disc, 2, 1000),
+    ("maxdof 2, 1, 2 and an undrawn pool, 3 blocks of 333",
+     lambda mt: (mt.Continuous(0.0, 1.0, ninc=50), mt.Discrete(1, 7),
+                 mt.Continuous(0.0, 2.0, ninc=30), mt.Continuous(0.0, 1.0, ninc=10)),
+     [[2, 0, 0, 0], [0, 1, 2, 0]], _edge_groups, 3, 999),
+    ("the main path's spec, 4 blocks of 1536", lambda mt: mt.Continuous(0.0, 1.0), [[2]], _pi, 4,
+     6144))
+
+
+def chain_propose_edge(mt, ck, edge, device="cuda"):
+    """chain_propose at one of PROPOSE_EDGES, bit for bit against its plain
+    version: the first draw (init = 1) into zeroed slots, and a proposal
+    from the state after two steps; raises on any difference."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasmc import VegasMCIteration
+
+    name, var, dof, f, block, W = edge
+    spec = Spec(mt.Configuration(var=var(mt), dof=dof, seed=SEED), device)
+    it = VegasMCIteration(spec, f, block=block, nevalperblock=8 * W // block, nwalkers=W)
+    lay = it.layout
+    kd = it.seeds(block_keys(SEED, 3, 0, block))
+    tab, rw, st = it.start(spec.device_params(), kd)
+    a, b = st.clone(), st.clone()
+    for x in (a, b):
+        for field in ("cur_val", "cur_gidx", "cur_prob", "prp_val", "prp_gidx", "prp_prob"):
+            getattr(x, field).zero_()
+    ck.chain_propose(lay, tab, kd, 0, a, init=True)
+    ck.chain_propose_plain(lay, tab, kd, 0, b, init=True)
+    torch.cuda.synchronize()
+    state_bits_equal(a, b, f"chain_propose init = 1 ({name})")
+    for t in range(2):
+        it.step(tab, rw, kd, st, t)
+    ref = st.clone()
+    ck.chain_propose(lay, tab, kd, 2, st)
+    ck.chain_propose_plain(lay, tab, kd, 2, ref)
+    torch.cuda.synchronize()
+    state_bits_equal(st, ref, f"chain_propose ({name})")
+    return lay
+
+
+def chain_propose_edges(mt, ck):
+    """Phase 3b: chain_propose at PROPOSE_EDGES."""
+    for edge in PROPOSE_EDGES:
+        lay = chain_propose_edge(mt, ck, edge)
+        print(f"phase 3b: chain_propose, {edge[0]} (W={lay.W}, wb={lay.wb}, {len(lay.dleaf)} "
+              f"leaves, {len(lay.elig)} of {lay.spec.nvar} groups eligible, "
+              f"{lay.smem_floats} CDF floats staged): init and a step bit-equal")
+
+
 def chain_vs_plain(mt, ck, card):
     """Phase 3b: one chain_propose and one chain_accept from the same state,
     bit for bit, at 2^20 walkers; then a whole iteration through the kernels
@@ -613,6 +756,7 @@ def chain_vs_plain(mt, ck, card):
         raise AssertionError(f"whole iteration: hist rel {e_hist:.3g} > {REL_TOL_HIST}")
     print(f"phase 3b: whole iteration (W={it.nwalkers}, {it.nsteps} steps): obs, norm, "
           f"visited and tallies equal (rel 0), hist rel {e_hist:.3g}")
+    chain_propose_edges(mt, ck)
     return err_propose, err_accept
 
 
@@ -736,11 +880,15 @@ def chain_timings(mt, ck, card):
     # tallies, reads the state for the histogram weight and, on a measured
     # step, reads and writes the float64 accumulators
     S, n, nd = lay.S, lay.spec.N, lay.spec.N + 1
-    b_prop = bound(lay.W * (4 + 12 + 4 + 8), 60 * lay.W)
+    pi_, pf_ = propose_ops(lay)
+    b_prop = bound(lay.W * (4 + 12 + 4 + 8), pf_, pi_)
     b_acc = bound(lay.W * (4 * S + 4 * n + 16 + 36 + 16 + 8 * S + 4 * n + 4 * nd
-                           + 16 * n + 16 * nd + 16), 80 * lay.W)
-    print(f"phase 6b: chain_propose bound {b_prop[0]!r} ms, chain_accept bound "
-          f"{b_acc[0]!r} ms (by {b_prop[1]}, {b_acc[1]}); chain_accept takes "
+                           + 16 * n + 16 * nd + 16), ACCEPT_OPS[1] * lay.W,
+                  ACCEPT_OPS[0] * lay.W)
+    print(f"phase 6b: chain_propose bound {b_prop[0]!r} ms (by {b_prop[1]}; {pi_ / lay.W!r} "
+          f"integer and {pf_ / lay.W!r} float32 operations a walker take "
+          f"{pi_ / PEAK_INT_OPS * 1e3!r} and {pf_ / PEAK_OPS * 1e3!r} ms), chain_accept bound "
+          f"{b_acc[0]!r} ms (by {b_acc[1]}); chain_accept takes "
           f"{ms['accept'] / b_acc[0]!r} times its bound [{card}]")
 
     neval, block = 2 ** 28, 16
@@ -1091,22 +1239,23 @@ def _vplus_allbranch_f(x, c):
             (t[0] + t[1]) * d[1].to(torch.float32) * torch.exp(-u[0] * v[0]) + 0.2)
 
 
-def vplus_allbranch(mt, nevalperblock):
-    """Phase 3d's spec: trained maps of ninc=1000 and ninc=64, a trained
-    Discrete(1, 7) passenger bundled with the first, a non-adaptive pool, and
-    two integrands of which the first leaves a slot of two groups unused."""
+def vplus_allbranch(mt, nevalperblock, ninc=1000, device="cuda"):
+    """Phase 3d's spec: trained maps of ``ninc`` (1000; 5000 puts its
+    histogram beyond SMEM_HIST_BINS) and 64 bins, a trained Discrete(1, 7)
+    passenger bundled with the first, a non-adaptive pool, and two
+    integrands of which the first leaves a slot of two groups unused."""
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
 
     rng = np.random.default_rng(4)
-    a, b = mt.Continuous(0.0, 1.0, ninc=1000), mt.Continuous(0.0, 2.0, ninc=64)
+    a, b = mt.Continuous(0.0, 1.0, ninc=ninc), mt.Continuous(0.0, 2.0, ninc=64)
     d, e = mt.Discrete(1, 7), mt.Continuous(-1.0, 1.0, ninc=48, adapt=False)
     for leaf in (a, b, d):
         leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
         leaf.train()
     cfg = mt.Configuration(var=(mt.CompositeVar(a, d), b, e), dof=[[1, 1, 0], [2, 1, 1]],
                            seed=SEED)
-    return VegasPlusIteration(Spec(cfg, "cuda"), _vplus_allbranch_f, block=16,
+    return VegasPlusIteration(Spec(cfg, device), _vplus_allbranch_f, block=16,
                               nevalperblock=nevalperblock)
 
 
@@ -1184,6 +1333,31 @@ def vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, t0, T, what, hot=False):
     return err_sample, err_reduce, max(rels)
 
 
+def vplus_reduce_windows(mt, vp):
+    """Phase 3d's all-branch spec with ninc=5000, whose histogram (5071
+    bins) vplus_reduce adds in windows of SMEM_HIST_BINS bins, against the
+    plain version at 3 seeds (the reallocation's and the launch's), to
+    REL_TOL_VPLUS; raises on any disagreement."""
+    from mcintegration_tpu_torch.ops.rng import block_keys
+
+    for seed in range(3):
+        it = vplus_allbranch(mt, 2 ** 20, ninc=5000)
+        lay, params = it.layout, it.spec.device_params()
+        assert lay.nhist > vp.SMEM_HIST_BINS, lay.nhist
+        it.run(params, block_keys(SEED + seed, 0, 0, it.block))
+        tab, kd = lay.tables(params), it.seeds(block_keys(SEED + seed, 1, 0, it.block))
+        cube, cfac = it.cube_tables()
+        what = f"all-branch spec, {lay.nhist} bins, seed {seed}"
+        _, _, rel = vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, 0, it.chunks_per_launch,
+                                          what)
+        _, _, rel_hot = vplus_launch_vs_plain(vp, it, tab, kd, cube, cfac, 0,
+                                              it.chunks_per_launch, f"{what}, one bin a span",
+                                              hot=True)
+        print(f"phase 3d: {what} (windows of {vp.SMEM_HIST_BINS} bins in shared memory): "
+              f"x and gidx bit-equal, obs/sig/hist rel {rel:.3g}; with every sample of the "
+              f"first span in bin 0, rel {rel_hot:.3g}")
+
+
 def vplus_vs_plain(mt, vp, card):
     """Phase 3d: both kernels against their plain versions after one
     reallocation, at the main path's shape and on the all-branch spec;
@@ -1211,10 +1385,11 @@ def vplus_vs_plain(mt, vp, card):
         print(f"phase 3d: {name}: {lay.S} slots ({lay.D} stratified), nstrat {it.nstrat}, "
               f"{it.ncubes} cubes, chunk {it.chunk}, counts {int(it.counts.min())}.."
               f"{int(it.counts.max())}, launch [{it.block},{T},{it.chunk}], {lay.nhist} bins "
-              f"({'shared' if lay.nhist <= vp.SMEM_HIST_BINS else 'device'} memory): x and gidx "
-              f"bit-equal, obs/sig/hist rel {rel:.3g}; with every sample of the first span in "
-              f"bin 0, rel {rel_hot:.3g}")
+              f"({'whole' if lay.nhist <= vp.SMEM_HIST_BINS else 'windows'} in shared memory): "
+              f"x and gidx bit-equal, obs/sig/hist rel {rel:.3g}; with every sample of the first "
+              f"span in bin 0, rel {rel_hot:.3g}")
 
+    vplus_reduce_windows(mt, vp)
     vplus_sample_edges(mt, vp)
 
     it = vplus_allbranch(mt, 2 ** 20)
@@ -1351,9 +1526,13 @@ def vplus_timings(mt, vp, shape, card):
     obs, sig, hist = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
     sample_bytes = nbytes(kd, cube, lay.meta, tab, x, gidx)
     reduce_bytes = nbytes(w, gidx, cube, cfac, tab, lay.meta, obs, sig, hist)
-    # about 30 operations per drawn value (the hash, the cube's coordinate,
-    # the map) and 40 per sample, slot and integrand in the reduction
-    b_sample = bound(sample_bytes, 30 * n * S)
+    # per drawn value 12 float32 operations (the uniform's convert, add and
+    # multiply, y's convert, add and division, the map's six) and the
+    # integer work of its uniform and of its cube's coordinate (a multiply
+    # and shift, a multiply and subtract), with the sample's keyed hash
+    # once per sample; 40 float32 operations per sample, slot and integrand
+    # in the reduction
+    b_sample = bound(sample_bytes, 12 * n * S, (UNIFORM[0] + 4) * n * S + (MIX32 + 2) * n)
     b_reduce = bound(reduce_bytes, 40 * n * (S + N))
     print(f"phase 6d: one launch = {it.block} blocks x {T} chunks x {it.chunk} samples "
           f"({n} evals, {S} slots, counts {int(it.counts.min())}..{int(it.counts.max())}); "
@@ -1681,7 +1860,7 @@ def measure_timings(mt, vk, ck, card):
     # phase 6b's bytes of a measured chain_accept, with relw written (4 bytes
     # per integrand) in place of the float64 obs read and written (16)
     b_acc = bound(W * (4 * S + 4 * N + 16 + 36 + 16 + 8 * S + 4 * N + 4 * nd
-                       + 4 * N + 16 * nd + 16), 80 * W)
+                       + 4 * N + 16 * nd + 16), ACCEPT_OPS[1] * W, ACCEPT_OPS[0] * W)
     b_meas = bound(20 * ncomp * W, 2 * ncomp * W)
     print(f"phase 6e: one :vegasmc step = {W} walkers, {ncomp} components; device time per "
           f"call, calls queued behind a sleep kernel [{card}]")
@@ -2021,7 +2200,8 @@ def complex_timings(mt, ck, mk, card):
     # integrand, and the float64 obs of two components (re, im) each
     S, n, nd = lay.S, lay.spec.N, lay.spec.N + 1
     b_c = bound(lay.W * (4 * S + 8 * n + 16 + 36 + 16 + 8 * S + 8 * n + 4 * nd
-                         + 32 * n + 16 * nd + 16), (80 + 10 * n) * lay.W)
+                         + 32 * n + 16 * nd + 16), (ACCEPT_OPS[1] + 10 * n) * lay.W,
+                ACCEPT_OPS[0] * lay.W)
     print(f"phase 6f: one :vegasmc step = {lay.W} walkers x {S} slots, complex weights: "
           f"chain_accept_complex {ms['accept']!r} ms/measured step, plain torch "
           f"{ms['accept_plain']!r} ms, bound {b_c[0]!r} ms (by {b_c[1]}), "
@@ -2159,6 +2339,12 @@ BASE = 3 * MIX32 + 5        # k1 = mix32(kd ^ t*phi), k2 = mix32(kd + t), mix32(
 SINCOS = 23                 # quarter-turn reduction and two cephes polynomials
 COUNT = 4                   # a warp-aggregated count: match, first lane, popc, add
 RANK = 6                    # a place in the tile sort: match, first lane, add, shuffle, popc
+# vegas_sample's draw: i ^ k1, lowbias32, + (k2 + salt), lowbias32, & 0xFFFFFF
+VEGAS_DRAW_INT = 2 * MIX32 + 3
+# chain_accept per walker: its keys and base (BASE) and the accept uniform,
+# integer; about 41 float32 operations (the pair products, the joint
+# density, the decision, the histogram weight)
+ACCEPT_OPS = (BASE + UNIFORM[0], 41)
 
 
 def _draw_ops(f):
@@ -2170,6 +2356,26 @@ def _draw_ops(f):
         levels = int(np.ceil(np.log2(f["nb"] + 1)))
         return UNIFORM[0] + 3 * levels, UNIFORM[1] + levels
     return UNIFORM[0] + 1, UNIFORM[1] + 6                # Continuous: one gather
+
+
+def propose_ops(lay):
+    """(integer, float32) operations of one chain_propose step over the
+    layout's walkers: each walker's base mix32(j ^ k1) + k2 (the keys k1, k2
+    are the same for every walker of a Monte Carlo block at a step, so the
+    least work forms them once a block: not counted), the uniforms of its
+    group and slot and their selects, and the draw of each leaf of its
+    group (a group drawn with probability 1/nelig), with the old
+    probability's division and the product."""
+    ints, flts = [], []
+    for g in lay.elig:
+        lo, hi, _ = (int(v) for v in lay.groups[g])
+        ops = [_draw_ops({"kind": int(lay.leaf[d, 0]), "nb": int(lay.leaf[d, 1])})
+               for d in range(lo, hi)]
+        ints.append(sum(o[0] for o in ops))
+        flts.append(sum(o[1] + 2 for o in ops))
+    per_int = MIX32 + 2 + 2 * UNIFORM[0] + float(np.mean(ints))
+    per_flt = 2 * UNIFORM[1] + 4 + float(np.mean(flts))
+    return per_int * lay.W, per_flt * lay.W
 
 
 def mcmc_ops(it, mk, kd, sched, t, st, after):

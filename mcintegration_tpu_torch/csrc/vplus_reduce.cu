@@ -29,9 +29,19 @@
 //         into a register; at the end a segmented warp sum over the sorted
 //         cubes leaves one value per (warp, cube), added with a native
 //         float64 atomic into device memory;
-//   hist: privatised per thread block in shared memory as float64 (up to
-//         SMEM_HIST_BINS bins, ops/vplus_kernels.py; a larger histogram is
-//         added straight into device memory) and flushed once at the end.
+//   hist: privatised per thread block in shared memory as float64 and
+//         flushed once at the end.  A histogram of up to SMEM_HIST_BINS
+//         bins (ops/vplus_kernels.py) fits whole; a larger one is cut into
+//         windows of kWindow bins, one per blockIdx.z, and a block adds only
+//         its window's bins (the blocks of window 0 also write obs and
+//         sig).  So every bin is summed in two levels, over a block's
+//         samples and then over the blocks, whatever its size: adding a
+//         large histogram straight into device memory summed up to a
+//         launch's samples into one bin in a chain, missed the plain
+//         version by rel 3.6e-12 on phase 3d's all-branch spec with 5,071
+//         bins and took 19 times as long as the windows (PERF.md).  The
+//         windows read every sample once more for each window beyond the
+//         first.
 //         This card runs a float64 add on shared memory as a compare-and-
 //         swap loop, which retries when lanes meet on one bin: a warp's 32
 //         consecutive samples share few cubes and so a narrow window of
@@ -50,9 +60,9 @@
 // the tables stay in cache.  It runs at about a quarter of that rate: its
 // time falls with each part of a sample's work taken out, and not with any
 // change to how the bytes arrive, so it is held by the instructions each
-// sample issues and their latency, at 64 warps to an SM.  The adds name
-// their address space (a generic pointer made every add test it first, in
-// three code paths).  Measured
+// sample issues and their latency, at 64 warps to an SM.  The histogram's
+// adds name shared memory (a generic pointer made every add test its
+// address space first).  Measured
 // (tools/accept_reduce_variants.py, phase 6d's launch, NVIDIA H100 80GB
 // HBM3 at 700 W): 1.37 ms against a bound of 0.32; without the histogram
 // adds 1.11, without the integrand's part 0.55.  Slower there: merging the
@@ -80,6 +90,7 @@ constexpr int kSpan = kThreads;               // ops/vplus_kernels.py:SPAN
 constexpr int kWarps = kThreads / 32;         // ops/vplus_kernels.py:WARPS
 constexpr int kBlocksPerSm = 8;               // at most 32 registers a thread
 constexpr int kWaves = 8;                     // the grid, in blocks the card holds at once
+constexpr int kWindow = 4096;                 // ops/vplus_kernels.py:SMEM_HIST_BINS
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -94,7 +105,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
     int P, int M, long long BT, int c, int H, int hist_smem,
     double* __restrict__ obs_rows, double* __restrict__ sig,
     double* __restrict__ hist) {
-  extern __shared__ double hist_s[];           // [H] when hist_smem
+  extern __shared__ double hist_s[];           // [HW] this block's window of the histogram
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* slots = meta;                     // [S, 8]
   const int* pad = slots + kSlotFields * S;    // [N, P]
@@ -102,10 +113,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
   const int* used = pair_slots + P * M;        // [S, N]
   const long long plane = BT * c;              // one slot's or integrand's samples
 
-  if (hist_smem) {
-    for (int q = threadIdx.x; q < H; q += blockDim.x) hist_s[q] = 0.0;
-    __syncthreads();
-  }
+  // the window: bins [hlo, hlo + HW) of hist; window 0 also writes obs and sig
+  const int HW = hist_smem ? H : kWindow;
+  const int hlo = blockIdx.z * HW;
+  const bool first = blockIdx.z == 0;
+  for (int q = threadIdx.x; q < HW; q += blockDim.x) hist_s[q] = 0.0;
+  __syncthreads();
 
   // this thread's sample of every chunk: warp j of block b takes the 32
   // samples of group j*nspan + b, so the warps of a block work in parts of
@@ -168,15 +181,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
       for (int k = 0; k < S; ++k) {
         const int off = slots[kSlotFields * k + kHist];
         if (off < 0 || !used[k * N + i]) continue;
-        const int bin = cb >= 0 ? off + gidx[k * plane + at] : -1;
-        if (bin < 0) continue;
-        if (hist_smem)   // two adds, each to an address space the compiler knows
-          atomicAdd(hist_s + bin, sq);
-        else
-          atomicAdd(hist + bin, sq);
+        const int bin = cb >= 0 ? off + gidx[k * plane + at] - hlo : -1;
+        if (bin < 0 || bin >= HW) continue;
+        atomicAdd(hist_s + bin, sq);
       }
       so = warp_sum(so);
-      if (lane == 0)
+      if (lane == 0 && first)
         obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * N + i] = so;
     }
 
@@ -192,13 +202,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
     if (lane + o < 32 && kup == cb) v2 += up;
   }
   const int kprev = __shfl_up_sync(kFull, cb, 1);
-  if (cb >= 0 && (lane == 0 || kprev != cb)) atomicAdd(sig + cb, v2);
+  if (first && cb >= 0 && (lane == 0 || kprev != cb)) atomicAdd(sig + cb, v2);
 
-  if (hist_smem) {
-    __syncthreads();
-    for (int q = threadIdx.x; q < H; q += blockDim.x)
-      if (hist_s[q] != 0.0) atomicAdd(hist + q, hist_s[q]);
-  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < HW && hlo + q < H; q += blockDim.x)
+    if (hist_s[q] != 0.0) atomicAdd(hist + hlo + q, hist_s[q]);
 }
 
 }  // namespace
@@ -213,15 +221,17 @@ extern "C" int mci_vplus_reduce(const void* w, const void* gidx,
   if (span != kSpan || warps != kWarps || c < 1 || ncubes < 1)
     return (int)cudaErrorInvalidValue;      // the wrapper sized obs_rows otherwise
   const int nspan = (c + kSpan - 1) / kSpan;
-  const size_t smem = (hist_smem ? (size_t)H : 0) * sizeof(double);
+  const int nwin = hist_smem ? 1 : (H + kWindow - 1) / kWindow;
+  const size_t smem = (size_t)(hist_smem ? H : kWindow) * sizeof(double);
   int per_sm = 0;
   const int err = blocks_per_sm(vplus_reduce_kernel, kThreads, smem, &per_sm);
   if (err) return err;
-  long long groups = ((long long)kWaves * per_sm * num_sms() + nspan - 1) / nspan;
+  long long groups = ((long long)kWaves * per_sm * num_sms() + nspan * nwin - 1) /
+                     ((long long)nspan * nwin);
   if (groups > BT) groups = BT;
   if (groups > 65535) groups = 65535;
   if (groups < 1) groups = 1;
-  dim3 grid((unsigned)nspan, (unsigned)groups);
+  dim3 grid((unsigned)nspan, (unsigned)groups, (unsigned)nwin);
   vplus_reduce_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
       (const float*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem,

@@ -36,7 +36,7 @@
 //   (scalar loads and stores where c % 4 != 0);
 // - a sample's stratified coordinates come from one pass of successive
 //   divisions of its cube index by nstrat, each a multiply and a shift by
-//   constants the launch computes on the host (divisor below), not two
+//   constants the launch computes on the host (divide.cuh), not two
 //   runtime integer divisions per slot: the layout gives the d-th stratified
 //   slot the stride nstrat^d, in slot order (ops/vplus_kernels.py:
 //   VplusLayout.build);
@@ -50,6 +50,7 @@
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding, so x and gidx match the plain version bit for bit.
 
+#include "divide.cuh"
 #include "vplus_common.cuh"
 
 namespace {
@@ -65,11 +66,6 @@ struct Slot {
   uint32_t salt;
   int strat;             // 1 for a stratified (Continuous) slot
 };
-
-// floor(x / n) for 0 <= x < 2^31 as (x * mul) >> shift (divisor below).
-__device__ __forceinline__ uint32_t divide(uint32_t x, uint32_t mul, int shift) {
-  return (uint32_t)(((unsigned long long)x * mul) >> shift);
-}
 
 // Slot f's map draw at uniform u: val's bits and the bin, as
 // chain_common.cuh:map_draw forms them, without the density.
@@ -166,18 +162,6 @@ vplus_sample_kernel(const uint32_t* __restrict__ kd, int t0, int B, int T, int c
       }
     }
   }
-}
-
-// (mul, shift) with floor(x / n) = (x * mul) >> shift for every 0 <= x < 2^31:
-// shift = 31 + l, l = ceil(log2 n), mul = ceil(2^shift / n) < 2^32.  With
-// e = mul*n - 2^shift < n, x*mul / 2^shift = x/n + x*e / (n 2^shift), and the
-// second term is below 2^31 * n / (n 2^(31+l)) = 2^-l <= 1/n, too little to
-// carry x/n past the next integer.
-void divisor(uint32_t n, uint32_t& mul, int& shift) {
-  int l = 0;
-  while ((1ull << l) < n) ++l;
-  shift = 31 + l;
-  mul = (uint32_t)(((1ull << shift) + n - 1) / n);
 }
 
 }  // namespace

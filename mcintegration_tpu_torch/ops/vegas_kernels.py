@@ -46,7 +46,7 @@ from .rng import chunk_keys, draw
 N_MULT = 64          # multiplier-table width (solvers/vegas.py)
 HIST_CLIP = 1e17     # histogram weight clip (pallas_vegas.py:507)
 MAX_INTEGRANDS = 2048  # shared-memory bound of vegas_reduce
-MAX_STRATA = 32768     # int32 guard of (a*p + s) mod nb
+MAX_STRATA = 32768     # int32 guard of (a*p + s) mod nb, which stays below 2^30
 
 # "vegas_reduce_measure" counts the launches of vegas_reduce given m
 launch_counts = {"vegas_sample": 0, "vegas_reduce": 0, "vegas_relw": 0,
@@ -107,7 +107,10 @@ def vegas_sample(kd, t0: int, T: int, atab, grid, inc, slot_leaf, m: int):
     _check(grid, "grid", torch.float32, (nleaf, nb), dev)
     _check(inc, "inc", torch.float32, (nleaf, nb), dev)
     _check(slot_leaf, "slot_leaf", torch.int32, (nslots,), dev)
-    if nb * m >= 2 ** 32 or t0 + T >= 2 ** 31:
+    # the kernel's flat indices: a quad's below 2^30 (m % 4 == 0), else a
+    # draw's below 2^31, and the (slot, block, chunk) group's below 2^31
+    if (nb * m >= 2 ** (32 if m % 4 == 0 else 31) or t0 + T >= 2 ** 31
+            or nslots * B * T >= 2 ** 31):
         raise ValueError("vegas_sample: chunk or chunk index too large")
     kd32 = torch.where(kd >= 2 ** 31, kd - 2 ** 32, kd).to(torch.int32)
     x = torch.empty((nslots, B, T, nb, m), dtype=torch.float32, device=dev)

@@ -63,7 +63,8 @@ CLIP = 1e17              # clip of the scores and histogram weights (vegasplus.p
 SLOT_FIELDS = 8          # kind, nb, tab_off, -1, lower, stride, hist_off, salt
 SPAN = 256               # samples of a chunk per thread block of vplus_reduce
 WARPS = 8                # warps per thread block of vplus_reduce
-SMEM_HIST_BINS = 4096    # 32 KiB of float64 histogram per thread block
+SMEM_HIST_BINS = 4096    # 32 KiB of float64 histogram per thread block; a larger
+                         # one is added in windows of this many bins
 
 launch_counts = {"vplus_sample": 0, "vplus_reduce": 0}
 

@@ -1,8 +1,10 @@
-"""PyTorch port: how ``chain_accept`` and ``vplus_reduce`` are called.
+"""PyTorch port: how ``chain_accept`` and ``vplus_reduce`` are called, and the
+variants of them and of ``chain_propose`` that the tools build.
 
-``chain_accept`` and ``vplus_reduce`` keep their histograms in shared
-memory when they fit (``SMEM_HIST_BINS`` of each module) and in device
-memory otherwise.
+``chain_accept`` keeps its histogram in shared memory when it fits
+(``SMEM_HIST_BINS`` of its module) and in device memory otherwise;
+``vplus_reduce`` keeps it in shared memory, whole when it fits and else in
+windows of ``SMEM_HIST_BINS`` bins.
 The wrappers pass the layouts through bare argument lists to the C entry
 points.  This is host logic; the kernels themselves are held to their plain
 versions on the card (``tests/test_torch_cuda.py``).
@@ -65,7 +67,8 @@ def test_chain_accept_argument_list(cplx):
 @pytest.mark.parametrize("ninc,smem", [(1000, 1), (5000, 0)])
 def test_vplus_reduce_argument_list(ninc, smem):
     """mci_vplus_reduce takes the histogram's size and whether it fits in
-    shared memory (up to SMEM_HIST_BINS bins)."""
+    shared memory whole (up to SMEM_HIST_BINS bins; else the kernel adds it
+    in windows of that many)."""
     cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0, ninc=ninc), dof=[[3]], seed=2)
     lay = vp.VplusLayout.build(Spec(cfg, CPU), 5)
     N, B, T, c = 1, 2, 3, 300
@@ -89,14 +92,16 @@ def _variants_module():
     return module
 
 
-_VARIANTS = _variants_module().variants()
+_MODULE = _variants_module()
+_VARIANTS = _MODULE.variants()
+_ABLATIONS = _MODULE.ablations()
 
 
 @pytest.mark.parametrize("k", range(len(_VARIANTS)), ids=[v[0] for v in _VARIANTS])
 def test_kernel_variant_edits_find_their_lines(k):
     """Each variant of tools/accept_reduce_variants.py changes the kept
     kernels: every source edit replaces a line found exactly once in csrc/,
-    and a variant without edits moves a table to device memory."""
+    and a variant without edits sets a constant of the wrappers."""
     name, edits, constants = _VARIANTS[k]
     csrc = Path(_build.CSRC)
     for f, old, new in edits:
@@ -108,3 +113,18 @@ def test_kernel_variant_edits_find_their_lines(k):
         module, constant = key.split()
         assert getattr(modules[module], constant) != value
     assert edits or constants
+
+
+@pytest.mark.parametrize("k", range(len(_ABLATIONS)), ids=[a[0] for a in _ABLATIONS])
+def test_kernel_ablation_edits_find_their_lines(k):
+    """Each ablation of tools/accept_reduce_variants.py (chain_propose's
+    among them) takes a part out of a kept kernel: every source edit
+    replaces a line found exactly once in csrc/ of chain_accept.cu,
+    vplus_reduce.cu or chain_propose.cu."""
+    name, edits = _ABLATIONS[k]
+    csrc = Path(_build.CSRC)
+    assert edits, name
+    for f, old, new in edits:
+        assert f in (_MODULE.ACCEPT, _MODULE.REDUCE, _MODULE.PROPOSE), (name, f)
+        assert (csrc / f).read_text().count(old) == 1, (name, f, old)
+        assert new != old, (name, old)

@@ -44,6 +44,17 @@ from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
 pytestmark = pytest.mark.cuda
 
 
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _chip_smoke()      # the edge shapes and inputs its phases 3, 3b and 3d check
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -613,45 +624,41 @@ def test_chain_accept_beyond_register_cache(cuda):
 
 
 @pytest.mark.parametrize("hot", [False, True], ids=["spread", "one-bin"])
-@pytest.mark.parametrize("memory", ["shared", "device"])
+@pytest.mark.parametrize("memory", ["shared", "device", "all-branch beyond SMEM_HIST_BINS"])
 def test_vplus_reduce_histogram_paths(cuda, memory, hot):
-    """vplus_reduce with its histogram in the warps' copies in shared memory
-    and in device memory (more than SMEM_HIST_BINS bins), after one
-    reallocation; with ``hot`` every sample of the first span of each chunk
-    in bin 0 of each slot."""
-    ninc = 1000 if memory == "shared" else 5000
-    f = lambda x, c: 1.0 / (1.0 + 10.0 * (x[0] * x[1] + x[2]))
-    cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0, ninc=ninc), dof=[[3]], seed=9)
-    it = VegasPlusIteration(Spec(cfg, cuda), f, block=4, nevalperblock=2 ** 16)
-    lay, params = it.layout, it.spec.device_params()
-    assert (lay.nhist <= vp.SMEM_HIST_BINS) == (memory == "shared")
-    it.run(params, block_keys(9, 0, 0, 4))
-    tab, kd = lay.tables(params), it.seeds(block_keys(9, 1, 0, 4))
-    cube, cfac = it.cube_tables()
-    x, gidx = vp.vplus_sample(lay, tab, kd, 0, it.chunks_per_launch, cube)
-    w = it.evaluate(lay.leaf_values(x)).contiguous()
-    if hot:
-        gidx[..., :vp.SPAN] = 0
-    before = vp.launch_counts["vplus_reduce"]
-    got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
-    want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac)
-    torch.cuda.synchronize()
-    for g, p in zip(got, want):
-        torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
-    assert float(got[1].sum()) > 0 and float(got[2].sum()) > 0
-    assert vp.launch_counts["vplus_reduce"] == before + 1
+    """vplus_reduce with its histogram whole in shared memory, and beyond
+    SMEM_HIST_BINS bins (added in windows of that many), after one
+    reallocation; the last case is phase 3d's all-branch spec with
+    ninc=5000 at its launch shape, at 3 seeds; with ``hot`` every sample of
+    the first span of each chunk in bin 0 of each slot."""
+    if memory.startswith("all-branch"):
+        its = [(cs.vplus_allbranch(mt, 2 ** 20, ninc=5000, device=cuda), seed)
+               for seed in (9, 10, 11)]
+    else:
+        ninc = 1000 if memory == "shared" else 5000
+        f = lambda x, c: 1.0 / (1.0 + 10.0 * (x[0] * x[1] + x[2]))
+        cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0, ninc=ninc), dof=[[3]], seed=9)
+        its = [(VegasPlusIteration(Spec(cfg, cuda), f, block=4, nevalperblock=2 ** 16), 9)]
+    for it, seed in its:
+        lay, params = it.layout, it.spec.device_params()
+        assert (lay.nhist <= vp.SMEM_HIST_BINS) == (memory == "shared")
+        it.run(params, block_keys(seed, 0, 0, it.block))
+        tab, kd = lay.tables(params), it.seeds(block_keys(seed, 1, 0, it.block))
+        cube, cfac = it.cube_tables()
+        x, gidx = vp.vplus_sample(lay, tab, kd, 0, it.chunks_per_launch, cube)
+        w = it.evaluate(lay.leaf_values(x)).contiguous()
+        if hot:
+            gidx[..., :vp.SPAN] = 0
+        before = vp.launch_counts["vplus_reduce"]
+        got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
+        want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac)
+        torch.cuda.synchronize()
+        for g, p in zip(got, want):
+            torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
+        assert float(got[1].sum()) > 0 and float(got[2].sum()) > 0
+        assert vp.launch_counts["vplus_reduce"] == before + 1
 
 
-
-def _chip_smoke():
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-cs = _chip_smoke()      # the edge shapes and inputs its phases 3 and 3d check
 
 
 def _reduce_vs_plain(args, mobs):
@@ -713,3 +720,27 @@ def test_vplus_sample_shapes(cuda, k):
     assert _bits_equal(x, xp) and torch.equal(gidx, gidxp)
     assert _bits_equal(x, x2) and torch.equal(gidx, gidx2)
     assert vp.launch_counts["vplus_sample"] == before + 2
+
+
+@pytest.mark.parametrize("k", range(len(cs.VEGAS_EDGES)), ids=[e[0] for e in cs.VEGAS_EDGES])
+def test_vegas_sample_shapes(cuda, k):
+    """vegas_sample bit-equal to its plain version (chip_smoke.VEGAS_EDGES):
+    one stratum, 7 and 32768 strata, m with scalar draws and with quads
+    (the main path's 1024), slots on two leaves, t0 > 0 and T > 1; two
+    calls bit-equal."""
+    before = vk.launch_counts["vegas_sample"]
+    cs.vegas_sample_edge(mt, vk, cs.VEGAS_EDGES[k], device=cuda)
+    assert vk.launch_counts["vegas_sample"] == before + 2
+
+
+@pytest.mark.parametrize("k", range(len(cs.PROPOSE_EDGES)),
+                         ids=[e[0] for e in cs.PROPOSE_EDGES])
+def test_chain_propose_shapes(cuda, k):
+    """chain_propose bit-equal to its plain version (chip_smoke.PROPOSE_EDGES)
+    with init = 1 and on a step: a Discrete CDF staged and one searched in
+    device memory, groups of different maxdof with fewer eligible groups
+    than pools, and Monte Carlo blocks and walker counts that are not a
+    multiple of the kernel's thread blocks."""
+    ck.reset_launch_counts()
+    cs.chain_propose_edge(mt, ck, cs.PROPOSE_EDGES[k], device=cuda)
+    assert ck.launch_counts["chain_propose"] == 5     # init, start, two steps, the step

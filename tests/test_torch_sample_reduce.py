@@ -1,17 +1,21 @@
-"""PyTorch port: what ``vplus_sample`` and ``vegas_reduce`` take from the host.
+"""PyTorch port: what ``vplus_sample``, ``vegas_sample`` and ``chain_propose``
+take from the host, and what ``vegas_reduce`` does.
 
-``vplus_sample`` forms a sample's stratified coordinates by successive
-divisions of its cube index by ``nstrat``, each a multiply and a shift by
+Three kernels divide by a runtime divisor as a multiply and a shift by
 ``(mul, shift)``, which the launch computes on the host
-(``csrc/vplus_sample.cu:divisor``).  ``divisor`` below is its model: the
-tests hold it, and the coordinates it gives, against floor division and
-``%``.  The kernel takes the d-th stratified slot's coordinate from the
-d-th division, which needs the layout to give the stratified slots the
-strides ``nstrat^d`` in slot order.
-``tools/sample_reduce_variants.py`` times variants of both kernels built
-from edited copies of their sources; each edit must still find its line.
-The kernels themselves are held to their plain versions on the card
-(``tests/test_torch_cuda.py``).
+(``csrc/divide.cuh:divisor``).  ``divisor`` below is its model: the tests
+hold it, and every quotient the kernels form with it, against floor
+division and ``%``.  ``vplus_sample`` forms a sample's stratified
+coordinates by successive divisions of its cube index by ``nstrat``, and
+takes the d-th stratified slot's coordinate from the d-th division, which
+needs the layout to give the stratified slots the strides ``nstrat^d`` in
+slot order.  ``vegas_sample`` forms a draw's stratum ``p = e / m`` (of its
+quad ``Q = e / 4`` by ``m / 4`` where ``m % 4 == 0``) and the permuted
+stratum ``(a*p + s) mod nb``; ``chain_propose`` a walker's block ``w / wb``.
+``tools/sample_reduce_variants.py`` times variants of ``vegas_reduce``,
+``vplus_sample`` and ``vegas_sample`` built from edited copies of their
+sources; each edit must still find its line.  The kernels themselves are
+held to their plain versions on the card (``tests/test_torch_cuda.py``).
 """
 
 import importlib.util
@@ -30,7 +34,7 @@ MAX_CUBES = 16384    # the solver's default bound on nstrat^D (solvers/vegasplus
 
 
 def divisor(n):
-    """``(mul, shift)`` of ``csrc/vplus_sample.cu:divisor``."""
+    """``(mul, shift)`` of ``csrc/divide.cuh:divisor``."""
     l = 0
     while (1 << l) < n:
         l += 1
@@ -82,6 +86,106 @@ def test_divisor_exact_below_2_31():
         assert np.array_equal(divide(x, mul, shift), x // np.uint64(n)), n
 
 
+MAX_STRATA = 32768   # ops/vegas_kernels.py
+MAX_M_TILE = 2048    # solvers/vegas.py:pick_m_tile
+
+
+def _vegas_strata(m, chunk, vec):
+    """(p, q) of every draw index e < chunk as vegas_sample forms them: of
+    its quad Q = e / 4 by m / 4 (vec), or of e by m."""
+    e = np.arange(chunk, dtype=np.uint64)
+    if vec:
+        mul, shift = divisor(m // 4)
+        p = divide(e // np.uint64(4), mul, shift)
+    else:
+        mul, shift = divisor(m)
+        p = divide(e, mul, shift)
+    return p, e - p * np.uint64(m)
+
+
+def _index_model_e_over_m_quads():
+    """p and q of every draw of the largest chunk (MAX_STRATA strata of
+    MAX_M_TILE samples) and of every chunk of m = 4..MAX_M_TILE in steps of
+    4 at a few strata counts, from the quads."""
+    mul, shift = divisor(MAX_M_TILE // 4)
+    step = 2 ** 21
+    for q0 in range(0, MAX_STRATA * MAX_M_TILE // 4, step):   # every quad, in pieces
+        Q = np.arange(q0, q0 + step, dtype=np.uint64)
+        assert np.array_equal(divide(Q, mul, shift), Q // np.uint64(MAX_M_TILE // 4)), q0
+    for m in range(4, MAX_M_TILE + 1, 4):
+        for nb in (1, 7, 1024):
+            e = np.arange(nb * m, dtype=np.uint64)
+            p, q = _vegas_strata(m, nb * m, True)
+            assert np.array_equal(p, e // np.uint64(m)) and np.array_equal(q, e % np.uint64(m)), m
+
+
+def _index_model_e_over_m_scalar():
+    """p and q of every draw of every chunk of m = 1..MAX_M_TILE at a few
+    strata counts, and of the largest flat index the scalar path takes
+    (below 2^31) at every m < 128 (pick_m_tile's other sizes)."""
+    for m in range(1, MAX_M_TILE + 1):
+        for nb in (1, 3, 37):
+            e = np.arange(nb * m, dtype=np.uint64)
+            p, q = _vegas_strata(m, nb * m, False)
+            assert np.array_equal(p, e // np.uint64(m)) and np.array_equal(q, e % np.uint64(m)), m
+    top = 2 ** 31 - 1
+    for m in range(1, 128):
+        mul, shift = divisor(m)
+        e = np.arange(top - 4096, top + 1, dtype=np.uint64)
+        e = np.concatenate([e, np.arange(0, top, top // 8191, dtype=np.uint64)])
+        assert np.array_equal(divide(e, mul, shift), e // np.uint64(m)), m
+
+
+def _index_model_strata_permutation():
+    """(a*p + s) mod nb for every nb <= MAX_STRATA, with the largest
+    multiplier and stratum (nb - 1) and every s, and with random a, p, s:
+    a*p + s < nb^2 <= 2^30 stays inside the divisor's exact range."""
+    rng = np.random.default_rng(11)
+    for nb in range(1, MAX_STRATA + 1):
+        mul, shift = divisor(nb)
+        s = np.arange(nb, dtype=np.uint64)
+        big = np.uint64(nb - 1)
+        r = np.concatenate([big * big + s, rng.integers(0, nb, 64, dtype=np.uint64)
+                            * rng.integers(0, nb, 64, dtype=np.uint64)
+                            + rng.integers(0, nb, 64, dtype=np.uint64)])
+        assert int(r.max()) < 2 ** 31
+        pm = r - divide(r, mul, shift) * np.uint64(nb)
+        assert np.array_equal(pm, r % np.uint64(nb)), nb
+
+
+def _index_model_walker_decode():
+    """w -> (b, j) = (w / wb, w - b*wb) for the walker counts a block may
+    hold: every w at small wb, the edges of every block and random w at
+    large ones, up to W = block * wb < 2^31."""
+    rng = np.random.default_rng(12)
+    for wb in list(range(1, 2049)) + [4095, 65536, 65537, 2 ** 20 - 1, 2 ** 20, 2 ** 27 + 3,
+                                      2 ** 30, 2 ** 31 - 1]:
+        block = max(1, min(64, (2 ** 31 - 1) // wb))
+        mul, shift = divisor(wb)
+        if wb <= 2048:
+            w = np.arange(block * wb, dtype=np.uint64)
+        else:
+            k = np.arange(block, dtype=np.uint64) * np.uint64(wb)
+            w = np.concatenate([k, k + np.uint64(wb - 1), k[1:] - np.uint64(1),
+                                rng.integers(0, block * wb, 4096, dtype=np.uint64)])
+        b = divide(w, mul, shift)
+        assert np.array_equal(b, w // np.uint64(wb)), wb
+        assert np.array_equal(w - b * np.uint64(wb), w % np.uint64(wb)), wb
+
+
+INDEX_MODELS = {"e / m, quads": _index_model_e_over_m_quads,
+                "e / m, scalar": _index_model_e_over_m_scalar,
+                "(a*p + s) mod nb": _index_model_strata_permutation,
+                "walker decode": _index_model_walker_decode}
+
+
+@pytest.mark.parametrize("name", list(INDEX_MODELS))
+def test_index_model_by_multiply_and_shift(name):
+    """Every quotient vegas_sample and chain_propose form by multiply and
+    shift (csrc/divide.cuh) is the floor division over its whole range."""
+    INDEX_MODELS[name]()
+
+
 SPECS = ["3-D", "passenger between pools", "composite with a passenger"]
 
 
@@ -125,12 +229,13 @@ _VARIANTS = _MODULE.variants() + _MODULE.ablations()
 def test_sample_reduce_variant_edits_find_their_lines(k):
     """Each variant and ablation of tools/sample_reduce_variants.py changes
     the kept kernels: every source edit replaces a line found exactly once
-    in csrc/, and each touches vegas_reduce.cu or vplus_sample.cu."""
+    in csrc/, and each touches vegas_reduce.cu, vplus_sample.cu or
+    vegas_sample.cu."""
     name, edits = _VARIANTS[k]
     csrc = Path(_build.CSRC)
     assert edits, name
     for f, old, new in edits:
-        assert f in (_MODULE.REDUCE, _MODULE.SAMPLE), (name, f)
+        assert f in (_MODULE.REDUCE, _MODULE.SAMPLE, _MODULE.VSAMPLE), (name, f)
         assert (csrc / f).read_text().count(old) == 1, (name, f, old)
         assert new != old, (name, old)
 
@@ -145,4 +250,6 @@ def test_kernel_names_in_the_sass():
         "vegas_reduce_kernel<1>"
     assert kn("_ZN12_GLOBAL__N_119vplus_sample_kernelEPKjiiiiiiPKiS2_PKfPiS5_") == \
         "vplus_sample_kernel"
+    assert kn("_ZN12_GLOBAL__N_119vegas_sample_kernelILb1EEEvPKjijjiijijiPKiPKfS6_S4_PfS7_Pi") \
+        == "vegas_sample_kernel<1>"
     assert kn("_ZN12_GLOBAL__N_117vegas_relw_kernelEPKfS1_") is None

@@ -3,16 +3,16 @@
     python3 tools/main_path_rates.py [DIR]      # on a CUDA card
 
 Runs ``chip_smoke.py``'s phases 4 (``:vegas`` on the 2-D pi problem at 2^30
-evaluations per iteration), 4d (``:vegasplus`` on ``singular_3d`` at 2^30,
-then ``:vegas`` on the same budget) and 4e (the quickstart's 10-bin
-histogram on ``:vegas`` at 2^30 and on ``:vegasmc`` at 2^28) through
+evaluations per iteration), 4b (``:vegasmc`` on it at 2^28 with 2^20
+walkers), 4d (``:vegasplus`` on ``singular_3d`` at 2^30, then ``:vegas`` on
+the same budget) and 4e (the quickstart's 10-bin histogram on ``:vegas`` at
+2^30 and on ``:vegasmc`` at 2^28) through
 ``integrate``, with the ``chip_smoke.py`` and ``mcintegration_tpu_torch`` of
 the checkout at ``DIR`` (default: this one), whose kernels it builds first.
 Each phase checks its result as ``chip_smoke.py`` does and prints its
 steady-state rate (iterations 2-10).  To compare two checkouts on one card,
 run it for each in one call, in turns (parent, change, change, parent):
-each run is a process of its own and imports its own package.  Phase 4e's
-ratio to phase 4b's rate prints as nan: phase 4b does not run here.
+each run is a process of its own and imports its own package.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ def main() -> int:
     _build.load()
     print(f"main_path_rates: {root} ({_build.library_path().name}) [{card}]", flush=True)
     _, _, rate4 = cs.main_path(mt, vk, card)
+    _, rate4b = cs.chain_main_path(mt, ck, card)
     cs.vplus_main_path(mt, vp, card)
-    cs.measure_main_path(mt, vk, ck, card, {"4": rate4, "4b": float("nan")})
+    cs.measure_main_path(mt, vk, ck, card, {"4": rate4, "4b": rate4b})
     return 0
 
 

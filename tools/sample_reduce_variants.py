@@ -1,12 +1,14 @@
-"""Variants of ``vegas_reduce`` and ``vplus_sample``, timed on the card beside the kept kernels.
+"""Variants of ``vegas_reduce``, ``vplus_sample`` and ``vegas_sample``, timed on the card beside the kept kernels.
 
 Builds the kernel library of ``mcintegration_tpu_torch/csrc`` as it stands,
 then one library per variant: a copy of the sources with a few lines of
-``vegas_reduce.cu`` or ``vplus_sample.cu`` rewritten (blocks per SM and
-quads in flight, lanes a column, streaming loads, a row's bins at N = 1
-without shared memory; samples a thread, the hash's salt term formed once a
-block, 16-byte stores, the divisor by multiply and shift).  Ablations take a part of a
-kept kernel out (results wrong, so unchecked) to price it.  With
+``vegas_reduce.cu``, ``vplus_sample.cu`` or ``vegas_sample.cu`` rewritten
+(blocks per SM and quads in flight, lanes a column, streaming loads, a
+row's bins at N = 1 without shared memory; samples a thread, the hash's
+salt term formed once a block, 16-byte stores, the divisor by multiply and
+shift; quads a thread, the group's values formed by every thread).
+Ablations take a part of a kept kernel out (results wrong, so unchecked)
+to price it.  With
 ``--baseline DIR``, the kernels of another checkout at ``DIR`` (its
 ``csrc``, whose entry points take the same arguments) run first and last,
 in turns with the kept ones.
@@ -16,9 +18,11 @@ phase 6 (the quarter disc, 2^26 samples, N = 1), given the measure's output
 at phase 6e (the quickstart's histogram, 10 components, 2^26 samples) and
 with 64 components (2^24 samples, the launch ``MEASURE_LAUNCH_BYTES``
 allows); ``vplus_sample`` on one launch of phase 6d (``singular_3d``, 2^26
-samples, 3 slots) and on phase 3d's all-branch spec.  Each variant is held
-against the plain versions (``vegas_reduce`` to ``REL_TOL_REDUCE``,
-``vplus_sample`` bit for bit) and timed on the device with the calls queued
+samples, 3 slots) and on phase 3d's all-branch spec; ``vegas_sample`` on one
+launch of phase 6 (2 slots, 2^26 samples).  A variant runs the cases of the
+kernels it edits (the kept and the baseline kernels all).  Each variant is
+held against the plain versions (``vegas_reduce`` to ``REL_TOL_REDUCE``,
+the two draws bit for bit) and timed on the device with the calls queued
 behind a sleep kernel, the median of three runs of 20 calls.  Before the
 runs it prints, per kernel instantiation of each library, its SASS
 instructions and the instructions that mark a division (``MUFU.RCP``, and
@@ -51,8 +55,8 @@ import accept_reduce_variants as arv  # noqa: E402  (building another checkout's
 import chip_smoke as cs  # noqa: E402  (the configurations, timers and checks)
 import mcmc_variants as mv  # noqa: E402  (compiles the variants)
 
-REDUCE, SAMPLE = "vegas_reduce.cu", "vplus_sample.cu"
-KERNELS = ("vegas_reduce_kernel", "vplus_sample_kernel")
+REDUCE, SAMPLE, VSAMPLE = "vegas_reduce.cu", "vplus_sample.cu", "vegas_sample.cu"
+KERNELS = ("vegas_reduce_kernel", "vplus_sample_kernel", "vegas_sample_kernel")
 
 
 def variants():
@@ -103,6 +107,32 @@ def variants():
         ("sample, integer division by nstrat",
          [(SAMPLE, "const uint32_t next = divide(q[v], mul, shift);",
            "const uint32_t next = q[v] / nstrat;")]),
+        ("vegas sample 2 quads a thread", [(VSAMPLE, "constexpr int kQuads = 8; ",
+                                            "constexpr int kQuads = 2; ")]),
+        ("vegas sample 4 quads a thread", [(VSAMPLE, "constexpr int kQuads = 8; ",
+                                            "constexpr int kQuads = 4; ")]),
+        ("vegas sample 16 quads a thread", [(VSAMPLE, "constexpr int kQuads = 8; ",
+                                             "constexpr int kQuads = 16; ")]),
+        ("vegas sample, cached stores",
+         [(VSAMPLE, "        __stcs(reinterpret_cast<float4*>(xg) + Q,",
+           "        __stwb(reinterpret_cast<float4*>(xg) + Q,")]),
+        ("vegas sample 4 blocks per SM", [(VSAMPLE, "constexpr int kBlocksPerSm = 8; ",
+                                           "constexpr int kBlocksPerSm = 4; ")]),
+        ("vegas sample, scalar stores",
+         [(VSAMPLE, "const bool vec = m % 4 == 0 &&", "const bool vec = false && m % 4 == 0 &&")]),
+        ("vegas sample, integer divisions",
+         [(VSAMPLE, "        const uint32_t p = divide(Q, mulm, shm);\n"
+                    "        const uint32_t r = (uint32_t)G.a * p + (uint32_t)G.s;\n"
+                    "        const int pm = (int)(r - divide(r, mulnb, shnb) * (uint32_t)nb);\n"
+                    "        const float gv = gr[pm], dx = ic[pm];",
+           "        const uint32_t p = Q / qrow;\n"
+           "        const int pm = (int)(((uint32_t)G.a * p + (uint32_t)G.s) % (uint32_t)nb);\n"
+           "        const float gv = gr[pm], dx = ic[pm];")]),
+        ("vegas sample, the group's values formed by every thread",
+         [(VSAMPLE, "  __shared__ Group sg;\n", "  Group sg;\n"),
+          (VSAMPLE, "  if (threadIdx.x == 0) {\n    const uint32_t bt = g % (B * T);",
+           "  {\n    const uint32_t bt = g % (B * T);"),
+          (VSAMPLE, "  __syncthreads();\n  const Group G = sg;", "  const Group G = sg;")]),
     ]
 
 
@@ -141,6 +171,15 @@ def ablations():
         ("sample, every slot stored over slot 0",
          [(SAMPLE, "const size_t row = k * plane + (size_t)bt * c;",
            "const size_t row = (size_t)bt * c;")]),
+        ("vegas sample without the hash",
+         [(VSAMPLE, "const uint32_t u = mix32(mix32(i ^ G.k1) + G.kc);",
+           "const uint32_t u = i ^ G.k1;")]),
+        ("vegas sample without the map's gathers",
+         [(VSAMPLE, "const float gv = gr[pm], dx = ic[pm];\n        const uint32_t e = 4u * Q;",
+           "const float gv = (float)pm, dx = 0.5f;\n        const uint32_t e = 4u * Q;")]),
+        ("vegas sample without invp and perm",
+         [(VSAMPLE, "        if (Q == p * qrow) {   // this quad starts row p",
+           "        if (Q == p * qrow && G.a < 0) {   // this quad starts row p")]),
     ]
 
 
@@ -175,10 +214,11 @@ def sass_counts(lib_path):
 
 
 def ptxas_report(csrc):
-    """ptxas -v's lines on the kernels of vegas_reduce.cu and vplus_sample.cu."""
+    """ptxas -v's lines on the kernels of vegas_reduce.cu, vplus_sample.cu and
+    vegas_sample.cu."""
     from mcintegration_tpu_torch.ops import _build
     out = []
-    for src in (REDUCE, SAMPLE):
+    for src in (REDUCE, SAMPLE, VSAMPLE):
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                                "-o", str(_build.BUILD_DIR / "ptxas.o"), str(Path(csrc) / src)],
                               capture_output=True, text=True)
@@ -271,6 +311,41 @@ def sample_run(vp, case, check=True):
     return ms, err
 
 
+def vegas_cases(mt):
+    """(name, inputs, T, m, plain x, invp, perm) of vegas_sample's case:
+    one launch of phase 6 (the quarter disc, 2 slots)."""
+    import torch
+    from mcintegration_tpu_torch.ops import vegas_kernels as vk
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+
+    cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=cs.SEED)
+    it = VegasIteration(Spec(cfg, "cuda"), cs._pi, block=16, nevalperblock=2 ** 30 // 16)
+    inputs = it.kernel_inputs(it.spec.device_params(), block_keys(cs.SEED, 0, 0, it.block))
+    T = it.chunks_per_launch
+    want = vk.vegas_sample_plain(t0=0, T=T, m=it.m_tile, **inputs)
+    torch.cuda.synchronize()
+    return [("6", inputs, T, it.m_tile, want)]
+
+
+def vegas_run(vk, case, check=True):
+    """(ms, max abs err) of vegas_sample on one case; unchecked: (ms, 0)."""
+    import torch
+    name, inputs, T, m, want = case
+    err = 0.0
+    if check:
+        got = vk.vegas_sample(t0=0, T=T, m=m, **inputs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(cs.bits(a), cs.bits(b)) for a, b in zip(got, want)):
+            raise AssertionError(f"vegas_sample, {name}: differs from the plain version")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        del got
+    ms = float(np.median([cs.device_ms(lambda: vk.vegas_sample(t0=0, T=T, m=m, **inputs), 20)
+                          for _ in range(3)]))
+    return ms, err
+
+
 def yardstick(reduces, card):
     """PyTorch's float64 sum of each measure case's m, device ms."""
     import torch
@@ -311,22 +386,28 @@ def main() -> int:
     built = mv.build([(name, edits, None, None) for name, edits in vs])
     reduces = reduce_cases(mt, vk)
     samples = sample_cases(mt, vp)
+    draws = vegas_cases(mt)
     yardstick(reduces, card)
     print(f"device ms per call, median of 3 runs of 20 [{card}]", flush=True)
+    files = {name: {f for f, _, _ in edits} for name, edits in vs}
     runs += [(name, lib) for (name, _), lib in zip(vs, built)]
     runs += [(name + ", again", lib) for name, lib in runs[:1 + bool(root)][::-1]]
     bad = []
     for name, lib in runs:
         _build._lib = lib
         cells = []
+        edited = files.get(name, {REDUCE, SAMPLE, VSAMPLE})    # kept and baseline: all
         try:
             check = name not in unchecked
-            for case in reduces:
+            for case in reduces if REDUCE in edited else ():
                 ms, rel = reduce_run(vk, case, check)
                 cells.append(f"reduce {case[0]} {ms!r} (rel {rel:.3g})")
-            for case in samples:
+            for case in samples if SAMPLE in edited else ():
                 ms, err = sample_run(vp, case, check)
                 cells.append(f"sample {case[0]} {ms!r} (err {err:.3g})")
+            for case in draws if VSAMPLE in edited else ():
+                ms, err = vegas_run(vk, case, check)
+                cells.append(f"vegas sample {case[0]} {ms!r} (err {err:.3g})")
         except (AssertionError, RuntimeError) as e:
             cells.append(f"FAILED: {e}")
             bad.append(name)
