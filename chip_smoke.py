@@ -21,13 +21,17 @@ with nvcc and drives every ported path on the card.
   step, and a profile of three iterations.
 - :mcmc with FermiK pools and a custom measure (phases 3c-7c):
   ``mcmc_propose``, ``mcmc_accept`` and ``mcmc_measure`` against their plain
-  versions from one state at 2^20 walkers and over a whole iteration,
+  versions from one state at 2^20 walkers and over a whole iteration (one
+  ``mcmc_measure`` launch per measured step for both integrands, and two
+  launches, bit-equal, over ``MAX_SECTORS + 1`` sectors),
   ``integrate(solver="mcmc", device="cuda")`` on the Lindhard bubble at 2^28
   evals per iteration with 2^18 walkers against the Lindhard function, pi,
   the unit balls, a Discrete pool and the FermiK shells against their exact
-  values, time per step (``mcmc_accept`` on measured and unmeasured steps),
-  the bounds from each step's bytes and operations, a probe of what mixed
-  var groups cost ``mcmc_propose``, and a profile of one iteration.
+  values, time per step (``mcmc_accept`` on measured and unmeasured steps;
+  ``mcmc_measure`` with L2 warm and flushed, its bytes in whole 32-byte
+  sectors, and at phase 3c's two integrands), the bounds from each step's
+  bytes and operations, and a profile of one iteration with each kernel's
+  device time per launch.
 
 - custom measures on :vegas and :vegasmc (phases 3e, 4e, 6e): ``chain_accept``
   writing the relative weights and ``chain_measure`` at 2^20 walkers with 10
@@ -482,10 +486,11 @@ def timings(mt, vk, shape, card):
             "vegas_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"], *b_reduce)}
 
 
-def profile_main_path(card, phase, run):
+def profile_main_path(card, phase, run, per_launch=()):
     """Phase 7/7b/7c: torch.profiler over ``run()``, iterations of
     integrate() at a main path's size (phase 4, 4b or 4c ran it already, so
-    nothing is built or touched first here); returns its Result."""
+    nothing is built or touched first here); the device time per launch of
+    each kernel whose name holds one of ``per_launch``; returns its Result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -496,12 +501,13 @@ def profile_main_path(card, phase, run):
         res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, launches = [], {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                           - e.time_range.start)
+            launches[e.name] = launches.get(e.name, 0) + 1
     if not spans:
         raise AssertionError("torch.profiler recorded no device time")
     busy, reach = 0.0, -np.inf          # union of the device intervals, in us
@@ -517,6 +523,12 @@ def profile_main_path(card, phase, run):
           f"{1 - busy_s / wall!r} [{card}]")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"phase {phase}: {us * 1e-3!r} ms on the device in {name[:90]}")
+    for key in per_launch:
+        names = [name for name in by_name if key in name]
+        n, us = sum(launches[x] for x in names), sum(by_name[x] for x in names)
+        assert n, f"phase {phase}: no launch of {key} in the profile"
+        print(f"phase {phase}: {key}: {n} launches, {us * 1e-3 / n!r} ms per launch on the "
+              f"device [{card}]")
     return res
 
 
@@ -1059,10 +1071,9 @@ def mcmc_one_step(it, mk, st, tab, rw, kd, sched, group, t, what, measure=True):
     if not measure or it.measure is None:
         return e_prop, e_acc, 0.0
     vals = lay.leaf_values(st.cur_val)
-    for i, m in enumerate(it.measure):
-        out = m(vals, st.relw).contiguous()
-        mk.mcmc_measure(lay, i, out, st)
-        mk.mcmc_measure_plain(lay, i, out, ref)
+    ms = [m(vals, st.relw).contiguous() for m in it.measure]
+    mk.mcmc_measure(lay, ms, st)
+    mk.mcmc_measure_plain(lay, ms, ref)
     torch.cuda.synchronize()
     e_meas = state_bits_equal(st, ref, f"mcmc_measure {what}", hist_rel=0.0)
     return e_prop, e_acc, e_meas
@@ -1093,7 +1104,10 @@ def mcmc_vs_plain(mt, mk, card):
 
     it = mcmc_allbranch(mt, 2 ** 18)
     kd = block_keys(SEED, 1, 0, it.block)
+    before = mk.launch_counts["mcmc_measure"]
     got = it.run(it.spec.device_params(), kd)
+    n_measure = mk.launch_counts["mcmc_measure"] - before
+    assert n_measure == it.nsteps, (n_measure, it.nsteps)
     with plain_versions(mk, "mcmc_propose", "mcmc_accept", "mcmc_measure"):
         want = it.run(it.spec.device_params(), kd)
     for key in ("obs_blocks", "norm_blocks", "visited", "propose", "accept"):
@@ -1105,8 +1119,38 @@ def mcmc_vs_plain(mt, mk, card):
     if not all(np.array_equal(h, r) for h, r in zip(got["hists"], want["hists"])):
         raise AssertionError("whole :mcmc iteration: hists differ from the plain versions")
     print(f"phase 3c: whole iteration (W={it.nwalkers}, {it.nsteps} + {it.nburnin} steps): "
-          f"obs, norm, visited, tallies and histograms equal (rel 0)")
-    return errs
+          f"obs, norm, visited, tallies and histograms equal (rel 0); {n_measure} mcmc_measure "
+          f"launches for its {it.nsteps} measured steps of {it.spec.N} sectors")
+    err_many, launches = measure_many_sectors(mt, mk)
+    print(f"phase 3c: mcmc_measure over {mk.MAX_SECTORS + 1} sectors: {launches} launches, "
+          f"every field bit-equal to the plain version")
+    return errs[0], errs[1], max(errs[2], err_many)
+
+
+def measure_many_sectors(mt, mk, W=2 ** 16, device="cuda"):
+    """mcmc_measure over MAX_SECTORS + 1 sectors (two launches) against its
+    plain version, from random sectors (the normalization sector included),
+    outputs and accumulators: (max abs err, launches)."""
+    import torch
+    from mcintegration_tpu_torch.solvers.engine import Spec
+
+    N, ncomp = mk.MAX_SECTORS + 1, 3
+    spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[1]] * N, seed=SEED), device)
+    lay = mk.McmcLayout.build(spec, 16, W // 16, ncomp, True)
+    rng = np.random.default_rng(SEED)
+    st = mk.McmcState.zeros(lay)
+    st.curr.copy_(torch.as_tensor(rng.integers(0, N + 1, W).astype(np.int32)))
+    st.obs.copy_(torch.as_tensor(rng.normal(size=(ncomp, W))))
+    ms = [torch.as_tensor(rng.normal(size=(ncomp, W)).astype(np.float32), device=device)
+          for _ in range(N)]
+    ref = st.clone()
+    before = mk.launch_counts["mcmc_measure"]
+    mk.mcmc_measure(lay, ms, st)
+    launches = mk.launch_counts["mcmc_measure"] - before
+    mk.mcmc_measure_plain(lay, ms, ref)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return state_bits_equal(st, ref, f"mcmc_measure over {N} sectors", hist_rel=0.0), launches
 
 
 def mcmc_main_path(mt, mk, card, niter=10):
@@ -2286,8 +2330,8 @@ def mcmc_bytes(it, st, after):
     ``mcmc_propose``; ``after``: the state after ``mcmc_accept``), from the
     roles they drew, the moves accepted and the sectors they sit in: each
     field read once and written once where the kernel touches it.  Returns
-    (propose, accept on a measured step, accept on an unmeasured one,
-    measure of sector 0)."""
+    (propose, accept on a measured step, accept on an unmeasured one, the
+    measure over every sector's walkers outside the normalization sector)."""
     lay = it.layout
     W, nvar, norm = lay.W, lay.spec.nvar, lay.nd - 1
     role = np.bincount(st.move[0].cpu().numpy(), minlength=5)
@@ -2295,7 +2339,7 @@ def mcmc_bytes(it, st, after):
     acc = (after.tally[1] - st.tally[1]).cpu().numpy()   # [CI and NJ, CV, swap, nd, ncol]
     n_acc, n_jump = int(acc.sum()), int(acc[0].sum())
     curr = after.curr.cpu().numpy()
-    n_norm, n_zero = int((curr == norm).sum()), int((curr == 0).sum())
+    n_norm = int((curr == norm).sum())
     fields = [lay.fields(d) for d in range(len(lay.dleaf))]
     slot = [4 * f["width"] + 8 for f in fields]       # value rows, gidx and prob
     grp = np.mean([sum(slot[lo:hi]) for lo, hi, _ in lay.groups if hi > lo])
@@ -2326,9 +2370,54 @@ def mcmc_bytes(it, st, after):
             used = np.minimum(after.dof[f["group"]].cpu().numpy(), f["ndraw"])
             measured += 4 * int(outside.sum()) + 4 * int(used[outside].sum())
     measured += n_norm * 16
-    # measure: curr in; m in and obs (float64) in and out where curr == 0
-    measure = W * 4 + n_zero * lay.ncomp * 20
-    return propose, accept + measured, accept, measure
+    return propose, accept + measured, accept, measure_bytes(curr, norm, lay.ncomp)
+
+
+def measure_bytes(curr, N, ncomp):
+    """Bytes mcmc_measure must move: curr in; a walker outside the
+    normalization sector (``curr < N``) its own sector's m in and obs
+    (float64) in and out.  At N = 1 these are the walkers of sector 0."""
+    return curr.size * 4 + int((curr < N).sum()) * ncomp * 20
+
+
+def measure_sector_bytes(curr, N, ncomp):
+    """What mcmc_measure moves in whole 32-byte sectors: all of curr; of
+    sector i's output, the sectors of its ncomp rows that hold a walker at
+    ``curr == i`` (8 walkers a sector); of obs, read and written, the
+    sectors that hold a walker outside the normalization sector (4 walkers a
+    sector).  Rows start on 32-byte boundaries (W a multiple of 8)."""
+    nbytes = curr.size * 4
+    for i in range(N):
+        nbytes += ncomp * 32 * np.unique(np.flatnonzero(curr == i) // 8).size
+    return nbytes + 2 * ncomp * 32 * np.unique(np.flatnonzero(curr < N) // 4).size
+
+
+L2_FLUSH_BYTES = 2 ** 28    # written between calls: five times the H100's 50 MB L2
+
+
+def flushed_ms(fn, reps=50, tries=5):
+    """(device ms per call of ``fn`` with the L2 cache flushed before each
+    call, ms of a flush alone): ``reps`` pairs (zero a buffer of
+    ``L2_FLUSH_BYTES``, call) queued behind a sleep kernel, less ``reps``
+    flushes alone; medians of ``tries`` turns of the two."""
+    import torch
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def alone():
+        for _ in range(reps):
+            buf.zero_()
+
+    def both():
+        for _ in range(reps):
+            buf.zero_()
+            fn()
+
+    t_alone, t_both = [], []
+    for _ in range(tries):
+        t_alone.append(device_ms(alone, 1))
+        t_both.append(device_ms(both, 1))
+    flush = float(np.median(t_alone)) / reps
+    return float(np.median(t_both)) / reps - flush, flush
 
 
 # Operations, (integer, float32), one per source-level operation of
@@ -2492,8 +2581,10 @@ def mcmc_timings(mt, mk, card):
                 lambda: acc(lay, tab, rw, kd, sched, T, st, nw, measure=True), reps))
             ms["accept_u" + sfx].append(timer(
                 lambda: acc(lay, tab, rw, kd, sched, T, st, nw, measure=False), reps))
-            ms["measure" + sfx].append(timer(lambda: meas(lay, 0, m, st), reps))
+            ms["measure" + sfx].append(timer(lambda: meas(lay, [m], st), reps))
     ms = {k: float(np.mean(v)) for k, v in ms.items()}
+    ms_flushed, ms_flush = flushed_ms(lambda: mk.mcmc_measure(lay, [m], st))
+    sector_bytes = measure_sector_bytes(st.curr.cpu().numpy(), lay.spec.N, lay.ncomp)
     # few calls at a time behind the sleep kernel: a step issues about 60
     # launches, and the host blocks once about a thousand are pending
     ms_integrand = device_ms(lambda: it.weights(st, groups[T + 1]), 5)
@@ -2512,8 +2603,12 @@ def mcmc_timings(mt, mk, card):
           f"ms/unmeasured step, {mean(ms['accept'], ms['accept_u'])!r} ms weighted by the "
           f"{n_m} measured and {n_u} unmeasured launches of an iteration; plain torch "
           f"{ms['accept_plain']!r} and {ms['accept_u_plain']!r} ms (host clock) [{card}]")
-    print(f"phase 6c: mcmc_measure {ms['measure']!r} ms/step, plain torch "
-          f"{ms['measure_plain']!r} ms (host clock) [{card}]")
+    print(f"phase 6c: mcmc_measure {ms['measure']!r} ms/step with L2 warm (the same inputs "
+          f"back to back), {ms_flushed!r} ms with L2 flushed before each call (less the "
+          f"flush's own {ms_flush!r} ms); plain torch {ms['measure_plain']!r} ms (host "
+          f"clock) [{card}]")
+    print(f"phase 6c: mcmc_measure moves {sector_bytes} bytes in whole 32-byte sectors, "
+          f"{sector_bytes / PEAK_BYTES * 1e3!r} ms at 3.35 TB/s")
     print(f"phase 6c: integrand (torch) {ms_integrand!r} ms/step, custom measure (torch) "
           f"{ms_measure_fn!r} ms/measured step [{card}]")
     print(f"phase 6c: whole measured step on the device {ms_step_dev!r} ms; as the host "
@@ -2528,6 +2623,7 @@ def mcmc_timings(mt, mk, card):
               f"integer and {of:.0f} float32 operations; by {bounds[name][1]})")
     b_acc = mean(bounds["mcmc_accept measured"][0], bounds["mcmc_accept unmeasured"][0])
     print(f"phase 6c: mcmc_accept bound weighted by launches {b_acc!r} ms")
+    measure_two_sectors(mt, mk, card)
     return {"mcmc_propose": (errs[0], ms["propose"], ms["propose_plain"],
                              *bounds["mcmc_propose"]),
             "mcmc_accept": (max(errs[1], errs_u[1]), mean(ms["accept"], ms["accept_u"]),
@@ -2535,6 +2631,52 @@ def mcmc_timings(mt, mk, card):
                             bounds["mcmc_accept measured"][1]),
             "mcmc_measure": (errs[2], ms["measure"], ms["measure_plain"],
                              *bounds["mcmc_measure"])}
+
+
+def allbranch_measure_inputs(mt, W=2 ** 20, steps=64):
+    """Phase 3c's spec at ``W`` walkers after ``steps`` steps: (iteration,
+    state, the custom measure's output of each sector on that state)."""
+    from mcintegration_tpu_torch.ops.rng import block_keys
+
+    it = mcmc_allbranch(mt, W)
+    kd_np = block_keys(SEED, 0, 0, it.block)
+    sched, groups = it.schedule(kd_np)
+    kd = it.seeds(kd_np)
+    tab, rw, st = it.start(it.spec.device_params(), kd, sched)
+    for t in range(steps):
+        it.step(tab, rw, kd, sched, groups[t], st, t)
+    vals = it.layout.leaf_values(st.cur_val)
+    return it, st, [m(vals, st.relw).contiguous() for m in it.measure]
+
+
+def measure_two_sectors(mt, mk, card):
+    """Phase 6c: mcmc_measure at phase 3c's spec (N = 2, 2^20 walkers, two
+    components an integrand), one launch for both sectors after 64 steps,
+    with L2 warm and flushed, beside its bound and its bytes in whole
+    sectors."""
+    import torch
+
+    it, st, ms = allbranch_measure_inputs(mt)
+    lay = it.layout
+    ref = st.clone()
+    before = mk.launch_counts["mcmc_measure"]
+    mk.mcmc_measure(lay, ms, st)
+    assert mk.launch_counts["mcmc_measure"] == before + 1
+    mk.mcmc_measure_plain(lay, ms, ref)
+    torch.cuda.synchronize()
+    state_bits_equal(st, ref, "mcmc_measure at phase 3c's spec", hist_rel=0.0)
+    warm = float(np.median([device_ms(lambda: mk.mcmc_measure(lay, ms, st), 20)
+                            for _ in range(3)]))
+    flushed, _ = flushed_ms(lambda: mk.mcmc_measure(lay, ms, st))
+    curr = st.curr.cpu().numpy()
+    nbytes = measure_bytes(curr, lay.spec.N, lay.ncomp)
+    sector_bytes = measure_sector_bytes(curr, lay.spec.N, lay.ncomp)
+    shares = (np.bincount(curr, minlength=lay.nd) / curr.size).round(4).tolist()
+    print(f"phase 6c: mcmc_measure at phase 3c's spec ({lay.W} walkers, {lay.spec.N} sectors, "
+          f"{lay.ncomp} components; sector shares {shares}, the last the normalization's), "
+          f"one launch, bit-equal: {warm!r} ms with L2 warm, {flushed!r} ms flushed; bound "
+          f"{bound(nbytes, 0)[0]!r} ms ({nbytes} bytes), {sector_bytes} bytes in whole "
+          f"32-byte sectors, {sector_bytes / PEAK_BYTES * 1e3!r} ms at 3.35 TB/s [{card}]")
 
 
 def main() -> int:
@@ -2568,7 +2710,7 @@ def main() -> int:
 
     timed("3", kernel_vs_plain, mt, vk, card)
     timed("3b", chain_vs_plain, mt, ck, card)
-    timed("3c", mcmc_vs_plain, mt, mk, card)
+    mcmc_errs = timed("3c", mcmc_vs_plain, mt, mk, card)
     timed("3d", vplus_vs_plain, mt, vp, card)
     measure_errs = timed("3e", measure_vs_plain, mt, vk, ck, card)
     complex_errs = timed("3f", complex_vs_plain, mt, ck, mk, card)
@@ -2589,7 +2731,9 @@ def main() -> int:
     timed("5d", vplus_checks, mt)
     measured = timed("6", timings, mt, vk, shape, card)
     measured.update(timed("6b", chain_timings, mt, ck, card))
-    measured.update(timed("6c", mcmc_timings, mt, mk, card))
+    mcmc_errs = dict(zip(("mcmc_propose", "mcmc_accept", "mcmc_measure"), mcmc_errs))
+    for name, (err, *times) in timed("6c", mcmc_timings, mt, mk, card).items():
+        measured[name] = (max(err, mcmc_errs[name]), *times)
     measured.update(timed("6d", vplus_timings, mt, vp, vshape, card))
     for name, times in timed("6e", measure_timings, mt, vk, ck, card).items():
         measured[name] = (measure_errs[name], *times)
@@ -2605,7 +2749,8 @@ def main() -> int:
     # and the profiler took 206 s to parse three iterations' events
     timed("7c", profile_main_path, card, "7c", lambda: mt.integrate(
         make_bubble("cuda"), neval=2 ** 28, nwalkers=2 ** 18, niter=1, device="cuda", seed=SEED,
-        verbose=-2, **bubble_kw(mt)))
+        verbose=-2, **bubble_kw(mt)),
+          ("mcmc_propose_kernel", "mcmc_accept_kernel", "mcmc_measure_kernel"))
 
     res = timed("7d", profile_main_path, card, "7d", lambda: mt.integrate(
         _sing3, var=mt.Continuous(0.0, np.pi), niter=2, **SING3_KW))

@@ -7,8 +7,9 @@
 // (its output m [ncomp, W], the observable pytree's components), and this
 // kernel adds it into the walkers' float64 accumulators:
 // obs[c, w] += m[c, w].  The TPU kernel kept these sums as Kahan float32
-// pairs.  It is mcmc_measure.cu without the sector gate, kept a kernel of its
-// own so that each of the two is timed and counted on its own solver's path.
+// pairs.  It adds what mcmc_measure.cu adds without the sector gate, kept a
+// kernel of its own so that each of the two is timed and counted on its own
+// solver's path.
 //
 // What bounds it on the card: device-memory bytes, 20*ncomp per walker
 // (read m, read and write obs); one thread per (component, walker), a

@@ -65,8 +65,8 @@ _SIGNATURES = {
     "mci_mcmc_accept": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                         _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # i, ncomp, W, m, curr, obs, stream
-    "mci_mcmc_measure": [_I, _I, _I, _P, _P, _P, _P],
+    # lo, n, ncomp, W, m (a host array of n pointers), curr, obs, stream
+    "mci_mcmc_measure": [_I, _I, _I, _I, _P, _P, _P, _P],
     # kd, t0, B, T, c, S, nstrat, cube, meta, tab, x, gidx, stream
     "mci_vplus_sample": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, ncubes, H, hist_smem,

@@ -6,8 +6,9 @@ build_mcmc_run_all`` (kernel K3) as a split step: ``mcmc_propose`` draws
 each walker's move for the step's scheduled sector, the user integrand of
 that sector runs as torch ops on the proposed state, ``mcmc_accept`` takes
 the Metropolis decision, commits, tallies and measures, and on measured
-steps with a custom measure the user's measure runs as torch ops and
-``mcmc_measure`` adds it into per-walker float64 accumulators.
+steps with a custom measure the user's measure of every sector runs as
+torch ops and one ``mcmc_measure`` launch adds each walker's own sector's
+output into its float64 accumulators.
 
 The law is K3's scheduled single-sector law (``pallas_mcmc.py:20-53``).
 Each (block, step) has an active sector ``j`` and a swap flag from the
@@ -71,6 +72,7 @@ histogram adds exact 1.0s, so it agrees bit for bit too.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Any, List
@@ -98,6 +100,7 @@ TINY = fermik.TINY      # common.TINY_F32 as a float32 value
 NRETRY = 10             # masked re-draws of walkers whose start weight is 0
 SMEM_HIST_BINS = 4096   # 16 KiB of 32-bit histogram counts per thread block
 SMEM_COUNTERS = 2048    # 8 KiB of 32-bit visited and tally counts
+MAX_SECTORS = 32        # sectors an mcmc_measure launch takes (kMaxSectors)
 # kind, nb, tab_off, sm_off, lower, slot0, vrow0, width, hist_off, group, ndraw
 LEAF_FIELDS = 11
 
@@ -747,26 +750,47 @@ def mcmc_accept(lay: McmcLayout, tab, rw, kd, sched, t: int, st: McmcState, nw,
 # mcmc_measure
 # ---------------------------------------------------------------------------
 
-def mcmc_measure_plain(lay: McmcLayout, i: int, m, st: McmcState):
-    """Plain torch version of ``csrc/mcmc_measure.cu``."""
-    st.obs.add_(torch.where(st.curr == i, m, 0.0).double())
+def sector_chunks(n: int):
+    """``(lo, hi)`` of each ``mcmc_measure`` launch over ``n`` sectors:
+    consecutive runs of at most ``MAX_SECTORS`` sectors, in sector order."""
+    return [(lo, min(lo + MAX_SECTORS, n)) for lo in range(0, n, MAX_SECTORS)]
 
 
-def mcmc_measure(lay: McmcLayout, i: int, m, st: McmcState):
-    """Add sector ``i``'s custom-measure output ``m [ncomp, W]`` into the
-    float64 accumulators ``st.obs`` of the walkers at ``curr == i``."""
+def mcmc_measure_plain(lay: McmcLayout, ms, st: McmcState):
+    """Plain torch version of ``csrc/mcmc_measure.cu``: one masked add per
+    sector, in sector order."""
+    for i, m in enumerate(ms):
+        st.obs.add_(torch.where(st.curr == i, m, 0.0).double())
+
+
+def _measure_args(lay: McmcLayout, ms, st: McmcState, lo: int, hi: int):
+    """The argument list of ``mci_mcmc_measure`` (without the stream) for
+    sectors ``lo .. hi - 1``: their outputs' pointers in a host array."""
+    ptrs = (ctypes.c_void_p * (hi - lo))(*(m.data_ptr() for m in ms[lo:hi]))
+    return (lo, hi - lo, lay.ncomp, lay.W, ptrs, st.curr.data_ptr(), st.obs.data_ptr())
+
+
+def mcmc_measure(lay: McmcLayout, ms, st: McmcState):
+    """Add the custom-measure outputs ``ms`` (one ``[ncomp, W]`` float32
+    tensor per sector) into the float64 accumulators ``st.obs``: each walker
+    outside the normalization sector adds its own sector's output.  One
+    launch per ``MAX_SECTORS`` sectors."""
     dev = _device_of(st, "mcmc_measure")
+    if len(ms) != lay.spec.N:
+        raise ValueError(f"mcmc_measure: {len(ms)} outputs for {lay.spec.N} sectors")
     if dev.type == "cpu":
-        return mcmc_measure_plain(lay, i, m, st)
-    _check(m, "m", torch.float32, (lay.ncomp, lay.W), dev)
+        return mcmc_measure_plain(lay, ms, st)
+    for i, m in enumerate(ms):
+        _check(m, f"m[{i}]", torch.float32, (lay.ncomp, lay.W), dev)
     _check(st.curr, "curr", torch.int32, (lay.W,), dev)
     _check(st.obs, "obs", torch.float64, (lay.ncomp, lay.W), dev)
-    if not 0 <= i < lay.spec.N:
-        raise ValueError(f"mcmc_measure: sector {i} out of range")
+    if lay.ncomp * lay.W >= 2 ** 31:
+        raise ValueError(f"mcmc_measure: {lay.ncomp} x {lay.W} accumulators exceed 32-bit "
+                         "indices")
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mci_mcmc_measure(i, lay.ncomp, lay.W, m.data_ptr(), st.curr.data_ptr(),
-                                   st.obs.data_ptr(), stream)
-    _build.check(lib, err, "mcmc_measure")
-    launch_counts["mcmc_measure"] += 1
+        for lo, hi in sector_chunks(len(ms)):
+            err = lib.mci_mcmc_measure(*_measure_args(lay, ms, st, lo, hi), stream)
+            _build.check(lib, err, "mcmc_measure")
+            launch_counts["mcmc_measure"] += 1

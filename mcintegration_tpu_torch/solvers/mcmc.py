@@ -19,7 +19,8 @@ the sign (``mcmc_accept_complex``).
 
 One step is ``mcmc_propose`` → the scheduled sectors' integrands as torch
 ops on the proposed state → ``mcmc_accept``; on a measured step with a
-custom measure, the measure of each sector as torch ops → ``mcmc_measure``.
+custom measure, the measure of each sector as torch ops → one
+``mcmc_measure`` over all of them.
 A block's walkers are contiguous (``w = b*wb + j``); a step calls each
 sector that some block drew once, on the walkers of those blocks (a gather
 of their rows and a scatter of the weights, unless every block drew it).
@@ -176,8 +177,8 @@ class MCMCIteration:
                                  measure=measured)
         if measured and self.measure is not None:
             vals = lay.leaf_values(st.cur_val)
-            for i, m in enumerate(self.measure):
-                mcmc_kernels.mcmc_measure(lay, i, m(vals, st.relw).contiguous(), st)
+            mcmc_kernels.mcmc_measure(lay, [m(vals, st.relw).contiguous() for m in self.measure],
+                                      st)
 
     def run(self, params, kd: np.ndarray):
         """Execute one iteration with per-block seeds ``kd [block, 2]``

@@ -12,7 +12,8 @@ so obs and histograms agree to rel 1e-9.  ``chain_propose`` and
 ``chain_accept`` must match theirs bit for bit from one state, but for the
 chain histogram (float64 atomics in another order: rel 1e-9).  The :mcmc
 kernels ``mcmc_propose``, ``mcmc_accept`` and ``mcmc_measure`` match theirs
-bit for bit, histograms included (they add exact 1.0s).  ``vplus_sample``
+bit for bit, histograms included (they add exact 1.0s); ``mcmc_measure``
+takes every sector in one launch, up to ``MAX_SECTORS``.  ``vplus_sample``
 matches its plain version bit for bit; ``vplus_reduce`` forms the same float32
 terms and sums them in float64 in another order (atomics), so obs, the
 per-cube second moments and the histograms agree to rel 1e-12.  With a
@@ -247,10 +248,10 @@ def test_mcmc_kernels_match_plain(cuda, case):
         mk.mcmc_accept(lay, tab, rw, kd, sched, t, st, nw, measure=measure)
         mk.mcmc_accept_plain(lay, tab, rw, kd, sched, t, ref, nw, measure=measure)
         if measure:
-            i = len(it.measure) - 1
-            m = it.measure[i](lay.leaf_values(st.cur_val), st.relw).contiguous()
-            mk.mcmc_measure(lay, i, m, st)
-            mk.mcmc_measure_plain(lay, i, m, ref)
+            vals = lay.leaf_values(st.cur_val)
+            ms = [m(vals, st.relw).contiguous() for m in it.measure]
+            mk.mcmc_measure(lay, ms, st)
+            mk.mcmc_measure_plain(lay, ms, ref)
         torch.cuda.synchronize()
         for name in vars(st):
             assert _bits_equal(getattr(st, name), getattr(ref, name)), (t, name)
@@ -258,6 +259,33 @@ def test_mcmc_kernels_match_plain(cuda, case):
     assert mk.launch_counts["mcmc_propose"] == before["mcmc_propose"] + 16
     assert mk.launch_counts["mcmc_accept"] == before["mcmc_accept"] + 16
     assert mk.launch_counts["mcmc_measure"] > before["mcmc_measure"]
+
+
+@pytest.mark.parametrize("case", ["bubble", "phase 3c's spec"])
+def test_mcmc_measure_one_launch_per_measured_step(cuda, case):
+    """mcmc_measure bit-equal to its plain version on a measured step of one
+    sector (the bubble's layout) and of two (phase 3c's spec at 2^20
+    walkers), one launch each, and one launch per measured step over a
+    whole iteration."""
+    it = _bubble_iteration(cuda) if case == "bubble" else cs.mcmc_allbranch(mt, 2 ** 20)
+    kd_np = block_keys(2, 0, 0, it.block)
+    sched, groups = it.schedule(kd_np)
+    kd = it.seeds(kd_np)
+    tab, rw, st = it.start(it.spec.device_params(), kd, sched)
+    for t in range(8):
+        it.step(tab, rw, kd, sched, groups[t], st, t)
+    before = mk.launch_counts["mcmc_measure"]
+    errs = cs.mcmc_one_step(it, mk, st, tab, rw, kd, sched, groups[8], 8, case)
+    assert errs[2] == 0.0 and mk.launch_counts["mcmc_measure"] == before + 1
+    before = mk.launch_counts["mcmc_measure"]
+    it.run(it.spec.device_params(), block_keys(2, 1, 0, it.block))
+    assert mk.launch_counts["mcmc_measure"] - before == it.nsteps
+
+
+def test_mcmc_measure_over_more_sectors_than_a_launch_takes(cuda):
+    """MAX_SECTORS + 1 sectors: two launches, bit-equal to the plain version."""
+    err, launches = cs.measure_many_sectors(mt, mk)
+    assert err == 0.0 and launches == 2
 
 
 def test_cuda_mcmc_integrates(cuda):

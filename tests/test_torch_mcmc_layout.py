@@ -6,8 +6,8 @@ in device memory otherwise; the wrappers pass these decisions and the
 layout through bare argument lists to the C entry points.  This is host
 logic; the kernels themselves are held to their plain versions on the card
 (``tests/test_torch_cuda.py``).  ``tools/mcmc_variants.py`` times variants
-of the kernels built from edited copies of their sources; each edit must
-still find its line.
+and ablations of the kernels built from edited copies of their sources;
+each edit must still find its line.
 """
 
 import ctypes
@@ -108,19 +108,35 @@ def _variants_module():
 
 
 _BUBBLE = _layout(_bubble_vars(), [[1, 1, 1]], block=16, custom=True)
-_VARIANTS = _variants_module().variants(_BUBBLE)
+_MV = _variants_module()
+_VARIANTS = _MV.variants(_BUBBLE)
+_ABLATIONS = _MV.ablations()
 
 
 @pytest.mark.parametrize("k", range(len(_VARIANTS)), ids=[v[0] for v in _VARIANTS])
 def test_kernel_variant_edits_find_their_lines(k):
     """Each variant of tools/mcmc_variants.py changes the kept kernels: every
-    source edit replaces a line found exactly once in csrc/, and a variant
-    without edits moves a histogram or the counters to device memory."""
+    source edit replaces a line found exactly once in csrc/ as the edits
+    before it left the file, and a variant without edits moves a histogram
+    or the counters to device memory."""
     name, edits, hist, cnt = _VARIANTS[k]
     csrc = Path(_build.CSRC)
+    texts = {}
     for f, old, new in edits:
-        assert (csrc / f).read_text().count(old) == 1, (name, f, old)
+        text = texts.get(f) or (csrc / f).read_text()
+        assert text.count(old) == 1, (name, f, old)
+        texts[f] = text.replace(old, new)
     if edits:
         assert any(new != old for _, old, new in edits)
     else:
         assert (hist, cnt) != (mk.SMEM_HIST_BINS, mk.SMEM_COUNTERS)
+
+
+@pytest.mark.parametrize("k", range(len(_ABLATIONS)), ids=[a[0] for a in _ABLATIONS])
+def test_measure_ablation_edits_find_their_lines(k):
+    """Each ablation of mcmc_measure in tools/mcmc_variants.py replaces lines
+    found exactly once in its source."""
+    name, edits = _ABLATIONS[k]
+    for f, old, new in edits:
+        assert f == _MV.MEASURE and new != old
+        assert (Path(_build.CSRC) / f).read_text().count(old) == 1, (name, old)

@@ -130,6 +130,7 @@ def _acceptance(st):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_run_matches_jax(case):
+    mk.reset_launch_counts()
     it, st = _port_run(case)
     assert mk.launch_counts == {"mcmc_propose": 0, "mcmc_accept": 0, "mcmc_measure": 0,
                                 "mcmc_accept_complex": 0}

@@ -1,30 +1,49 @@
-"""Variants of the :mcmc step kernels, timed on the card beside the kept ones.
+"""Variants of the :mcmc kernels, timed on the card beside the kept ones.
 
 Builds the kernel library of ``mcintegration_tpu_torch/csrc`` as it stands,
 then one library per variant: a copy of the sources with a few lines of
-``mcmc_propose.cu``, ``mcmc_accept.cu`` or ``mcmc_common.cuh`` rewritten
-(the tile shape, the grid, the warp aggregation of the counts, the sort by
-branch class, tables staged in shared memory).  Two more variants keep the
-library and move ``mcmc_accept``'s histogram or counters to device memory.
+``mcmc_propose.cu``, ``mcmc_accept.cu``, ``mcmc_common.cuh`` (the tile
+shape, the grid, the warp aggregation of the counts, the sort by branch
+class, tables staged in shared memory) or ``mcmc_measure.cu`` (components
+in flight, threads a block, streaming loads and stores; or a kernel held
+here, ``GROUPS``, launched in place of the kept one: several adjacent
+walkers a thread with vector accesses, m and obs loaded before curr
+arrives) rewritten.  Two
+more variants keep the library and move ``mcmc_accept``'s histogram or
+counters to device memory.  Ablations take a part of ``mcmc_measure`` out
+(the loads of obs, of m, of curr); they are timed, not checked.
 
-Each variant takes one step of ``mcmc_propose`` and ``mcmc_accept`` at
-``chip_smoke.py`` phase 6c's shape (the Lindhard bubble, 2^18 walkers, from
-the state after 400 steps), is held bit for bit against the plain versions,
-and is timed on the device with the calls queued behind a sleep kernel:
-propose, accept on a measured and on an unmeasured step, each the median
-of three runs of 20 calls.  The kept library runs first and last.  Last
-comes a probe of divergence: ``mcmc_propose`` on three specs of one var
-group each (the bubble's leaves alone) at the same walker count.
+A variant runs the cases of the kernels it changes.  The step kernels: one
+step of ``mcmc_propose`` and ``mcmc_accept`` at ``chip_smoke.py`` phase 6c's
+shape (the Lindhard bubble, 2^18 walkers, from the state after 400 steps),
+held bit for bit against the plain versions and timed on the device with
+the calls queued behind a sleep kernel: propose, accept on a measured and
+on an unmeasured step, each the median of three runs of 20 calls.
+``mcmc_measure``: the bubble's output on that state (one sector, four
+components) and phase 3c's spec after 64 steps (two sectors, 2^20
+walkers), each held bit for bit against the plain version and timed with
+L2 warm (median of 3 x 20 calls) and flushed before each call
+(``chip_smoke.flushed_ms``); then 100 measured steps of the bubble (the
+real iteration's order of launches) are profiled and each :mcmc kernel's
+device time per launch printed.  The kept library, and the baseline's, run
+first and last.  Last comes a probe of divergence: ``mcmc_propose`` on
+three specs of one var group each (the bubble's leaves alone) at the same
+walker count.
 
-    python3 tools/mcmc_variants.py          # on a machine with a CUDA card
+    python3 tools/mcmc_variants.py [--baseline DIR]    # on a CUDA card
 
-It prints one line per variant and exits non-zero if a variant fails to
-build or differs from the plain versions.
+``--baseline DIR`` builds the kernels of another checkout at ``DIR`` (its
+``csrc``; an ``mcmc_measure`` of one sector a launch is called once per
+sector) and runs them first and last, in turns with the kept ones.  It
+prints one line per variant and case and exits non-zero if a variant fails
+to build or a checked one differs from the plain versions.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -38,6 +57,146 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (the bubble, the timers and the checks)
 
 PROPOSE, ACCEPT, COMMON = "mcmc_propose.cu", "mcmc_accept.cu", "mcmc_common.cuh"
+MEASURE = "mcmc_measure.cu"
+CURR = "  const int s = a.curr[w] - a.lo;\n"
+M_PTR = "  const float* m = a.m[s];\n"
+BOUNDS = "__global__ void __launch_bounds__(kThreads)\n"
+COMPONENT_LOOP = "#pragma unroll 1\n  for (int k0 = 0; k0 < a.ncomp; k0 += kComps) {\n"
+LOADS = ("        x[j] = m[q];\n        y[j] = a.obs[q];\n      }\n    }\n")
+M_LOAD = "        x[j] = m[q];\n"
+OBS_LOAD = "        y[j] = a.obs[q];\n"
+OBS_STORE = "      if (k0 + j < a.ncomp) a.obs[(k0 + j) * a.W + w] = y[j] + (double)x[j];\n"
+LAUNCH = ("  mcmc_measure_kernel<<<(W + kThreads - 1) / kThreads, kThreads, 0, "
+          "(cudaStream_t)stream>>>(a);\n")
+NAMESPACE_END = "}  // namespace\n"
+# A kernel of kWalkers adjacent walkers a thread, with int2/int4, float2/float4
+# and double2 accesses where the launcher finds the pointers 16-byte aligned
+# and W a multiple of kWalkers (else one walker a thread); with one sector a
+# launch, m's loads are issued before curr arrives.  The variants insert it
+# into mcmc_measure.cu and launch it in place of the kept kernel.
+GROUPS = r"""
+constexpr int kWalkers = 1;       // adjacent walkers a thread
+
+template <int V>
+__device__ __forceinline__ void load_ints(const int* p, int (&v)[V]) {
+  if constexpr (V == 4) {
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const int2 q = *reinterpret_cast<const int2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_floats(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_doubles(const double* p, double (&v)[V]) {
+  if constexpr (V >= 2) {
+#pragma unroll
+    for (int h = 0; h < V / 2; ++h) {
+      const double2 q = reinterpret_cast<const double2*>(p)[h];
+      v[2 * h] = q.x, v[2 * h + 1] = q.y;
+    }
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_doubles(double* p, const double (&v)[V]) {
+  if constexpr (V >= 2) {
+#pragma unroll
+    for (int h = 0; h < V / 2; ++h)
+      reinterpret_cast<double2*>(p)[h] = make_double2(v[2 * h], v[2 * h + 1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+template <int V, bool kOne>
+__global__ void __launch_bounds__(kThreads)
+    mcmc_measure_kernel_groups(const __grid_constant__ MeasureArgs a) {
+  const int w0 = (int)(blockIdx.x * kThreads + threadIdx.x) * V;
+  if (w0 >= a.W) return;
+  int s[V];
+  load_ints<V>(a.curr + w0, s);
+  bool in[V], any = false;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    s[v] -= a.lo;
+    in[v] = (unsigned)s[v] < (unsigned)a.n;
+    any |= in[v];
+  }
+  for (int k0 = 0; k0 < a.ncomp; k0 += kComps) {
+    float x[kComps][V];
+    double y[kComps][V];
+    if constexpr (kOne) {
+#pragma unroll
+      for (int j = 0; j < kComps; ++j)
+        if (k0 + j < a.ncomp) load_floats<V>(a.m[0] + (k0 + j) * a.W + w0, x[j]);
+    }
+    if (!any) continue;  // obs only for a group where some walker adds
+#pragma unroll
+    for (int j = 0; j < kComps; ++j) {
+      if (k0 + j < a.ncomp) {
+        const int q = (k0 + j) * a.W + w0;
+        load_doubles<V>(a.obs + q, y[j]);
+        if constexpr (!kOne) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) x[j][v] = in[v] ? a.m[s[v]][q + v] : 0.0f;
+        }
+      }
+    }
+    // add each walker's own output; store the group's sums
+#pragma unroll
+    for (int j = 0; j < kComps; ++j) {
+      if (k0 + j < a.ncomp) {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (in[v]) y[j][v] += (double)x[j][v];
+        store_doubles<V>(a.obs + (k0 + j) * a.W + w0, y[j]);
+      }
+    }
+  }
+}
+
+template <int V>
+void launch_walkers(const MeasureArgs& a, cudaStream_t stream) {
+  const int blocks = (a.W / V + kThreads - 1) / kThreads;
+  if (a.n == 1)
+    mcmc_measure_kernel_groups<V, true><<<blocks, kThreads, 0, stream>>>(a);
+  else
+    mcmc_measure_kernel_groups<V, false><<<blocks, kThreads, 0, stream>>>(a);
+}
+
+bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
+
+void launch_groups(const MeasureArgs& a, cudaStream_t stream) {
+  bool vec = a.W % kWalkers == 0 && aligned16(a.curr) && aligned16(a.obs);
+  for (int s = 0; s < a.n; ++s) vec = vec && aligned16(a.m[s]);
+  if (vec)
+    launch_walkers<kWalkers>(a, stream);
+  else
+    launch_walkers<1>(a, stream);
+}
+
+"""
+OBS_GATE = "    if (!any) continue;  // obs only for a group where some walker adds\n"
+ADD = "    // add each walker's own output; store the group's sums\n"
 TILE = ("constexpr int kThreads = 512;", "constexpr int kWalkersPerThread = 2;",
         "constexpr int kBlocksPerSm = 2;")
 
@@ -110,7 +269,98 @@ def variants(lay):
         ("accept's histogram in device memory (float64 atomics)", [], 0, cnt),
         ("accept's counters in device memory (64-bit atomics)", [], hist, 0),
     ]
+    out += [(name, edits, hist, cnt) for name, edits in measure_variants()]
     return out
+
+
+def measure_constants():
+    """The kept mcmc_measure.cu's kThreads and kComps."""
+    from mcintegration_tpu_torch.ops import _build
+    text = (_build.CSRC / MEASURE).read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+            for name in ("kThreads", "kComps")}
+
+
+def groups(v):
+    """Source edits that launch ``GROUPS`` at ``v`` adjacent walkers a
+    thread in place of the kept kernel."""
+    body = GROUPS.replace("constexpr int kWalkers = 1;", f"constexpr int kWalkers = {v};")
+    return [(MEASURE, NAMESPACE_END, body + NAMESPACE_END),
+            (MEASURE, LAUNCH, "  launch_groups(a, (cudaStream_t)stream);\n")]
+
+
+def measure_variants():
+    """(name, source edits) of the checked variants of mcmc_measure: the
+    other components in flight (1, 2, 4, 8) and threads a block (128, 256,
+    512) than the kept ones; registers capped at 32, the component loop
+    unrolled, every load of m before those of obs; m's pointer a launch
+    operand at N = 1, or selected from the table without an indexed read; 1,
+    2 and 4 walkers a thread with m loaded before
+    curr arrives at one sector a launch (``GROUPS``), and at one walker a
+    thread obs loaded before curr arrives too; streaming hints."""
+    kept = measure_constants()
+
+    def const(name, new):
+        return [(MEASURE, f"constexpr int {name} = {kept[name]};",
+                 f"constexpr int {name} = {new};")]
+
+    early_obs = [(MEASURE, OBS_GATE, ""), (MEASURE, ADD, "    if (!any) continue;\n" + ADD)]
+    out = [(f"measure, {c} component{'s' * (c > 1)} in flight", const("kComps", c))
+           for c in (1, 2, 4, 8) if c != kept["kComps"]]
+    out += [(f"measure, {t} threads a block", const("kThreads", t))
+            for t in (128, 256, 512) if t != kept["kThreads"]]
+    return out + [
+        ("measure, 32 registers at most (every thread slot of an SM resident)",
+         [(MEASURE, BOUNDS, "__global__ void __launch_bounds__(kThreads, 2048 / kThreads)\n")]),
+        ("measure, the component loop unrolled by the compiler",
+         [(MEASURE, COMPONENT_LOOP, COMPONENT_LOOP.replace("#pragma unroll 1\n", ""))]),
+        ("measure, every load of m issued before the first of obs",
+         [(MEASURE, LOADS, "        x[j] = m[q];\n      }\n    }\n#pragma unroll\n"
+                           "    for (int j = 0; j < kComps; ++j) {\n"
+                           "      if (k0 + j < a.ncomp) {\n"
+                           "        const int q = (k0 + j) * a.W + w;\n"
+                           "        y[j] = a.obs[q];\n      }\n    }\n")]),
+        ("measure, m's pointer a launch operand at N = 1 (a kernel for one sector)",
+         [(MEASURE, BOUNDS, "template <bool kOne>\n" + BOUNDS),
+          (MEASURE, M_PTR, "  const float* m = kOne ? a.m[0] : a.m[s];\n"),
+          (MEASURE, LAUNCH, "  const int blocks = (W + kThreads - 1) / kThreads;\n"
+                            "  if (n == 1)\n"
+                            "    mcmc_measure_kernel<true><<<blocks, kThreads, 0, "
+                            "(cudaStream_t)stream>>>(a);\n"
+                            "  else\n"
+                            "    mcmc_measure_kernel<false><<<blocks, kThreads, 0, "
+                            "(cudaStream_t)stream>>>(a);\n")]),
+        ("measure, m's pointer selected without an indexed read",
+         [(MEASURE, M_PTR, "  const float* m = a.m[0];\n#pragma unroll\n"
+                           "  for (int i = 1; i < kMaxSectors; ++i)\n"
+                           "    if (i < a.n && s == i) m = a.m[i];\n")]),
+        ("measure, m loaded before curr arrives", groups(1)),
+        ("measure, 2 walkers a thread (vector accesses)", groups(2)),
+        ("measure, 4 walkers a thread (vector accesses)", groups(4)),
+        ("measure, m and obs loaded before curr arrives", groups(1) + early_obs),
+        ("measure, streaming loads of m",
+         [(MEASURE, M_LOAD, "        x[j] = __ldcs(m + q);\n")]),
+        ("measure, streaming loads and stores of obs",
+         [(MEASURE, OBS_LOAD, "        y[j] = __ldcs(a.obs + q);\n"),
+          (MEASURE, OBS_STORE, "      if (k0 + j < a.ncomp)\n"
+                               "        __stcs(a.obs + (k0 + j) * a.W + w, y[j] + (double)x[j]);\n")]),
+    ]
+
+
+def ablations():
+    """(name, source edits) of mcmc_measure with a part taken out: wrong
+    sums, timed and not checked."""
+    return [
+        ("measure ablation, every thread returns at once",
+         [(MEASURE, "  if (w >= a.W) return;", "  return;")]),
+        ("measure ablation, no stores (one only where a sum is -1)",
+         [(MEASURE, OBS_STORE, OBS_STORE.replace("k0 + j < a.ncomp", "k0 + j < a.ncomp && "
+                                                                    "y[j] == -1.0"))]),
+        ("measure ablation, obs not loaded", [(MEASURE, OBS_LOAD, "        y[j] = 0.0;\n")]),
+        ("measure ablation, m not loaded", [(MEASURE, M_LOAD, "        x[j] = 1.0f;\n")]),
+        ("measure ablation, curr not loaded (every walker in the first sector)",
+         [(MEASURE, CURR, "  const int s = 0;\n")]),
+    ]
 
 
 def compile_all(jobs):
@@ -249,6 +499,110 @@ def probe(mt, mk, card):
               f"(roles none/CV/swap/CI/NJ {roles}) [{card}]", flush=True)
 
 
+def measure_cases(mt, it, st0):
+    """(name, layout, outputs, state) of mcmc_measure's cases: phase 6c's
+    bubble on the state after 400 steps, and phase 3c's spec."""
+    vals = it.layout.leaf_values(st0.cur_val)
+    bubble = [m(vals, st0.relw).contiguous() for m in it.measure]
+    it3, st3, ms3 = cs.allbranch_measure_inputs(mt)
+    return [("6c", it.layout, bubble, st0), ("3c spec", it3.layout, ms3, st3)]
+
+
+def measure_run(mk, case, check=True):
+    """(warm ms, flushed ms, max abs err) of mcmc_measure on one case;
+    unchecked: err 0."""
+    import torch
+    _, lay, ms, st0 = case
+    st = st0.clone()
+    err = 0.0
+    if check:
+        ref = st0.clone()
+        mk.mcmc_measure(lay, ms, st)
+        mk.mcmc_measure_plain(lay, ms, ref)
+        torch.cuda.synchronize()
+        err = cs.state_bits_equal(st, ref, "mcmc_measure", hist_rel=0.0)
+    warm = float(np.median([cs.device_ms(lambda: mk.mcmc_measure(lay, ms, st), 20)
+                            for _ in range(3)]))
+    return warm, cs.flushed_ms(lambda: mk.mcmc_measure(lay, ms, st))[0], err
+
+
+def step_profile(it, mk, args, st0, nsteps=100):
+    """Device ms per launch of each :mcmc kernel over ``nsteps`` measured
+    steps of the bubble from ``st0``, in the order an iteration launches them
+    (propose, the integrand, accept, the measure, mcmc_measure)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tab, rw, kd, sched, groups = args
+    lay, st = it.layout, st0.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in range(400, 400 + nsteps):
+            mk.mcmc_propose(lay, tab, kd, sched, t, st)
+            mk.mcmc_accept(lay, tab, rw, kd, sched, t, st, it.weights(st, groups[t]),
+                           measure=True)
+            vals = lay.leaf_values(st.cur_val)
+            mk.mcmc_measure(lay, [m(vals, st.relw).contiguous() for m in it.measure], st)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        for key in ("mcmc_propose", "mcmc_accept", "mcmc_measure"):
+            if e.device_type == DeviceType.CUDA and f"{key}_kernel" in e.name:
+                n, us = out.get(key, (0, 0.0))
+                out[key] = (n + 1, us + e.time_range.end - e.time_range.start)
+    return {key: us * 1e-3 / n for key, (n, us) in out.items()}
+
+
+class baseline_measure:
+    """Within the block, ``mk.mcmc_measure`` launches the baseline library's
+    kernel, one sector a launch where its entry point takes one
+    (``mci_mcmc_measure(i, ncomp, W, m, curr, obs, stream)``)."""
+
+    def __init__(self, mk, lib, one_sector):
+        self.mk, self.lib, self.one_sector = mk, lib, one_sector
+
+    def __enter__(self):
+        import torch
+        from mcintegration_tpu_torch.ops import _build
+        self.saved, lib = self.mk.mcmc_measure, self.lib
+        if not self.one_sector:
+            return
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.mci_mcmc_measure.argtypes = [I, I, I, P, P, P, P]
+
+        def measure(lay, ms, st):
+            stream = torch.cuda.current_stream().cuda_stream
+            for i, m in enumerate(ms):
+                err = lib.mci_mcmc_measure(i, lay.ncomp, lay.W, m.data_ptr(),
+                                           st.curr.data_ptr(), st.obs.data_ptr(), stream)
+                _build.check(lib, err, "mcmc_measure (baseline)")
+        self.mk.mcmc_measure = measure
+
+    def __exit__(self, *exc):
+        self.mk.mcmc_measure = self.saved
+
+
+def baseline(root):
+    """(library, whether its mcmc_measure takes one sector a launch) of the
+    checkout at ``root``; its step kernels take the kept ones' arguments."""
+    from accept_reduce_variants import build_from
+    from mcintegration_tpu_torch.ops import _build
+    csrc = Path(root) / "mcintegration_tpu_torch" / "csrc"
+    lib = _build.bind(build_from(csrc, "baseline"))
+    return lib, "const void* const* m" not in (csrc / MEASURE).read_text()
+
+
+def ptxas_lines():
+    """ptxas -v's registers and spills of the kept mcmc_measure kernels."""
+    from mcintegration_tpu_torch.ops import _build
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                           str(_build.BUILD_DIR / "ptxas.o"), str(_build.CSRC / MEASURE)],
+                          capture_output=True, text=True)
+    return [ln for ln in (proc.stdout + proc.stderr).splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+
+
 def main() -> int:
     import torch
 
@@ -259,34 +613,62 @@ def main() -> int:
     from mcintegration_tpu_torch.ops import _build, mcmc_kernels as mk
 
     card = cs.card_line()
+    root = sys.argv[sys.argv.index("--baseline") + 1] if "--baseline" in sys.argv else None
     kept = _build.load()
+    print("\n".join(ptxas_lines()), flush=True)
     it, args, st0 = bubble_state(mt, mk)
+    mcases = measure_cases(mt, it, st0)
     vs = variants(it.layout)
-    libs = build(vs)
+    abl = [(name, edits, mk.SMEM_HIST_BINS, mk.SMEM_COUNTERS) for name, edits in ablations()]
+    libs = build(vs + abl)
     hist, cnt = mk.SMEM_HIST_BINS, mk.SMEM_COUNTERS
     roles = np.bincount(st0.move[0].cpu().numpy(), minlength=5).tolist()
     print(f"the bubble at 2^18 walkers after 400 steps (roles none/CV/swap/CI/NJ of the "
-          f"last step {roles}); device ms per call, median of 3 x 20 [{card}]", flush=True)
+          f"last step {roles}); phase 3c's spec at 2^20 walkers after 64 steps; device ms "
+          f"per call, warm: median of 3 x 20, flushed: chip_smoke.flushed_ms [{card}]",
+          flush=True)
+    both = {"step", "measure"}
+    ends = [("kept", kept, hist, cnt, both, False)]
+    if root:
+        lib, one_sector = baseline(root)
+        ends.insert(0, ("baseline", lib, hist, cnt, both, one_sector))
+    unchecked = {name for name, _, _, _ in abl}
+    runs = list(ends)
+    for (name, edits, h, c), lib in zip(vs + abl, libs):
+        files = {f for f, _, _ in edits}
+        kinds = ({"measure"} if MEASURE in files else set()) | (
+            {"step"} if files - {MEASURE} or not edits else set())
+        runs.append((name, lib or kept, h, c, kinds, False))
+    runs += [(name + ", again", *rest) for name, *rest in ends[::-1]]
     bad = []
-    runs = [("kept", kept, hist, cnt)]
-    runs += [(name, lib or kept, h, c) for (name, _, h, c), lib in zip(vs, libs)]
-    runs += [("kept, again", kept, hist, cnt)]
-    for name, lib, h, c in runs:
+    for name, lib, h, c, kinds, one_sector in runs:
         _build._lib, mk.SMEM_HIST_BINS, mk.SMEM_COUNTERS = lib, h, c
+        cells = []
         try:
-            prop, acc, acc_u, err = run_one(it, mk, args, st0)
-        except AssertionError as e:          # not bit-equal: reported, not timed
-            print(f"{name}: {e}", flush=True)
+            with baseline_measure(mk, lib, one_sector):
+                if "step" in kinds:
+                    prop, acc, acc_u, err = run_one(it, mk, args, st0)
+                    cells.append(f"propose {prop!r}, accept measured {acc!r}, unmeasured "
+                                 f"{acc_u!r} ms (err {err:.3g})")
+                    if err != 0.0:
+                        bad.append(name)
+                for case in mcases if "measure" in kinds else ():
+                    warm, flushed, err = measure_run(mk, case, name not in unchecked)
+                    cells.append(f"measure {case[0]} {warm!r} warm, {flushed!r} flushed "
+                                 f"(err {err:.3g})")
+                if "measure" in kinds:
+                    per = step_profile(it, mk, args, st0)
+                    cells.append("per launch in 100 measured steps: " + ", ".join(
+                        f"{k} {v!r}" for k, v in per.items()))
+        except (AssertionError, RuntimeError) as e:
+            cells.append(f"FAILED: {e}")
             bad.append(name)
-            continue
-        print(f"{name}: propose {prop!r}, accept measured {acc!r}, unmeasured {acc_u!r} ms; "
-              f"max abs difference from the plain versions {err!r}", flush=True)
-        if err != 0.0:
-            bad.append(name)
+        print(f"{name}: " + "; ".join(cells), flush=True)
     _build._lib, mk.SMEM_HIST_BINS, mk.SMEM_COUNTERS = kept, hist, cnt
     probe(mt, mk, card)
     if bad:
-        print(f"mcmc_variants: differ from the plain versions: {bad}", file=sys.stderr)
+        print(f"mcmc_variants: failed or differ from the plain versions: {bad}",
+              file=sys.stderr)
         return 1
     return 0
 
