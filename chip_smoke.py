@@ -64,6 +64,19 @@ with nvcc and drives every ported path on the card.
   ``log(x)/sqrt(x)``, the 4-D Gaussians, padding and a Discrete passenger
   against their exact values; kernel times; and a profile of two iterations.
 
+- the measurement side of :vegas and :vegasplus (phases 3g, 4g, 6g): the
+  complex instantiations of ``vegas_reduce`` and ``vegas_relw``, and of
+  ``vplus_reduce``, ``vplus_relw`` (relative weights for a custom measure)
+  and ``vplus_reduce`` given the measure's output, each with and without the
+  gate of ``measurefreq``, against their plain versions at one launch of
+  phases 4's and 4d's shapes (and ``vegas_reduce`` at ``REDUCE_EDGES``);
+  ``f + 0j`` against ``f`` over an iteration of each solver;
+  ``integrate(type=complex)`` on the quarter disc times ``e^{i(x+y)}`` on
+  both solvers, the quickstart's histogram on :vegasplus, a complex
+  histogram of ``e^{i(x+y)}`` on :vegas and pi with ``measurefreq=4`` on
+  both, at 2^30 evals per iteration, against their exact values, with the
+  rates beside phases 4 and 4d; the new entry points' times and bounds.
+
 Each path's launch counts are set to 0 just before its main path runs and
 read just after.  Any failed phase raises, so the exit code is non-zero.
 
@@ -169,15 +182,18 @@ REDUCE_EDGES = ((3, 1, 10, 2, 3, 37), (100, 3, 64, 2, 3, 37), (1024, 300, 10, 2,
                 (5, 2048, 3, 1, 2, 5))
 
 
-def reduce_inputs(m, N, ncomp, B=2, T=3, nb=37, seed=0, device="cuda"):
+def reduce_inputs(m, N, ncomp, B=2, T=3, nb=37, seed=0, device="cuda", cplx=False):
     """Random inputs of vegas_reduce (three slots, four (group, slot) pairs
     of up to two slots, random pads and uses, one histogram weight above the
-    clip) and a measure's output of ``ncomp`` components, on ``device``."""
+    clip; complex64 weights with ``cplx``) and a measure's output of
+    ``ncomp`` components, on ``device``."""
     import torch
     rng = np.random.default_rng(seed)
     S, P, M = 3, 4, 2
     w = rng.normal(size=(N, B, T, nb, m)).astype(np.float32)
     w[0, 0, 0, 0, 0] = 3e9
+    if cplx:
+        w = w + 1j * rng.normal(size=w.shape).astype(np.float32)
     invp = rng.uniform(0.2, 3.0, size=(S, B, T, nb)).astype(np.float32)
     perm = np.stack([[[rng.permutation(nb) for _ in range(T)] for _ in range(B)]
                      for _ in range(S)])
@@ -191,7 +207,19 @@ def reduce_inputs(m, N, ncomp, B=2, T=3, nb=37, seed=0, device="cuda"):
     mobs = rng.normal(size=(ncomp, B, T, nb, m)).astype(np.float32)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
-    return (f32(w), f32(invp), i32(perm), i32(pad), i32(pair_slots), i32(used)), f32(mobs)
+    wt = torch.as_tensor(w.astype(np.complex64), device=device) if cplx else f32(w)
+    return (wt, f32(invp), i32(perm), i32(pad), i32(pair_slots), i32(used)), f32(mobs)
+
+
+def relw_components(relw):
+    """The default measure's components of relative weights ``relw [N,
+    ...]``: relw itself, or for complex64 ones Re and Im of integrand i in
+    components 2i and 2i+1, ``[2N, ...]`` float32."""
+    import torch
+    if not relw.is_complex():
+        return relw
+    z = torch.view_as_real(relw).movedim(-1, 1)
+    return z.reshape((-1,) + tuple(relw.shape[1:])).contiguous()
 
 
 def reduce_edges(vk):
@@ -1283,11 +1311,20 @@ def _vplus_allbranch_f(x, c):
             (t[0] + t[1]) * d[1].to(torch.float32) * torch.exp(-u[0] * v[0]) + 0.2)
 
 
-def vplus_allbranch(mt, nevalperblock, ninc=1000, device="cuda"):
+def _vplus_allbranch_cf(x, c):
+    """Phase 3d's two integrands times a phase each."""
+    import torch
+    (t, _), u, _ = x
+    w0, w1 = _vplus_allbranch_f(x, c)
+    return w0 * torch.exp(2j * u[0]), w1 * torch.exp(-3j * t[0])
+
+
+def vplus_allbranch(mt, nevalperblock, ninc=1000, device="cuda", cplx=False, **kw):
     """Phase 3d's spec: trained maps of ``ninc`` (1000; 5000 puts its
     histogram beyond SMEM_HIST_BINS) and 64 bins, a trained Discrete(1, 7)
     passenger bundled with the first, a non-adaptive pool, and two
-    integrands of which the first leaves a slot of two groups unused."""
+    integrands of which the first leaves a slot of two groups unused; with
+    ``cplx``, complex weights (the integrands times a phase each)."""
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
 
@@ -1298,9 +1335,9 @@ def vplus_allbranch(mt, nevalperblock, ninc=1000, device="cuda"):
         leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
         leaf.train()
     cfg = mt.Configuration(var=(mt.CompositeVar(a, d), b, e), dof=[[1, 1, 0], [2, 1, 1]],
-                           seed=SEED)
-    return VegasPlusIteration(Spec(cfg, device), _vplus_allbranch_f, block=16,
-                              nevalperblock=nevalperblock)
+                           seed=SEED, type=complex if cplx else float)
+    return VegasPlusIteration(Spec(cfg, device), _vplus_allbranch_cf if cplx else
+                              _vplus_allbranch_f, block=16, nevalperblock=nevalperblock, **kw)
 
 
 def _first(x, c):
@@ -1470,10 +1507,11 @@ def vplus_main_path(mt, vp, card, niter=10):
     expected = niter * shape.launches_per_run
     vp.reset_launch_counts()
     res = mt.integrate(_sing3, var=var(), niter=niter, **SING3_KW)
-    counts = dict(vp.launch_counts)
+    counts = {k: vp.launch_counts[k] for k in ("vplus_sample", "vplus_reduce")}
     mean, err = float(res.mean[0]), float(res.stdev[0])
     assert res.backend == "cuda" and res.backend_reason == "", (res.backend, res.backend_reason)
     assert expected > 0 and all(n == expected for n in counts.values()), (counts, expected)
+    assert sum(vp.launch_counts.values()) == sum(counts.values()), vp.launch_counts
     evals = [h[2].neval for h in res.iterations]
     steady = sum(evals[1:]) / sum(res.iteration_times[1:])
     print(f"phase 4d: singular_3d = {mean!r} +- {err!r} vs {SING3_EXACT!r} "
@@ -1492,7 +1530,7 @@ def vplus_main_path(mt, vp, card, niter=10):
     print(f"phase 4d: :vegas on the same problem and budget: {rmean!r} +- {rerr!r} "
           f"({(rmean - SING3_EXACT) / rerr:+.2f} sigma), {rsteady!r} evals/s; error bar "
           f":vegas / :vegasplus = {rerr / err!r} [{card}]")
-    return counts, shape
+    return counts, shape, steady
 
 
 def vplus_checks(mt):
@@ -1787,7 +1825,8 @@ def measure_main_path(mt, vk, ck, card, rates):
     runs = (("vegas", dict(neval=VEGAS_NEVAL), vk,
              {"vegas_sample": niter * vit.launches_per_run, "vegas_reduce": 0,
               "vegas_relw": niter * vit.launches_per_run,
-              "vegas_reduce_measure": niter * vit.launches_per_run}, rates["4"]),
+              "vegas_reduce_measure": niter * vit.launches_per_run, "vegas_reduce_complex": 0,
+              "vegas_relw_complex": 0}, rates["4"]),
             ("vegasmc", dict(neval=CHAIN_NEVAL, nwalkers=CHAIN_W), ck,
              {"chain_propose": niter * (cit.nsteps + 1), "chain_accept": niter * (cit.nsteps + 1),
               "chain_measure": niter * n_measured, "chain_accept_complex": 0}, rates["4b"]))
@@ -2306,6 +2345,451 @@ def complex_timings(mt, ck, mk, card):
                                     mean(b_m[0], b_u[0]), b_m[1])}
 
 
+# ---------------------------------------------------------------------------
+# the measurement side of :vegas and :vegasplus: complex weights, custom
+# measures on :vegasplus, measurefreq > 1
+# ---------------------------------------------------------------------------
+
+MF = 4                                                    # phases 3g and 4g's measurefreq
+
+
+def qdisc_exact():
+    """The integral of e^{i(x+y)} over the quarter disc: over x = sin t,
+    t in [0, pi/2), of e^{ix} (e^{i sqrt(1 - x^2)} - 1) / i dx, a smooth
+    integrand in t, by 64-point Gauss-Legendre (0.4930146509292773 +
+    0.5621624711036073i).  tests/test_pallas.py:398's 0.4930385477642199 +
+    0.5622057316603964i is off by 2.4e-5 and 4.3e-5, 80 and 90 of
+    :vegasplus' error bars at 2^30 evals an iteration."""
+    u, wt = np.polynomial.legendre.leggauss(64)
+    t, wt = (u + 1) * np.pi / 4, wt * np.pi / 4
+    f = np.exp(1j * np.sin(t)) * (np.exp(1j * np.cos(t)) - 1) / 1j * np.cos(t)
+    return complex((wt * f).sum())
+
+
+def _qs_cexp(v, c):
+    """e^{i(x+y)} on the quickstart's two pools."""
+    import torch
+    x, y = v
+    return torch.exp(1j * (x[0] + y[0]))
+
+
+def cexp_hist_exact(nbin=NBIN):
+    """Each bin of the complex histogram of e^{i(x+y)} over x, times nbin:
+    nbin (e^{i(a+h)} - e^{ia}) / i * (sin 1 + i(1 - cos 1)), h = 1/nbin."""
+    h = 1.0 / nbin
+    a = np.arange(nbin) * h
+    return nbin * (np.exp(1j * (a + h)) - np.exp(1j * a)) / 1j * PHASE_EXACT
+
+
+def _sing3_phase(x, c):
+    """singular_3d times e^{i x}: phase 4d's problem with complex weights."""
+    import torch
+    return _sing3(x, c) * torch.exp(1j * x[0])
+
+
+def _sing3_hist(v, relw, c):
+    """A 10-bin histogram of the first angle over [0, pi), relw's dtype."""
+    import torch
+    b = torch.clamp((v[0] * (NBIN / np.pi)).to(torch.int32), 0, NBIN - 1)
+    bins = torch.arange(NBIN, device=b.device).reshape((NBIN,) + (1,) * b.ndim)
+    return [(bins == b).to(relw.dtype) * relw[0] * NBIN]
+
+
+def _check_rel(what, got, want, tol):
+    """Raise unless every output is within rel ``tol`` of the plain
+    version's; returns (max abs err, max rel err)."""
+    import torch
+    torch.cuda.synchronize()
+    rel = max(rel_err(a.cpu(), b.cpu()) for a, b in zip(got, want))
+    if rel > tol:
+        raise AssertionError(f"{what} vs plain: rel {rel:.3g} > {tol}")
+    return max(float((a - b).abs().max()) for a, b in zip(got, want)), rel
+
+
+def _check_bits(what, got, want):
+    import torch
+    torch.cuda.synchronize()
+    if not torch.equal(bits(got), bits(want)):
+        raise AssertionError(f"{what} differs from the plain version")
+    return float((got - want).abs().max())
+
+
+def vegas_branch_launch(mt, cfg, f, measure=None, obs=None):
+    """(it, x, invp, perm, w, T): the second launch (t0 = T) of a :vegas
+    iteration at phase 4's shape (2^26 evals a block, 16 blocks)."""
+    from mcintegration_tpu_torch.ops import vegas_kernels as vk
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+
+    it = VegasIteration(Spec(cfg, "cuda"), f, measure=measure, obs_proto=obs, block=16,
+                        nevalperblock=VEGAS_NEVAL // 16)
+    assert it.backend_reason == "", it.backend_reason
+    T = it.chunks_per_launch
+    assert it.nchunks >= 2 * T, (it.nchunks, T)
+    inputs = it.kernel_inputs(it.spec.device_params(), block_keys(SEED, 4, 0, it.block))
+    x, invp, perm = vk.vegas_sample(t0=T, T=T, m=it.m_tile, **inputs)
+    w = it.evaluate(it.leaf_values(x)).contiguous()
+    return it, x, invp, perm, w, T
+
+
+def vplus_branch_launch(mt, vp, cfg, f, nevalperblock, measure=None, obs=None):
+    """(it, lay, tab, cube, cfac, x, gidx, w, t0, T): a launch of a
+    :vegasplus iteration after one reallocation, at chunks [T, 2T)."""
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
+
+    it = VegasPlusIteration(Spec(cfg, "cuda"), f, measure=measure, obs_proto=obs, block=16,
+                            nevalperblock=nevalperblock)
+    assert it.backend_reason == "", it.backend_reason
+    lay, params = it.layout, it.spec.device_params()
+    it.run(params, block_keys(SEED, 0, 0, it.block))              # reallocates the counts
+    tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
+    cube, cfac = it.cube_tables()
+    T = it.chunks_per_launch
+    t0 = T if it.nchunks >= 2 * T else 0
+    x, gidx = vp.vplus_sample(lay, tab, kd, t0, T, cube)
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    return it, lay, tab, cube, cfac, x, gidx, w, t0, T
+
+
+def measurement_vs_plain(mt, vk, vp, card):
+    """Phase 3g: the new branches of vegas_reduce.cu and vplus_reduce.cu
+    against their plain versions.  At one launch of phase 4's shape: the
+    complex instantiations of vegas_reduce (default measure and given the
+    complex 10-bin histogram's output) and vegas_relw_complex, with and
+    without the gate of measurefreq MF, and the real kernel with it; the
+    same at REDUCE_EDGES (MF = 3).  At one launch of phase 4d's shape (after
+    one reallocation, with complex weights singular_3d e^{ix}): vplus_relw,
+    real and complex, and vplus_reduce complex, given a 10-bin histogram's
+    output (real and complex) and with the gate.  Given m = relw's
+    components, the default sums bit for bit.  Then f + 0j against f over
+    one iteration of each solver.  Bit-equal, or within REL_TOL_REDUCE and
+    REL_TOL_VPLUS where only the float64 sum order differs.  Returns the
+    max abs error of each new entry point."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+    from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
+
+    errs = dict.fromkeys(("vegas_reduce_complex", "vegas_relw_complex", "vplus_reduce_complex",
+                          "vplus_relw", "vplus_reduce_measure"), 0.0)
+
+    def keep(name, err):
+        errs[name] = max(errs[name], err)
+
+    # :vegas, the complex histogram of e^{i(x+y)} at phase 4's launch shape
+    cobs = [np.zeros(NBIN, np.complex64)]
+    cfg = mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)), dof=[[1, 1]],
+                           obs=cobs, type=complex, seed=SEED)
+    it, x, invp, perm, w, T = vegas_branch_launch(mt, cfg, _qs_cexp, hist_measure(NBIN), cobs)
+    masks = (it.pad, it.pair_slots, it.used)
+    relw = vk.vegas_relw(w, invp, it.pad, it.pair_slots)
+    keep("vegas_relw_complex", _check_bits("vegas_relw_complex", relw,
+                                           vk.vegas_relw_plain(w, invp, it.pad, it.pair_slots)))
+    m = it.measure(it.leaf_values(x), relw).contiguous()
+    rels = []
+    for mf in (1, MF):
+        for given in (None, m):
+            what = f"vegas_reduce_complex, {'m' if given is not None else 'default'}, mf {mf}"
+            e, rel = _check_rel(what, vk.vegas_reduce(w, invp, perm, *masks, given, mf, T),
+                                vk.vegas_reduce_plain(w, invp, perm, *masks, given, mf, T),
+                                REL_TOL_REDUCE)
+            keep("vegas_reduce_complex", e)
+            rels.append(rel)
+        ident = vk.vegas_reduce(w, invp, perm, *masks, relw_components(relw), mf, T)
+        default = vk.vegas_reduce(w, invp, perm, *masks, None, mf, T)
+        if not (torch_equal_bits(ident[1], default[1])
+                and rel_err(ident[0].cpu(), default[0].cpu()) <= REL_TOL_REDUCE):
+            raise AssertionError(f"vegas_reduce_complex given m = relw, mf {mf}: the sums "
+                                 "differ from the default ones")
+    print(f"phase 3g: :vegas launch of {it.block} blocks x {T} chunks x {it.chunk} samples at "
+          f"t0={T}, complex e^{{i(x+y)}}: vegas_relw_complex bit-equal; vegas_reduce_complex "
+          f"(default, given the complex {NBIN}-bin histogram's {m.shape[0]} components; mf 1 and "
+          f"{MF}) rel <= {max(rels):.3g}; given m = relw, the default sums (histogram "
+          f"bit-equal; obs, whose real and imaginary parts the wrapper sums apart, within "
+          f"{REL_TOL_REDUCE})")
+    del x, invp, perm, w, relw, m, ident, default
+
+    it, x, invp, perm, w, T = vegas_branch_launch(
+        mt, mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED), _pi)
+    _, rel = _check_rel(f"vegas_reduce, mf {MF}",
+                        vk.vegas_reduce(w, invp, perm, it.pad, it.pair_slots, it.used, None, MF, T),
+                        vk.vegas_reduce_plain(w, invp, perm, it.pad, it.pair_slots, it.used, None,
+                                              MF, T), REL_TOL_REDUCE)
+    print(f"phase 3g: :vegas launch at t0={T}, pi, real weights: vegas_reduce with the gate of "
+          f"measurefreq {MF} rel {rel:.3g}")
+    del x, invp, perm, w
+    for mm, N, ncomp, B, T, nb in REDUCE_EDGES:
+        args, mobs = reduce_inputs(mm, N, ncomp, B, T, nb, cplx=True)
+        rel = 0.0
+        for given in (None, mobs):
+            for a in (args, (args[0].real.contiguous(), *args[1:])):
+                e, r = _check_rel(f"vegas_reduce at m={mm}, N={N}", vk.vegas_reduce(*a, given, 3, 2),
+                                  vk.vegas_reduce_plain(*a, given, 3, 2), REL_TOL_REDUCE)
+                rel = max(rel, r)
+                if a is args:
+                    keep("vegas_reduce_complex", e)
+        print(f"phase 3g: vegas_reduce at m={mm}, N={N}, {ncomp} components, complex and real "
+              f"weights, both modes, mf 3, t0 2: rel {rel:.3g}")
+
+    # :vegasplus, phase 4d's launch shape with complex weights
+    sing = mt.Configuration(var=mt.Continuous(0.0, np.pi), dof=[[3]], seed=SEED, type=complex,
+                            obs=[np.zeros(NBIN, np.complex64)])
+    leaf = sing.var[0]
+    leaf.histogram = np.random.default_rng(1).gamma(0.5, 1.0, leaf.ninc) + 1e-3
+    leaf.train()
+    it, lay, tab, cube, cfac, x, gidx, w, t0, T = vplus_branch_launch(
+        mt, vp, sing, _sing3_phase, 2 ** 26, _sing3_hist, sing.observable)
+    args = (lay, tab, w, gidx, cube, cfac)
+    relw = vp.vplus_relw(*args)
+    keep("vplus_relw", _check_bits("vplus_relw, complex", relw, vp.vplus_relw_plain(*args)))
+    rargs = (lay, tab, w.real.contiguous(), gidx, cube, cfac)
+    rrelw = vp.vplus_relw(*rargs)
+    keep("vplus_relw", _check_bits("vplus_relw, real", rrelw, vp.vplus_relw_plain(*rargs)))
+    cm = it.measure(lay.leaf_values(x), relw).contiguous()
+    rm = _sing3_hist(lay.leaf_values(x)[0], rrelw, None)[0].contiguous()
+    rels = []
+    for mf in (1, MF):
+        shift = vp.gate_shifts(it.seeds(block_keys(SEED, 1, 0, it.block)), t0, T, it.chunk) \
+            if mf > 1 else None
+        for name, a, given in (("vplus_reduce_complex", args, None),
+                               ("vplus_reduce_complex", args, cm),
+                               ("vplus_reduce_measure", rargs, rm),
+                               ("vplus_reduce", rargs, None)):
+            e, rel = _check_rel(f"{name}, mf {mf}", vp.vplus_reduce(*a, given, mf, t0, shift),
+                                vp.vplus_reduce_plain(*a, given, mf, t0, shift), REL_TOL_VPLUS)
+            if name in errs:
+                keep(name, e)
+            rels.append(rel)
+        for a, r in ((args, relw), (rargs, rrelw)):
+            ident = vp.vplus_reduce(*a, relw_components(r), mf, t0, shift)
+            default = vp.vplus_reduce(*a, None, mf, t0, shift)
+            same = torch_equal_bits(ident[0], default[0]) if not r.is_complex() else \
+                rel_err(ident[0].cpu(), default[0].cpu()) <= REL_TOL_VPLUS
+            if not same:
+                raise AssertionError(f"vplus_reduce given m = relw, mf {mf}: obs differ from the "
+                                     "default sums")
+    print(f"phase 3g: :vegasplus launch of {it.block} blocks x {T} chunks x {it.chunk} samples at "
+          f"t0={t0} ({lay.S} slots, counts {int(it.counts.min())}..{int(it.counts.max())}), "
+          f"singular_3d e^{{ix}}: vplus_relw (complex and real) bit-equal; vplus_reduce complex "
+          f"(default, given the complex {NBIN}-bin histogram's {cm.shape[0]} components), given "
+          f"the real one's {rm.shape[0]}, and real, each at mf 1 and {MF} (the gate's positions "
+          f"shifted at random per chunk): rel <= {max(rels):.3g}; "
+          f"given m = relw, obs bit-equal to the default sums (real weights; complex within "
+          f"{REL_TOL_VPLUS})")
+    del x, gidx, w, relw, rrelw, cm, rm, ident, default, args, rargs
+
+    # f + 0j against f over one iteration of each solver, from the same seeds
+    kd = block_keys(SEED, 5, 0, 16)
+    for cls, var, f, npb in ((VegasIteration, lambda: mt.Continuous(0.0, 1.0), _pi, 2 ** 22),
+                             (VegasPlusIteration, lambda: mt.Continuous(0.0, np.pi), _sing3,
+                              2 ** 22)):
+        dof = [[2]] if f is _pi else [[3]]
+        runs = []
+        for typ, g in ((float, f), (complex, lambda x, c, f=f: f(x, c) + 0j)):
+            spec = Spec(mt.Configuration(var=var(), dof=dof, seed=SEED, type=typ), "cuda")
+            it = cls(spec, g, block=16, nevalperblock=npb)
+            runs.append((it.run(spec.device_params(), kd), getattr(it, "last_sig", None)))
+        (a, sa), (b, sb) = runs
+        if not (np.array_equal(b["obs_blocks"].real, a["obs_blocks"])
+                and np.all(b["obs_blocks"].imag == 0.0)
+                and np.array_equal(a["norm_blocks"], b["norm_blocks"])):
+            raise AssertionError(f"{cls.__name__} f + 0j: obs differ from the real run's")
+        tol = 0.0 if sa is None else REL_TOL_VPLUS
+        e_hist = max(rel_err(h, r) for h, r in zip(b["hists"], a["hists"]) if r.any())
+        e_sig = 0.0 if sa is None else rel_err(sb, sa)
+        if max(e_hist, e_sig) > tol:
+            raise AssertionError(f"{cls.__name__} f + 0j: hist rel {e_hist:.3g}, sig rel "
+                                 f"{e_sig:.3g} > {tol}")
+        print(f"phase 3g: {cls.__name__} f + 0j, one run of {a['neval']} evals: obs real parts "
+              f"bit-equal to the real run, imaginary parts 0, hist rel {e_hist:.3g}"
+              + ("" if sa is None else f", sig rel {e_sig:.3g}"))
+    return errs
+
+
+def measurement_main_path(mt, vk, vp, card, rates):
+    """Phase 4g: the new routes through integrate(device="cuda") at 2^30
+    evals an iteration, 16 blocks, 10 iterations: the quarter disc times
+    e^{i(x+y)} with type=complex on :vegas and :vegasplus (both parts within
+    5 sigma); the quickstart's 10-bin histogram on :vegasplus (every bin
+    within 7 sigma); the complex histogram of e^{i(x+y)} over x on :vegas
+    (every part within 7 sigma); phase 4's pi problem with measurefreq MF
+    on both (within 5 sigma, normalization 10 * 16 * (nevalperblock // MF)).
+    Each run's launches counted from 0, its rate beside phase 4's or 4d's.
+    Returns the new entry points' launches summed over the runs."""
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+    from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
+
+    niter = 10
+    cobs = [np.zeros(NBIN, np.complex64)]
+    pi = lambda **kw: dict(var=mt.Continuous(0.0, 1.0), dof=[[2]], **kw)
+    qs = lambda **kw: dict(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)), dof=[[1, 1]],
+                           **kw)
+    # solver, problem, integrand, measure, its keywords (fresh pools each
+    # call), exact value, sigmas, the reduce's and the relw's launch keys
+    runs = (("vegas", "quarter disc e^{i(x+y)}", _qdisc, None, lambda: pi(type=complex),
+             qdisc_exact(), 5, "vegas_reduce_complex", None),
+            ("vegasplus", "quarter disc e^{i(x+y)}", _qdisc, None, lambda: pi(type=complex),
+             qdisc_exact(), 5, "vplus_reduce_complex", None),
+            ("vegasplus", f"{NBIN}-bin histogram", _qs_f, hist_measure(NBIN),
+             lambda: qs(obs=[np.zeros(NBIN)]), qs_exact(), 7, "vplus_reduce_measure",
+             "vplus_relw"),
+            ("vegas", f"complex {NBIN}-bin histogram of e^{{i(x+y)}}", _qs_cexp,
+             hist_measure(NBIN), lambda: qs(obs=cobs, type=complex), cexp_hist_exact(), 7,
+             "vegas_reduce_complex", "vegas_relw_complex"),
+            ("vegas", f"pi, measurefreq {MF}", _pi, None, lambda: pi(measurefreq=MF), np.pi / 4,
+             5, "vegas_reduce", None),
+            ("vegasplus", f"pi, measurefreq {MF}", _pi, None, lambda: pi(measurefreq=MF),
+             np.pi / 4, 5, "vplus_reduce", None))
+    new = ("vegas_reduce_complex", "vegas_relw_complex", "vplus_reduce_complex", "vplus_relw",
+           "vplus_reduce_measure")
+    counts = dict.fromkeys(new, 0)
+    for solver, name, f, meas, kw_of, exact, k, key, relw_key in runs:
+        cls, mod = (VegasIteration, vk) if solver == "vegas" else (VegasPlusIteration, vp)
+        kw = kw_of()
+        mf = kw.pop("measurefreq", 1)
+        spec = Spec(mt.Configuration(seed=SEED, **kw), "cuda")
+        shape = cls(spec, f, measure=meas, obs_proto=spec.cfg.observable, measurefreq=mf,
+                    block=16, nevalperblock=VEGAS_NEVAL // 16)
+        L = niter * shape.launches_per_run
+        sample = "vegas_sample" if solver == "vegas" else "vplus_sample"
+        expected = {**dict.fromkeys(mod.launch_counts, 0), sample: L, key: L,
+                    **({relw_key: L} if relw_key else {})}
+        kw = kw_of()                # fresh pools: integrate trains their maps
+        kw.pop("measurefreq", None)
+        mod.reset_launch_counts()
+        res = mt.integrate(f, measure=meas, measurefreq=mf, solver=solver, neval=VEGAS_NEVAL,
+                           niter=niter, block=16, device="cuda", seed=SEED, verbose=-2, **kw)
+        got = dict(mod.launch_counts)
+        assert res.backend == "cuda" and res.backend_reason == "", res.backend_reason
+        assert got == expected, (solver, name, got, expected)
+        for q in new:
+            counts[q] += got.get(q, 0)
+        mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+        exact = np.asarray(exact)
+        assert mean.shape == exact.shape and np.all(np.isfinite(mean)), (mean, exact)
+        z = (mean.real - exact.real) / std.real
+        if np.iscomplexobj(mean):
+            z = z + 1j * (mean.imag - exact.imag) / std.imag
+        if not (np.all(np.abs(z.real) < k) and np.all(np.abs(z.imag) < k)):
+            raise AssertionError(f"phase 4g: {solver}, {name}: {mean.tolist()} +- "
+                                 f"{std.tolist()}, outside {k} sigma: {z.tolist()}")
+        if mf > 1:
+            norm = niter * 16 * (shape.nevalperblock // mf)
+            assert res.config.normalization == norm, (res.config.normalization, norm)
+        evals = [h[2].neval for h in res.iterations]
+        steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+        ph = "4" if solver == "vegas" else "4d"
+        print(f"phase 4g: {solver}, {name}, {niter} iterations of {evals[0]} evals: "
+              f"{mean.tolist()} +- {std.tolist()}, sigma {np.round(z, 2).tolist()}; launches {got}"
+              + (f"; normalization {res.config.normalization!r}" if mf > 1 else ""))
+        print(f"phase 4g: {solver}, {name}: steady-state {steady!r} evals/s, {rates[ph]!r} for "
+              f"the real main path (phase {ph}), ratio {steady / rates[ph]!r} (per-iteration s "
+              f"{res.iteration_times}) [{card}]")
+    return counts
+
+
+def measurement_timings(mt, vk, vp, card):
+    """Phase 6g: device ms of the new entry points at phase 4g's launch
+    shapes, in turns with their plain versions (plain, kernel, kernel,
+    plain), beside their bounds from the bytes each must move:
+    vegas_reduce_complex and vegas_relw_complex on the quarter disc times
+    e^{i(x+y)} (2^26 samples a launch), vplus_reduce_complex on it on
+    :vegasplus, vplus_relw and vplus_reduce given the 10-bin histogram's
+    output on the quickstart's problem on :vegasplus.  Returns each one's
+    (max abs err, ms, plain_ms, bound_ms, bound_by)."""
+    import torch
+
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+
+    def turns(kernel, plain, reps=10):
+        k, p = [], []
+        for order in ((plain, kernel), (kernel, plain)):
+            for fn in order:
+                if fn is kernel:
+                    k.append(device_ms(kernel, reps))
+                else:
+                    p.append(time_ms(plain, 2))
+        return float(np.mean(k)), float(np.mean(p))
+
+    out = {}
+    pi_c = mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED, type=complex)
+    it, x, invp, perm, w, T = vegas_branch_launch(mt, pi_c, _qdisc)
+    masks = (it.pad, it.pair_slots, it.used)
+    n, N, nslots, R = w[0].numel(), w.shape[0], invp.shape[0], invp[0].numel()
+    got = vk.vegas_reduce(w, invp, perm, *masks)
+    e, _ = _check_rel("vegas_reduce_complex at 6g", got,
+                      vk.vegas_reduce_plain(w, invp, perm, *masks), REL_TOL_REDUCE)
+    ms, pms = turns(lambda: vk.vegas_reduce(w, invp, perm, *masks),
+                    lambda: vk.vegas_reduce_plain(w, invp, perm, *masks))
+    b = bound(nbytes(w, invp, perm, *masks, got[1]) + 8 * R * 2 * N,
+              12 * n * N + 8 * n * nslots)
+    out["vegas_reduce_complex"] = (e, ms, pms, *b)
+    relw = vk.vegas_relw(w, invp, it.pad, it.pair_slots)
+    e = _check_bits("vegas_relw_complex at 6g", relw,
+                    vk.vegas_relw_plain(w, invp, it.pad, it.pair_slots))
+    ms, pms = turns(lambda: vk.vegas_relw(w, invp, it.pad, it.pair_slots),
+                    lambda: vk.vegas_relw_plain(w, invp, it.pad, it.pair_slots))
+    b = bound(nbytes(w, invp, it.pad, it.pair_slots, relw), 2 * n * N)
+    out["vegas_relw_complex"] = (e, ms, pms, *b)
+    print(f"phase 6g: one :vegas launch = {it.block} blocks x {T} chunks x {it.chunk} samples "
+          f"({n} evals), complex weights: vegas_reduce_complex "
+          f"{out['vegas_reduce_complex'][1]!r} ms, plain torch {out['vegas_reduce_complex'][2]!r}"
+          f" ms, bound {out['vegas_reduce_complex'][3]!r} ms; vegas_relw_complex "
+          f"{out['vegas_relw_complex'][1]!r} ms, plain torch {out['vegas_relw_complex'][2]!r} ms, "
+          f"bound {out['vegas_relw_complex'][3]!r} ms [{card}]")
+    del x, invp, perm, w, relw, got
+
+    it, lay, tab, cube, cfac, x, gidx, w, t0, T = vplus_branch_launch(
+        mt, vp, pi_c, _qdisc, VEGAS_NEVAL // 16)
+    args = (lay, tab, w, gidx, cube, cfac)
+    n, S, N = w[0].numel(), lay.S, w.shape[0]
+    got = vp.vplus_reduce(*args)
+    e, _ = _check_rel("vplus_reduce_complex at 6g", got, vp.vplus_reduce_plain(*args),
+                      REL_TOL_VPLUS)
+    ms, pms = turns(lambda: vp.vplus_reduce(*args), lambda: vp.vplus_reduce_plain(*args))
+    obs_rows = 8 * 2 * N * it.block * T * -(-it.chunk // vp.SPAN) * vp.WARPS
+    b = bound(nbytes(w, gidx, cube, cfac, tab, lay.meta, got[1], got[2]) + obs_rows,
+              40 * n * (S + N) + 10 * n * N)
+    out["vplus_reduce_complex"] = (e, ms, pms, *b)
+    print(f"phase 6g: one :vegasplus launch = {it.block} blocks x {T} chunks x {it.chunk} samples "
+          f"({n} evals, {S} slots), complex weights: vplus_reduce_complex {ms!r} ms, plain torch "
+          f"{pms!r} ms (host clock), bound {b[0]!r} ms [{card}]")
+    del x, gidx, w, got, args
+
+    qs = mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)), dof=[[1, 1]],
+                          obs=[np.zeros(NBIN)], seed=SEED)
+    it, lay, tab, cube, cfac, x, gidx, w, t0, T = vplus_branch_launch(
+        mt, vp, qs, _qs_f, VEGAS_NEVAL // 16, hist_measure(NBIN), qs.observable)
+    args = (lay, tab, w, gidx, cube, cfac)
+    n, S, N = w[0].numel(), lay.S, w.shape[0]
+    relw = vp.vplus_relw(*args)
+    e = _check_bits("vplus_relw at 6g", relw, vp.vplus_relw_plain(*args))
+    ms, pms = turns(lambda: vp.vplus_relw(*args), lambda: vp.vplus_relw_plain(*args))
+    b = bound(nbytes(w, gidx, cube, cfac, tab, lay.meta, relw), 30 * n * (S + N))
+    out["vplus_relw"] = (e, ms, pms, *b)
+    m = it.measure(lay.leaf_values(x), relw).contiguous()
+    got = vp.vplus_reduce(*args, m)
+    e, _ = _check_rel("vplus_reduce given m at 6g", got, vp.vplus_reduce_plain(*args, m),
+                      REL_TOL_VPLUS)
+    ms2, pms2 = turns(lambda: vp.vplus_reduce(*args, m), lambda: vp.vplus_reduce_plain(*args, m))
+    obs_rows = 8 * m.shape[0] * it.block * T * -(-it.chunk // vp.SPAN) * vp.WARPS
+    b2 = bound(nbytes(w, gidx, cube, cfac, tab, lay.meta, m, got[1], got[2]) + obs_rows,
+               40 * n * (S + N) + 2 * n * m.shape[0])
+    out["vplus_reduce_measure"] = (e, ms2, pms2, *b2)
+    print(f"phase 6g: one :vegasplus launch = {it.block} blocks x {T} chunks x {it.chunk} samples "
+          f"({n} evals, {S} slots), the {NBIN}-bin histogram: vplus_relw {ms!r} ms, plain torch "
+          f"{pms!r} ms, bound {b[0]!r} ms; vplus_reduce given {m.shape[0]} components {ms2!r} ms, "
+          f"plain torch {pms2!r} ms (host clock), bound {b2[0]!r} ms [{card}]")
+    for name, (err, t, pt, bd, by) in out.items():
+        print(f"phase 6g: {name} takes {t / bd!r} times its bound (by {by}) [{card}]")
+    return out
+
+
 PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
 # float32 outside the tensor cores, operations/s: the data sheet's, a fused
 # multiply-add counted as two (the :mcmc kernels, built with --fmad=false,
@@ -2714,17 +3198,20 @@ def main() -> int:
     timed("3d", vplus_vs_plain, mt, vp, card)
     measure_errs = timed("3e", measure_vs_plain, mt, vk, ck, card)
     complex_errs = timed("3f", complex_vs_plain, mt, ck, mk, card)
+    measurement_errs = timed("3g", measurement_vs_plain, mt, vk, vp, card)
     counts, shape, rate4 = timed("4", main_path, mt, vk, card)
     chain_counts, rate4b = timed("4b", chain_main_path, mt, ck, card)
     counts.update(chain_counts)
     mcmc_counts, rate4c = timed("4c", mcmc_main_path, mt, mk, card)
     counts.update(mcmc_counts)
-    vcounts, vshape = timed("4d", vplus_main_path, mt, vp, card)
+    vcounts, vshape, rate4d = timed("4d", vplus_main_path, mt, vp, card)
     counts.update(vcounts)
     counts.update(timed("4e", measure_main_path, mt, vk, ck, card, {"4": rate4, "4b": rate4b}))
     counts.update(timed("4f", complex_main_path, mt, ck, mk, card,
                         {"4b": rate4b, "4c": rate4c}))
     timed("4f", complex_cost, mt, card)
+    counts.update(timed("4g", measurement_main_path, mt, vk, vp, card,
+                        {"4": rate4, "4d": rate4d}))
     timed("5", adaptive_checks, mt)
     timed("5b", chain_checks, mt)
     timed("5c", mcmc_checks, mt)
@@ -2739,6 +3226,8 @@ def main() -> int:
         measured[name] = (measure_errs[name], *times)
     for name, (err, *times) in timed("6f", complex_timings, mt, ck, mk, card).items():
         measured[name] = (max(err, complex_errs[name]), *times)
+    for name, (err, *times) in timed("6g", measurement_timings, mt, vk, vp, card).items():
+        measured[name] = (max(err, measurement_errs[name]), *times)
     common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2, niter=3)
     for phase, kw in (("7", dict(neval=2 ** 30, solver="vegas", **common)),
                       ("7b", dict(neval=2 ** 28, solver="vegasmc", nwalkers=2 ** 20, **common))):
@@ -2769,11 +3258,22 @@ def main() -> int:
                 "vegas_relw": "mcintegration_tpu/ops/pallas_vegas.py:343",
                 "vegas_reduce_measure": "mcintegration_tpu/ops/pallas_vegas.py:343",
                 "chain_accept_complex": "mcintegration_tpu/ops/pallas_chain.py:410",
-                "mcmc_accept_complex": "mcintegration_tpu/ops/pallas_mcmc.py:476"}
+                "mcmc_accept_complex": "mcintegration_tpu/ops/pallas_mcmc.py:476",
+                "vegas_reduce_complex": "mcintegration_tpu/ops/pallas_vegas.py:343",
+                "vegas_relw_complex": "mcintegration_tpu/ops/pallas_vegas.py:343",
+                "vplus_reduce_complex": "mcintegration_tpu/ops/pallas_vplus.py:156",
+                "vplus_relw": "mcintegration_tpu/ops/pallas_vplus.py:156",
+                "vplus_reduce_measure": "mcintegration_tpu/ops/pallas_vplus.py:156"}
     # vegas_relw and vegas_reduce's measure mode are entry points of vegas_reduce.cu,
-    # the complex accept kernels instantiations of chain_accept.cu and mcmc_accept.cu
+    # the complex accept kernels instantiations of chain_accept.cu and mcmc_accept.cu;
+    # the complex, relw and measure entries of the stratified solvers are those of
+    # vegas_reduce.cu and vplus_reduce.cu (the XLA routes of the reference, which the
+    # TPU kernels K1 and K4 never serve)
     sources = {"vegas_relw": "vegas_reduce", "vegas_reduce_measure": "vegas_reduce",
-               "chain_accept_complex": "chain_accept", "mcmc_accept_complex": "mcmc_accept"}
+               "chain_accept_complex": "chain_accept", "mcmc_accept_complex": "mcmc_accept",
+               "vegas_reduce_complex": "vegas_reduce", "vegas_relw_complex": "vegas_reduce",
+               "vplus_reduce_complex": "vplus_reduce", "vplus_relw": "vplus_reduce",
+               "vplus_reduce_measure": "vplus_reduce"}
     kernels = []
     for name, where in replaces.items():
         err, ms, plain_ms, bound_ms, bound_by = measured[name]

@@ -91,6 +91,13 @@ def weight_abs2(w: torch.Tensor) -> torch.Tensor:
     return re * re + im * im
 
 
+def weight_parts(w: torch.Tensor):
+    """A weight's real components: ``(w,)``, or the real and imaginary
+    parts of a complex one (the default observables' components ``2i`` and
+    ``2i+1``)."""
+    return torch.view_as_real(w).unbind(-1) if w.is_complex() else (w,)
+
+
 def weight_scale(w: torch.Tensor, f) -> torch.Tensor:
     """``w*f`` for a real float32 factor ``f``; a complex weight scales each
     part alone (a complex product would add ``im*0`` terms, which can flip

@@ -19,6 +19,23 @@
 // sums bit for bit), and the histogram still comes from w and jac.
 // The JAX kernel also masks the strata rows that pad a chunk up to its L x L
 // square (rowmask, :394 and :501); the port draws no padded rows.
+//
+// Two branches serve the reference's XLA route (mcintegration_tpu/solvers/
+// vegas.py:201-357), which K1 never runs:
+// - complex weights (kCplx): w is complex64 [N, B, T, nb, m], read as
+//   interleaved (re, im) pairs; the default observables are Re and Im of
+//   w_i * factor_i in components 2i and 2i+1, and the histogram term is
+//   min(|w_i| * jac, 1e17)^2 with |w| = sqrt(re*re + im*im) (sqrt(fl(x*x)) =
+//   |x|, so w + 0i gives the real run's bits); given m, w feeds the
+//   histogram only and m stays real.  A complex "quad" is four samples (two
+//   16-byte loads), so a lane adds the same samples in the same order as the
+//   real kernel and the real parts of f + 0i are the real sums bit for bit.
+//   vegas_relw's complex entry scales each part alone: the real kernel on the
+//   float view of 2m values a row.
+// - measurefreq = mf > 1 (kMask): sample j of stratum row p of chunk t (t0
+//   plus the chunk's index in the launch) counts in the observable sums, of
+//   w or of m, only if (t*nb*m + p*m + j + 1) % mf == 0 (vegas.py:327-335);
+//   the others add a zero there.  The histogram takes every sample.
 // The permutation is a bijection of the strata, so each histogram bin of a
 // (slot, block, chunk) is written by exactly one thread: no atomics.
 // The kernel writes per-row partials obs_rows [B, T, nb, ncomp], not per-(b, t)
@@ -108,6 +125,31 @@ __device__ __forceinline__ float4 load_quad(const float* __restrict__ col, int j
   return v;
 }
 
+// Quad j of a complex column of m samples: samples 4j..4j+3 as (re, im)
+// pairs, lo the first two, hi the last two (samples past m left 0).
+struct CQuad {
+  float4 lo, hi;
+};
+
+template <bool kVec>
+__device__ __forceinline__ CQuad load_cquad(const float* __restrict__ col, int j, int m) {
+  CQuad c;
+  if (kVec) {                                 // read once: streaming
+    const float4* p = reinterpret_cast<const float4*>(col) + 2 * j;
+    c.lo = __ldcs(p);
+    c.hi = __ldcs(p + 1);
+    return c;
+  }
+  const float2* z = reinterpret_cast<const float2*>(col);
+  const int q = 4 * j;
+  const float2 zero = make_float2(0.f, 0.f);
+  const float2 a = z[q], b = q + 1 < m ? z[q + 1] : zero;
+  const float2 d = q + 2 < m ? z[q + 2] : zero, e = q + 3 < m ? z[q + 3] : zero;
+  c.lo = make_float4(a.x, a.y, b.x, b.y);
+  c.hi = make_float4(d.x, d.y, e.x, e.y);
+  return c;
+}
+
 // What a unit adds per sample: kObs the column's values (an m column),
 // kWeighted w * factor and the histogram term (w in the default mode),
 // kHist the histogram term alone (w beside a measure).
@@ -125,33 +167,100 @@ __device__ __forceinline__ void add_value(float v, float f, float jac, double& s
   sh += (double)__fmul_rn(a, a);
 }
 
+// The measurement gate of sample e of a row: with kMask, a sample whose
+// index in its block, rem + e modulo mf, is not 0 adds a zero to the
+// observable sums (v of an m column, or w * f with f = 0), and its
+// histogram term as always.
+struct Gate {
+  unsigned rem, mf;                           // (the row's first index) % mf, and mf
+  __device__ __forceinline__ bool shut(int e) const { return (rem + (unsigned)e) % mf != 0u; }
+};
+
+template <int kTerms, bool kMask>
+__device__ __forceinline__ void add_sample(float v, int e, const Gate& g, float f, float jac,
+                                           double& so, double& sh) {
+  if (kMask && g.shut(e)) {
+    if (kTerms == kObs) v = 0.0f;
+    f = 0.0f;
+  }
+  add_value<kTerms>(v, f, jac, so, sh);
+}
+
 // Add the quads j0, j0 + G, ... (kUnroll of them, those below nq) in order.
-template <bool kVec, int kTerms>
+template <bool kVec, int kTerms, bool kMask>
 __device__ __forceinline__ void add_batch(const float4 (&v)[kUnroll], int j0, int G, int nq,
-                                          int m, float f, float jac, double& so, double& sh) {
+                                          int m, const Gate& g, float f, float jac,
+                                          double& so, double& sh) {
 #pragma unroll
   for (int k = 0; k < kUnroll; ++k) {
     const int j = j0 + k * G;
     if (j >= nq) break;
     const int q = 4 * j;
-    add_value<kTerms>(v[k].x, f, jac, so, sh);
-    if (kVec || q + 1 < m) add_value<kTerms>(v[k].y, f, jac, so, sh);
-    if (kVec || q + 2 < m) add_value<kTerms>(v[k].z, f, jac, so, sh);
-    if (kVec || q + 3 < m) add_value<kTerms>(v[k].w, f, jac, so, sh);
+    add_sample<kTerms, kMask>(v[k].x, q, g, f, jac, so, sh);
+    if (kVec || q + 1 < m) add_sample<kTerms, kMask>(v[k].y, q + 1, g, f, jac, so, sh);
+    if (kVec || q + 2 < m) add_sample<kTerms, kMask>(v[k].z, q + 2, g, f, jac, so, sh);
+    if (kVec || q + 3 < m) add_sample<kTerms, kMask>(v[k].w, q + 3, g, f, jac, so, sh);
+  }
+}
+
+// A complex sample (re, im): kWeighted adds Re and Im of w * f into so and
+// si (a zero where the gate is shut), and both modes add the histogram term
+// of |w|, as the real kernel adds that of |v|.
+template <int kTerms, bool kMask>
+__device__ __forceinline__ void add_csample(float re, float im, int e, const Gate& g, float f,
+                                            float jac, double& so, double& si, double& sh) {
+  if (kTerms == kWeighted) {
+    const float fe = kMask && g.shut(e) ? 0.0f : f;
+    so += (double)__fmul_rn(re, fe);
+    si += (double)__fmul_rn(im, fe);
+  }
+  add_value<kHist>(__fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im))), f, jac, so, sh);
+}
+
+// A complex column's unit: the quads j0 = lg, lg + G, ... (four samples
+// each, added in the real kernel's order), kCUnroll in flight.
+constexpr int kCUnroll = 2;
+
+template <bool kVec, int kTerms, bool kMask>
+__device__ __forceinline__ void add_ccolumn(const float* __restrict__ src, int lg, int G, int nq,
+                                            int m, const Gate& g, float f, float jac,
+                                            double& so, double& si, double& sh) {
+  for (int j0 = lg; j0 < nq; j0 += kCUnroll * G) {
+    CQuad v[kCUnroll];
+#pragma unroll
+    for (int k = 0; k < kCUnroll; ++k) {
+      const int j = j0 + k * G;
+      if (j < nq) v[k] = load_cquad<kVec>(src, j, m);
+    }
+#pragma unroll
+    for (int k = 0; k < kCUnroll; ++k) {
+      const int j = j0 + k * G;
+      if (j >= nq) break;
+      const int q = 4 * j;
+      add_csample<kTerms, kMask>(v[k].lo.x, v[k].lo.y, q, g, f, jac, so, si, sh);
+      if (kVec || q + 1 < m)
+        add_csample<kTerms, kMask>(v[k].lo.z, v[k].lo.w, q + 1, g, f, jac, so, si, sh);
+      if (kVec || q + 2 < m)
+        add_csample<kTerms, kMask>(v[k].hi.x, v[k].hi.y, q + 2, g, f, jac, so, si, sh);
+      if (kVec || q + 3 < m)
+        add_csample<kTerms, kMask>(v[k].hi.z, v[k].hi.w, q + 3, g, f, jac, so, si, sh);
+    }
   }
 }
 
 // shared memory: whsum [RT, N] double.
 // A tile is RT rows; its units are (row, column) pairs, row-fastest, with
 // columns 0..N-1 the integrands' w and, given m, N..N+ncomp-1 its components.
-template <bool kVec>
+// kCplx: w complex (the default observables of w_i in components 2i, 2i+1);
+// kMask: the gate of measurefreq mf, the chunks t0..t0+T-1 of each block.
+template <bool kVec, bool kCplx, bool kMask>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 vegas_reduce_kernel(const float* __restrict__ w, const float* __restrict__ invp,
                     const int32_t* __restrict__ perm, const int32_t* __restrict__ pad,
                     const int32_t* __restrict__ pair_slots, const int32_t* __restrict__ used,
                     int N, int nslots, int npair, int maxmem, long long R, int nb, int m,
-                    const float* __restrict__ mobs, int ncomp, int G, int RT,
-                    double* __restrict__ obs_rows, double* __restrict__ hrow) {
+                    const float* __restrict__ mobs, int ncomp, int G, int RT, int mf, int t0,
+                    int T, double* __restrict__ obs_rows, double* __restrict__ hrow) {
   extern __shared__ double whsum[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lg = lane & (G - 1);               // lane in its group
@@ -170,10 +279,23 @@ vegas_reduce_kernel(const float* __restrict__ w, const float* __restrict__ invp,
     const long long r = r0 + row;
     const bool wcol = col < N;
     const int terms = !wcol ? kObs : mobs ? kHist : kWeighted;
-    const float* src = wcol ? w + ((long long)col * R + r) * m
+    const float* src = wcol ? w + ((long long)col * R + r) * m * (kCplx ? 2 : 1)
                             : mobs + ((long long)(col - N) * R + r) * m;
-    double so = 0.0, sh = 0.0;
-    if (ok) {
+    Gate g = {0u, 1u};
+    if (kMask) {   // the row's first sample: index (t0 + t)*nb*m + p*m + 1 in its block
+      const long long t = t0 + (r / nb) % T;
+      g = {(unsigned)(((t * nb + r % nb) * m + 1) % mf), (unsigned)mf};
+    }
+    double so = 0.0, sh = 0.0, si = 0.0;
+    if (ok && kCplx && wcol) {
+      const float jac = row_jac(invp, nslots, R, r);
+      if (terms == kWeighted) {
+        const float f = integrand_factor(jac, invp, pad, pair_slots, col, npair, maxmem, R, r);
+        add_ccolumn<kVec, kWeighted, kMask>(src, lg, G, nq, m, g, f, jac, so, si, sh);
+      } else {
+        add_ccolumn<kVec, kHist, kMask>(src, lg, G, nq, m, g, 0.0f, jac, so, si, sh);
+      }
+    } else if (ok) {
       float jac = 0.0f, f = 0.0f;
       for (int j0 = lg; j0 < nq; j0 += kUnroll * G) {
         float4 v[kUnroll];
@@ -188,19 +310,25 @@ vegas_reduce_kernel(const float* __restrict__ w, const float* __restrict__ invp,
             f = integrand_factor(jac, invp, pad, pair_slots, col, npair, maxmem, R, r);
         }
         if (terms == kObs)
-          add_batch<kVec, kObs>(v, j0, G, nq, m, f, jac, so, sh);
+          add_batch<kVec, kObs, kMask>(v, j0, G, nq, m, g, f, jac, so, sh);
         else if (terms == kWeighted)
-          add_batch<kVec, kWeighted>(v, j0, G, nq, m, f, jac, so, sh);
+          add_batch<kVec, kWeighted, kMask>(v, j0, G, nq, m, g, f, jac, so, sh);
         else
-          add_batch<kVec, kHist>(v, j0, G, nq, m, f, jac, so, sh);
+          add_batch<kVec, kHist, kMask>(v, j0, G, nq, m, g, f, jac, so, sh);
       }
     }
     for (int o = G >> 1; o > 0; o >>= 1) {   // the group's butterfly
       so += __shfl_xor_sync(0xffffffffu, so, o);
       sh += __shfl_xor_sync(0xffffffffu, sh, o);
+      if (kCplx) si += __shfl_xor_sync(0xffffffffu, si, o);
     }
     if (!ok) continue;
-    if (lg == 0 && terms != kHist) obs_rows[r * ncomp + (wcol ? col : col - N)] = so;
+    if (kCplx && wcol && lg == 0 && terms != kHist) {   // Re and Im of integrand col
+      obs_rows[r * ncomp + 2 * col] = so;
+      obs_rows[r * ncomp + 2 * col + 1] = si;
+    } else if (lg == 0 && terms != kHist) {
+      obs_rows[r * ncomp + (wcol ? col : col - N)] = so;
+    }
     if (wcol && lg == 0) whsum[row * N + col] = sh;
   }
   __syncthreads();   // each (row, slot) bin from the tile's whsum
@@ -261,22 +389,44 @@ int group_lanes(int m) {
   return g;
 }
 
-template <bool kVec>
+template <bool kVec, bool kCplx, bool kMask>
 cudaError_t launch_reduce(const float* w, const float* invp, const int32_t* perm,
                           const int32_t* pad, const int32_t* pair_slots, const int32_t* used,
                           int N, int nslots, int npair, int maxmem, long long R, int nb, int m,
-                          const float* mobs, int ncomp, double* obs_rows, double* hrow,
-                          cudaStream_t stream) {
+                          const float* mobs, int ncomp, int mf, int t0, int T,
+                          double* obs_rows, double* hrow, cudaStream_t stream) {
   const int G = group_lanes(m);
   int RT = kWarps * (32 / G);                   // a row per group at one column
   if (RT * N > kSmemDoubles) RT = kSmemDoubles / N > 1 ? kSmemDoubles / N : 1;
   const size_t smem = (size_t)RT * N * sizeof(double);
   const long long ntiles = (R + RT - 1) / RT;
   if (ntiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  vegas_reduce_kernel<kVec><<<(unsigned)ntiles, kThreads, smem, stream>>>(
+  vegas_reduce_kernel<kVec, kCplx, kMask><<<(unsigned)ntiles, kThreads, smem, stream>>>(
       w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem, R, nb, m, mobs,
-      mobs ? ncomp : N, G, RT, obs_rows, hrow);
+      mobs ? ncomp : (kCplx ? 2 * N : N), G, RT, mf, t0, T, obs_rows, hrow);
   return cudaGetLastError();
+}
+
+using ReduceLaunch = decltype(&launch_reduce<false, false, false>);
+
+template <bool kCplx>
+int reduce_entry(const void* w, const void* invp, const void* perm, const void* pad,
+                 const void* pair_slots, const void* used, int N, int nslots, int npair,
+                 int maxmem, long long R, int nb, int m, const void* mobs, int ncomp, int mf,
+                 int t0, int T, void* obs_rows, void* hrow, void* stream) {
+  if (N < 1 || nslots < 1 || R < 1 || nb < 1 || m < 1 || (mobs && ncomp < 1) || mf < 1 ||
+      t0 < 0 || T < 1 || R % ((long long)nb * T) != 0)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte loads: every row starts on a quad when m % 4 == 0
+  const bool vec = m % 4 == 0 && (uintptr_t)w % 16 == 0 && (uintptr_t)mobs % 16 == 0;
+  // the gate's kernel only where mf > 1: the mf = 1 kernels are the ungated ones
+  ReduceLaunch run = launch_reduce<false, kCplx, false>;
+  if (vec) run = mf > 1 ? launch_reduce<true, kCplx, true> : launch_reduce<true, kCplx, false>;
+  else if (mf > 1) run = launch_reduce<false, kCplx, true>;
+  return (int)run((const float*)w, (const float*)invp, (const int32_t*)perm,
+                  (const int32_t*)pad, (const int32_t*)pair_slots, (const int32_t*)used,
+                  N, nslots, npair, maxmem, R, nb, m, (const float*)mobs, ncomp, mf, t0, T,
+                  (double*)obs_rows, (double*)hrow, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -286,17 +436,22 @@ extern "C" int mci_vegas_reduce(const void* w, const void* invp,
                                 const void* pair_slots, const void* used,
                                 int N, int nslots, int npair, int maxmem,
                                 long long R, int nb, int m, const void* mobs,
-                                int ncomp, void* obs_rows, void* hrow, void* stream) {
-  if (N < 1 || nslots < 1 || R < 1 || nb < 1 || m < 1 || (mobs && ncomp < 1))
-    return (int)cudaErrorInvalidValue;
-  // 16-byte loads: every row starts on a quad when m % 4 == 0
-  const bool vec = m % 4 == 0 && (uintptr_t)w % 16 == 0 && (uintptr_t)mobs % 16 == 0;
-  auto run = launch_reduce<false>;
-  if (vec) run = launch_reduce<true>;
-  return (int)run((const float*)w, (const float*)invp, (const int32_t*)perm,
-                  (const int32_t*)pad, (const int32_t*)pair_slots, (const int32_t*)used,
-                  N, nslots, npair, maxmem, R, nb, m, (const float*)mobs, ncomp,
-                  (double*)obs_rows, (double*)hrow, (cudaStream_t)stream);
+                                int ncomp, int mf, int t0, int T, void* obs_rows,
+                                void* hrow, void* stream) {
+  return reduce_entry<false>(w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem,
+                             R, nb, m, mobs, ncomp, mf, t0, T, obs_rows, hrow, stream);
+}
+
+// w complex64 [N, B, T, nb, m], read as interleaved (re, im) float pairs
+extern "C" int mci_vegas_reduce_complex(const void* w, const void* invp,
+                                        const void* perm, const void* pad,
+                                        const void* pair_slots, const void* used,
+                                        int N, int nslots, int npair, int maxmem,
+                                        long long R, int nb, int m, const void* mobs,
+                                        int ncomp, int mf, int t0, int T, void* obs_rows,
+                                        void* hrow, void* stream) {
+  return reduce_entry<true>(w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem,
+                            R, nb, m, mobs, ncomp, mf, t0, T, obs_rows, hrow, stream);
 }
 
 extern "C" int mci_vegas_relw(const void* w, const void* invp, const void* pad,
@@ -307,4 +462,15 @@ extern "C" int mci_vegas_relw(const void* w, const void* invp, const void* pad,
       (const float*)w, (const float*)invp, (const int32_t*)pad,
       (const int32_t*)pair_slots, N, nslots, npair, maxmem, R, m, (float*)relw);
   return (int)cudaGetLastError();
+}
+
+// complex64 w and relw: each part scaled alone by the real factor, so the
+// real kernel on the float view, 2m floats a row
+extern "C" int mci_vegas_relw_complex(const void* w, const void* invp, const void* pad,
+                                      const void* pair_slots, int N, int nslots, int npair,
+                                      int maxmem, long long R, int m, void* relw,
+                                      void* stream) {
+  if (m > 0x3fffffff) return (int)cudaErrorInvalidValue;
+  return mci_vegas_relw(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, 2 * m, relw,
+                        stream);
 }

@@ -78,6 +78,31 @@
 // and the counts and maps made from them, reproduce only to rounding (rel
 // 1e-12 against the plain version).
 //
+// The reference's XLA route (mcintegration_tpu/solvers/vegasplus.py:131-312)
+// also serves what K4 never does, and so does this kernel, in instantiations
+// of the one body (the real, ungated, default-measure one is the kernel
+// above, unchanged):
+// - complex weights (kCplx): w complex64, read as (re, im) pairs (Weight
+//   of chain_common.cuh); relw_i = (re*f, im*f) with f = jac*pad_i, the
+//   default observables Re and Im of relw_i in components 2i and 2i+1,
+//   score += |w_i|*pad_i and hist += min(|relw_i|, 1e17)^2, with |z| =
+//   sqrt(re*re + im*im) (vegasplus.py:272-300), so w + 0i gives the real
+//   run's bits;
+// - a custom measure: kRelw writes relw_i per sample for the measure
+//   (vplus_relw, the density formed as above) and nothing else; kMeasure
+//   sums the measure's float32 components m [ncomp, B, T, c] in place of
+//   relw, and sig and hist come from w as before;
+// - measurefreq = mf > 1 (kMask): sample s of chunk t (t0 plus the chunk's
+//   index in the launch) counts in the observable sums only if
+//   (t*c + (s + shift[b, t]) % c + 1) % mf == 0; sig and hist take every
+//   sample.  The reference's gate (vegasplus.py:255-262) is this with no
+//   shift: where mf divides c it measures the same positions of every
+//   cube-major chunk, so a cube of n_c samples has floor or ceil(n_c/mf)
+//   measured ones and the estimate weights it by mf*m_c/n_c, from 0 to 2
+//   (ROADMAP.md, known faults in the reference).  A random cyclic shift of
+//   the positions per (block, chunk) measures each cube at the rate 1/mf in
+//   expectation and keeps the count of each chunk.
+//
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding.
 
@@ -98,13 +123,29 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
+// What a launch makes of w: the default observables, the sums of a
+// measure's m, or relw alone (vplus_relw)
+enum Mode { kDefault, kMeasure, kRelw };
+
+// The real, ungated, default-measure kernel keeps 32 registers (eight blocks
+// an SM); the other instantiations may take up to 64
+constexpr int min_blocks(bool cplx, int mode, bool mask) {
+  return !cplx && mode == kDefault && !mask ? kBlocksPerSm : kBlocksPerSm / 2;
+}
+
+__device__ __forceinline__ float re_of(const Weight<false>& z) { return z.v; }
+__device__ __forceinline__ float re_of(const Weight<true>& z) { return z.re; }
+__device__ __forceinline__ float im_of(const Weight<true>& z) { return z.im; }
+
+template <bool kCplx, int kMode, bool kMask>
+__global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vplus_reduce_kernel(
     const float* __restrict__ w, const int* __restrict__ gidx,
     const int* __restrict__ cube, const float* __restrict__ cfac,
     const float* __restrict__ tab, const int* __restrict__ meta, int N, int S,
     int P, int M, long long BT, int c, int H, int hist_smem,
-    double* __restrict__ obs_rows, double* __restrict__ sig,
-    double* __restrict__ hist) {
+    const float* __restrict__ mobs, int ncomp, int mf, int t0, int T,
+    const int* __restrict__ shift, double* __restrict__ obs_rows, double* __restrict__ sig,
+    double* __restrict__ hist, float* __restrict__ relw_out) {
   extern __shared__ double hist_s[];           // [HW] this block's window of the histogram
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* slots = meta;                     // [S, 8]
@@ -154,9 +195,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
       }
       jac = __fdiv_rn(1.0f, dens);
     }
+    // the gate: whether this sample counts in the observable sums
+    const bool on = !kMask || ((t0 + bt % T) * (long long)c +
+                               ((long long)s + (shift ? shift[bt] : 0)) % c + 1) % mf == 0;
 
     for (int i = 0; i < N; ++i) {
       double so = 0.0, sq = 0.0;
+      double si = 0.0;                         // Im of a complex relw_i
       if (cb >= 0) {
         float pad_i = 1.0f;
         for (int g = 0; g < P; ++g) {
@@ -170,14 +215,22 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
           }
           pad_i = __fmul_rn(pad_i, gp);
         }
-        const float wi = w[i * plane + at];
-        const float relw = __fmul_rn(wi, __fmul_rn(jac, pad_i));
-        score = __fadd_rn(score, __fmul_rn(fabsf(wi), pad_i));
-        so = (double)relw;
-        float a = fabsf(relw);
+        const Weight<kCplx> wi = Weight<kCplx>::load(w, i * plane + at);
+        const Weight<kCplx> relw = wi.scale(__fmul_rn(jac, pad_i));
+        if (kMode == kRelw) {
+          relw.store(relw_out, i * plane + at);
+          continue;
+        }
+        score = __fadd_rn(score, __fmul_rn(wi.abs(), pad_i));
+        if (kMode == kDefault && on) {
+          so = (double)re_of(relw);
+          if constexpr (kCplx) si = (double)im_of(relw);
+        }
+        float a = relw.abs();
         a = a > 1e17f ? 1e17f : a;   // NaN passes through, as torch.clamp
         sq = (double)__fmul_rn(a, a);
       }
+      if (kMode == kRelw) continue;
       for (int k = 0; k < S; ++k) {
         const int off = slots[kSlotFields * k + kHist];
         if (off < 0 || !used[k * N + i]) continue;
@@ -185,15 +238,30 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
         if (bin < 0 || bin >= HW) continue;
         atomicAdd(hist_s + bin, sq);
       }
+      if (kMode != kDefault) continue;
       so = warp_sum(so);
-      if (lane == 0 && first)
+      if (kCplx) si = warp_sum(si);
+      if (lane == 0 && first && kCplx) {
+        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * ncomp + 2 * i] = so;
+        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * ncomp + 2 * i + 1] = si;
+      } else if (lane == 0 && first) {
         obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * N + i] = so;
+      }
+    }
+    if (kMode == kRelw) continue;
+    // a measure's components, gated as relw would be
+    for (int q = 0; kMode == kMeasure && q < ncomp; ++q) {
+      double v = cb >= 0 && on ? (double)mobs[q * plane + at] : 0.0;
+      v = warp_sum(v);
+      if (lane == 0 && first)
+        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * ncomp + q] = v;
     }
 
     float wj = __fdiv_rn(score, denom);
     wj = wj > 1e17f ? 1e17f : wj;
     if (cb >= 0) v2 += (double)__fmul_rn(wj, wj);
   }
+  if (kMode == kRelw) return;
 
   // per-cube second moments: a segmented sum over the warp's sorted cubes
   for (int o = 1; o < 32; o <<= 1) {
@@ -209,22 +277,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vplus_reduce_kernel(
     if (hist_s[q] != 0.0) atomicAdd(hist + hlo + q, hist_s[q]);
 }
 
-}  // namespace
-
-extern "C" int mci_vplus_reduce(const void* w, const void* gidx,
-                                const void* cube, const void* cfac,
-                                const void* tab, const void* meta, int N,
-                                int S, int P, int M, long long BT, int c,
-                                int ncubes, int H, int hist_smem, int span,
-                                int warps, void* obs_rows, void* sig,
-                                void* hist, void* stream) {
-  if (span != kSpan || warps != kWarps || c < 1 || ncubes < 1)
-    return (int)cudaErrorInvalidValue;      // the wrapper sized obs_rows otherwise
+template <bool kCplx, int kMode, bool kMask>
+int launch(const void* w, const void* gidx, const void* cube, const void* cfac,
+           const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
+           int c, int H, int hist_smem, const void* mobs, int ncomp, int mf, int t0, int T,
+           const void* shift, void* obs_rows, void* sig, void* hist, void* relw, void* stream) {
   const int nspan = (c + kSpan - 1) / kSpan;
   const int nwin = hist_smem ? 1 : (H + kWindow - 1) / kWindow;
   const size_t smem = (size_t)(hist_smem ? H : kWindow) * sizeof(double);
+  auto kernel = vplus_reduce_kernel<kCplx, kMode, kMask>;
   int per_sm = 0;
-  const int err = blocks_per_sm(vplus_reduce_kernel, kThreads, smem, &per_sm);
+  const int err = blocks_per_sm(kernel, kThreads, smem, &per_sm);
   if (err) return err;
   long long groups = ((long long)kWaves * per_sm * num_sms() + nspan * nwin - 1) /
                      ((long long)nspan * nwin);
@@ -232,9 +295,82 @@ extern "C" int mci_vplus_reduce(const void* w, const void* gidx,
   if (groups > 65535) groups = 65535;
   if (groups < 1) groups = 1;
   dim3 grid((unsigned)nspan, (unsigned)groups, (unsigned)nwin);
-  vplus_reduce_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
       (const float*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem,
-      (double*)obs_rows, (double*)sig, (double*)hist);
+      (const float*)mobs, ncomp, mf, t0, T, (const int*)shift, (double*)obs_rows, (double*)sig,
+      (double*)hist, (float*)relw);
   return (int)cudaGetLastError();
+}
+
+template <bool kCplx>
+int reduce_entry(const void* w, const void* gidx, const void* cube, const void* cfac,
+                 const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
+                 int c, int ncubes, int H, int hist_smem, int span, int warps,
+                 const void* mobs, int ncomp, int mf, int t0, int T, const void* shift,
+                 void* obs_rows, void* sig, void* hist, void* stream) {
+  if (span != kSpan || warps != kWarps || c < 1 || ncubes < 1 || mf < 1 || t0 < 0 ||
+      T < 1 || BT % T != 0 || ncomp < 1 || (!mobs && ncomp != (kCplx ? 2 * N : N)))
+    return (int)cudaErrorInvalidValue;      // the wrapper sized obs_rows otherwise
+  auto run = launch<kCplx, kDefault, false>;
+  if (mobs) run = mf > 1 ? launch<kCplx, kMeasure, true> : launch<kCplx, kMeasure, false>;
+  else if (mf > 1) run = launch<kCplx, kDefault, true>;
+  return run(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, H, hist_smem, mobs, ncomp,
+             mf, t0, T, shift, obs_rows, sig, hist, nullptr, stream);
+}
+
+template <bool kCplx>
+int relw_entry(const void* w, const void* gidx, const void* cube, const void* cfac,
+               const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
+               int c, int span, int warps, void* relw, void* stream) {
+  if (span != kSpan || warps != kWarps || c < 1) return (int)cudaErrorInvalidValue;
+  // no histogram (H = 0, whole), no observables, sig untouched
+  return launch<kCplx, kRelw, false>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, 0, 1,
+                                     nullptr, N, 1, 0, 1, nullptr, nullptr, nullptr, nullptr,
+                                     relw, stream);
+}
+
+}  // namespace
+
+extern "C" int mci_vplus_reduce(const void* w, const void* gidx,
+                                const void* cube, const void* cfac,
+                                const void* tab, const void* meta, int N,
+                                int S, int P, int M, long long BT, int c,
+                                int ncubes, int H, int hist_smem, int span,
+                                int warps, const void* mobs, int ncomp, int mf,
+                                int t0, int T, const void* shift, void* obs_rows,
+                                void* sig, void* hist, void* stream) {
+  return reduce_entry<false>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, ncubes, H,
+                             hist_smem, span, warps, mobs, ncomp, mf, t0, T, shift, obs_rows,
+                             sig, hist, stream);
+}
+
+// w complex64 [N, B, T, c], read as interleaved (re, im) float pairs
+extern "C" int mci_vplus_reduce_complex(const void* w, const void* gidx,
+                                        const void* cube, const void* cfac,
+                                        const void* tab, const void* meta, int N,
+                                        int S, int P, int M, long long BT, int c,
+                                        int ncubes, int H, int hist_smem, int span,
+                                        int warps, const void* mobs, int ncomp, int mf,
+                                        int t0, int T, const void* shift, void* obs_rows,
+                                        void* sig, void* hist, void* stream) {
+  return reduce_entry<true>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, ncubes, H,
+                            hist_smem, span, warps, mobs, ncomp, mf, t0, T, shift, obs_rows,
+                            sig, hist, stream);
+}
+
+extern "C" int mci_vplus_relw(const void* w, const void* gidx, const void* cube,
+                              const void* cfac, const void* tab, const void* meta, int N,
+                              int S, int P, int M, long long BT, int c, int span, int warps,
+                              void* relw, void* stream) {
+  return relw_entry<false>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, span, warps,
+                           relw, stream);
+}
+
+extern "C" int mci_vplus_relw_complex(const void* w, const void* gidx, const void* cube,
+                                      const void* cfac, const void* tab, const void* meta,
+                                      int N, int S, int P, int M, long long BT, int c,
+                                      int span, int warps, void* relw, void* stream) {
+  return relw_entry<true>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, span, warps,
+                          relw, stream);
 }

@@ -149,26 +149,31 @@ def integrate(integrand: Callable, *,
     ``thermal_ratio`` (burn-in steps as a fraction of the measured ones,
     default 0.1) the :mcmc chains.  A custom measure returns the
     observables' contributions, shaped like ``obs``: ``measure(x, relw, c)``
-    on :vegas and :vegasmc, with ``relw [N, *batch]`` the integrands'
-    relative weights (``relw[0]`` reads as it does per sample), and
-    ``measure(idx, x, relw, c)`` on :mcmc.
+    on :vegas, :vegasmc and :vegasplus, with ``relw [N, *batch]`` the
+    integrands' relative weights (``relw[0]`` reads as it does per sample),
+    and ``measure(idx, x, relw, c)`` on :mcmc.  ``measurefreq = k`` measures
+    a k-th of the samples on every solver: every k-th step of a chain on the
+    Markov solvers, every k-th sample of a block on :vegas, and on
+    :vegasplus a k-th of each chunk at positions shifted at random per
+    chunk; a custom measure's output is summed over the measured samples
+    only.
 
-    Weights are float32, or complex64 with ``type=complex`` on :vegasmc and
-    :mcmc: the integrand may return complex values, ``|w|`` (``sqrt(re^2 +
-    im^2)``) drives the chains and reweighting, ``relw`` reaches a custom
-    measure as complex64, observables may have complex leaves, and the
-    result's means and error bars are complex, real and imaginary parts
-    estimated as independent channels (src/statistics.jl:24-55).
+    Weights are float32, or complex64 with ``type=complex`` on every
+    solver: the integrand may return complex values, ``|w|`` (``sqrt(re^2 +
+    im^2)``) drives the chains, reweighting, histograms and hypercube
+    allocation, ``relw`` reaches a custom measure as complex64, observables
+    may have complex leaves, and the result's means and error bars are
+    complex, real and imaginary parts estimated as independent channels
+    (src/statistics.jl:24-55).
 
     ``dtype``, ``backend``, ``cache`` and ``parallel`` are the reference's
     keywords; the port serves their defaults (float32, ``"auto"``, True,
     ``"auto"``) and raises on any other value.  Inputs the port does not
     serve yet raise ``NotImplementedError`` naming the ROADMAP.md item that
-    will port them: a custom ``measure`` on :vegasplus, ``measurefreq != 1``
-    on :vegas and :vegasplus, ``type=complex`` on :vegas and :vegasplus,
-    ``mesh`` and ``debug``.  Complex observables on a real-weight run raise
-    (the reference drops their imaginary part), and FermiK pools raise on
-    every solver but :mcmc, as in the reference.
+    will port them: ``Discrete`` pools and pools of different ``ninc`` on
+    :vegas, ``mesh`` and ``debug``.  Complex observables on a real-weight
+    run raise (the reference drops their imaginary part), and FermiK pools
+    raise on every solver but :mcmc, as in the reference.
 
     ``result.backend`` is ``"cuda"`` or ``"torch"``; ``backend_reason``
     says why, when the integrand or the measure runs per sample under
@@ -180,10 +185,6 @@ def integrate(integrand: Callable, *,
     if solver not in ("vegas", "vegasmc", "mcmc", "vegasplus"):
         raise ValueError(f"Solver {solver} is not supported!")
     _check_keywords(dtype, backend, cache, parallel)
-    if measure is not None and solver == "vegasplus":
-        _not_ported("a custom measure on :vegasplus", 14)
-    if measurefreq != 1 and solver in ("vegas", "vegasplus"):
-        _not_ported(f"measurefreq={measurefreq} on :{solver}", 14)
     if mesh is not None:
         _not_ported("mesh (multi-device runs)", 15)
     if debug:
@@ -218,12 +219,15 @@ def integrate(integrand: Callable, *,
             min_steps_per_walker=min_steps_per_walker,
             warmup=0.01 if warmup is None else warmup)
     elif solver == "vegasplus":
-        it_kernel = VegasPlusIteration(spec, integrand, inplace=inplace, block=block,
+        it_kernel = VegasPlusIteration(spec, integrand, measure=measure,
+                                       obs_proto=config.observable, inplace=inplace,
+                                       measurefreq=measurefreq, block=block,
                                        nevalperblock=nevalperblock)
     else:
         it_kernel = VegasIteration(spec, integrand, measure=measure,
                                    obs_proto=config.observable, inplace=inplace,
-                                   block=block, nevalperblock=nevalperblock)
+                                   measurefreq=measurefreq, block=block,
+                                   nevalperblock=nevalperblock)
     backend_reason = it_kernel.backend_reason
     if verbose >= 0 and backend_reason:
         sys.stdout.write(yellow(f"{solver}: {backend_reason}\n"))

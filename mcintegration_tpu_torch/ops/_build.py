@@ -23,6 +23,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -36,9 +38,9 @@ _SIGNATURES = {
     # kd, t0, B, T, nb, m, nslots, atab, grid, inc, slot_leaf, x, invp, perm, stream
     "mci_vegas_sample": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem, R, nb, m,
-    # mobs, ncomp, obs_rows, hrow, stream
+    # mobs, ncomp, mf, t0, T, obs_rows, hrow, stream
     "mci_vegas_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I,
-                         _P, _I, _P, _P, _P],
+                         _P, _I, _I, _I, _I, _P, _P, _P],
     # w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, m, relw, stream
     "mci_vegas_relw": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P, _P],
     # kd, t, init, W, wb, L, S, nvar, nelig, meta, tab, smem_floats, cur_val,
@@ -70,13 +72,19 @@ _SIGNATURES = {
     # kd, t0, B, T, c, S, nstrat, cube, meta, tab, x, gidx, stream
     "mci_vplus_sample": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, ncubes, H, hist_smem,
-    # span, warps, obs_rows, sig, hist, stream
+    # span, warps, mobs, ncomp, mf, t0, T, shift, obs_rows, sig, hist, stream
     "mci_vplus_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I,
-                         _I, _I, _I, _P, _P, _P, _P],
+                         _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, span, warps, relw, stream
+    "mci_vplus_relw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I, _P, _P],
 }
 
 # the complex-weight instantiations take the real ones' arguments
 _SIGNATURES["mci_chain_accept_complex"] = _SIGNATURES["mci_chain_accept"]
+_SIGNATURES["mci_vegas_reduce_complex"] = _SIGNATURES["mci_vegas_reduce"]
+_SIGNATURES["mci_vegas_relw_complex"] = _SIGNATURES["mci_vegas_relw"]
+_SIGNATURES["mci_vplus_reduce_complex"] = _SIGNATURES["mci_vplus_reduce"]
+_SIGNATURES["mci_vplus_relw_complex"] = _SIGNATURES["mci_vplus_relw"]
 _SIGNATURES["mci_mcmc_accept_complex"] = _SIGNATURES["mci_mcmc_accept"]
 
 _lib = None
@@ -161,6 +169,20 @@ def check(lib, err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib.mci_error_string(err).decode()})")
+
+
+def sum_obs(t, dim: int, pairs: bool):
+    """Partial sums ``t [..., ncomp]`` summed over ``dim``.  With ``pairs``
+    (a complex run's default observables, Re and Im of integrand ``i`` in
+    components ``2i`` and ``2i+1``) the real parts and the imaginary parts
+    are each summed as a contiguous ``[..., N]`` tensor, the real run's
+    layout: on the card the order of a reduction follows its layout and its
+    number of outputs, so the real parts of ``f + 0j`` then equal the real
+    run's ``f`` bit for bit."""
+    if not pairs:
+        return t.sum(dim=dim)
+    re, im = (t[..., k::2].contiguous().sum(dim=dim) for k in (0, 1))
+    return torch.stack([re, im], dim=-1).flatten(-2)
 
 
 def check_tensor(t, name: str, dtype, shape, device):

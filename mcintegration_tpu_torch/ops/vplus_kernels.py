@@ -26,8 +26,27 @@ adaptive leaves, one leaf after the other):
 
 - ``vplus_sample(lay, tab, kd [B,2] i32, t0, T, cube [c] i32) ->
   x [S,B,T,c] f32 (int32 bits for a Discrete slot), gidx [S,B,T,c] i32``;
-- ``vplus_reduce(lay, tab, w [N,B,T,c] f32, gidx, cube, cfac [ncubes] f32)
-  -> obs [B,T,N] f64, sig [ncubes] f64, hist [H] f64``.
+- ``vplus_reduce(lay, tab, w [N,B,T,c] f32 or c64, gidx, cube, cfac
+  [ncubes] f32, m=None, mf=1, t0=0) -> obs [B,T,ncomp] f64, sig [ncubes]
+  f64, hist [H] f64``: ``ncomp = N``, or ``2N`` for complex ``w`` (Re and
+  Im of integrand ``i`` in components ``2i``, ``2i+1``); given a custom
+  measure's output ``m [ncomp,B,T,c] f32``, the sums of ``m``;
+- ``vplus_relw(lay, tab, w, gidx, cube, cfac) -> relw [N,B,T,c]`` of
+  ``w``'s dtype: ``w_i * (jac * pad_i)`` per sample, what a custom measure
+  reads (a mode of ``csrc/vplus_reduce.cu``, the density formed as there).
+
+With ``mf > 1`` (``measurefreq``) sample ``s`` of chunk ``t`` (``t0`` plus
+its index in the launch) of block ``b`` counts in ``obs`` only if ``(t*c +
+(s + shift[b, t]) % c + 1) % mf == 0``; ``sig`` and ``hist`` take every
+sample.  Without ``shift`` this is the reference's gate
+(``mcintegration_tpu/solvers/vegasplus.py:255-262``), which, where ``mf``
+divides ``c``, measures the same positions of every cube-major chunk and
+so weights a cube of ``n_c`` samples by ``mf * m_c / n_c`` (0 to 2) for its
+``m_c`` measured ones: a biased estimate (ROADMAP.md, known faults in the
+reference).  ``gate_shifts`` draws a random cyclic shift per (block,
+chunk), which measures every cube at the rate ``1/mf`` in expectation and
+keeps each chunk's count.  Complex weights, measures and the gate are the
+reference's XLA route, which K4 never runs.
 
 ``cube[s]`` is the hypercube of sample ``s`` of every chunk (cube-major, so
 non-decreasing); ``cfac[cube] = counts[cube] * ncubes / c`` is the
@@ -53,6 +72,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from ..common import weight_abs, weight_parts, weight_scale
 from ..models.variable import Discrete
 from . import _build
 from ._build import check_tensor as _check
@@ -60,13 +80,17 @@ from .grid import sample_continuous, sample_discrete
 from .rng import MASK32, chunk_keys, draw
 
 CLIP = 1e17              # clip of the scores and histogram weights (vegasplus.py:283-289)
+SALT_GATE = 0x47415445   # the gate's shift: a salt no slot's draw uses
 SLOT_FIELDS = 8          # kind, nb, tab_off, -1, lower, stride, hist_off, salt
 SPAN = 256               # samples of a chunk per thread block of vplus_reduce
 WARPS = 8                # warps per thread block of vplus_reduce
 SMEM_HIST_BINS = 4096    # 32 KiB of float64 histogram per thread block; a larger
                          # one is added in windows of this many bins
 
-launch_counts = {"vplus_sample": 0, "vplus_reduce": 0}
+# "vplus_reduce_measure" counts vplus_reduce given m, "vplus_reduce_complex"
+# its complex instantiations (given m or not), "vplus_relw" both of its own
+launch_counts = {"vplus_sample": 0, "vplus_reduce": 0, "vplus_reduce_measure": 0,
+                 "vplus_reduce_complex": 0, "vplus_relw": 0}
 
 
 def reset_launch_counts():
@@ -260,11 +284,11 @@ def vplus_sample(lay: VplusLayout, tab, kd, t0: int, T: int, cube):
 # vplus_reduce
 # ---------------------------------------------------------------------------
 
-def vplus_reduce_plain(lay: VplusLayout, tab, w, gidx, cube, cfac):
-    """Plain torch version of ``csrc/vplus_reduce.cu``: the same float32
-    products, summed in float64 in another order."""
-    N, B, T, c = w.shape
-    dev = w.device
+def _density(lay: VplusLayout, tab, gidx, cube, cfac):
+    """``(jac, denom, pads)`` of every sample ``[B, T, c]``, in the kernels'
+    float32 order: ``1/dens``, the map density ``prob (* pass)`` and each
+    integrand's padding factor ``pad_i``."""
+    dev = gidx.device
     g = gidx.long()
     cont = [k for k in range(lay.S) if lay.slots[k, 0] == 0]
     disc = [k for k in range(lay.S) if lay.slots[k, 0] == 1]
@@ -287,18 +311,73 @@ def vplus_reduce_plain(lay: VplusLayout, tab, w, gidx, cube, cfac):
             if k >= 0:
                 gp = rho[k] if gp is None else gp * rho[k]
         gprob.append(gp)
-    obs, sq = [], []
-    score = torch.zeros((B, T, c), dtype=torch.float32, device=dev)
-    for i in range(N):
+    pads = []
+    for i in range(lay.spec.N):
         pad_i = torch.ones((), dtype=torch.float32, device=dev)
         for q, on in enumerate(lay.pad[i]):
             if on:
                 pad_i = pad_i * gprob[q]
-        relw = w[i] * (jac * pad_i)
-        score = score + torch.abs(w[i]) * pad_i
-        obs.append(relw.double().sum(dim=-1))
-        a = torch.clamp(torch.abs(relw), max=CLIP)
+        pads.append(pad_i)
+    return jac, denom, pads
+
+
+def vplus_relw_plain(lay: VplusLayout, tab, w, gidx, cube, cfac):
+    """Plain torch version of ``vplus_relw`` (``csrc/vplus_reduce.cu``):
+    ``w_i * (jac * pad_i)``, each part of a complex weight scaled alone."""
+    jac, _, pads = _density(lay, tab, gidx, cube, cfac)
+    return torch.stack([weight_scale(w[i], jac * pads[i]) for i in range(w.shape[0])])
+
+
+def gate_shifts(kd, t0: int, T: int, c: int):
+    """``[B, T]`` int32: the gate's cyclic shift of chunks ``t0..t0+T-1`` of
+    every block, uniform in ``[0, c)``: a draw of the counter hash keyed by
+    the block seeds ``kd [B, 2]`` (int32 bits) and the chunk, at flat index
+    0 with the salt ``SALT_GATE``."""
+    t = torch.arange(t0, t0 + T, dtype=torch.int64, device=kd.device)
+    k1, k2 = chunk_keys((kd.long() & MASK32)[:, None, :], t[None, :])
+    return (draw(k1, k2, torch.zeros_like(k1), SALT_GATE) % c).to(torch.int32)
+
+
+def measured_mask(T: int, c: int, mf: int, t0: int, device, shift=None):
+    """Which samples of chunks ``t0..t0+T-1`` the gate of ``measurefreq =
+    mf`` measures: ``[T, c]`` bool by their position ``s`` (the reference's
+    gate), or ``[B, T, c]`` with the shifts ``shift [B, T]`` (see module
+    docstring)."""
+    s = torch.arange(c, dtype=torch.int64, device=device)
+    if shift is not None:
+        s = (s + shift.long()[..., None]) % c
+    t = torch.arange(t0, t0 + T, dtype=torch.int64, device=device)[:, None]
+    return (t * c + s + 1) % mf == 0
+
+
+def vplus_reduce_plain(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1, t0=0,
+                       shift=None):
+    """Plain torch version of ``csrc/vplus_reduce.cu``: the same float32
+    products, summed in float64 in another order (a sample the gate shuts
+    adds a zero)."""
+    N, B, T, c = w.shape
+    dev = w.device
+    g = gidx.long()
+    jac, denom, pads = _density(lay, tab, gidx, cube, cfac)
+    gate = measured_mask(T, c, mf, t0, dev, shift) if mf > 1 else None
+
+    def sums(v):
+        v = v.double()
+        if gate is not None:
+            v = torch.where(gate, v, torch.zeros((), dtype=v.dtype, device=dev))
+        return v.sum(dim=-1)
+
+    obs, sq = [], []
+    score = torch.zeros((B, T, c), dtype=torch.float32, device=dev)
+    for i in range(N):
+        relw = weight_scale(w[i], jac * pads[i])
+        score = score + weight_abs(w[i]) * pads[i]
+        if m is None:                # complex: Re and Im of integrand i in 2i, 2i+1
+            obs += [sums(p) for p in weight_parts(relw)]
+        a = torch.clamp(weight_abs(relw), max=CLIP)
         sq.append((a * a).double())
+    if m is not None:
+        obs = [sums(mk) for mk in m]
     wj = torch.clamp(score / denom, max=CLIP)
     sig = torch.zeros(cfac.shape[0], dtype=torch.float64, device=dev)
     sig.index_add_(0, cube.long(), (wj * wj).double().sum(dim=(0, 1)))
@@ -315,50 +394,101 @@ def vplus_reduce_plain(lay: VplusLayout, tab, w, gidx, cube, cfac):
     return torch.stack(obs, dim=-1), sig, hist
 
 
-def _reduce_outputs(lay: VplusLayout, w, cfac):
-    """The kernel's outputs: per-warp partial sums ``obs_rows [B, T, R, N]``
-    (written whole), and zeroed ``sig [ncubes]`` and ``hist [H]``."""
+def _reduce_outputs(lay: VplusLayout, w, cfac, ncomp=None):
+    """The kernel's outputs: per-warp partial sums ``obs_rows [B, T, R,
+    ncomp]`` (written whole; ``ncomp`` is N, or 2N for complex ``w``, unless
+    given), and zeroed ``sig [ncubes]`` and ``hist [H]``."""
     N, B, T, c = w.shape
+    if ncomp is None:
+        ncomp = 2 * N if w.is_complex() else N
     rows = -(-c // SPAN) * WARPS
     f64 = dict(dtype=torch.float64, device=w.device)
-    return (torch.empty((B, T, rows, N), **f64), torch.zeros(cfac.shape[0], **f64),
+    return (torch.empty((B, T, rows, ncomp), **f64), torch.zeros(cfac.shape[0], **f64),
             torch.zeros(max(lay.nhist, 1), **f64))
 
 
-def _reduce_args(lay: VplusLayout, tab, w, gidx, cube, cfac, obs_rows, sig, hist):
-    """The argument list of ``mci_vplus_reduce`` (without the stream)."""
+def _reduce_args(lay: VplusLayout, tab, w, gidx, cube, cfac, obs_rows, sig, hist, m=None,
+                 mf=1, t0=0, shift=None):
+    """The argument list of ``mci_vplus_reduce`` (without the stream); a
+    null pointer is 0."""
     N, B, T, c = w.shape
     P, M = lay.pair_slots.shape
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     return (w.data_ptr(), gidx.data_ptr(), cube.data_ptr(), cfac.data_ptr(), tab.data_ptr(),
             lay.meta.data_ptr(), N, lay.S, P, M, B * T, c, cfac.shape[0], lay.nhist,
-            int(lay.nhist <= SMEM_HIST_BINS), SPAN, WARPS, obs_rows.data_ptr(),
-            sig.data_ptr(), hist.data_ptr())
+            int(lay.nhist <= SMEM_HIST_BINS), SPAN, WARPS, ptr(m), obs_rows.shape[-1], mf, t0,
+            T, ptr(shift), obs_rows.data_ptr(), sig.data_ptr(), hist.data_ptr())
 
 
-def vplus_reduce(lay: VplusLayout, tab, w, gidx, cube, cfac):
-    """Observable sums, per-cube second moments and training histograms of
-    one launch (see module docstring)."""
-    dev = _device_of(w, "vplus_reduce")
-    if dev.type == "cpu":
-        return vplus_reduce_plain(lay, tab, w, gidx, cube, cfac)
+def _check_inputs(name, lay: VplusLayout, tab, w, gidx, cube, cfac):
+    """Raise unless the inputs are what the kernel reads; returns the device."""
+    dev = w.device
     N, B, T, c = w.shape
-    S, ncubes = lay.S, cfac.shape[0]
-    _check(w, "w", torch.float32, (N, B, T, c), dev)
-    _check(gidx, "gidx", torch.int32, (S, B, T, c), dev)
+    _check(w, "w", torch.complex64 if w.is_complex() else torch.float32, (N, B, T, c), dev)
+    _check(gidx, "gidx", torch.int32, (lay.S, B, T, c), dev)
     _check(cube, "cube", torch.int32, (c,), dev)
-    _check(cfac, "cfac", torch.float32, (ncubes,), dev)
+    _check(cfac, "cfac", torch.float32, (cfac.shape[0],), dev)
     _check(tab, "tab", torch.float32, (lay.tab_size,), dev)
     _check(lay.meta, "meta", torch.int32, lay.meta.shape, dev)
     if N != lay.spec.N:
-        raise ValueError(f"vplus_reduce: {N} integrands, expected {lay.spec.N}")
-    obs_rows, sig, hist = _reduce_outputs(lay, w, cfac)
+        raise ValueError(f"{name}: {N} integrands, expected {lay.spec.N}")
+    return dev
+
+
+def vplus_reduce(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1, t0=0, shift=None):
+    """Observable sums, per-cube second moments and training histograms of
+    one launch (see module docstring)."""
+    dev = _device_of(w, "vplus_reduce")
+    if mf < 1 or t0 < 0:
+        raise ValueError(f"vplus_reduce: measurefreq {mf} < 1 or first chunk {t0} < 0")
+    if dev.type == "cpu":
+        return vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
+    _check_inputs("vplus_reduce", lay, tab, w, gidx, cube, cfac)
+    N, B, T, c = w.shape
+    if shift is not None:
+        _check(shift, "shift", torch.int32, (B, T), dev)
+    ncomp = None
+    if m is not None:
+        ncomp = m.shape[0]
+        _check(m, "m", torch.float32, (ncomp, B, T, c), dev)
+        if ncomp < 1:
+            raise ValueError("vplus_reduce: a measure with no components")
+    if t0 + T >= 2 ** 31:
+        raise ValueError("vplus_reduce: chunk index too large")
+    cplx = w.is_complex()
+    obs_rows, sig, hist = _reduce_outputs(lay, w, cfac, ncomp)
     lib = _build.load()
+    entry = lib.mci_vplus_reduce_complex if cplx else lib.mci_vplus_reduce
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mci_vplus_reduce(
-            *_reduce_args(lay, tab, w, gidx, cube, cfac, obs_rows, sig, hist), stream)
+        err = entry(*_reduce_args(lay, tab, w, gidx, cube, cfac, obs_rows, sig, hist, m, mf, t0,
+                                  shift), stream)
     _build.check(lib, err, "vplus_reduce")
-    launch_counts["vplus_reduce"] += 1
+    key = "vplus_reduce_complex" if cplx else "vplus_reduce" if m is None else \
+        "vplus_reduce_measure"
+    launch_counts[key] += 1
     # the kernel writes one partial per warp; this sum over the partials is
     # the first step of the fixed-order float64 reduction of the observables
-    return obs_rows.sum(dim=2), sig, hist
+    return _build.sum_obs(obs_rows, 2, cplx and m is None), sig, hist
+
+
+def vplus_relw(lay: VplusLayout, tab, w, gidx, cube, cfac):
+    """The relative weights ``relw_i = w_i * (jac * pad_i)`` of every sample
+    of one launch, for a custom measure (see module docstring)."""
+    dev = _device_of(w, "vplus_relw")
+    if dev.type == "cpu":
+        return vplus_relw_plain(lay, tab, w, gidx, cube, cfac)
+    _check_inputs("vplus_relw", lay, tab, w, gidx, cube, cfac)
+    N, B, T, c = w.shape
+    P, M = lay.pair_slots.shape
+    relw = torch.empty_like(w)
+    lib = _build.load()
+    entry = lib.mci_vplus_relw_complex if w.is_complex() else lib.mci_vplus_relw
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(w.data_ptr(), gidx.data_ptr(), cube.data_ptr(), cfac.data_ptr(),
+                    tab.data_ptr(), lay.meta.data_ptr(), N, lay.S, P, M, B * T, c, SPAN,
+                    WARPS, relw.data_ptr(), stream)
+    _build.check(lib, err, "vplus_relw")
+    launch_counts["vplus_relw"] += 1
+    return relw

@@ -495,8 +495,7 @@ def refuse_complex():
     raise NotImplementedError(
         "complex observables on a real-weight run are not served: the JAX package's "
         "XLA routes drop their imaginary part (ROADMAP.md, known faults in the "
-        "reference); pass type=complex on :vegasmc or :mcmc (complex :vegas and "
-        ":vegasplus: ROADMAP.md, queue 1, item 14d)")
+        "reference); pass type=complex, which every solver serves")
 
 
 def obs_leaves(obs_proto, cplx: bool = False) -> list:
@@ -548,17 +547,6 @@ def refuse_fermik(spec: Spec, solver: str):
     (test/bubble_FermiK.jl:2): any other solver raises."""
     if any(isinstance(li.leaf, FermiK) for li in spec.leaves):
         raise NotImplementedError(f"FermiK pools run on the :mcmc solver only, not on {solver}")
-
-
-def refuse_complex_weights(spec: Spec, solver: str):
-    """Complex weights run on :vegasmc and :mcmc; the reference serves them
-    on :vegas and :vegasplus only on its XLA routes
-    (``pallas_vegas.py:307-315``, ``pallas_vplus.py:90-96``)."""
-    if spec.cplx:
-        raise NotImplementedError(
-            f"type=complex on {solver} is not ported to mcintegration_tpu_torch yet "
-            "(ROADMAP.md, queue 1, item 14d); it runs on :vegasmc and :mcmc, and "
-            "mcintegration_tpu serves it on its XLA route")
 
 
 def tree_map(f, tree):

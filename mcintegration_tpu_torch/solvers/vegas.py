@@ -23,6 +23,17 @@ as torch ops → ``vegas_reduce`` of the measure's output, and the measure's
 ``ncomp`` float32 values per sample cap the samples of a launch
 (``MEASURE_LAUNCH_BYTES``).  The per-(block, chunk) float64 partial sums
 are then added in a fixed order.
+
+Complex weights (``type=complex``) and ``measurefreq = k > 1`` are the
+reference's XLA route (``mcintegration_tpu/solvers/vegas.py:201-357``): the
+same kernels take complex64 ``w`` and ``relw`` (``|w| = sqrt(re^2 + im^2)``
+in the histogram), and ``vegas_reduce`` sums only the samples whose index
+in their block ``k`` divides, so a block's normalization is
+``nevalperblock // k``.  Unlike that route, a custom measure's output is
+summed over the measured samples only (the gate of ``montecarlo.jl:148``;
+the route sums it over every sample with ``relw`` zeroed at the others,
+ROADMAP.md, known faults in the reference); for a measure linear in
+``relw`` the two agree.
 """
 
 from __future__ import annotations
@@ -35,13 +46,15 @@ import torch
 
 from ..models.variable import Continuous
 from ..ops import vegas_kernels
-from .engine import Spec, obs_components, obs_tree, refuse_complex_weights, refuse_fermik
+from ..ops._build import sum_obs
+from .engine import Spec, obs_components, obs_tree, refuse_fermik
 
 N_MULT = vegas_kernels.N_MULT
 SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x at 4 bytes * slots * this
 # with a custom measure, x, w, relw and the measure's output m of one launch
-# (4 bytes per slot, integrand, integrand and component of a sample) stay
-# within this many bytes; the measure's own temporaries come on top
+# (4 bytes per slot, integrand (8 if complex), integrand (8 if complex) and
+# component of a sample) stay within this many bytes; the measure's own
+# temporaries come on top
 MEASURE_LAUNCH_BYTES = 8 * 2 ** 30
 
 
@@ -78,7 +91,6 @@ def check_supported(spec: Spec):
     eligible, lines 290-340).  The strata bound is checked by
     ``vegas_kernels.vegas_sample``."""
     refuse_fermik(spec, ":vegas")
-    refuse_complex_weights(spec, ":vegas")
     drawn = [li for li in spec.leaves if li.ndraw > 0]
     if not drawn:
         raise ValueError("no MC-owned slots to draw (every dof is 0)")
@@ -97,9 +109,12 @@ class VegasIteration:
     """One :vegas iteration over ``block`` blocks on ``spec.device``."""
 
     def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
-                 inplace=False, block=16, nevalperblock=10000):
+                 inplace=False, measurefreq=1, block=16, nevalperblock=10000):
         self.spec = spec
         self.block = block
+        if int(measurefreq) < 1:
+            raise ValueError(f"measurefreq must be >= 1, got {measurefreq}")
+        self.measurefreq = int(measurefreq)
         dev = spec.device
         nb = check_supported(spec)
         self.nb = nb
@@ -119,7 +134,8 @@ class VegasIteration:
         samples = SAMPLES_PER_LAUNCH
         if measure is not None:
             nslots = sum(li.ndraw for li in spec.leaves)
-            per_sample = 4 * (nslots + 2 * spec.N + obs_components(spec, obs_proto))
+            wbytes = 8 if spec.cplx else 4
+            per_sample = 4 * nslots + 2 * wbytes * spec.N + 4 * obs_components(spec, obs_proto)
             samples = min(samples, MEASURE_LAUNCH_BYTES // per_sample)
         self.chunks_per_launch = max(1, min(self.nchunks, samples // (block * self.chunk)))
         self.launches_per_run = -(-self.nchunks // self.chunks_per_launch)
@@ -213,7 +229,7 @@ class VegasIteration:
             del relw
         del x
         return vegas_kernels.vegas_reduce(w, invp, perm, self.pad, self.pair_slots,
-                                          self.used, m)
+                                          self.used, m, self.measurefreq, t0)
 
     def run(self, params, kd: np.ndarray):
         """Execute one iteration; returns host-side numpy statistics."""
@@ -227,9 +243,9 @@ class VegasIteration:
             obs_part, hrow = self.launch(inputs, t0, T)
             obs_parts.append(obs_part)
             hsum += hrow.sum(dim=(1, 2))
-        obs_b = torch.cat(obs_parts, dim=1).sum(dim=1).cpu().numpy()   # [B, ncomp]
-        if self.measure is not None:
-            obs_b = obs_tree(obs_b, spec, self.obs_proto)
+        obs_b = sum_obs(torch.cat(obs_parts, dim=1), 1,                     # [B, ncomp]
+                        spec.cplx and self.measure is None).cpu().numpy()
+        obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
         hsum = hsum.cpu().numpy()
         hists, k = [], 0
         for li in spec.leaves:
@@ -240,7 +256,9 @@ class VegasIteration:
             k += li.ndraw
         return {
             "obs_blocks": obs_b,      # [block, N], or the observable pytree
-            "norm_blocks": np.full(self.block, float(self.nevalperblock)),
+            # the samples the gate measures: the indices 1..nevalperblock
+            # that measurefreq divides
+            "norm_blocks": np.full(self.block, float(self.nevalperblock // self.measurefreq)),
             "hists": hists,           # per-leaf histogram sums
             "neval": self.block * self.nevalperblock,
         }

@@ -24,6 +24,24 @@ integrand as torch ops → ``vplus_reduce`` (ops/vplus_kernels.py).  The
 per-cube second moments come back to the host once per iteration, where the
 next iteration's counts are made: one wait for the device per iteration is
 inherent in the method.
+
+The route also serves complex weights (``type=complex``, ``|w| = sqrt(re^2
++ im^2)`` in the scores and histograms), a custom ``measure(x, relw, c)``
+and ``measurefreq = k > 1``, as the reference's XLA route does (lines
+131-312 there).  A launch with a measure is ``vplus_sample`` → the
+integrand → ``vplus_relw`` → the measure as torch ops → ``vplus_reduce``
+given its output, and ``MEASURE_LAUNCH_BYTES`` caps its samples.  With
+``k > 1`` a ``k``-th of each chunk's samples count in the observables (a
+block's normalization is ``nevalperblock // k``, as in the reference); the
+scores and histograms take every sample.  Two deliberate differences from
+the reference's route, each a fault of it (ROADMAP.md, known faults in the
+reference): the gate's positions are shifted at random per (block, chunk)
+(``vplus_kernels.gate_shifts``), since the route's fixed positions weight
+the cubes of a cube-major chunk unevenly where ``k`` divides the chunk (at
+2^30 evaluations an iteration its estimate of pi/4 lands 6.5 to 16 sigma
+off); and a measure's output is summed over the measured samples only,
+where the route sums it over every sample with ``relw`` zeroed at the
+others (for a measure linear in ``relw`` the two agree).
 """
 
 from __future__ import annotations
@@ -35,10 +53,16 @@ import torch
 
 from ..models.variable import Discrete
 from ..ops import vplus_kernels
+from ..ops._build import sum_obs
 from ..ops.vplus_kernels import VplusLayout
-from .engine import Spec, refuse_complex_weights, refuse_fermik
+from .engine import Spec, obs_components, obs_tree, refuse_fermik
 
 SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x and gidx at 8 bytes * slots * this
+# with a custom measure, x, gidx, w, relw and the measure's output m of one
+# launch (8 bytes per slot, 4 (8 if complex) per integrand twice and 4 per
+# component of a sample) stay within this many bytes; the measure's own
+# temporaries come on top
+MEASURE_LAUNCH_BYTES = 8 * 2 ** 30
 MAX_DIMS = 10
 
 
@@ -65,14 +89,16 @@ class VegasPlusIteration:
     samples each cube gets in every chunk of the next ``run``.
     """
 
-    def __init__(self, spec: Spec, integrand: Callable, *, inplace=False,
-                 block=16, nevalperblock=10000, nstrat=None, max_cubes=16384,
-                 beta=0.75, max_chunk=131072):
+    def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
+                 inplace=False, measurefreq=1, block=16, nevalperblock=10000, nstrat=None,
+                 max_cubes=16384, beta=0.75, max_chunk=131072):
         self.spec = spec
         self.block = block
         self.beta = beta
         refuse_fermik(spec, ":vegasplus")
-        refuse_complex_weights(spec, ":vegasplus")
+        if int(measurefreq) < 1:
+            raise ValueError(f"measurefreq must be >= 1, got {measurefreq}")
+        self.measurefreq = int(measurefreq)
         D = sum(li.ndraw for li in spec.leaves if not isinstance(li.leaf, Discrete))
         if D == 0:
             raise NotImplementedError(
@@ -85,17 +111,26 @@ class VegasPlusIteration:
         self.nstrat, self.ncubes, self.chunk, self.nchunks = shape_plan(
             D, nevalperblock, nstrat, max_cubes, max_chunk)
         self.nevalperblock = self.chunk * self.nchunks
-        self.chunks_per_launch = max(1, min(
-            self.nchunks, SAMPLES_PER_LAUNCH // (block * self.chunk)))
+        samples = SAMPLES_PER_LAUNCH
+        if measure is not None:
+            nslots = sum(li.ndraw for li in spec.leaves)
+            wbytes = 8 if spec.cplx else 4
+            per_sample = 8 * nslots + 2 * wbytes * spec.N + 4 * obs_components(spec, obs_proto)
+            samples = min(samples, MEASURE_LAUNCH_BYTES // per_sample)
+        self.chunks_per_launch = max(1, min(self.nchunks, samples // (block * self.chunk)))
         self.launches_per_run = -(-self.nchunks // self.chunks_per_launch)
         self.counts = self._uniform_counts()
         self.layout = VplusLayout.build(spec, self.nstrat)
 
-        # ---- the integrand: batched, or per sample under vmap ----
+        # ---- the integrand and the measure: batched, or per sample under vmap ----
         eval_b = spec.make_eval_batched(integrand, inplace)
         eval_v = spec.make_eval_vmapped(integrand, inplace)
-        ok, self.backend_reason = spec.probe_batched(eval_b, eval_v)
+        ok, why = spec.probe_batched(eval_b, eval_v)
         self.evaluate = eval_b if ok else eval_v
+        self.obs_proto = obs_proto
+        self.measure, why_m = (None, "") if measure is None else \
+            spec.pick_measure(measure, obs_proto)
+        self.backend_reason = "; ".join(r for r in (why, why_m) if r)
         self.backend = "cuda" if spec.device.type == "cuda" else "torch"
 
     # ------------------------------------------------------------------
@@ -155,13 +190,22 @@ class VegasPlusIteration:
         return torch.as_tensor(cube, device=dev), torch.as_tensor(cfac, device=dev)
 
     def launch(self, tab, kd: torch.Tensor, cube, cfac, t0: int, T: int):
-        """Chunks [t0, t0+T) of every block: obs [B,T,N], sig [ncubes],
+        """Chunks [t0, t0+T) of every block: obs [B,T,ncomp], sig [ncubes],
         hist [H], all float64."""
         lay = self.layout
         x, gidx = vplus_kernels.vplus_sample(lay, tab, kd, t0, T, cube)
         w = self.evaluate(lay.leaf_values(x)).contiguous()
+        m = None
+        if self.measure is not None:
+            relw = vplus_kernels.vplus_relw(lay, tab, w, gidx, cube, cfac)
+            m = self.measure(lay.leaf_values(x), relw).contiguous()
+            del relw
         del x
-        return vplus_kernels.vplus_reduce(lay, tab, w, gidx, cube, cfac)
+        shift = None
+        if self.measurefreq > 1:
+            shift = vplus_kernels.gate_shifts(kd, t0, T, self.chunk)
+        return vplus_kernels.vplus_reduce(lay, tab, w, gidx, cube, cfac, m,
+                                          self.measurefreq, t0, shift)
 
     def run(self, params, kd: np.ndarray):
         """Execute one iteration with per-block seeds ``kd [block, 2]``
@@ -177,7 +221,9 @@ class VegasPlusIteration:
             obs_part, sig_part, hist_part = self.launch(tab, kd, cube, cfac, t0, T)
             obs_parts.append(obs_part)
             sig, hist = sig + sig_part, hist + hist_part
-        obs_b = torch.cat(obs_parts, dim=1).sum(dim=1).cpu().numpy()   # [B, N]
+        obs_b = sum_obs(torch.cat(obs_parts, dim=1), 1,                     # [B, ncomp]
+                        spec.cplx and self.measure is None).cpu().numpy()
+        obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
         hist = hist.cpu().numpy()
         self.last_sig = sig.cpu().numpy()
         hists = []
@@ -186,8 +232,10 @@ class VegasPlusIteration:
                          else np.zeros(li.nhist, np.float64))
         self._reallocate(self.last_sig)
         return {
-            "obs_blocks": obs_b,      # [block, N]
-            "norm_blocks": np.full(self.block, float(self.nevalperblock)),
+            "obs_blocks": obs_b,      # [block, N], or the observable pytree
+            # the samples the gate measures: the indices 1..nevalperblock
+            # that measurefreq divides
+            "norm_blocks": np.full(self.block, float(self.nevalperblock // self.measurefreq)),
             "hists": hists,           # per-leaf histogram sums
             "neval": self.block * self.nevalperblock,
         }

@@ -338,7 +338,7 @@ def test_vplus_kernels_match_plain(cuda, ninc, npb):
         torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
     assert float(got[1].sum()) > 0 and float(got[2].sum()) > 0
     n = it.launches_per_run + 1
-    assert vp.launch_counts == {"vplus_sample": before["vplus_sample"] + n,
+    assert vp.launch_counts == {**before, "vplus_sample": before["vplus_sample"] + n,
                                 "vplus_reduce": before["vplus_reduce"] + n}
 
 
@@ -772,3 +772,132 @@ def test_chain_propose_shapes(cuda, k):
     ck.reset_launch_counts()
     cs.chain_propose_edge(mt, ck, cs.PROPOSE_EDGES[k], device=cuda)
     assert ck.launch_counts["chain_propose"] == 5     # init, start, two steps, the step
+
+
+@pytest.mark.parametrize("mf", [1, 4])
+@pytest.mark.parametrize("m", [3, 100, 1024])
+def test_vegas_reduce_complex_and_gate_match_plain(cuda, m, mf):
+    """The complex instantiations of vegas_reduce (default measure and given
+    m) and the gate of measurefreq mf against the plain versions (rel 1e-9);
+    vegas_relw_complex bit-equal; given m = relw's components, the default
+    complex sums' histogram bit for bit and their observables to rel 1e-12
+    (the kernel's row partials are the same; the wrapper sums a complex
+    run's real and imaginary parts apart); the real kernel with the gate
+    against plain."""
+    args, mobs = cs.reduce_inputs(m, 3, 10, cplx=True, device=cuda)
+    w, invp, perm, pad, pair_slots, used = args
+    before = dict(vk.launch_counts)
+    got = vk.vegas_reduce(*args, mf=mf, t0=5)
+    got_m = vk.vegas_reduce(*args, mobs, mf=mf, t0=5)
+    relw = vk.vegas_relw(w, invp, pad, pair_slots)
+    ident = vk.vegas_reduce(*args, cs.relw_components(relw), mf=mf, t0=5)
+    real_args = (w.real.contiguous(), *args[1:])
+    got_r = vk.vegas_reduce(*real_args, mf=mf, t0=5)
+    want = vk.vegas_reduce_plain(*args, mf=mf, t0=5)
+    want_m = vk.vegas_reduce_plain(*args, mobs, mf=mf, t0=5)
+    want_r = vk.vegas_reduce_plain(*real_args, mf=mf, t0=5)
+    relw_p = vk.vegas_relw_plain(w, invp, pad, pair_slots)
+    torch.cuda.synchronize()
+    assert got[0].shape == (2, 3, 6) and relw.dtype == torch.complex64
+    for g, p in (*zip(got, want), *zip(got_m, want_m), *zip(got_r, want_r)):
+        torch.testing.assert_close(g, p, rtol=1e-9, atol=0)
+    assert _bits_equal(relw, relw_p)
+    torch.testing.assert_close(ident[0], got[0], rtol=1e-12, atol=0)
+    assert _bits_equal(ident[1], got[1])
+    assert vk.launch_counts["vegas_reduce_complex"] == before["vegas_reduce_complex"] + 3
+    assert vk.launch_counts["vegas_relw_complex"] == before["vegas_relw_complex"] + 1
+    assert vk.launch_counts["vegas_reduce"] == before["vegas_reduce"] + 1
+
+
+@pytest.mark.parametrize("mf", [1, 4])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_vplus_measure_branches_match_plain(cuda, cplx, mf):
+    """On phase 3d's all-branch spec after one reallocation, chunks 1-2:
+    vplus_relw bit-equal to its plain version; vplus_reduce (complex
+    weights, a measure's output, the gate of measurefreq mf with its random
+    shifts) against plain to rel 1e-12; given m = relw's components, the
+    default observables bit for bit (real weights) or to rel 1e-12 (complex:
+    the wrapper sums the real and imaginary parts apart)."""
+    it = cs.vplus_allbranch(mt, 2 ** 16, device=cuda, cplx=cplx)
+    lay, params = it.layout, it.spec.device_params()
+    it.run(params, block_keys(4, 0, 0, it.block))
+    tab, kd = lay.tables(params), it.seeds(block_keys(4, 1, 0, it.block))
+    cube, cfac = it.cube_tables()
+    x, gidx = vp.vplus_sample(lay, tab, kd, 1, 2, cube)
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    assert w.is_complex() == cplx
+    mobs = torch.randn((5,) + tuple(w.shape[1:]), generator=torch.Generator(cuda).manual_seed(3),
+                       device=cuda)
+    shift = vp.gate_shifts(kd, 1, 2, it.chunk) if mf > 1 else None
+    before = dict(vp.launch_counts)
+    relw = vp.vplus_relw(lay, tab, w, gidx, cube, cfac)
+    got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, None, mf, 1, shift)
+    got_m = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, mobs, mf, 1, shift)
+    ident = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, cs.relw_components(relw), mf, 1,
+                            shift)
+    relw_p = vp.vplus_relw_plain(lay, tab, w, gidx, cube, cfac)
+    want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, None, mf, 1, shift)
+    want_m = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, mobs, mf, 1, shift)
+    torch.cuda.synchronize()
+    assert _bits_equal(relw, relw_p)
+    assert got[0].shape == (it.block, 2, 4 if cplx else 2)
+    for g, p in (*zip(got, want), *zip(got_m, want_m)):
+        torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
+    if cplx:
+        torch.testing.assert_close(ident[0], got[0], rtol=1e-12, atol=0)
+    else:
+        assert _bits_equal(ident[0], got[0])
+    for g, p in zip(ident[1:], got[1:]):
+        torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
+    key = "vplus_reduce_complex" if cplx else "vplus_reduce_measure"
+    assert vp.launch_counts["vplus_relw"] == before["vplus_relw"] + 1
+    assert vp.launch_counts[key] == before[key] + (3 if cplx else 2)
+
+
+@pytest.mark.parametrize("solver", ["vegas", "vegasplus"])
+def test_cuda_plus_0j_reproduces_the_real_run(cuda, solver):
+    """One iteration of f and of f + 0j from the same seeds on the card: the
+    real parts of the observables bit-equal, the imaginary parts 0, the
+    histograms bit-equal on :vegas (float64 atomics: rel 1e-12 on
+    :vegasplus)."""
+    cls = VegasIteration if solver == "vegas" else VegasPlusIteration
+    out = {}
+    for cplx in (False, True):
+        spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[1], [2]], seed=3,
+                                     type=complex if cplx else float), cuda)
+        f = (lambda x, c: tuple(w + 0j for w in _two(x, c))) if cplx else _two
+        it = cls(spec, lambda x, c: f((x, x), c), block=4, nevalperblock=2 ** 18)
+        out[cplx] = it.run(spec.device_params(), block_keys(3, 0, 0, 4))
+    a, b = out[False], out[True]
+    assert np.array_equal(b["obs_blocks"].real, a["obs_blocks"])
+    assert np.all(b["obs_blocks"].imag == 0.0)
+    tol = 0.0 if solver == "vegas" else 1e-12
+    for h, r in zip(b["hists"], a["hists"]):
+        np.testing.assert_allclose(h, r, rtol=tol, atol=0)
+
+
+@pytest.mark.parametrize("solver", ["vegas", "vegasplus"])
+def test_cuda_item14_routes_integrate(cuda, solver):
+    """The quarter disc times e^{i(x+y)} with measurefreq 3 and the
+    quickstart's histogram on the card, within 7 sigma of their exact
+    values."""
+    vk.reset_launch_counts()
+    vp.reset_launch_counts()
+    res = mt.integrate(cs._qdisc, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 22,
+                       niter=4, solver=solver, type=complex, measurefreq=3, seed=5,
+                       verbose=-2, device="cuda")
+    exact = cs.qdisc_exact()
+    mean, err = complex(res.mean[0]), complex(res.stdev[0])
+    assert res.backend == "cuda"
+    assert abs(mean.real - exact.real) < 7 * err.real and abs(mean.imag - exact.imag) < 7 * err.imag
+    if solver == "vegas":
+        assert vk.launch_counts["vegas_reduce_complex"] == vk.launch_counts["vegas_sample"] >= 4
+    else:
+        assert vp.launch_counts["vplus_reduce_complex"] == vp.launch_counts["vplus_sample"] >= 4
+    spec, f, measure = _qs(cuda, 10)
+    res = mt.integrate(f, config=spec.cfg, measure=measure, neval=2 ** 22, niter=4,
+                       solver=solver, verbose=-2, device="cuda")
+    a = np.arange(10) / 10
+    exact = a * a + a / 10 + 1 / 300 + 1 / 3
+    mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+    assert np.all(np.abs(mean - exact) < 7 * std), (mean - exact) / std

@@ -169,7 +169,7 @@ def test_measure_returning_complex_values_raises():
                 "cpu")
     it = VegasIteration(spec, _pi, measure=lambda v, relw, c: [relw[0] * (1 + 1j)],
                         obs_proto=[0.0], block=2, nevalperblock=4096)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="complex observables .* type=complex"):
         it.run(spec.device_params(), np.zeros((2, 2), np.uint32))
 
 

@@ -209,7 +209,8 @@ def test_run_matches_jax_xla_route(case):
     tit.counts = counts.copy()
     vp.reset_launch_counts()
     st = tit.run(tparams, np.random.default_rng(3).integers(0, 2 ** 32, (8, 2), dtype=np.uint32))
-    assert vp.launch_counts == {"vplus_sample": 0, "vplus_reduce": 0}
+    assert vp.launch_counts == {"vplus_sample": 0, "vplus_reduce": 0, "vplus_reduce_measure": 0,
+                                "vplus_reduce_complex": 0, "vplus_relw": 0}
     assert np.array_equal(st["norm_blocks"], np.asarray(norm_j, np.float64))
 
     mt_, st_ = _block_stats(st["obs_blocks"], st["norm_blocks"])
