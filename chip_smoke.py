@@ -76,6 +76,19 @@ with nvcc and drives every ported path on the card.
   histogram of ``e^{i(x+y)}`` on :vegas and pi with ``measurefreq=4`` on
   both, at 2^30 evals per iteration, against their exact values, with the
   rates beside phases 4 and 4d; the new entry points' times and bounds.
+- :vegas on Discrete pools and pools of different ninc, the mixed route
+  (phases 3h, 4h, 6h): ``vegas_sample_mixed``, ``vegas_relw_mixed`` and
+  every instantiation of ``vegas_reduce_mixed`` against their plain
+  versions on ``MIXED_SPECS`` (the bubble's, a Discrete CDF in device memory,
+  strata of m_k % 4 != 0, all Discrete, more than 4,096 histogram bins),
+  and a spec of the uniform route through both routes;
+  ``integrate(solver="vegas", device="cuda")`` at 2^30 evals per iteration
+  on the Lindhard bubble (its four bins against the Lindhard function at
+  20 sigma and against the bubble's exact value at its temperature at 5
+  sigma, also with ``type=complex`` and ``measurefreq=4``), an adaptive
+  Discrete, ``Discrete([(1, 3), (1, 4)])`` and mixed ninc, against their
+  exact values, each with its rate beside phase 4's and its idle share; the
+  three kernels' times, bounds and ptxas registers at the bubble's launch.
 
 Each path's launch counts are set to 0 just before its main path runs and
 read just after.  Any failed phase raises, so the exit code is non-zero.
@@ -514,7 +527,7 @@ def timings(mt, vk, shape, card):
             "vegas_reduce": (err_reduce, ms["reduce"], ms["reduce_plain"], *b_reduce)}
 
 
-def profile_main_path(card, phase, run, per_launch=()):
+def profile_main_path(card, phase, run, per_launch=(), top=15):
     """Phase 7/7b/7c: torch.profiler over ``run()``, iterations of
     integrate() at a main path's size (phase 4, 4b or 4c ran it already, so
     nothing is built or touched first here); the device time per launch of
@@ -549,7 +562,7 @@ def profile_main_path(card, phase, run, per_launch=()):
           f"{res.iterations[0][2].neval} "
           f"evals: wall {wall!r} s, device busy {busy_s!r} s, idle share "
           f"{1 - busy_s / wall!r} [{card}]")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"phase {phase}: {us * 1e-3!r} ms on the device in {name[:90]}")
     for key in per_launch:
         names = [name for name in by_name if key in name]
@@ -964,6 +977,26 @@ def lindhard(q):
     x = q / 2 / KF
     p = 1 + (1 - x ** 2) * np.log1p(4 * x / ((1 - x) ** 2)) / 4 / x if abs(q - 2 * KF) > 1e-6 else 1.0
     return -p * density * SPIN / 2
+
+
+def bubble_exact(q, beta=BETA_PHYS):
+    """The bubble integral as posed, at inverse temperature ``beta``:
+    ``-SPIN ME / (2 pi^2 q) int_0^inf k f(e_k) ln|(2k + q) / (2k - q)| dk``
+    (the angles done in closed form; ``-SPIN ME / (2 pi^2) int f dk`` at q =
+    0) with ``f`` the Fermi function and ``e_k = (k^2 - KF^2) / (2 ME)``.
+    ``lindhard(q)`` is its zero-temperature limit; at BETA = 25 (T / E_F =
+    0.04) the integral lies above it by 6.6e-4 to 2.0e-3 of it for the four
+    q of EXTQ."""
+    from scipy.integrate import quad
+    fermi = lambda k: 0.5 * (1.0 - np.tanh(0.5 * beta * (k * k - KF ** 2) / (2 * ME)))
+    if q == 0:
+        f, cut, scale = fermi, [0.0, KF, 4 * KF], -SPIN * ME / (2 * np.pi ** 2)
+    else:
+        f = lambda k: k * fermi(k) * np.log(abs((2 * k + q) / (2 * k - q)))
+        cut = sorted({0.0, q / 2, KF, 4 * KF})
+        scale = -SPIN * ME / (2 * np.pi ** 2 * q)
+    return scale * sum(quad(f, a, b, epsabs=0.0, epsrel=1e-13, limit=500)[0]
+                       for a, b in zip(cut[:-1], cut[1:]))
 
 
 def _green(tau, omega, beta):
@@ -1823,10 +1856,9 @@ def measure_main_path(mt, vk, ck, card, rates):
     niter = 10
     n_measured = sum(1 for t in range(cit.nsteps) if t >= cit.warmup)
     runs = (("vegas", dict(neval=VEGAS_NEVAL), vk,
-             {"vegas_sample": niter * vit.launches_per_run, "vegas_reduce": 0,
+             {**dict.fromkeys(vk.launch_counts, 0), "vegas_sample": niter * vit.launches_per_run,
               "vegas_relw": niter * vit.launches_per_run,
-              "vegas_reduce_measure": niter * vit.launches_per_run, "vegas_reduce_complex": 0,
-              "vegas_relw_complex": 0}, rates["4"]),
+              "vegas_reduce_measure": niter * vit.launches_per_run}, rates["4"]),
             ("vegasmc", dict(neval=CHAIN_NEVAL, nwalkers=CHAIN_W), ck,
              {"chain_propose": niter * (cit.nsteps + 1), "chain_accept": niter * (cit.nsteps + 1),
               "chain_measure": niter * n_measured, "chain_accept_complex": 0}, rates["4b"]))
@@ -2790,6 +2822,438 @@ def measurement_timings(mt, vk, vp, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# :vegas on Discrete pools and pools of different ninc (the mixed route)
+# ---------------------------------------------------------------------------
+
+def make_vegas_bubble(device):
+    """The polarisation bubble in spherical coordinates (tests/test_bubble.py:
+    52-71), batched, with its q table on ``device`` once."""
+    import torch
+    extq = torch.as_tensor(EXTQ, dtype=torch.float32, device=device)
+
+    def bubble(v, c):
+        R, Th, Ph, T, Ext = v
+        r = R[0] / (1 - R[0])
+        th, ph = Th[0], Ph[0]
+        k = torch.stack([r * torch.sin(th) * torch.cos(ph), r * torch.sin(th) * torch.sin(ph),
+                         r * torch.cos(th)])
+        factor = r ** 2 / (1 - R[0]) ** 2 * torch.sin(th) / (2 * np.pi) ** 3
+        kq = k + extq[Ext[0] - 1].movedim(-1, 0)
+        w1 = ((k * k).sum(0) - KF ** 2) / (2 * ME)
+        w2 = ((kq * kq).sum(0) - KF ** 2) / (2 * ME)
+        return _green(T[0], w1, BETA_PHYS) * _green(-T[0], w2, BETA_PHYS) * SPIN * factor
+
+    return bubble
+
+
+def _vbubble_measure(v, relw, c):
+    """The one-hot measure of tests/test_bubble.py:74-77: relw[0] into the bin
+    of the external momentum."""
+    from mcintegration_tpu_torch import onehot
+    return [onehot(v[-1][0], 1, QSIZE, relw.dtype, like=relw[0]) * relw[0]]
+
+
+def vegas_bubble_kw(mt, cplx=False):
+    """integrate() keywords of tests/test_bubble.py:80-90 on :vegas: (r, theta,
+    phi, tau, Discrete(1, 4, adapt=False)), alpha=3 on the maps."""
+    C = mt.Continuous
+    var = (C(0.0, 1.0, alpha=3.0), C(0.0, np.pi, alpha=3.0), C(0.0, 2 * np.pi, alpha=3.0),
+           C(0.0, BETA_PHYS, alpha=3.0), mt.Discrete(1, QSIZE, adapt=False))
+    obs = [np.zeros(QSIZE, np.complex64 if cplx else np.float64)]
+    return dict(var=var, dof=[[1, 1, 1, 1, 1]], obs=obs, measure=_vbubble_measure,
+                **({"type": complex} if cplx else {}))
+
+
+def _td2(v, c):
+    return v[0][0] * v[1][0].float() ** 2
+
+
+def _one(v, c):
+    import torch
+    return torch.ones(v[0][0].shape, device=v[0][0].device)
+
+
+def _logxyz(v, c):
+    import torch
+    x, y, z = v[0][0], v[1][0], v[2][0]
+    return torch.log(x) / torch.sqrt(x) * y ** 2 * torch.exp(z)
+
+
+def _prod2(v, c):
+    return (v[0][0] * v[1][0]).float()
+
+
+def _mixed3(v, c):
+    return v[0][0] * v[1][0] + v[2][0]
+
+
+# name, var of mt, dof, integrand (or None: the bubble), nevalperblock, blocks,
+# chunks a launch of phase 3h's specs of the mixed route: the bubble at phase
+# 4h's launch shape (fewer chunks), a Discrete CDF in device memory (2,004
+# bins) beside one in shared memory, mixed ninc with strata of m_k % 4 != 0
+# and a chunk of c % 4 != 0 (scalar stores, one pool drawn per sample), an
+# all-Discrete spec, and more than 4,096 histogram bins in one slot
+MIXED_SPECS = (
+    ("bubble", lambda mt: vegas_bubble_kw(mt)["var"], [[1, 1, 1, 1, 1]], None, 2 ** 26, 16, 4),
+    ("Discrete(-3, 2000) and Discrete(1, 7)",
+     lambda mt: (mt.Discrete(-3, 2000), mt.Discrete(1, 7)), [[1, 1]], _prod2, 2 ** 16, 4, 2),
+    ("ninc 1001, 7 and 10 (m_k 3 and 429, c 3003)",
+     lambda mt: (mt.Continuous(0.0, 1.0, ninc=1001), mt.Continuous(0.0, 1.0, ninc=7),
+                 mt.Continuous(0.0, 1.0, ninc=10)), [[1, 1, 1]], _mixed3, 3003, 4, 3),
+    ("all Discrete", lambda mt: (mt.Discrete([(1, 3), (1, 4)]),), [[1]], _prod2, 2 ** 16, 4, 2),
+    ("ninc 6000 and Discrete(0, 4999): 11,000 bins",
+     lambda mt: (mt.Continuous(0.0, 1.0, ninc=6000), mt.Discrete(0, 4999)), [[1, 1]], _prod2,
+     2 ** 16, 4, 2),
+)
+
+
+def mixed_launch(mt, var, dof, f, npb, block, T, seed=SEED, cplx=False, measure=None,
+                 obs=None):
+    """(it, lay, tab, kd, t0, T, x, gidx, w) of a launch of the mixed route
+    at chunks [T, 2T) (or [0, T) with fewer chunks; ``T`` None: the
+    iteration's own launch), on maps trained at random; with ``cplx`` the
+    integrand times a phase, complex64."""
+    import torch
+    from mcintegration_tpu_torch.ops import vegas_kernels as vk
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasMixedIteration
+
+    cfg = mt.Configuration(var=var, dof=dof, seed=seed, type=complex if cplx else float)
+    rng = np.random.default_rng(seed)
+    for _, leaf in cfg.var_leaves():
+        if leaf.adapt:
+            leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
+            leaf.train()
+    spec = Spec(cfg, "cuda")
+    it = VegasMixedIteration(spec, f or make_vegas_bubble("cuda"), measure=measure,
+                             obs_proto=obs, block=block, nevalperblock=npb)
+    lay = it.layout
+    tab, kd = lay.tables(spec.device_params()), it.seeds(block_keys(seed, 1, 0, block))
+    T = min(T or it.chunks_per_launch, it.nchunks)
+    t0 = T if it.nchunks >= 2 * T else 0
+    x, gidx = vk.vegas_sample_mixed(lay, tab, kd, t0, T)
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    if cplx:
+        w = (w * torch.exp(1j * x[0].view(torch.int32).float() * 1e-3)).to(torch.complex64)
+    return it, lay, tab, kd, t0, T, x, gidx, w.contiguous()
+
+
+def _measure_of(relw):
+    """A measure's output from relw: its real components, then twice them."""
+    import torch
+    comps = relw_components(relw)
+    return torch.cat([comps, comps * 2.0]).contiguous()
+
+
+def mixed_vs_plain(mt, vk, card):
+    """Phase 3h: the mixed route's kernels against their plain versions on
+    every spec of MIXED_SPECS: vegas_sample_mixed and vegas_relw_mixed (real
+    and complex) bit for bit; vegas_reduce_mixed in every instantiation (real
+    and complex weights; the default observables, given a measure's output;
+    ungated and gated by measurefreq MF) with obs within REL_TOL_REDUCE and
+    the histograms within REL_TOL_VPLUS (float64 adds in another order);
+    then a spec of the uniform route through both routes at the uniform
+    route's launch: x bit-equal, obs and histograms within REL_TOL_VPLUS.
+    Returns the max abs error of each new entry point."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+
+    errs = dict.fromkeys(("vegas_sample_mixed", "vegas_relw_mixed", "vegas_reduce_mixed"), 0.0)
+    for name, var, dof, f, npb, block, T in MIXED_SPECS:
+        rels = [0.0, 0.0]
+        for cplx in (False, True):
+            it, lay, tab, kd, t0, T, x, gidx, w = mixed_launch(mt, var(mt), dof, f, npb, block, T,
+                                                               cplx=cplx)
+            want = vk.vegas_sample_mixed_plain(lay, tab, kd, t0, T)
+            errs["vegas_sample_mixed"] = max(errs["vegas_sample_mixed"], _check_bits(
+                f"vegas_sample_mixed x, {name}", x, want[0]))
+            _check_bits(f"vegas_sample_mixed gidx, {name}", gidx, want[1])
+            del want
+            relw = vk.vegas_relw_mixed(lay, tab, w, gidx)
+            errs["vegas_relw_mixed"] = max(errs["vegas_relw_mixed"], _check_bits(
+                f"vegas_relw_mixed, {name}, complex {cplx}", relw,
+                vk.vegas_relw_mixed_plain(lay, tab, w, gidx)))
+            m = _measure_of(relw)
+            del relw
+            for mf in (1, MF):
+                for given in (None, m):
+                    got = vk.vegas_reduce_mixed(lay, tab, w, gidx, given, mf, t0)
+                    ref = vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, given, mf, t0)
+                    what = (f"vegas_reduce_mixed, {name}, complex {cplx}, "
+                            f"{'m' if given is not None else 'default'}, mf {mf}")
+                    e0, r0 = _check_rel(what + ", obs", got[:1], ref[:1], REL_TOL_REDUCE)
+                    e1, r1 = _check_rel(what + ", hist", got[1:], ref[1:], REL_TOL_VPLUS)
+                    errs["vegas_reduce_mixed"] = max(errs["vegas_reduce_mixed"], e0, e1)
+                    rels = [max(rels[0], r0), max(rels[1], r1)]
+            del x, gidx, w, m, got, ref
+        print(f"phase 3h: {name}: {lay.S} slots (kinds {lay.slots[:, 0].tolist()}, m_k "
+              f"{lay.slots[:, 5].tolist()}), {it.block} blocks x {T} chunks x {lay.chunk} "
+              f"samples at t0={t0}, {lay.nhist} histogram bins: vegas_sample_mixed and "
+              f"vegas_relw_mixed (real, complex) bit-equal; vegas_reduce_mixed (real, complex; "
+              f"default, given m; mf 1 and {MF}) obs rel {rels[0]:.3g}, hist rel {rels[1]:.3g}")
+
+    # a spec of the uniform route through both routes, at the uniform route's launch
+    spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED), "cuda")
+    uni = VegasIteration(spec, _pi, block=16, nevalperblock=2 ** 22)
+    kd = block_keys(SEED, 2, 0, uni.block)
+    inputs = uni.kernel_inputs(spec.device_params(), kd)
+    T = min(uni.chunks_per_launch, uni.nchunks)
+    x, invp, perm = vk.vegas_sample(t0=0, T=T, m=uni.m_tile, **inputs)
+    lay = vk.MixedLayout.build(spec, uni.chunk, {0: uni.atab.cpu().numpy()})
+    tab = lay.tables(spec.device_params())
+    xm, gm = vk.vegas_sample_mixed(lay, tab, torch.as_tensor(kd.view(np.int32), device="cuda"), 0, T)
+    S, B = x.shape[:2]
+    _check_bits("the uniform route's x through vegas_sample_mixed", xm, x.reshape(S, B, T, -1))
+    _check_bits("the uniform route's strata through vegas_sample_mixed", gm,
+                perm.repeat_interleave(uni.m_tile, dim=-1))
+    w = uni.evaluate(uni.leaf_values(x))
+    obs, hrow = vk.vegas_reduce(w, invp, perm, uni.pad, uni.pair_slots, uni.used)
+    obs_m, hist_m = vk.vegas_reduce_mixed(lay, tab, w.reshape(w.shape[0], B, T, -1), gm)
+    _, rel = _check_rel("the uniform route's launch through vegas_reduce_mixed", (obs_m, hist_m),
+                        (obs, hrow.sum(dim=(1, 2))), REL_TOL_VPLUS)
+    print(f"phase 3h: the uniform route's pi launch ({B} blocks x {T} chunks x {uni.chunk} "
+          f"samples, {S} slots) through both routes: x and strata bit-equal, obs and histograms "
+          f"rel {rel:.3g}")
+    return errs
+
+
+def _z(mean, std, exact):
+    """Distance from the exact value in sigma, real parts (and imaginary ones).
+    Sigma is at least the exact value times float32's epsilon 2^-23: a
+    sample's weight is a float32 product of float32 table entries, so a mean
+    cannot be resolved more finely than that, and an integrand whose
+    estimator barely varies (1 over a Discrete pool: sigma 4e-11 on 12) would
+    otherwise be judged by the rounding of the maps' float32 CDFs and
+    masses (3.5e-8 of 12), the reference's law too."""
+    mean, std, exact = np.asarray(mean), np.asarray(std), np.asarray(exact)
+    std = np.maximum(std.real, np.abs(exact) * 2.0 ** -23) + 1j * std.imag
+    z = (mean.real - exact.real) / std.real
+    if np.iscomplexobj(mean) and np.any(std.imag > 0):
+        z = z + 1j * (mean.imag - exact.imag) / std.imag
+    return z
+
+
+def mixed_main_path(mt, vk, card, rate4):
+    """Phase 4h: the mixed route through integrate(solver="vegas",
+    device="cuda") at 2^30 evals an iteration, 16 blocks, 10 iterations: the
+    Lindhard bubble (its four bins within 20 sigma of lindhard(q),
+    tests/test_bubble.py:117, and within 5 sigma of bubble_exact(q), the
+    integral at its temperature), the same with type=complex (f + 0j) and
+    with measurefreq MF, an adaptive Discrete (t d^2 over
+    Discrete(1, 100)), Discrete([(1, 3), (1, 4)]) and mixed ninc (1024 and
+    512 stratified, 1000 drawn per sample), each within 5 sigma.  Each run's
+    launches counted from 0; its rate beside phase 4's, and its idle share
+    from a profile of two iterations.  The complex bubble's real parts
+    against the real run's, bit for bit: over one iteration from one state
+    (obs; the histograms within REL_TOL_VPLUS, float64 atomics in another
+    order, or within 1e-30 where a term underflows in the complex |w|) and
+    over the whole runs (means and error bars; the maps train on
+    those histograms in float64 and reach the kernels as float32 tables, so
+    the atomics' rounding would have to cross a float32 rounding boundary of
+    a node to change a sample).  Returns the new kernels' launches summed
+    over the runs."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasMixedIteration
+
+    niter = 10
+    bubble = make_vegas_bubble("cuda")
+    bubble_c = lambda v, c: bubble(v, c) + 0j
+    lind = [lindhard(q[0]) for q in EXTQ]
+    # the bubble's exact value at its temperature; its zero-temperature limit
+    # must give lindhard(q), which holds the quadrature
+    law = [bubble_exact(q[0]) for q in EXTQ]
+    cold = [bubble_exact(q[0], 1e4 * BETA_PHYS) for q in EXTQ]
+    if not np.allclose(cold, lind, rtol=1e-10, atol=0.0):
+        raise AssertionError(f"phase 4h: bubble_exact's zero-temperature limit {cold} is not "
+                             f"lindhard(q) {lind}")
+    C = mt.Continuous
+    # the bubble: within 20 sigma of lindhard(q), as tests/test_bubble.py:117,
+    # and within 5 sigma of its exact value at BETA
+    gates = (("lindhard(q)", lind, 20), ("the value at BETA", law, 5))
+    # name, integrand, integrate() keywords (fresh pools each call), and per
+    # gate: what, exact value, sigmas
+    runs = (("bubble", bubble, lambda: vegas_bubble_kw(mt), gates),
+            ("bubble, type=complex", bubble_c, lambda: vegas_bubble_kw(mt, True), gates),
+            (f"bubble, measurefreq {MF}", bubble,
+             lambda: dict(vegas_bubble_kw(mt), measurefreq=MF), gates),
+            ("t d^2 over Continuous(0, 1) x Discrete(1, 100)", _td2,
+             lambda: dict(var=(C(0.0, 1.0), mt.Discrete(1, 100)), dof=[[1, 1]]),
+             (("exact", 338350 / 2, 5),)),
+            ("1 over Discrete([(1, 3), (1, 4)])", _one,
+             lambda: dict(var=mt.Discrete([(1, 3), (1, 4)]), dof=[[1]]), (("exact", 12.0, 5),)),
+            ("log(x)/sqrt(x) y^2 e^z, ninc 1024, 512 and 1000", _logxyz,
+             lambda: dict(var=(C(0.0, 1.0, ninc=1024), C(0.0, 1.0, ninc=512),
+                               C(0.0, 1.0, ninc=1000)), dof=[[1, 1, 1]]),
+             (("exact", -4.0 / 3.0 * (np.e - 1.0), 5),)))
+    new = ("vegas_sample_mixed", "vegas_relw_mixed", "vegas_reduce_mixed")
+    counts = dict.fromkeys(new, 0)
+    results = {}
+    for name, f, kw_of, checks in runs:
+        kw = kw_of()
+        mf = kw.pop("measurefreq", 1)
+        fresh = lambda: {a: b for a, b in kw_of().items() if a != "measurefreq"}
+        spec = Spec(mt.Configuration(seed=SEED, **{a: b for a, b in kw.items() if a != "measure"}),
+                    "cuda")
+        shape = VegasMixedIteration(spec, f, measure=kw.get("measure"),
+                                    obs_proto=spec.cfg.observable, measurefreq=mf, block=16,
+                                    nevalperblock=VEGAS_NEVAL // 16)
+        L = niter * shape.launches_per_run
+        expected = {**dict.fromkeys(vk.launch_counts, 0), "vegas_sample_mixed": L,
+                    "vegas_reduce_mixed": L, "vegas_relw_mixed": L if "measure" in kw else 0}
+        vk.reset_launch_counts()
+        res = mt.integrate(f, measurefreq=mf, solver="vegas", neval=VEGAS_NEVAL, niter=niter,
+                           block=16, device="cuda", seed=SEED, verbose=-2, **fresh())
+        got = dict(vk.launch_counts)
+        assert res.backend == "cuda" and res.backend_reason == "", res.backend_reason
+        assert got == expected, (name, got, expected)
+        for q in new:
+            counts[q] += got[q]
+        mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+        zs = []
+        for what, exact, k in checks:
+            assert np.all(np.isfinite(mean)) and mean.shape == np.shape(exact), (mean, exact)
+            z = _z(mean, std, exact)
+            if not (np.all(np.abs(z.real) < k) and np.all(np.abs(z.imag) < k)):
+                raise AssertionError(f"phase 4h: {name}: {mean.tolist()} +- {std.tolist()}, "
+                                     f"outside {k} sigma of {what} "
+                                     f"{np.asarray(exact).tolist()}: {z.tolist()}")
+            zs.append(f"{np.round(z, 2).tolist()} from {what} (gate {k})")
+        if mf > 1:
+            norm = niter * 16 * (shape.nevalperblock // mf)
+            assert res.config.normalization == norm, (res.config.normalization, norm)
+        results[name] = res
+        evals = [h[2].neval for h in res.iterations]
+        steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+        print(f"phase 4h: {name}, {niter} iterations of {evals[0]} evals (chunk {shape.chunk}, "
+              f"{shape.launches_per_run} launches an iteration, slots of kinds "
+              f"{shape.layout.slots[:, 0].tolist()}): {mean.tolist()} +- {std.tolist()}, sigma "
+              f"{', '.join(zs)}; launches {dict((q, got[q]) for q in new)}")
+        print(f"phase 4h: {name}: steady-state {steady!r} evals/s, {rate4!r} for the uniform "
+              f"route's pi (phase 4), ratio {steady / rate4!r} (per-iteration s "
+              f"{res.iteration_times}) [{card}]")
+        profile_main_path(card, "4h", lambda: mt.integrate(
+            f, measurefreq=mf, solver="vegas", neval=VEGAS_NEVAL, niter=2, block=16,
+            device="cuda", seed=SEED, verbose=-2, **fresh()),
+            ("vegas_sample_mixed", "vegas_reduce_mixed"), top=4)
+
+    # f + 0j against f: one iteration from one state, then the whole runs
+    real, cpx = results["bubble"], results["bubble, type=complex"]
+    runs1 = []
+    for cplx, f in ((False, bubble), (True, bubble_c)):
+        kw = vegas_bubble_kw(mt, cplx)
+        spec = Spec(mt.Configuration(seed=SEED, **{a: b for a, b in kw.items() if a != "measure"}),
+                    "cuda")
+        it = VegasMixedIteration(spec, f, measure=kw["measure"], obs_proto=spec.cfg.observable,
+                                 block=16, nevalperblock=VEGAS_NEVAL // 16)
+        runs1.append(it.run(spec.device_params(), block_keys(SEED, 0, 0, 16)))
+    a, b = (r["obs_blocks"][0] for r in runs1)
+    if not (np.array_equal(b.real, a) and np.all(b.imag == 0.0)):
+        raise AssertionError("phase 4h: the complex bubble's obs differ from the real run's")
+    # |w| = sqrt(re*re + im*im) in float32: below |w| ~ 2^-75 the squares
+    # underflow, so the bubble's smallest terms, (|w| jac)^2 of about 1e-39,
+    # may reach a bin in one run and not in the other
+    e_hist = 0.0
+    for h1, h2 in zip(runs1[0]["hists"], runs1[1]["hists"]):
+        if not np.all(np.abs(h2 - h1) <= REL_TOL_VPLUS * np.abs(h1) + 1e-30):
+            raise AssertionError("phase 4h: the complex bubble's histograms differ from the "
+                                 "real run's")
+        big = np.abs(h1) > 1e-30
+        if big.any():
+            e_hist = max(e_hist, rel_err(h2[big], h1[big]))
+    ma, mb = np.asarray(real.mean[0]), np.asarray(cpx.mean[0])
+    sa, sb = np.asarray(real.stdev[0]), np.asarray(cpx.stdev[0])
+    if not (np.array_equal(mb.real, ma) and np.array_equal(sb.real, sa) and np.all(mb.imag == 0)):
+        raise AssertionError(f"phase 4h: the complex bubble's means {mb.tolist()} +- "
+                             f"{sb.tolist()} differ from the real run's {ma.tolist()} +- "
+                             f"{sa.tolist()}")
+    print(f"phase 4h: the bubble, f + 0j against f: one iteration from one state, obs real parts "
+          f"bit-equal and imaginary parts 0, histograms rel {e_hist:.3g} (bins above 1e-30); "
+          f"the 10-iteration runs' "
+          f"means and error bars bit-equal in their real parts, imaginary means 0")
+    return counts
+
+
+def ptxas_lines(key):
+    """ptxas -v's register and spill lines of each kernel whose mangled name
+    holds ``key``, from the verbose build of phase 2."""
+    from mcintegration_tpu_torch.ops import _build
+    out, name = [], None
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and key in name and ("registers" in line or "spill" in line):
+            out.append(f"{name[:70]}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def mixed_timings(mt, vk, card):
+    """Phase 6h: device ms of the mixed route's kernels at phase 4h's bubble
+    launch (16 blocks x 32 chunks x 131072 samples, 5 slots), in turns with
+    their plain versions (plain, kernel, kernel, plain), beside their bounds
+    from the bytes each must move and their ptxas registers.  Returns each
+    one's (max abs err, ms, plain_ms, bound_ms, bound_by)."""
+    import torch
+
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+
+    def turns(kernel, plain, reps=10):
+        k, p = [], []
+        for order in ((plain, kernel), (kernel, plain)):
+            for fn in order:
+                if fn is kernel:
+                    k.append(device_ms(kernel, reps))
+                else:
+                    p.append(time_ms(plain, 2))
+        return float(np.mean(k)), float(np.mean(p))
+
+    kw = vegas_bubble_kw(mt)
+    it, lay, tab, kd, t0, T, x, gidx, w = mixed_launch(
+        mt, kw["var"], kw["dof"], None, VEGAS_NEVAL // 16, 16, None, measure=kw["measure"],
+        obs=kw["obs"])
+    n, S, N = w[0].numel(), lay.S, w.shape[0]
+    out = {}
+    e = _check_bits("vegas_sample_mixed at 6h", x, vk.vegas_sample_mixed_plain(lay, tab, kd, t0, T)[0])
+    ms, pms = turns(lambda: vk.vegas_sample_mixed(lay, tab, kd, t0, T),
+                    lambda: vk.vegas_sample_mixed_plain(lay, tab, kd, t0, T))
+    # per sample the hash of its index, per value a lowbias32 round and the
+    # mixing (salt, mask), 5 float32 operations (the uniform, the map)
+    b = bound(nbytes(x, gidx, tab, lay.meta, lay.atab, kd), 5 * n * S,
+              n * (MIX32 + 2) + n * S * (MIX32 + 2))
+    out["vegas_sample_mixed"] = (e, ms, pms, *b)
+    relw = vk.vegas_relw_mixed(lay, tab, w, gidx)
+    e = _check_bits("vegas_relw_mixed at 6h", relw, vk.vegas_relw_mixed_plain(lay, tab, w, gidx))
+    ms, pms = turns(lambda: vk.vegas_relw_mixed(lay, tab, w, gidx),
+                    lambda: vk.vegas_relw_mixed_plain(lay, tab, w, gidx))
+    b = bound(nbytes(w, gidx, tab, lay.meta, relw), n * (S + 2 * N))
+    out["vegas_relw_mixed"] = (e, ms, pms, *b)
+    m = it.measure(lay.leaf_values(x), relw).contiguous()
+    del x, relw
+    got = vk.vegas_reduce_mixed(lay, tab, w, gidx, m, 1, t0)
+    e0, _ = _check_rel("vegas_reduce_mixed at 6h, obs", got[:1],
+                       vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, m, 1, t0)[:1], REL_TOL_REDUCE)
+    ms, pms = turns(lambda: vk.vegas_reduce_mixed(lay, tab, w, gidx, m, 1, t0),
+                    lambda: vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, m, 1, t0))
+    obs_rows = 8 * m.shape[0] * it.block * T * -(-lay.chunk // vk.SPAN) * vk.WARPS
+    b = bound(nbytes(w, gidx, m, tab, lay.meta) + obs_rows + 8 * lay.nhist,
+              n * (S + 8 * N) + n * m.shape[0])
+    out["vegas_reduce_mixed"] = (e0, ms, pms, *b)
+    print(f"phase 6h: one launch of the bubble = {it.block} blocks x {T} chunks x {lay.chunk} "
+          f"samples ({n} evals, {S} slots, {m.shape[0]} measure components) [{card}]")
+    for name, (err, t, pt, bd, by) in out.items():
+        print(f"phase 6h: {name} {t!r} ms, plain torch {pt!r} ms, bound {bd!r} ms (by {by}), "
+              f"{t / bd!r} times its bound [{card}]")
+    for key in ("vegas_sample_mixed_kernel", "vegas_reduce_mixed_kernel"):
+        for line in ptxas_lines(key):
+            print(f"phase 6h: ptxas -v {line}")
+    return out
+
+
 PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
 # float32 outside the tensor cores, operations/s: the data sheet's, a fused
 # multiply-add counted as two (the :mcmc kernels, built with --fmad=false,
@@ -3199,6 +3663,7 @@ def main() -> int:
     measure_errs = timed("3e", measure_vs_plain, mt, vk, ck, card)
     complex_errs = timed("3f", complex_vs_plain, mt, ck, mk, card)
     measurement_errs = timed("3g", measurement_vs_plain, mt, vk, vp, card)
+    mixed_errs = timed("3h", mixed_vs_plain, mt, vk, card)
     counts, shape, rate4 = timed("4", main_path, mt, vk, card)
     chain_counts, rate4b = timed("4b", chain_main_path, mt, ck, card)
     counts.update(chain_counts)
@@ -3212,6 +3677,7 @@ def main() -> int:
     timed("4f", complex_cost, mt, card)
     counts.update(timed("4g", measurement_main_path, mt, vk, vp, card,
                         {"4": rate4, "4d": rate4d}))
+    counts.update(timed("4h", mixed_main_path, mt, vk, card, rate4))
     timed("5", adaptive_checks, mt)
     timed("5b", chain_checks, mt)
     timed("5c", mcmc_checks, mt)
@@ -3228,6 +3694,8 @@ def main() -> int:
         measured[name] = (max(err, complex_errs[name]), *times)
     for name, (err, *times) in timed("6g", measurement_timings, mt, vk, vp, card).items():
         measured[name] = (max(err, measurement_errs[name]), *times)
+    for name, (err, *times) in timed("6h", mixed_timings, mt, vk, card).items():
+        measured[name] = (max(err, mixed_errs[name]), *times)
     common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2, niter=3)
     for phase, kw in (("7", dict(neval=2 ** 30, solver="vegas", **common)),
                       ("7b", dict(neval=2 ** 28, solver="vegasmc", nwalkers=2 ** 20, **common))):
@@ -3263,17 +3731,23 @@ def main() -> int:
                 "vegas_relw_complex": "mcintegration_tpu/ops/pallas_vegas.py:343",
                 "vplus_reduce_complex": "mcintegration_tpu/ops/pallas_vplus.py:156",
                 "vplus_relw": "mcintegration_tpu/ops/pallas_vplus.py:156",
-                "vplus_reduce_measure": "mcintegration_tpu/ops/pallas_vplus.py:156"}
+                "vplus_reduce_measure": "mcintegration_tpu/ops/pallas_vplus.py:156",
+                "vegas_sample_mixed": "mcintegration_tpu/ops/pallas_vegas.py:343",
+                "vegas_reduce_mixed": "mcintegration_tpu/ops/pallas_vegas.py:343",
+                "vegas_relw_mixed": "mcintegration_tpu/ops/pallas_vegas.py:343"}
     # vegas_relw and vegas_reduce's measure mode are entry points of vegas_reduce.cu,
     # the complex accept kernels instantiations of chain_accept.cu and mcmc_accept.cu;
     # the complex, relw and measure entries of the stratified solvers are those of
     # vegas_reduce.cu and vplus_reduce.cu (the XLA routes of the reference, which the
-    # TPU kernels K1 and K4 never serve)
+    # TPU kernels K1 and K4 never serve); the mixed route's three entry points
+    # (Discrete pools and pools of different ninc on :vegas, the reference's XLA
+    # route again) are those of vegas_mixed.cu
     sources = {"vegas_relw": "vegas_reduce", "vegas_reduce_measure": "vegas_reduce",
                "chain_accept_complex": "chain_accept", "mcmc_accept_complex": "mcmc_accept",
                "vegas_reduce_complex": "vegas_reduce", "vegas_relw_complex": "vegas_reduce",
                "vplus_reduce_complex": "vplus_reduce", "vplus_relw": "vplus_reduce",
-               "vplus_reduce_measure": "vplus_reduce"}
+               "vplus_reduce_measure": "vplus_reduce", "vegas_sample_mixed": "vegas_mixed",
+               "vegas_reduce_mixed": "vegas_mixed", "vegas_relw_mixed": "vegas_mixed"}
     kernels = []
     for name, where in replaces.items():
         err, ms, plain_ms, bound_ms, bound_by = measured[name]

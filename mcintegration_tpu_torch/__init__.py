@@ -3,11 +3,13 @@
 Serves ``integrate(..., solver="vegasmc")`` (the default) on ``Continuous``
 and ``Discrete`` pools, ``integrate(..., solver="mcmc")`` on those and
 ``FermiK`` pools, ``integrate(..., solver="vegas")`` on ``Continuous``
-pools, all three with custom measures, and ``integrate(...,
+and ``Discrete`` pools of any ``ninc``, all three with custom measures, and
+``integrate(...,
 solver="vegasplus")`` on ``Continuous`` pools with ``Discrete``
 passengers, on one NVIDIA GPU: the
 chain steps' proposals, Metropolis accepts and measurements (:vegasmc,
-:mcmc), the stratified Vegas draw, the relative weights and the
+:mcmc), the stratified Vegas draw (per sample for a Discrete pool or one
+whose ninc does not divide the chunk), the relative weights and the
 observable/histogram reduction (:vegas), and
 the hypercube draw and the density, second-moment and histogram reduction
 (:vegasplus) are hand-written CUDA kernels (``csrc/``); the user integrand

@@ -1,0 +1,449 @@
+// vegas_sample_mixed, vegas_reduce_mixed and vegas_relw_mixed: the :vegas
+// solver on Discrete pools and on pools of different ninc.
+//
+// These extend the port of mcintegration_tpu/ops/pallas_vegas.py:
+// build_run_all (K1) to the reference's XLA route, which serves what K1
+// refuses (pallas_vegas.py:323-328): Discrete pools and drawn Continuous
+// pools whose ninc differ (mcintegration_tpu/solvers/vegas.py:82-127,
+// 218-262, 292-356).  The uniform route's kernels, vegas_sample.cu and
+// vegas_reduce.cu, stay as they are.
+//
+// The plan (solvers/vegas.py:mixed_plan, ops/vegas_kernels.py:MixedLayout):
+// a chunk of c samples; a slot of a Continuous pool whose ninc divides c is
+// stratified on its nb = ninc strata, m_k = c / nb samples a stratum, and
+// every other slot is drawn per sample through its map.  One int32 row per
+// slot (kind, nb, tab_off, sm_off, lower, m_k, hist_off), whose first five
+// fields are those chain_common.cuh:map_draw reads; one float32 table per
+// drawn leaf (grid, inc or cdf, dist).
+//
+// vegas_sample_mixed writes x [S, B, T, c] (int32 bits for a Discrete slot)
+// and the bin gidx [S, B, T, c].  Random bits are vegas_sample.cu's counter
+// hash (ops/rng.py), not chain_common.cuh's uniform: for chunk t of block b,
+// k1 = mix32(kd[b,0] ^ t*0x9E3779B9), k2 = mix32(kd[b,1] + t), and the c-th
+// draw at index q is mix32(mix32(q ^ k1) + k2 + c*0x85EBCA6B).  Slot k:
+//   stratified: s = (draw(0, 3k+1) & 0x7FFFFFFF) % nb, a = atab[k, (draw(0,
+//     3k+2) & 0x7FFFFFFF) % 64], the row p = q / m_k and its stratum
+//     pk = (a*p + s) mod nb, dy = ((draw(q, 3k+3) & 0xFFFFFF) + 0.5) * 2^-24,
+//     x = grid[pk] + dy*inc[pk], gidx = pk: vegas_sample's draw at the same
+//     flat index, so a spec the uniform route serves gives the same x;
+//   per sample: map_draw (Continuous: the bin of u*ninc; Discrete: #{j: u >=
+//     cdf[j+1]}, clamped to nbin-1, x = lower + gidx) at the uniform
+//     u = ((draw(q, 3k+3) & 0xFFFFFF) + 0.5) * 2^-24.
+// A Discrete CDF of up to 1,024 bins is staged in shared memory; a larger
+// one is searched in device memory.
+//
+// vegas_reduce_mixed reads w and gidx and forms per sample, in float32 and
+// in the plain version's order (ops/vegas_kernels.py:_row_factors):
+//   invp_k   = nb * inc[g_k] (Continuous; vegas_sample's product, so a
+//              stratified slot gives the uniform route's bits) or
+//              1 / dist[g_k] (Discrete)
+//   jac      = prod_k invp_k
+//   factor_i = jac * prod over integrand i's padded (group, slot) pairs of
+//              prod over the pair's slots of 1/invp_k
+//   obs[b, t, i] += w_i * factor_i                     (float64)
+//   hist[k][g_k] += min(|w_i| * jac, 1e17)^2 for every slot k that feeds a
+//              histogram and that integrand i uses      (float64)
+// and vegas_relw_mixed writes relw_i = w_i * factor_i for a custom measure.
+// The histogram is a scatter by gidx for every slot: the strata rows of two
+// stratified slots of different m_k no longer line up, so vegas_reduce.cu's
+// one-writer-per-bin permutation does not hold here.
+//
+// Layout of the work (that of vplus_reduce.cu): a thread keeps one sample
+// position s of a chunk and walks over the chunks (blockIdx.y strides over
+// the B*T chunks); warp j of block b takes the 32 samples of group
+// j*nspan + b, so the warps of a block work in parts of the chunk far
+// apart and seldom meet on a bin.  The histogram is privatised per block in
+// shared memory as float64: whole up to 4,096 bins, else in windows of
+// 4,096, one per blockIdx.z (a block adds only its window's bins; window 0
+// also writes obs).  Before an add the lanes of a warp with the same bin
+// merge their values: by a butterfly when the warp's 32 samples share one
+// bin (the rows of a stratified slot with m_k >= 32), else with
+// chain_common.cuh:merge_by_key; so a bin costs a warp one add.  The
+// observables: each warp sums its samples of a chunk by shuffles and writes
+// one partial per (component, chunk, span, warp), which the wrapper adds in
+// a fixed order, each component's partials as one contiguous tensor, so the
+// order of a component's sum does not depend on how many components there
+// are (the real parts of w + 0i then sum as the real run's, given a measure
+// too).
+//
+// Instantiations of the one body: kCplx (w complex64, read as (re, im) pairs
+// through chain_common.cuh:Weight, |w| = sqrt(re*re + im*im), Re and Im of
+// w_i*factor_i in components 2i and 2i+1, so w + 0i gives the real run's
+// bits); the mode (the default observables, the sums of a measure's output
+// m [ncomp, B, T, c], or relw alone); kMask (measurefreq = mf > 1: sample q
+// of chunk t counts in the observable sums only if (t*c + q + 1) % mf == 0,
+// the reference's gate; the histogram takes every sample).  :vegas needs no
+// random shift of the gate: its strata are permuted at random every chunk.
+//
+// What bounds them on the card: device-memory bytes.  The sample kernel
+// writes 8 bytes a slot and sample (x and gidx); the reduce reads 4 bytes of
+// w (8 complex) an integrand and 4 of gidx a slot per sample, and m given a
+// measure; the tables stay in cache.  A simple kernel first: integer
+// divisions by m_k and nb, and the slot loops with their table reads, are
+// left as they are.
+//
+// Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
+// rounding, so x, gidx and relw match the plain versions bit for bit and the
+// float64 sums to the order of their adds.
+
+#include "chain_common.cuh"
+
+namespace {
+
+constexpr int kFields = 7;       // ops/vegas_kernels.py:MIXED_FIELDS
+constexpr int kStrat = 2;        // ops/vegas_kernels.py:KIND_STRAT (kDisc = 1, map = 0)
+constexpr int kMk = 5, kHistOff = 6;
+constexpr int kNMult = 64;       // ops/vegas_kernels.py:N_MULT
+constexpr int kThreads = 256;
+constexpr int kPerThread = 4;    // consecutive samples of a chunk a sample thread takes
+constexpr int kSpan = kThreads;  // ops/vegas_kernels.py:SPAN
+constexpr int kWarps = kThreads / 32;
+constexpr int kWaves = 8;        // the reduce's grid, in blocks the card holds at once
+constexpr int kWindow = 4096;    // ops/vegas_kernels.py:SMEM_HIST_BINS
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float unit24(uint32_t bits) {
+  return __fmul_rn(__fadd_rn((float)(bits & 0xFFFFFFu), 0.5f), 5.9604644775390625e-08f);
+}
+
+// A stratified slot's permutation of the strata in the current chunk.
+struct Perm {
+  int a, s;
+};
+
+// blockIdx.y strides over the (block, chunk) pairs, blockIdx.x over the
+// thread-sized groups of a chunk's samples.
+// shared memory: Perm [S], slot rows [S * kFields], staged CDFs [smem_floats].
+__global__ void __launch_bounds__(kThreads)
+vegas_sample_mixed_kernel(const uint32_t* __restrict__ kd, int t0, int B, int T, int c, int S,
+                          const int* __restrict__ meta, const int* __restrict__ atab,
+                          const float* __restrict__ tab, int vec, int* __restrict__ x,
+                          int* __restrict__ gidx) {
+  extern __shared__ int smem[];
+  Perm* perm = reinterpret_cast<Perm*>(smem);
+  int* rows = smem + 2 * S;
+  float* cdfs = reinterpret_cast<float*>(rows + kFields * S);
+  for (int q = threadIdx.x; q < kFields * S; q += blockDim.x) rows[q] = meta[q];
+  stage_cdfs(meta, S, kFields, tab, cdfs);              // ends in __syncthreads
+  const int BT = B * T;
+  const size_t plane = (size_t)BT * c;                  // one slot's samples
+  const int groups = (c + kPerThread - 1) / kPerThread;
+  for (int bt = blockIdx.y; bt < BT; bt += gridDim.y) {
+    const int b = bt / T;
+    const uint32_t t = (uint32_t)(t0 + bt - b * T);
+    const uint32_t k1 = mix32(kd[2 * b] ^ (t * 0x9E3779B9u));
+    const uint32_t k2 = mix32(kd[2 * b + 1] + t);
+    __syncthreads();                                    // the last chunk's perm is read
+    for (int k = threadIdx.x; k < S; k += blockDim.x) {
+      const int* f = rows + kFields * k;
+      if (f[kKind] != kStrat) continue;
+      const uint32_t base = mix32(k1) + k2;             // draw index 0
+      const uint32_t salt = 3u * (uint32_t)k;
+      const int s = (int)((mix32(base + (salt + 1u) * 0x85EBCA6Bu) & 0x7FFFFFFFu) %
+                          (uint32_t)f[kNb]);
+      const int j = (int)(mix32(base + (salt + 2u) * 0x85EBCA6Bu) & 0x7FFFFFFFu) % kNMult;
+      perm[k] = Perm{atab[k * kNMult + j], s};
+    }
+    __syncthreads();
+    for (int gi = blockIdx.x * blockDim.x + threadIdx.x; gi < groups;
+         gi += gridDim.x * blockDim.x) {
+      const int s0 = gi * kPerThread;
+      const int n = min(kPerThread, c - s0);
+      const bool full = vec && n == kPerThread;
+      uint32_t base[kPerThread];
+#pragma unroll
+      for (int v = 0; v < kPerThread; ++v) base[v] = mix32((uint32_t)(s0 + v) ^ k1) + k2;
+      for (int k = 0; k < S; ++k) {
+        const int* f = rows + kFields * k;
+        const uint32_t salt = (3u * (uint32_t)k + 3u) * 0x85EBCA6Bu;
+        int val[kPerThread], g[kPerThread];
+        if (f[kKind] == kStrat) {
+          const uint32_t nb = (uint32_t)f[kNb], m = (uint32_t)f[kMk];
+          const Perm P = perm[k];
+          const float* gr = tab + f[kTab];
+#pragma unroll
+          for (int v = 0; v < kPerThread; ++v) {
+            const uint32_t p = (uint32_t)(s0 + v) / m;
+            const int pk = (int)(((uint32_t)P.a * p + (uint32_t)P.s) % nb);
+            const float dy = unit24(mix32(base[v] + salt));
+            val[v] = __float_as_int(__fadd_rn(gr[pk], __fmul_rn(dy, gr[nb + pk])));
+            g[v] = pk;
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < kPerThread; ++v) {
+            float prob;                                 // unused: the reduce reads the tables
+            map_draw(f, tab, cdfs, unit24(mix32(base[v] + salt)), val[v], g[v], prob);
+          }
+        }
+        const size_t row = k * plane + (size_t)bt * c;  // slot k, chunk bt
+        int* xk = x + row;
+        int* gk = gidx + row;
+        if (full) {
+          *reinterpret_cast<int4*>(xk + s0) = make_int4(val[0], val[1], val[2], val[3]);
+          *reinterpret_cast<int4*>(gk + s0) = make_int4(g[0], g[1], g[2], g[3]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < kPerThread; ++v)
+            if (v < n) {
+              xk[s0 + v] = val[v];
+              gk[s0 + v] = g[v];
+            }
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  return v;
+}
+
+// Slot f's 1/probability at bin g.
+__device__ __forceinline__ float slot_invp(const int* f, const float* __restrict__ tab, int g) {
+  const int nb = f[kNb];
+  const float* t = tab + f[kTab];
+  return f[kKind] == kDisc ? __fdiv_rn(1.0f, t[nb + 1 + g]) : __fmul_rn((float)nb, t[nb + g]);
+}
+
+// Add v into bin key of the shared histogram (key < 0: nothing), one add
+// per bin and warp.  Every lane of the warp calls it.
+__device__ __forceinline__ void hist_add(double* hist_s, int key, double v) {
+  const int k0 = __shfl_sync(kFull, key, 0);
+  if (__all_sync(kFull, key == k0)) {
+    v = warp_sum(v);
+    if ((threadIdx.x & 31) == 0 && k0 >= 0) atomicAdd(hist_s + k0, v);
+  } else if (merge_by_key(kFull, key, v) && key >= 0) {
+    atomicAdd(hist_s + key, v);
+  }
+}
+
+// What a launch makes of w: the default observables, the sums of a
+// measure's m, or relw alone (vegas_relw_mixed)
+enum Mode { kDefault, kMeasure, kRelw };
+
+__device__ __forceinline__ float re_of(const Weight<false>& z) { return z.v; }
+__device__ __forceinline__ float re_of(const Weight<true>& z) { return z.re; }
+__device__ __forceinline__ float im_of(const Weight<true>& z) { return z.im; }
+
+// meta: slots [S, kFields], pad [N, P], pair_slots [P, M], used [S, N].
+// shared memory: this block's window of the histogram [HW] double.
+template <bool kCplx, int kMode, bool kMask>
+__global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
+    const float* __restrict__ w, const int* __restrict__ gidx, const float* __restrict__ tab,
+    const int* __restrict__ meta, int N, int S, int P, int M, long long BT, int c, int H,
+    int hist_smem, const float* __restrict__ mobs, int ncomp, int mf, int t0, int T,
+    double* __restrict__ obs_rows, double* __restrict__ hist, float* __restrict__ relw_out) {
+  extern __shared__ double hist_s[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* slots = meta;
+  const int* pad = slots + kFields * S;
+  const int* pair_slots = pad + N * P;
+  const int* used = pair_slots + P * M;
+  const long long plane = BT * c;
+
+  const int HW = hist_smem ? H : kWindow;
+  const int hlo = blockIdx.z * HW;
+  const bool first = blockIdx.z == 0;
+  if constexpr (kMode != kRelw) {
+    for (int q = threadIdx.x; q < HW; q += blockDim.x) hist_s[q] = 0.0;
+    __syncthreads();
+  }
+
+  const int s = (warp * gridDim.x + blockIdx.x) * 32 + lane;
+  const bool live = s < c;                     // past the chunk's end a lane only
+                                               // takes part in the shuffles
+  for (long long bt = blockIdx.y; bt < BT; bt += gridDim.y) {
+    const long long at = bt * c + s;
+    float jac = 1.0f;
+    if (live) {
+      jac = slot_invp(slots, tab, gidx[at]);
+      for (int k = 1; k < S; ++k)
+        jac = __fmul_rn(jac, slot_invp(slots + kFields * k, tab, gidx[k * plane + at]));
+    }
+    const bool on = !kMask || ((t0 + bt % T) * (long long)c + s + 1) % mf == 0;
+    // this warp's partials: obs_rows [ncomp, BT, nspan * kWarps], component-major
+    const long long orow = (bt * gridDim.x + blockIdx.x) * kWarps + warp;
+    const long long cstride = BT * gridDim.x * kWarps;
+
+    for (int i = 0; i < N; ++i) {
+      double so = 0.0, si = 0.0, sq = 0.0;
+      if (live) {
+        float f = jac;
+        for (int g = 0; g < P; ++g) {
+          if (!pad[i * P + g]) continue;
+          float gp = 1.0f;
+          for (int mm = 0; mm < M; ++mm) {
+            const int k = pair_slots[g * M + mm];
+            if (k < 0) break;
+            const float q = __fdiv_rn(1.0f, slot_invp(slots + kFields * k, tab,
+                                                      gidx[k * plane + at]));
+            gp = mm == 0 ? q : __fmul_rn(gp, q);
+          }
+          f = __fmul_rn(f, gp);
+        }
+        const Weight<kCplx> wi = Weight<kCplx>::load(w, i * plane + at);
+        const Weight<kCplx> relw = wi.scale(f);
+        if constexpr (kMode == kRelw) {
+          relw.store(relw_out, i * plane + at);
+        } else {
+          if (kMode == kDefault && on) {
+            so = (double)re_of(relw);
+            if constexpr (kCplx) si = (double)im_of(relw);
+          }
+          float a = __fmul_rn(wi.abs(), jac);
+          a = a > 1e17f ? 1e17f : a;             // NaN passes through, as torch.clamp
+          sq = (double)__fmul_rn(a, a);
+        }
+      }
+      if constexpr (kMode != kRelw) {
+        for (int k = 0; k < S; ++k) {          // warp-uniform: every lane adds or passes
+          const int off = slots[kFields * k + kHistOff];
+          if (off < 0 || !used[k * N + i]) continue;
+          int bin = live ? off + gidx[k * plane + at] - hlo : -1;
+          if (bin >= HW) bin = -1;
+          hist_add(hist_s, bin, bin >= 0 ? sq : 0.0);
+        }
+      }
+      if constexpr (kMode == kDefault) {
+        so = warp_sum(so);
+        if (kCplx) si = warp_sum(si);
+        if (lane == 0 && first) {
+          if (kCplx) {
+            obs_rows[2 * i * cstride + orow] = so;
+            obs_rows[(2 * i + 1) * cstride + orow] = si;
+          } else {
+            obs_rows[i * cstride + orow] = so;
+          }
+        }
+      }
+    }
+    if constexpr (kMode == kMeasure) {         // a measure's components, gated as relw would be
+      for (int q = 0; q < ncomp; ++q) {
+        double v = live && on ? (double)mobs[q * plane + at] : 0.0;
+        v = warp_sum(v);
+        if (lane == 0 && first) obs_rows[q * cstride + orow] = v;
+      }
+    }
+  }
+  if constexpr (kMode != kRelw) {
+    __syncthreads();
+    for (int q = threadIdx.x; q < HW && hlo + q < H; q += blockDim.x)
+      if (hist_s[q] != 0.0) atomicAdd(hist + hlo + q, hist_s[q]);
+  }
+}
+
+template <bool kCplx, int kMode, bool kMask>
+int launch(const void* w, const void* gidx, const void* tab, const void* meta, int N, int S,
+           int P, int M, long long BT, int c, int H, int hist_smem, const void* mobs,
+           int ncomp, int mf, int t0, int T, void* obs_rows, void* hist, void* relw,
+           void* stream) {
+  const int nspan = (c + kSpan - 1) / kSpan;
+  const int nwin = kMode == kRelw || hist_smem ? 1 : (H + kWindow - 1) / kWindow;
+  const size_t smem = kMode == kRelw ? 0 : (size_t)(hist_smem ? H : kWindow) * sizeof(double);
+  auto kernel = vegas_reduce_mixed_kernel<kCplx, kMode, kMask>;
+  int per_sm = 0;
+  const int err = blocks_per_sm(kernel, kThreads, smem, &per_sm);
+  if (err) return err;
+  long long groups = ((long long)kWaves * per_sm * num_sms() + (long long)nspan * nwin - 1) /
+                     ((long long)nspan * nwin);
+  if (groups > BT) groups = BT;
+  if (groups > 65535) groups = 65535;
+  if (groups < 1) groups = 1;
+  const dim3 grid((unsigned)nspan, (unsigned)groups, (unsigned)nwin);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)w, (const int*)gidx, (const float*)tab, (const int*)meta, N, S, P, M, BT,
+      c, H, hist_smem, (const float*)mobs, ncomp, mf, t0, T, (double*)obs_rows, (double*)hist,
+      (float*)relw);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCplx>
+int reduce_entry(const void* w, const void* gidx, const void* tab, const void* meta, int N,
+                 int S, int P, int M, long long BT, int c, int H, int hist_smem, int span,
+                 int warps, const void* mobs, int ncomp, int mf, int t0, int T,
+                 void* obs_rows, void* hist, void* stream) {
+  if (span != kSpan || warps != kWarps || N < 1 || S < 1 || P < 1 || M < 1 || BT < 1 ||
+      c < 1 || H < 0 || mf < 1 || t0 < 0 || T < 1 || BT % T != 0 || ncomp < 1 ||
+      (!mobs && ncomp != (kCplx ? 2 * N : N)))
+    return (int)cudaErrorInvalidValue;       // the wrapper sized obs_rows otherwise
+  auto run = launch<kCplx, kDefault, false>;
+  if (mobs) run = mf > 1 ? launch<kCplx, kMeasure, true> : launch<kCplx, kMeasure, false>;
+  else if (mf > 1) run = launch<kCplx, kDefault, true>;
+  return run(w, gidx, tab, meta, N, S, P, M, BT, c, H, hist_smem, mobs, ncomp, mf, t0, T,
+             obs_rows, hist, nullptr, stream);
+}
+
+template <bool kCplx>
+int relw_entry(const void* w, const void* gidx, const void* tab, const void* meta, int N,
+               int S, int P, int M, long long BT, int c, int span, int warps, void* relw,
+               void* stream) {
+  if (span != kSpan || warps != kWarps || N < 1 || S < 1 || P < 1 || M < 1 || BT < 1 || c < 1)
+    return (int)cudaErrorInvalidValue;
+  // no histogram, no observables
+  return launch<kCplx, kRelw, false>(w, gidx, tab, meta, N, S, P, M, BT, c, 0, 1, nullptr, N,
+                                     1, 0, 1, nullptr, nullptr, relw, stream);
+}
+
+}  // namespace
+
+extern "C" int mci_vegas_sample_mixed(const void* kd, int t0, int B, int T, int c, int S,
+                                      const void* meta, const void* atab, const void* tab,
+                                      int smem_floats, void* x, void* gidx, void* stream) {
+  if (B < 1 || T < 1 || c < 1 || S < 1 || t0 < 0 || smem_floats < 0 ||
+      (long long)B * T > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte stores of x and gidx: every group of four samples starts on a
+  // quad when c % 4 == 0
+  const int vec = c % 4 == 0 && ((uintptr_t)x | (uintptr_t)gidx) % 16 == 0;
+  const size_t smem = (size_t)(2 + kFields) * S * sizeof(int) + (size_t)smem_floats * sizeof(float);
+  int err = 0;
+  if (smem > 48 * 1024)
+    err = (int)cudaFuncSetAttribute(vegas_sample_mixed_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const int per_block = kThreads * kPerThread;
+  long long bx = ((long long)c + per_block - 1) / per_block;
+  long long by = (long long)B * T;
+  if (bx > 65535) bx = 65535;
+  if (by > 65535) by = 65535;
+  vegas_sample_mixed_kernel<<<dim3((unsigned)bx, (unsigned)by), kThreads, smem,
+                              (cudaStream_t)stream>>>(
+      (const uint32_t*)kd, t0, B, T, c, S, (const int*)meta, (const int*)atab,
+      (const float*)tab, vec, (int*)x, (int*)gidx);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mci_vegas_reduce_mixed(const void* w, const void* gidx, const void* tab,
+                                      const void* meta, int N, int S, int P, int M,
+                                      long long BT, int c, int H, int hist_smem, int span,
+                                      int warps, const void* mobs, int ncomp, int mf, int t0,
+                                      int T, void* obs_rows, void* hist, void* stream) {
+  return reduce_entry<false>(w, gidx, tab, meta, N, S, P, M, BT, c, H, hist_smem, span, warps,
+                             mobs, ncomp, mf, t0, T, obs_rows, hist, stream);
+}
+
+// w complex64 [N, B, T, c], read as interleaved (re, im) float pairs
+extern "C" int mci_vegas_reduce_mixed_complex(const void* w, const void* gidx, const void* tab,
+                                              const void* meta, int N, int S, int P, int M,
+                                              long long BT, int c, int H, int hist_smem,
+                                              int span, int warps, const void* mobs, int ncomp,
+                                              int mf, int t0, int T, void* obs_rows,
+                                              void* hist, void* stream) {
+  return reduce_entry<true>(w, gidx, tab, meta, N, S, P, M, BT, c, H, hist_smem, span, warps,
+                            mobs, ncomp, mf, t0, T, obs_rows, hist, stream);
+}
+
+extern "C" int mci_vegas_relw_mixed(const void* w, const void* gidx, const void* tab,
+                                    const void* meta, int N, int S, int P, int M, long long BT,
+                                    int c, int span, int warps, void* relw, void* stream) {
+  return relw_entry<false>(w, gidx, tab, meta, N, S, P, M, BT, c, span, warps, relw, stream);
+}
+
+extern "C" int mci_vegas_relw_mixed_complex(const void* w, const void* gidx, const void* tab,
+                                            const void* meta, int N, int S, int P, int M,
+                                            long long BT, int c, int span, int warps,
+                                            void* relw, void* stream) {
+  return relw_entry<true>(w, gidx, tab, meta, N, S, P, M, BT, c, span, warps, relw, stream);
+}

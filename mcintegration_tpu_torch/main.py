@@ -21,7 +21,7 @@ from .configuration import Configuration
 from .ops.rng import block_keys
 from .solvers.engine import Spec, tree_map
 from .solvers.mcmc import MCMCIteration
-from .solvers.vegas import VegasIteration
+from .solvers.vegas import make_vegas_iteration
 from .solvers.vegasmc import VegasMCIteration
 from .solvers.vegasplus import VegasPlusIteration
 from .statistics import Result, mean_std, report
@@ -133,7 +133,9 @@ def integrate(integrand: Callable, *,
     Mirrors ``mcintegration_tpu.integrate`` (and the reference keyword
     surface, src/main.jl:71-90) for ``solver="vegasmc"`` (the default) on
     ``Continuous`` and ``Discrete`` pools, for ``solver="mcmc"`` on those and
-    ``FermiK`` pools, for ``solver="vegas"`` on ``Continuous`` pools, and for
+    ``FermiK`` pools, for ``solver="vegas"`` on ``Continuous`` and ``Discrete``
+    pools of any ``ninc`` (the uniform route for Continuous pools of one
+    ``ninc``, the mixed route of the reference's XLA path otherwise), and for
     ``solver="vegasplus"`` (or ``"vegas+"``) on ``Continuous`` pools with
     ``Discrete`` pools riding along unstratified;
     ``Continuous`` and ``Discrete`` pools may be bundled in a
@@ -170,8 +172,7 @@ def integrate(integrand: Callable, *,
     keywords; the port serves their defaults (float32, ``"auto"``, True,
     ``"auto"``) and raises on any other value.  Inputs the port does not
     serve yet raise ``NotImplementedError`` naming the ROADMAP.md item that
-    will port them: ``Discrete`` pools and pools of different ``ninc`` on
-    :vegas, ``mesh`` and ``debug``.  Complex observables on a real-weight
+    will port them: ``mesh`` and ``debug``.  Complex observables on a real-weight
     run raise (the reference drops their imaginary part), and FermiK pools
     raise on every solver but :mcmc, as in the reference.
 
@@ -224,10 +225,10 @@ def integrate(integrand: Callable, *,
                                        measurefreq=measurefreq, block=block,
                                        nevalperblock=nevalperblock)
     else:
-        it_kernel = VegasIteration(spec, integrand, measure=measure,
-                                   obs_proto=config.observable, inplace=inplace,
-                                   measurefreq=measurefreq, block=block,
-                                   nevalperblock=nevalperblock)
+        it_kernel = make_vegas_iteration(spec, integrand, measure=measure,
+                                         obs_proto=config.observable, inplace=inplace,
+                                         measurefreq=measurefreq, block=block,
+                                         nevalperblock=nevalperblock)
     backend_reason = it_kernel.backend_reason
     if verbose >= 0 and backend_reason:
         sys.stdout.write(yellow(f"{solver}: {backend_reason}\n"))

@@ -77,18 +77,29 @@ _SIGNATURES = {
                          _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, span, warps, relw, stream
     "mci_vplus_relw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I, _P, _P],
+    # kd, t0, B, T, c, S, meta, atab, tab, smem_floats, x, gidx, stream
+    "mci_vegas_sample_mixed": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    # w, gidx, tab, meta, N, S, P, M, BT, c, H, hist_smem, span, warps, mobs,
+    # ncomp, mf, t0, T, obs_rows, hist, stream
+    "mci_vegas_reduce_mixed": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I, _I, _I, _P,
+                               _I, _I, _I, _I, _P, _P, _P],
+    # w, gidx, tab, meta, N, S, P, M, BT, c, span, warps, relw, stream
+    "mci_vegas_relw_mixed": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I, _P, _P],
 }
 
 # the complex-weight instantiations take the real ones' arguments
 _SIGNATURES["mci_chain_accept_complex"] = _SIGNATURES["mci_chain_accept"]
 _SIGNATURES["mci_vegas_reduce_complex"] = _SIGNATURES["mci_vegas_reduce"]
 _SIGNATURES["mci_vegas_relw_complex"] = _SIGNATURES["mci_vegas_relw"]
+_SIGNATURES["mci_vegas_reduce_mixed_complex"] = _SIGNATURES["mci_vegas_reduce_mixed"]
+_SIGNATURES["mci_vegas_relw_mixed_complex"] = _SIGNATURES["mci_vegas_relw_mixed"]
 _SIGNATURES["mci_vplus_reduce_complex"] = _SIGNATURES["mci_vplus_reduce"]
 _SIGNATURES["mci_vplus_relw_complex"] = _SIGNATURES["mci_vplus_relw"]
 _SIGNATURES["mci_mcmc_accept_complex"] = _SIGNATURES["mci_mcmc_accept"]
 
 _lib = None
 build_seconds = None   # wall time of this process's build, None if cached
+build_log = ""         # nvcc's output of a verbose build, ptxas -v's lines included
 
 
 def _nvcc() -> str:
@@ -114,9 +125,9 @@ def load(verbose: bool = False):
     """The loaded kernel library, built first if needed.
 
     ``verbose`` prints nvcc's output, including ``-Xptxas -v``'s registers
-    and spills per kernel.
+    and spills per kernel, and keeps it in ``build_log``.
     """
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
     out = library_path()
@@ -145,7 +156,8 @@ def load(verbose: bool = False):
                 raise RuntimeError(f"nvcc link failed with code {proc.returncode}:\n"
                                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
             if verbose:
-                print("".join(logs) + proc.stdout + proc.stderr)
+                build_log = "".join(logs) + proc.stdout + proc.stderr
+                print(build_log)
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         build_seconds = time.perf_counter() - t0
     _lib = bind(out)

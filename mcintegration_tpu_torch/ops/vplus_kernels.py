@@ -156,31 +156,11 @@ class VplusLayout:
             if li.ndraw > 0:
                 tab_off += 2 * nb + 1 if disc else 3 * nb
         slots = np.asarray(rows, np.int32).reshape(-1, SLOT_FIELDS)
-        n = spec.N
-        # padding factors: (group, slot) pairs, group-major; a pair multiplies
-        # its Continuous leaves' densities, then its Discrete leaves'
-        pairs = [(g, s) for g in range(spec.nvar) for s in range(spec.maxdof[g])]
-        maxmem = max(len(g) for g in spec.group_leaves)
-        pair_slots = np.full((max(len(pairs), 1), maxmem), -1, np.int32)
-        for q, (g, s) in enumerate(pairs):
-            members = sorted(spec.group_leaves[g],
-                             key=lambda l: isinstance(spec.leaves[l].leaf, Discrete))
-            for mm, lidx in enumerate(members):
-                pair_slots[q, mm] = kslot[(lidx, s)]
-        pad = np.zeros((n, pair_slots.shape[0]), np.int32)
-        for i in range(n):
-            for q, (g, s) in enumerate(pairs):
-                pad[i, q] = s >= spec.cfg.dof[i][g]
-        used = np.zeros((len(rows), n), np.int32)
-        for (lidx, s), k in kslot.items():
-            li = spec.leaves[lidx]
-            if li.leaf.adapt:
-                used[k] = spec.mask_used[:n, li.group, s]
-        meta = np.concatenate([slots.ravel(), pad.ravel(), pair_slots.ravel(), used.ravel()])
+        pad, pair_slots, used = slot_tables(spec, kslot)
         return VplusLayout(spec=spec, nstrat=nstrat, D=d, slots=slots, pad=pad,
                            pair_slots=pair_slots, used=used, dleaf=dleaf, hist_off=hist_off,
                            tab_size=tab_off, nhist=h_off,
-                           meta=torch.as_tensor(meta.astype(np.int32), device=spec.device))
+                           meta=pack_meta(spec.device, slots, pad, pair_slots, used))
 
     def tables(self, params) -> torch.Tensor:
         """The float32 map tables ``tab`` of this iteration's ``params``."""
@@ -193,14 +173,54 @@ class VplusLayout:
         return torch.cat(parts).contiguous()
 
     def leaf_values(self, x: torch.Tensor):
-        """Per spec leaf, its ``[ndraw, ...]`` rows of the slot samples ``x``
-        (int32 for a Discrete leaf)."""
-        out, k = [], 0
-        for li in self.spec.leaves:
-            rows = x[k:k + li.ndraw]
-            out.append(rows.view(torch.int32) if isinstance(li.leaf, Discrete) else rows)
-            k += li.ndraw
-        return out
+        """Per spec leaf, its rows of ``x`` (``leaf_values``)."""
+        return leaf_values(self.spec, x)
+
+
+def slot_tables(spec, kslot):
+    """The padding and histogram tables of the kernel slots ``kslot
+    {(spec leaf, slot): kernel slot}``: ``pad [N, P]`` (whether the (group,
+    slot) pair ``q``, group-major, enters integrand ``i``'s padding
+    factor), ``pair_slots [P, M]`` (the kernel slots of the pair's leaves,
+    Continuous leaves first, ``-1`` padded) and ``used [S, N]`` (whether
+    integrand ``i``'s weight feeds slot ``k``'s histogram: adaptive leaves
+    only)."""
+    n = spec.N
+    pairs = [(g, s) for g in range(spec.nvar) for s in range(spec.maxdof[g])]
+    maxmem = max(len(g) for g in spec.group_leaves)
+    pair_slots = np.full((max(len(pairs), 1), maxmem), -1, np.int32)
+    for q, (g, s) in enumerate(pairs):
+        members = sorted(spec.group_leaves[g],
+                         key=lambda l: isinstance(spec.leaves[l].leaf, Discrete))
+        for mm, lidx in enumerate(members):
+            pair_slots[q, mm] = kslot[(lidx, s)]
+    pad = np.zeros((n, pair_slots.shape[0]), np.int32)
+    for i in range(n):
+        for q, (g, s) in enumerate(pairs):
+            pad[i, q] = s >= spec.cfg.dof[i][g]
+    used = np.zeros((len(kslot), n), np.int32)
+    for (lidx, s), k in kslot.items():
+        li = spec.leaves[lidx]
+        if li.leaf.adapt:
+            used[k] = spec.mask_used[:n, li.group, s]
+    return pad, pair_slots, used
+
+
+def pack_meta(device, *tables) -> torch.Tensor:
+    """The int32 ``tables`` raveled into one tensor on ``device``."""
+    return torch.as_tensor(np.concatenate([np.asarray(t, np.int32).ravel() for t in tables]),
+                           device=device)
+
+
+def leaf_values(spec, x: torch.Tensor):
+    """Per spec leaf, its ``[ndraw, ...]`` rows of the kernel-slot samples
+    ``x`` (slots in leaf order; int32 for a Discrete leaf)."""
+    out, k = [], 0
+    for li in spec.leaves:
+        rows = x[k:k + li.ndraw]
+        out.append(rows.view(torch.int32) if isinstance(li.leaf, Discrete) else rows)
+        k += li.ndraw
+    return out
 
 
 def _device_of(t: torch.Tensor, name: str) -> torch.device:

@@ -34,6 +34,17 @@ summed over the measured samples only (the gate of ``montecarlo.jl:148``;
 the route sums it over every sample with ``relw`` zeroed at the others,
 ROADMAP.md, known faults in the reference); for a measure linear in
 ``relw`` the two agree.
+
+Discrete pools, and drawn pools whose ``ninc`` differ, take the mixed
+route (``VegasMixedIteration``; ``make_vegas_iteration`` picks the route):
+the reference's XLA path (``mcintegration_tpu/solvers/vegas.py:82-356``),
+which K1 never serves.  Its chunk shaping is that path's (``mixed_plan``):
+a drawn Continuous pool whose ``ninc`` divides the chunk is stratified on
+its own strata, every other drawn pool is drawn per sample through its map,
+and one launch is ``vegas_sample_mixed`` → the integrand (→
+``vegas_relw_mixed`` → the measure) → ``vegas_reduce_mixed``, with complex
+weights and ``measurefreq`` as above.  Specs of Continuous pools of one
+``ninc`` keep the uniform route and its chunk shaping unchanged.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import torch
 from ..models.variable import Continuous
 from ..ops import vegas_kernels
 from ..ops._build import sum_obs
+from ..ops.vplus_kernels import leaf_values, slot_tables
 from .engine import Spec, obs_components, obs_tree, refuse_fermik
 
 N_MULT = vegas_kernels.N_MULT
@@ -87,22 +99,63 @@ def _coprime_multipliers(rng: np.random.Generator, nb: int, count: int):
 
 
 def check_supported(spec: Spec):
-    """The specs the kernels serve; anything else raises (pallas_vegas.py:
-    eligible, lines 290-340).  The strata bound is checked by
-    ``vegas_kernels.vegas_sample``."""
+    """The strata count of the uniform route (pallas_vegas.py: eligible,
+    lines 290-340: every drawn pool Continuous, all with one ninc), or None
+    for a spec the mixed route serves.  FermiK pools and specs with nothing
+    to draw raise.  The strata bound is checked by the sample kernels."""
     refuse_fermik(spec, ":vegas")
     drawn = [li for li in spec.leaves if li.ndraw > 0]
     if not drawn:
         raise ValueError("no MC-owned slots to draw (every dof is 0)")
-    if any(not isinstance(li.leaf, Continuous) for li in drawn):
-        raise NotImplementedError(
-            "only Continuous pools are ported (ROADMAP.md, queue 1, item 14)")
-    nbs = {li.leaf.ninc for li in drawn}
-    if len(nbs) != 1:
-        raise NotImplementedError(
-            "drawn pools with different ninc are not ported (ROADMAP.md, "
-            "queue 1, item 14)")
-    return nbs.pop()
+    nbs = {li.leaf.ninc if isinstance(li.leaf, Continuous) else None for li in drawn}
+    return nbs.pop() if len(nbs) == 1 and None not in nbs else None
+
+
+def make_vegas_iteration(spec: Spec, integrand: Callable, **kw):
+    """The :vegas iteration of ``spec``: the uniform route where it serves
+    the spec, else the mixed route."""
+    cls = VegasIteration if check_supported(spec) is not None else VegasMixedIteration
+    return cls(spec, integrand, **kw)
+
+
+def launch_chunks(spec: Spec, block: int, chunk: int, nchunks: int, measure, obs_proto,
+                  gidx: bool = False) -> int:
+    """Chunks of every block a launch takes: about ``SAMPLES_PER_LAUNCH``
+    samples, and with a measure x, w, relw and m (and ``gidx``, 4 bytes a
+    slot) within ``MEASURE_LAUNCH_BYTES``."""
+    samples = SAMPLES_PER_LAUNCH
+    if measure is not None:
+        nslots = sum(li.ndraw for li in spec.leaves)
+        wbytes = 8 if spec.cplx else 4
+        per_sample = (8 if gidx else 4) * nslots + 2 * wbytes * spec.N + \
+            4 * obs_components(spec, obs_proto)
+        samples = min(samples, MEASURE_LAUNCH_BYTES // per_sample)
+    return max(1, min(nchunks, samples // (block * chunk)))
+
+
+def _evaluators(spec: Spec, integrand: Callable, inplace: bool, measure, obs_proto):
+    """``(evaluate, measure, backend_reason)``: the integrand and the measure
+    batched, or per sample under ``torch.func.vmap`` where the probe finds
+    the batched call wrong, and why."""
+    eval_b = spec.make_eval_batched(integrand, inplace)
+    eval_v = spec.make_eval_vmapped(integrand, inplace)
+    ok, why = spec.probe_batched(eval_b, eval_v)
+    m, why_m = (None, "") if measure is None else spec.pick_measure(measure, obs_proto)
+    return eval_b if ok else eval_v, m, "; ".join(r for r in (why, why_m) if r)
+
+
+def _leaf_hists(spec: Spec, hsum: torch.Tensor) -> list:
+    """Per spec leaf, the sum of its slots' histograms from ``hsum [S, >=
+    nhist]`` (kernel slots in leaf order), on the host."""
+    hsum = hsum.cpu().numpy()
+    hists, k = [], 0
+    for li in spec.leaves:
+        h = np.zeros(li.nhist, np.float64)
+        for s in range(li.ndraw):
+            h = h + hsum[k + s, :li.nhist]
+        hists.append(h)
+        k += li.ndraw
+    return hists
 
 
 class VegasIteration:
@@ -117,6 +170,9 @@ class VegasIteration:
         self.measurefreq = int(measurefreq)
         dev = spec.device
         nb = check_supported(spec)
+        if nb is None:
+            raise ValueError("VegasIteration serves Continuous pools of one ninc; "
+                             "make_vegas_iteration picks the mixed route for this spec")
         self.nb = nb
 
         # ---- chunk shaping (solvers/vegas.py:176-191) ----
@@ -131,13 +187,8 @@ class VegasIteration:
         self.chunk = nb * m_tile
         self.nchunks = max(1, -(-nevalperblock // self.chunk))
         self.nevalperblock = self.chunk * self.nchunks
-        samples = SAMPLES_PER_LAUNCH
-        if measure is not None:
-            nslots = sum(li.ndraw for li in spec.leaves)
-            wbytes = 8 if spec.cplx else 4
-            per_sample = 4 * nslots + 2 * wbytes * spec.N + 4 * obs_components(spec, obs_proto)
-            samples = min(samples, MEASURE_LAUNCH_BYTES // per_sample)
-        self.chunks_per_launch = max(1, min(self.nchunks, samples // (block * self.chunk)))
+        self.chunks_per_launch = launch_chunks(spec, block, self.chunk, self.nchunks, measure,
+                                               obs_proto)
         self.launches_per_run = -(-self.nchunks // self.chunks_per_launch)
 
         # ---- multiplier tables, drawn in leaf order (vegas.py:100-127) ----
@@ -151,44 +202,20 @@ class VegasIteration:
         # kernel slots: (leaf, slot) in drawn-leaf order, slot-minor
         self.slot_map = [(lidx, s) for lidx in self.dleaf
                          for s in range(spec.leaves[lidx].ndraw)]
-        kslot = {ls: k for k, ls in enumerate(self.slot_map)}
-        nslots, n = len(self.slot_map), spec.N
 
         def i32(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=dev)
 
         self.atab = i32([a_tabs[lidx][s] for lidx, s in self.slot_map])
         self.slot_leaf = i32([self.dleaf.index(lidx) for lidx, _ in self.slot_map])
-
-        # ---- padding factors: (group, slot) pairs, gi-major (:471-478) ----
-        pairs = [(gi, s) for gi in range(spec.nvar) for s in range(spec.maxdof[gi])]
-        maxmem = max(len(g) for g in spec.group_leaves)
-        pair_slots = np.full((max(len(pairs), 1), maxmem), -1, np.int32)
-        for g, (gi, s) in enumerate(pairs):
-            for mm, lidx in enumerate(spec.group_leaves[gi]):
-                pair_slots[g, mm] = kslot[(lidx, s)]
-        pad = np.zeros((n, pair_slots.shape[0]), np.int32)
-        for i in range(n):
-            if not spec.pad_trivial[i]:
-                for g, (gi, s) in enumerate(pairs):
-                    pad[i, g] = s >= spec.cfg.dof[i][gi]
-        # ---- histogram feeds: integrands using the slot, adaptive leaves ----
-        used = np.zeros((nslots, n), np.int32)
-        for k, (lidx, s) in enumerate(self.slot_map):
-            li = spec.leaves[lidx]
-            if li.leaf.adapt:
-                used[k] = spec.mask_used[:n, li.group, s]
+        # padding factors of the (group, slot) pairs, gi-major (:471-478), and
+        # the histogram feeds: integrands using the slot, adaptive leaves
+        pad, pair_slots, used = slot_tables(spec, {ls: k for k, ls in enumerate(self.slot_map)})
         self.pad, self.pair_slots, self.used = i32(pad), i32(pair_slots), i32(used)
 
-        # ---- the integrand and the measure: batched, or per sample under vmap ----
-        eval_b = spec.make_eval_batched(integrand, inplace)
-        eval_v = spec.make_eval_vmapped(integrand, inplace)
-        ok, why = spec.probe_batched(eval_b, eval_v)
-        self.evaluate = eval_b if ok else eval_v
         self.obs_proto = obs_proto
-        self.measure, why_m = (None, "") if measure is None else \
-            spec.pick_measure(measure, obs_proto)
-        self.backend_reason = "; ".join(r for r in (why, why_m) if r)
+        self.evaluate, self.measure, self.backend_reason = _evaluators(
+            spec, integrand, inplace, measure, obs_proto)
         self.backend = "cuda" if dev.type == "cuda" else "torch"
 
     # ------------------------------------------------------------------
@@ -206,11 +233,7 @@ class VegasIteration:
 
     def leaf_values(self, x):
         """Split kernel-slot samples ``x [S, ...]`` into per-leaf views."""
-        out, k = [], 0
-        for li in self.spec.leaves:
-            out.append(x[k:k + li.ndraw])
-            k += li.ndraw
-        return out
+        return leaf_values(self.spec, x)
 
     def launch(self, inputs, t0: int, T: int):
         """Chunks [t0, t0+T) of every block: obs [B,T,ncomp], hrow [S,B,T,nb]."""
@@ -246,19 +269,113 @@ class VegasIteration:
         obs_b = sum_obs(torch.cat(obs_parts, dim=1), 1,                     # [B, ncomp]
                         spec.cplx and self.measure is None).cpu().numpy()
         obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
-        hsum = hsum.cpu().numpy()
-        hists, k = [], 0
-        for li in spec.leaves:
-            h = np.zeros(li.nhist, np.float64)
-            for s in range(li.ndraw):
-                h = h + hsum[k + s]
-            hists.append(h)
-            k += li.ndraw
         return {
             "obs_blocks": obs_b,      # [block, N], or the observable pytree
             # the samples the gate measures: the indices 1..nevalperblock
             # that measurefreq divides
             "norm_blocks": np.full(self.block, float(self.nevalperblock // self.measurefreq)),
-            "hists": hists,           # per-leaf histogram sums
+            "hists": _leaf_hists(spec, hsum),   # per-leaf histogram sums
+            "neval": self.block * self.nevalperblock,
+        }
+
+
+MAX_CHUNK = 131072   # the mixed route's largest chunk (mcintegration_tpu/solvers/vegas.py:63)
+
+
+def mixed_plan(spec: Spec, nevalperblock: int):
+    """``(chunk, nchunks, stratified leaves)`` of the mixed route
+    (``mcintegration_tpu/solvers/vegas.py:82-127``): ``c = min(nevalperblock,
+    MAX_CHUNK)``; with ``nb0`` the largest drawn Continuous ninc, ``c = nb0 *
+    m`` for ``m = c // nb0``, rounded down to a multiple of 128 when it is
+    at least 128; a drawn Continuous leaf whose ninc divides ``c`` is
+    stratified, every other drawn leaf is drawn per sample."""
+    nincs = sorted({li.leaf.ninc for li in spec.leaves
+                    if isinstance(li.leaf, Continuous) and li.ndraw > 0}, reverse=True)
+    c = max(1, min(int(nevalperblock), MAX_CHUNK))
+    if nincs and c >= nincs[0]:
+        m = max(1, c // nincs[0])
+        if m >= 128:
+            m = (m // 128) * 128
+        c = nincs[0] * m
+    strat = [lidx for lidx, li in enumerate(spec.leaves)
+             if isinstance(li.leaf, Continuous) and li.ndraw > 0 and c % li.leaf.ninc == 0]
+    return c, max(1, -(-int(nevalperblock) // c)), strat
+
+
+class VegasMixedIteration:
+    """One :vegas iteration of the mixed route over ``block`` blocks on
+    ``spec.device``: Discrete pools, and pools of different ninc
+    (``ops/vegas_kernels.py``, the mixed route's notes).
+
+    A launch is ``vegas_sample_mixed`` → the integrand → ``vegas_reduce_mixed``,
+    with ``vegas_relw_mixed`` and the measure before the reduce given a
+    custom measure.  The chunk shaping, the stratified leaves and their
+    multiplier tables (``default_rng(seed + 77)``, stratified leaves only,
+    in leaf order, each coprime to its own nb) are the reference XLA
+    route's; so are complex weights and ``measurefreq``.
+    """
+
+    def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
+                 inplace=False, measurefreq=1, block=16, nevalperblock=10000):
+        self.spec = spec
+        self.block = block
+        if int(measurefreq) < 1:
+            raise ValueError(f"measurefreq must be >= 1, got {measurefreq}")
+        self.measurefreq = int(measurefreq)
+        check_supported(spec)
+        self.chunk, self.nchunks, strat = mixed_plan(spec, nevalperblock)
+        self.nevalperblock = self.chunk * self.nchunks
+        self.chunks_per_launch = launch_chunks(spec, block, self.chunk, self.nchunks, measure,
+                                               obs_proto, gidx=True)
+        self.launches_per_run = -(-self.nchunks // self.chunks_per_launch)
+        host_rng = np.random.default_rng(spec.cfg.seed + 77)
+        atabs = {}
+        for lidx in strat:
+            li = spec.leaves[lidx]
+            a_list = _coprime_multipliers(host_rng, li.leaf.ninc, N_MULT * li.ndraw)
+            atabs[lidx] = np.asarray(a_list, np.int32).reshape(li.ndraw, N_MULT)
+        self.layout = vegas_kernels.MixedLayout.build(spec, self.chunk, atabs)
+
+        self.obs_proto = obs_proto
+        self.evaluate, self.measure, self.backend_reason = _evaluators(
+            spec, integrand, inplace, measure, obs_proto)
+        self.backend = "cuda" if spec.device.type == "cuda" else "torch"
+
+    def seeds(self, kd: np.ndarray) -> torch.Tensor:
+        """Per-block seeds ``kd [block, 2]`` uint32 as the int32 bit
+        patterns the kernels take, on the device."""
+        return torch.as_tensor(np.asarray(kd, np.uint32).view(np.int32),
+                               device=self.spec.device)
+
+    def launch(self, tab, kd: torch.Tensor, t0: int, T: int):
+        """Chunks [t0, t0+T) of every block: obs [B,T,ncomp], hist [S,nbmax]."""
+        lay = self.layout
+        x, gidx = vegas_kernels.vegas_sample_mixed(lay, tab, kd, t0, T)
+        w = self.evaluate(lay.leaf_values(x)).contiguous()
+        m = None
+        if self.measure is not None:
+            relw = vegas_kernels.vegas_relw_mixed(lay, tab, w, gidx)
+            m = self.measure(lay.leaf_values(x), relw).contiguous()
+            del relw
+        del x
+        return vegas_kernels.vegas_reduce_mixed(lay, tab, w, gidx, m, self.measurefreq, t0)
+
+    def run(self, params, kd: np.ndarray):
+        """Execute one iteration; returns host-side numpy statistics."""
+        spec, lay = self.spec, self.layout
+        tab, kd = lay.tables(params), self.seeds(kd)
+        obs_parts, hsum = [], 0.0
+        for t0 in range(0, self.nchunks, self.chunks_per_launch):
+            T = min(self.chunks_per_launch, self.nchunks - t0)
+            obs_part, hist = self.launch(tab, kd, t0, T)
+            obs_parts.append(obs_part)
+            hsum = hsum + hist
+        obs = torch.cat(obs_parts, dim=1).movedim(-1, 0)                      # [ncomp, B, nchunks]
+        obs_b = vegas_kernels.sum_components(obs, -1).cpu().numpy()          # [B, ncomp]
+        obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
+        return {
+            "obs_blocks": obs_b,      # [block, N], or the observable pytree
+            "norm_blocks": np.full(self.block, float(self.nevalperblock // self.measurefreq)),
+            "hists": _leaf_hists(spec, hsum),   # per-leaf histogram sums
             "neval": self.block * self.nevalperblock,
         }

@@ -901,3 +901,49 @@ def test_cuda_item14_routes_integrate(cuda, solver):
     exact = a * a + a / 10 + 1 / 300 + 1 / 3
     mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
     assert np.all(np.abs(mean - exact) < 7 * std), (mean - exact) / std
+
+
+@pytest.mark.parametrize("k", range(len(cs.MIXED_SPECS)), ids=[e[0] for e in cs.MIXED_SPECS])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_vegas_mixed_kernels_match_plain(cuda, cplx, k):
+    """The mixed route on phase 3h's specs, with fewer blocks:
+    vegas_sample_mixed and vegas_relw_mixed bit for bit; vegas_reduce_mixed
+    (default, given a measure's output; mf 1 and 4) obs to rel 1e-9 and the
+    histograms to rel 1e-12 (float64 adds in another order)."""
+    name, var, dof, f, npb, _, T = cs.MIXED_SPECS[k]
+    before = dict(vk.launch_counts)
+    it, lay, tab, kd, t0, T, x, gidx, w = cs.mixed_launch(mt, var(mt), dof, f, min(npb, 2 ** 20),
+                                                          2, T, cplx=cplx)
+    want = vk.vegas_sample_mixed_plain(lay, tab, kd, t0, T)
+    assert _bits_equal(x, want[0]) and torch.equal(gidx, want[1])
+    relw = vk.vegas_relw_mixed(lay, tab, w, gidx)
+    assert _bits_equal(relw, vk.vegas_relw_mixed_plain(lay, tab, w, gidx))
+    m = cs._measure_of(relw)
+    for mf in (1, 4):
+        for given in (None, m):
+            obs, hist = vk.vegas_reduce_mixed(lay, tab, w, gidx, given, mf, t0)
+            obs_p, hist_p = vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, given, mf, t0)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(obs, obs_p, rtol=1e-9, atol=0)
+            torch.testing.assert_close(hist, hist_p, rtol=1e-12, atol=0)
+    assert vk.launch_counts["vegas_sample_mixed"] == before["vegas_sample_mixed"] + 1
+    assert vk.launch_counts["vegas_relw_mixed"] == before["vegas_relw_mixed"] + 1
+    assert vk.launch_counts["vegas_reduce_mixed"] == before["vegas_reduce_mixed"] + 4
+
+
+def test_cuda_vegas_mixed_integrates(cuda):
+    """t d^2 over Continuous(0, 1) x Discrete(1, 100) and
+    Discrete([(1, 3), (1, 4)]) on the card, within 7 sigma of their exact
+    values, through the mixed route's kernels."""
+    vk.reset_launch_counts()
+    res = mt.integrate(cs._td2, var=(mt.Continuous(0.0, 1.0), mt.Discrete(1, 100)),
+                       dof=[[1, 1]], neval=2 ** 22, niter=5, solver="vegas", seed=5,
+                       verbose=-2, device="cuda")
+    assert res.backend == "cuda"
+    assert abs(res.mean[0] - 338350 / 2) < 7 * res.stdev[0]
+    res = mt.integrate(cs._one, var=mt.Discrete([(1, 3), (1, 4)]), dof=[[1]], neval=2 ** 22,
+                       niter=5, solver="vegas", seed=5, verbose=-2, device="cuda")
+    # sigma at least 12 * 2^-23: a weight is a float32 product (chip_smoke.py:_z)
+    assert abs(res.mean[0] - 12.0) < 7 * max(res.stdev[0], 12.0 * 2.0 ** -23)
+    assert vk.launch_counts["vegas_sample_mixed"] == vk.launch_counts["vegas_reduce_mixed"] >= 10
+    assert vk.launch_counts["vegas_sample"] == 0

@@ -37,7 +37,8 @@ def test_port_imports_no_jax():
             "mcintegration_tpu_torch.ops.chain_kernels, mcintegration_tpu_torch.ops.mcmc_kernels, "
             "mcintegration_tpu_torch.ops.fermik, mcintegration_tpu_torch.solvers.mcmc, "
             "mcintegration_tpu_torch.solvers.vegasmc, mcintegration_tpu_torch.checkpoint, "
-            "mcintegration_tpu_torch.ops.vplus_kernels, mcintegration_tpu_torch.solvers.vegasplus\n"
+            "mcintegration_tpu_torch.ops.vplus_kernels, mcintegration_tpu_torch.solvers.vegasplus, "
+            "mcintegration_tpu_torch.solvers.vegas\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'mcintegration_tpu.'))]\n"
             "assert not bad, bad\n")
@@ -63,8 +64,6 @@ def _complex_obs(solver):
 @pytest.mark.parametrize("kwargs,item", [
     ({"mesh": object()}, "item 15"),
     ({"debug": True}, "item 16"),
-    ({"var": (mt.Continuous(0.0, 1.0, ninc=64), mt.Continuous(0.0, 1.0, ninc=32)),
-      "dof": [[1, 1]]}, "item 14"),
     ({"dtype": torch.float64}, "item 22"),
     ({"solver": "vegasmc", "dtype": np.float16}, "item 22"),
     ({"backend": "xla"}, "one route per device"),
@@ -74,7 +73,7 @@ def _complex_obs(solver):
     (_complex_obs("vegas"), "complex observables .* type=complex"),
     (_complex_obs("vegasmc"), "complex observables .* type=complex"),
     (_complex_obs("mcmc"), "complex observables .* type=complex"),
-], ids=["mesh", "debug", "mixed-ninc", "dtype", "dtype-vegasmc",
+], ids=["mesh", "debug", "dtype", "dtype-vegasmc",
         "backend", "backend-mcmc", "cache", "parallel", "complex-obs-vegas",
         "complex-obs-vegasmc", "complex-obs-mcmc"])
 def test_unported_options_raise(kwargs, item):
@@ -96,10 +95,13 @@ def _cx(x, c):
     ({"type": complex, "f": _cx}, 0.5 + 1j / 3),
     ({"type": complex, "measure": lambda v, relw, c: [relw[0]], "obs": [0j], "f": _cx},
      0.5 + 1j / 3),
+    ({"var": Discrete(1, 10), "dof": [[1]], "f": lambda x, c: x[0].to(torch.float32)}, 55.0),
+    ({"var": (mt.Continuous(0.0, 1.0, ninc=64), mt.Continuous(0.0, 1.0, ninc=32)),
+      "dof": [[1, 1]], "f": lambda x, c: x[0][0] * x[1][0]}, 0.25),
 ], ids=["vegasplus-measure", "vegasplus-measurefreq", "vegasplus-complex",
-        "measurefreq", "complex", "complex-measure-vegas"])
+        "measurefreq", "complex", "complex-measure-vegas", "discrete", "mixed-ninc"])
 def test_item14_routes_run(kwargs, exact):
-    """The routes of ROADMAP.md item 14b-d, which raised before, run on the
+    """The routes of ROADMAP.md item 14, which raised before, run on the
     CPU and land within 7 sigma of the exact value, both parts of a complex
     mean."""
     kwargs = dict(kwargs)
@@ -175,17 +177,10 @@ def test_default_solver_is_not_served_and_unknown_solver_fails():
             mt.integrate(_pi, solver=solver, device="cpu")
 
 
-@pytest.mark.parametrize("cls,item", [(Discrete, "item 14"), (FermiK, ":mcmc solver only")],
-                         ids=["cls0-item 14", "cls1-item 12"])
+@pytest.mark.parametrize("cls,item", [(FermiK, ":mcmc solver only")], ids=["cls1-item 12"])
 def test_unported_pools_raise(cls, item):
-    """A Discrete pool runs on :vegasmc and :mcmc but not on the :vegas
-    kernels; a FermiK pool runs on :mcmc only, and raises on :vegas and
-    :vegasmc as in the JAX package (tests/test_bubble_fermik.py:63-70)."""
-    if cls is Discrete:
-        with pytest.raises(NotImplementedError, match=item):
-            mt.integrate(lambda x, c: x[0], var=cls(1, 10), dof=[[1]], neval=2 ** 12,
-                         solver="vegas", device="cpu", verbose=-2)
-        return
+    """A FermiK pool runs on :mcmc only, and raises on :vegas and :vegasmc
+    as in the JAX package (tests/test_bubble_fermik.py:63-70)."""
     for solver in ("vegas", "vegasmc"):
         with pytest.raises(NotImplementedError, match=item):
             mt.integrate(lambda x, c: 1.0, var=(mt.Continuous(0.0, 1.0), cls(3, 1.0, 0.2, 10.0)),

@@ -122,7 +122,8 @@ def test_run_is_deterministic_and_counts_no_cpu_launch():
     assert np.array_equal(a["hists"][0], b["hists"][0])
     assert vk.launch_counts == {"vegas_sample": 0, "vegas_reduce": 0, "vegas_relw": 0,
                                 "vegas_reduce_measure": 0, "vegas_reduce_complex": 0,
-                                "vegas_relw_complex": 0}
+                                "vegas_relw_complex": 0, "vegas_sample_mixed": 0,
+                                "vegas_reduce_mixed": 0, "vegas_relw_mixed": 0}
 
 
 def test_launch_splitting_matches_one_launch(monkeypatch):
