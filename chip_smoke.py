@@ -2587,9 +2587,13 @@ def measurement_vs_plain(mt, vk, vp, card):
     for mf in (1, MF):
         shift = vp.gate_shifts(it.seeds(block_keys(SEED, 1, 0, it.block)), t0, T, it.chunk) \
             if mf > 1 else None
+        # given m at 20, 10, 1 and 3 components (a warp forms the sums of four
+        # chunks at a time, whatever their count)
         for name, a, given in (("vplus_reduce_complex", args, None),
                                ("vplus_reduce_complex", args, cm),
                                ("vplus_reduce_measure", rargs, rm),
+                               ("vplus_reduce_measure", rargs, rm[:1].contiguous()),
+                               ("vplus_reduce_measure", rargs, rm[:3].contiguous()),
                                ("vplus_reduce", rargs, None)):
             e, rel = _check_rel(f"{name}, mf {mf}", vp.vplus_reduce(*a, given, mf, t0, shift),
                                 vp.vplus_reduce_plain(*a, given, mf, t0, shift), REL_TOL_VPLUS)
@@ -2608,7 +2612,8 @@ def measurement_vs_plain(mt, vk, vp, card):
           f"t0={t0} ({lay.S} slots, counts {int(it.counts.min())}..{int(it.counts.max())}), "
           f"singular_3d e^{{ix}}: vplus_relw (complex and real) bit-equal; vplus_reduce complex "
           f"(default, given the complex {NBIN}-bin histogram's {cm.shape[0]} components), given "
-          f"the real one's {rm.shape[0]}, and real, each at mf 1 and {MF} (the gate's positions "
+          f"the real one's {rm.shape[0]}, its first 1 and its first 3, and real, each at mf 1 and "
+          f"{MF} (the gate's positions "
           f"shifted at random per chunk): rel <= {max(rels):.3g}; "
           f"given m = relw, obs bit-equal to the default sums (real weights; complex within "
           f"{REL_TOL_VPLUS})")
@@ -2732,9 +2737,12 @@ def measurement_timings(mt, vk, vp, card):
     vegas_reduce_complex and vegas_relw_complex on the quarter disc times
     e^{i(x+y)} (2^26 samples a launch), vplus_reduce_complex on it on
     :vegasplus, vplus_relw and vplus_reduce given the 10-bin histogram's
-    output on the quickstart's problem on :vegasplus.  Returns each one's
+    output on the quickstart's problem on :vegasplus, there also in its
+    other instantiations (complex weights, the gate) beside the parent's
+    times (PARENT_6G), with ptxas -v's registers.  Returns each one's
     (max abs err, ms, plain_ms, bound_ms, bound_by)."""
     import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
 
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
 
@@ -2819,6 +2827,20 @@ def measurement_timings(mt, vk, vp, card):
           f"plain torch {pms2!r} ms (host clock), bound {b2[0]!r} ms [{card}]")
     for name, (err, t, pt, bd, by) in out.items():
         print(f"phase 6g: {name} takes {t / bd!r} times its bound (by {by}) [{card}]")
+    # vplus_reduce given m in every instantiation (real and complex weights,
+    # with and without the gate), beside the parent's times
+    shift = vp.gate_shifts(it.seeds(block_keys(SEED, 1, 0, it.block)), t0, T, it.chunk)
+    wc = torch.complex(w, w * 0.5).contiguous()
+    times = {}
+    for kind, ww in (("real", w), ("complex", wc)):
+        for mf, sh in ((1, None), (MF, shift)):
+            times[f"{kind}, given m, mf {mf}"] = device_ms(
+                lambda: vp.vplus_reduce(lay, tab, ww, gidx, cube, cfac, m, mf, t0, sh), 10)
+    for what, t in times.items():
+        print(f"phase 6g: vplus_reduce {what}: {t!r} ms, the parent's {PARENT_6G[what]!r} ms, "
+              f"ratio {t / PARENT_6G[what]!r} [{card}]")
+    for line in ptxas_lines("vplus_reduce_kernel"):
+        print(f"phase 6g: ptxas -v {line}")
     return out
 
 
@@ -2892,8 +2914,10 @@ def _mixed3(v, c):
 # chunks a launch of phase 3h's specs of the mixed route: the bubble at phase
 # 4h's launch shape (fewer chunks), a Discrete CDF in device memory (2,004
 # bins) beside one in shared memory, mixed ninc with strata of m_k % 4 != 0
-# and a chunk of c % 4 != 0 (scalar stores, one pool drawn per sample), an
-# all-Discrete spec, and more than 4,096 histogram bins in one slot
+# and a chunk of c % 4 != 0 (scalar loads and stores, one pool drawn per
+# sample), an all-Discrete spec, more than 4,096 histogram bins in one slot,
+# and strata of m_k = 2 at c % 4 == 0 (the four samples of a reduce thread
+# in two bins; 16-byte loads)
 MIXED_SPECS = (
     ("bubble", lambda mt: vegas_bubble_kw(mt)["var"], [[1, 1, 1, 1, 1]], None, 2 ** 26, 16, 4),
     ("Discrete(-3, 2000) and Discrete(1, 7)",
@@ -2905,7 +2929,23 @@ MIXED_SPECS = (
     ("ninc 6000 and Discrete(0, 4999): 11,000 bins",
      lambda mt: (mt.Continuous(0.0, 1.0, ninc=6000), mt.Discrete(0, 4999)), [[1, 1]], _prod2,
      2 ** 16, 4, 2),
+    ("ninc 4096 and 1024 (m_k 2 and 8, c 8192)",
+     lambda mt: (mt.Continuous(0.0, 1.0, ninc=4096), mt.Continuous(0.0, 1.0, ninc=1024)),
+     [[1, 1]], _prod2, 8192, 4, 2),
 )
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data lies one element (4 or 8
+    bytes) past a 16-byte boundary: the kernels' 16-byte loads do not apply
+    to it."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    off = 1 if buf.data_ptr() % 16 == 0 else 0
+    out = buf[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
 
 
 def mixed_launch(mt, var, dof, f, npb, block, T, seed=SEED, cplx=False, measure=None,
@@ -2995,6 +3035,33 @@ def mixed_vs_plain(mt, vk, card):
               f"samples at t0={t0}, {lay.nhist} histogram bins: vegas_sample_mixed and "
               f"vegas_relw_mixed (real, complex) bit-equal; vegas_reduce_mixed (real, complex; "
               f"default, given m; mf 1 and {MF}) obs rel {rels[0]:.3g}, hist rel {rels[1]:.3g}")
+
+    # the scalar path at c % 4 == 0: w and m one element off 16-byte alignment
+    name, var, dof, f, npb, block, T = MIXED_SPECS[1]
+    rels = [0.0, 0.0]
+    for cplx in (False, True):
+        it, lay, tab, kd, t0, T, x, gidx, w = mixed_launch(mt, var(mt), dof, f, npb, block, T,
+                                                           cplx=cplx)
+        wu = misaligned(w)
+        relw = vk.vegas_relw_mixed(lay, tab, wu, gidx)
+        errs["vegas_relw_mixed"] = max(errs["vegas_relw_mixed"], _check_bits(
+            f"vegas_relw_mixed, {name}, misaligned w, complex {cplx}", relw,
+            vk.vegas_relw_mixed_plain(lay, tab, w, gidx)))
+        m = _measure_of(relw)
+        for mf in (1, MF):
+            for given in (None, misaligned(m)):
+                what = (f"vegas_reduce_mixed, {name}, misaligned w and m, complex {cplx}, "
+                        f"{'m' if given is not None else 'default'}, mf {mf}")
+                got = vk.vegas_reduce_mixed(lay, tab, wu, gidx, given, mf, t0)
+                ref = vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, given, mf, t0)
+                e0, r0 = _check_rel(what + ", obs", got[:1], ref[:1], REL_TOL_REDUCE)
+                e1, r1 = _check_rel(what + ", hist", got[1:], ref[1:], REL_TOL_VPLUS)
+                errs["vegas_reduce_mixed"] = max(errs["vegas_reduce_mixed"], e0, e1)
+                rels = [max(rels[0], r0), max(rels[1], r1)]
+        del x, gidx, w, wu, relw, m, got, ref
+    print(f"phase 3h: {name}, w and m one element off 16-byte alignment (scalar loads at c % 4 == "
+          f"0): vegas_relw_mixed (real, complex) bit-equal; vegas_reduce_mixed (real, complex; "
+          f"default, given m; mf 1 and {MF}) obs rel {rels[0]:.3g}, hist rel {rels[1]:.3g}")
 
     # a spec of the uniform route through both routes, at the uniform route's launch
     spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED), "cuda")
@@ -3181,14 +3248,19 @@ def mixed_main_path(mt, vk, card, rate4):
 
 def ptxas_lines(key):
     """ptxas -v's register and spill lines of each kernel whose mangled name
-    holds ``key``, from the verbose build of phase 2."""
+    holds ``key``, from the verbose build of phase 2, each under the
+    kernel's name and template arguments (``vplus_reduce_kernel<0,1,0>``:
+    real, given m, ungated)."""
+    import re
     from mcintegration_tpu_torch.ops import _build
     out, name = [], None
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
         elif name and key in name and ("registers" in line or "spill" in line):
-            out.append(f"{name[:70]}: {line.split(':', 1)[-1].strip()}")
+            args = re.findall(r"L[ib](\d+)E", name)
+            label = key + (f"<{','.join(args)}>" if args else "")
+            out.append(f"{label}: {line.split(':', 1)[-1].strip()}")
     return out
 
 
@@ -3196,8 +3268,11 @@ def mixed_timings(mt, vk, card):
     """Phase 6h: device ms of the mixed route's kernels at phase 4h's bubble
     launch (16 blocks x 32 chunks x 131072 samples, 5 slots), in turns with
     their plain versions (plain, kernel, kernel, plain), beside their bounds
-    from the bytes each must move and their ptxas registers.  Returns each
-    one's (max abs err, ms, plain_ms, bound_ms, bound_by)."""
+    from the bytes each must move and their ptxas registers; then every
+    instantiation of vegas_reduce_mixed and vegas_relw_mixed (real and
+    complex weights; default, given m; mf 1 and MF) beside the parent's
+    times (PARENT_6H).  Returns each one's (max abs err, ms, plain_ms,
+    bound_ms, bound_by)."""
     import torch
 
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
@@ -3248,11 +3323,46 @@ def mixed_timings(mt, vk, card):
     for name, (err, t, pt, bd, by) in out.items():
         print(f"phase 6h: {name} {t!r} ms, plain torch {pt!r} ms, bound {bd!r} ms (by {by}), "
               f"{t / bd!r} times its bound [{card}]")
+    # every instantiation of vegas_mixed.cu's reduce at this launch, real and
+    # complex weights, beside the parent's times
+    times = {}
+    for cplx in (False, True):
+        if cplx:
+            del w, gidx, m
+            kw = vegas_bubble_kw(mt, True)
+            it, lay, tab, kd, t0, T, x, gidx, w = mixed_launch(
+                mt, kw["var"], kw["dof"], None, VEGAS_NEVAL // 16, 16, None, cplx=True,
+                measure=kw["measure"], obs=kw["obs"])
+            m = it.measure(lay.leaf_values(x), vk.vegas_relw_mixed(lay, tab, w, gidx)).contiguous()
+            del x
+        kind = "complex" if cplx else "real"
+        for mf in (1, MF):
+            for given in (None, m):
+                times[f"{kind}, {'given m' if given is not None else 'default'}, mf {mf}"] = \
+                    device_ms(lambda: vk.vegas_reduce_mixed(lay, tab, w, gidx, given, mf, t0), 10)
+        times[f"{kind}, relw"] = device_ms(lambda: vk.vegas_relw_mixed(lay, tab, w, gidx), 10)
+    for what, t in times.items():
+        print(f"phase 6h: {'vegas_relw_mixed' if what.endswith('relw') else 'vegas_reduce_mixed'} "
+              f"{what}: {t!r} ms, the parent's {PARENT_6H[what]!r} ms, ratio "
+              f"{t / PARENT_6H[what]!r} [{card}]")
     for key in ("vegas_sample_mixed_kernel", "vegas_reduce_mixed_kernel"):
         for line in ptxas_lines(key):
             print(f"phase 6h: ptxas -v {line}")
     return out
 
+
+# The parent's device ms per launch of each instantiation that phases 6h and
+# 6g time: the kernels before vegas_reduce_mixed took four samples a thread
+# and vplus_reduce given m formed its sums four chunks at a time (the mean
+# of the baseline's two runs of tools/accept_reduce_variants.py --baseline,
+# run beside the change in one call; NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_6H = {"real, default, mf 1": 2.282, "real, given m, mf 1": 2.855,
+             "real, default, mf 4": 2.406, "real, given m, mf 4": 2.996, "real, relw": 1.024,
+             "complex, default, mf 1": 2.415, "complex, given m, mf 1": 3.579,
+             "complex, default, mf 4": 2.533, "complex, given m, mf 4": 3.722,
+             "complex, relw": 1.129}
+PARENT_6G = {"real, given m, mf 1": 3.177, "real, given m, mf 4": 3.405,
+             "complex, given m, mf 1": 3.235, "complex, given m, mf 4": 3.466}
 
 PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
 # float32 outside the tensor cores, operations/s: the data sheet's, a fused

@@ -48,23 +48,33 @@
 // stratified slots of different m_k no longer line up, so vegas_reduce.cu's
 // one-writer-per-bin permutation does not hold here.
 //
-// Layout of the work (that of vplus_reduce.cu): a thread keeps one sample
-// position s of a chunk and walks over the chunks (blockIdx.y strides over
-// the B*T chunks); warp j of block b takes the 32 samples of group
-// j*nspan + b, so the warps of a block work in parts of the chunk far
-// apart and seldom meet on a bin.  The histogram is privatised per block in
-// shared memory as float64: whole up to 4,096 bins, else in windows of
-// 4,096, one per blockIdx.z (a block adds only its window's bins; window 0
-// also writes obs).  Before an add the lanes of a warp with the same bin
-// merge their values: by a butterfly when the warp's 32 samples share one
-// bin (the rows of a stratified slot with m_k >= 32), else with
-// chain_common.cuh:merge_by_key; so a bin costs a warp one add.  The
-// observables: each warp sums its samples of a chunk by shuffles and writes
-// one partial per (component, chunk, span, warp), which the wrapper adds in
-// a fixed order, each component's partials as one contiguous tensor, so the
-// order of a component's sum does not depend on how many components there
-// are (the real parts of w + 0i then sum as the real run's, given a measure
-// too).
+// Layout of the reduce's work: a thread takes kPerThread = 4 consecutive
+// samples of a chunk and walks over the chunks (blockIdx.y strides over the
+// B*T chunks); warp j of block b takes the 128 samples of group j*nspan + b,
+// so the warps of a block work in parts of the chunk far apart and seldom meet
+// on a bin.  Where c % 4 == 0 and the pointers are 16-byte aligned, w, each
+// slot's gidx and each component of m arrive in 16-byte loads (relw leaves in
+// 16-byte stores); else the same kernel loads them one by one.  The layout
+// (the slots' rows, pad, pair_slots and used) is staged in shared memory per
+// block.  Per (thread, chunk) each slot's bins are loaded once: jac is formed
+// from them slot by slot, and the bins of the first kStash slots (fewer if the
+// layout leaves no room) wait in shared memory, a thread's own int4 a slot,
+// for the histogram and the padding factors, which form 1/invp only where a
+// padded pair needs it.  The histogram is privatised per block in shared
+// memory as float64: whole up to 4,096 bins, else in windows of 4,096, one per
+// blockIdx.z (a block adds only its window's bins; window 0 also writes obs).
+// A thread first merges the terms of its consecutive samples that share a bin
+// (a stratified slot with m_k >= 4 gives one term a thread); then the lanes of
+// a warp with the same bin merge theirs: by a butterfly when the whole warp
+// has one bin (a stratified slot with m_k >= 128), else with
+// chain_common.cuh:merge_by_key over the lanes that hold a bin; so a bin costs
+// a warp one add.  The observables: a thread adds its samples' terms of a
+// component in float64, then the warp sums them by shuffles, once per
+// (component, chunk), and writes one partial per (component, chunk, span,
+// warp), which the wrapper adds in a fixed order, each component's partials as
+// one contiguous tensor, so the order of a component's sum does not depend on
+// how many components there are (the real parts of w + 0i then sum as the real
+// run's, given a measure too).
 //
 // Instantiations of the one body: kCplx (w complex64, read as (re, im) pairs
 // through chain_common.cuh:Weight, |w| = sqrt(re*re + im*im), Re and Im of
@@ -78,9 +88,8 @@
 // What bounds them on the card: device-memory bytes.  The sample kernel
 // writes 8 bytes a slot and sample (x and gidx); the reduce reads 4 bytes of
 // w (8 complex) an integrand and 4 of gidx a slot per sample, and m given a
-// measure; the tables stay in cache.  A simple kernel first: integer
-// divisions by m_k and nb, and the slot loops with their table reads, are
-// left as they are.
+// measure; the tables stay in cache.  The sample kernel's integer divisions
+// by m_k and nb are left as they are.
 //
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding, so x, gidx and relw match the plain versions bit for bit and the
@@ -95,11 +104,13 @@ constexpr int kStrat = 2;        // ops/vegas_kernels.py:KIND_STRAT (kDisc = 1, 
 constexpr int kMk = 5, kHistOff = 6;
 constexpr int kNMult = 64;       // ops/vegas_kernels.py:N_MULT
 constexpr int kThreads = 256;
-constexpr int kPerThread = 4;    // consecutive samples of a chunk a sample thread takes
-constexpr int kSpan = kThreads;  // ops/vegas_kernels.py:SPAN
+constexpr int kPerThread = 4;    // consecutive samples of a chunk a thread takes
+constexpr int kSpan = kThreads * kPerThread;  // ops/vegas_kernels.py:SPAN, a reduce block's samples
 constexpr int kWarps = kThreads / 32;
 constexpr int kWaves = 8;        // the reduce's grid, in blocks the card holds at once
 constexpr int kWindow = 4096;    // ops/vegas_kernels.py:SMEM_HIST_BINS
+constexpr int kStash = 8;        // slots whose bins a reduce thread keeps in shared memory
+constexpr int kSmemMax = 232448; // shared memory a block of sm_90 may have
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float unit24(uint32_t bits) {
@@ -200,22 +211,115 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// Slot f's 1/probability at bin g.
-__device__ __forceinline__ float slot_invp(const int* f, const float* __restrict__ tab, int g) {
-  const int nb = f[kNb];
-  const float* t = tab + f[kTab];
-  return f[kKind] == kDisc ? __fdiv_rn(1.0f, t[nb + 1 + g]) : __fmul_rn((float)nb, t[nb + g]);
+// Slot k's 1/probability at bin g, from its staged row (kind, nb, table)
+__device__ __forceinline__ float slot_invp(int kind, int nb, const float* t, int g) {
+  return kind == kDisc ? __fdiv_rn(1.0f, t[nb + 1 + g]) : __fmul_rn((float)nb, t[nb + g]);
+}
+
+// The kPerThread consecutive values of a thread at p: one 16-byte load
+// (full: all kPerThread in the chunk, c % 4 == 0 and the pointers
+// aligned), else n scalar ones and zeros
+__device__ __forceinline__ void load_quad(const int* __restrict__ p, int n, bool full,
+                                          int (&o)[kPerThread]) {
+  if (full) {
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < kPerThread; ++v) o[v] = v < n ? p[v] : 0;
+  }
+}
+
+__device__ __forceinline__ void load_quad(const float* __restrict__ p, int n, bool full,
+                                          float (&o)[kPerThread]) {
+  if (full) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < kPerThread; ++v) o[v] = v < n ? p[v] : 0.0f;
+  }
+}
+
+// The weights of a thread's samples from sample index at: kPerThread floats,
+// or with kCplx as many (re, im) pairs (two 16-byte loads)
+template <bool kCplx>
+__device__ __forceinline__ void load_weights(const float* __restrict__ w, long long at, int n,
+                                             bool full, Weight<kCplx> (&o)[kPerThread]) {
+  if constexpr (!kCplx) {
+    float t[kPerThread];
+    load_quad(w + at, n, full, t);
+#pragma unroll
+    for (int v = 0; v < kPerThread; ++v) o[v] = {t[v]};
+  } else {
+    float a[kPerThread], b[kPerThread];
+    load_quad(w + 2 * at, min(2 * n, kPerThread), full, a);
+    load_quad(w + 2 * at + kPerThread, max(2 * n - kPerThread, 0), full, b);
+    o[0] = {a[0], a[1]}, o[1] = {a[2], a[3]}, o[2] = {b[0], b[1]}, o[3] = {b[2], b[3]};
+  }
+}
+
+template <bool kCplx>
+__device__ __forceinline__ void store_weights(float* __restrict__ out, long long at, int n,
+                                              bool full, const Weight<kCplx> (&r)[kPerThread]) {
+  if constexpr (!kCplx) {
+    if (full) {
+      *reinterpret_cast<float4*>(out + at) = make_float4(r[0].v, r[1].v, r[2].v, r[3].v);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kPerThread; ++v)
+        if (v < n) out[at + v] = r[v].v;
+    }
+  } else {
+    float4* q = reinterpret_cast<float4*>(out + 2 * at);
+    if (full) {
+      q[0] = make_float4(r[0].re, r[0].im, r[1].re, r[1].im);
+      q[1] = make_float4(r[2].re, r[2].im, r[3].re, r[3].im);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kPerThread; ++v)
+        if (v < n) r[v].store(out, at + v);
+    }
+  }
 }
 
 // Add v into bin key of the shared histogram (key < 0: nothing), one add
-// per bin and warp.  Every lane of the warp calls it.
+// per bin and warp: a butterfly when every lane has the same key, else
+// the lanes with a key merge theirs (chain_common.cuh:merge_by_key).
+// Every lane of the warp calls it.
 __device__ __forceinline__ void hist_add(double* hist_s, int key, double v) {
   const int k0 = __shfl_sync(kFull, key, 0);
   if (__all_sync(kFull, key == k0)) {
     v = warp_sum(v);
     if ((threadIdx.x & 31) == 0 && k0 >= 0) atomicAdd(hist_s + k0, v);
-  } else if (merge_by_key(kFull, key, v) && key >= 0) {
-    atomicAdd(hist_s + key, v);
+  } else {
+    const unsigned act = __ballot_sync(kFull, key >= 0);
+    if (key >= 0 && merge_by_key(act, key, v)) atomicAdd(hist_s + key, v);
+  }
+}
+
+// A thread's samples' terms sq into their bins key (-1: none): the terms of
+// consecutive samples in one bin first make one term, so a thread whose
+// samples share a bin (a stratified slot's rows of m_k >= kPerThread) adds
+// once, and the warp merges as hist_add does.  Every lane calls it.
+__device__ __forceinline__ void hist_add_runs(double* hist_s, const int (&key)[kPerThread],
+                                              const double (&sq)[kPerThread]) {
+  double run[kPerThread];
+  bool split = false;
+  double acc = 0.0;
+#pragma unroll
+  for (int v = kPerThread - 1; v >= 0; --v) {
+    acc += sq[v];
+    const bool start = v == 0 || key[v] != key[v - 1];
+    run[v] = start ? acc : 0.0;
+    if (start) acc = 0.0;
+    if (v > 0) split |= start;
+  }
+  hist_add(hist_s, key[0], run[0]);
+  if (__any_sync(kFull, split)) {
+#pragma unroll
+    for (int v = 1; v < kPerThread; ++v)
+      hist_add(hist_s, key[v] != key[v - 1] ? key[v] : -1, run[v]);
   }
 }
 
@@ -227,88 +331,136 @@ __device__ __forceinline__ float re_of(const Weight<false>& z) { return z.v; }
 __device__ __forceinline__ float re_of(const Weight<true>& z) { return z.re; }
 __device__ __forceinline__ float im_of(const Weight<true>& z) { return z.im; }
 
-// meta: slots [S, kFields], pad [N, P], pair_slots [P, M], used [S, N].
-// shared memory: this block's window of the histogram [HW] double.
+// meta: slots [S, kFields], pad [N, P], pair_slots [P, M], used [S, N]
+// (nmeta ints).  Shared memory: this block's window of the histogram [HW]
+// double (none for relw), each thread's bins of slots k < nstash [nstash,
+// kThreads] int4, meta.
 template <bool kCplx, int kMode, bool kMask>
 __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
     const float* __restrict__ w, const int* __restrict__ gidx, const float* __restrict__ tab,
     const int* __restrict__ meta, int N, int S, int P, int M, long long BT, int c, int H,
-    int hist_smem, const float* __restrict__ mobs, int ncomp, int mf, int t0, int T,
+    int hist_smem, int nstash, int nmeta, int vec,
+    const float* __restrict__ mobs, int ncomp, int mf, int t0, int T,
     double* __restrict__ obs_rows, double* __restrict__ hist, float* __restrict__ relw_out) {
-  extern __shared__ double hist_s[];
+  extern __shared__ __align__(16) double hist_s[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int* slots = meta;
+  const int HW = kMode == kRelw ? 0 : hist_smem ? H : kWindow;
+  int4* stash = reinterpret_cast<int4*>(hist_s + ((HW + 1) & ~1));
+  int* slots = reinterpret_cast<int*>(stash + nstash * kThreads);
+  for (int q = threadIdx.x; q < nmeta; q += blockDim.x) slots[q] = meta[q];
+  for (int q = threadIdx.x; q < HW; q += blockDim.x) hist_s[q] = 0.0;
+  __syncthreads();
   const int* pad = slots + kFields * S;
   const int* pair_slots = pad + N * P;
   const int* used = pair_slots + P * M;
   const long long plane = BT * c;
-
-  const int HW = hist_smem ? H : kWindow;
   const int hlo = blockIdx.z * HW;
   const bool first = blockIdx.z == 0;
-  if constexpr (kMode != kRelw) {
-    for (int q = threadIdx.x; q < HW; q += blockDim.x) hist_s[q] = 0.0;
-    __syncthreads();
-  }
 
-  const int s = (warp * gridDim.x + blockIdx.x) * 32 + lane;
-  const bool live = s < c;                     // past the chunk's end a lane only
-                                               // takes part in the shuffles
+  // warp j of block b takes the kPerThread * 32 samples of group j*nspan + b
+  // (the warps of a block work in parts of the chunk far apart), a lane
+  // kPerThread consecutive ones from s0: n of them in the chunk
+  const int s0 = ((warp * gridDim.x + blockIdx.x) * 32 + lane) * kPerThread;
+  const int n = max(min(c - s0, kPerThread), 0);
+  // compared on s0, not on n: built from n (a predicate of the min and max
+  // above), the test let a lane past the chunk's end store 16 bytes there
+  const bool full = vec && s0 + kPerThread <= c;
+  const long long cstride = BT * gridDim.x * kWarps;
+
   for (long long bt = blockIdx.y; bt < BT; bt += gridDim.y) {
-    const long long at = bt * c + s;
-    float jac = 1.0f;
-    if (live) {
-      jac = slot_invp(slots, tab, gidx[at]);
-      for (int k = 1; k < S; ++k)
-        jac = __fmul_rn(jac, slot_invp(slots + kFields * k, tab, gidx[k * plane + at]));
+    const long long at = bt * c + s0;
+    // each slot's bins read once: jac from their invp, the bins kept for
+    // the histogram and the padding factors
+    float jac[kPerThread];
+    for (int k = 0; k < S; ++k) {
+      int g[kPerThread];
+      load_quad(gidx + k * plane + at, n, full, g);
+      if (k < nstash) stash[k * kThreads + threadIdx.x] = make_int4(g[0], g[1], g[2], g[3]);
+      const int* f = slots + kFields * k;
+      const int kind = f[kKind], nb = f[kNb];
+      const float* t = tab + f[kTab];
+#pragma unroll
+      for (int v = 0; v < kPerThread; ++v) {
+        const float ip = slot_invp(kind, nb, t, g[v]);
+        jac[v] = k == 0 ? ip : __fmul_rn(jac[v], ip);
+      }
     }
-    const bool on = !kMask || ((t0 + bt % T) * (long long)c + s + 1) % mf == 0;
-    // this warp's partials: obs_rows [ncomp, BT, nspan * kWarps], component-major
-    const long long orow = (bt * gridDim.x + blockIdx.x) * kWarps + warp;
-    const long long cstride = BT * gridDim.x * kWarps;
+    auto bins = [&](int k, int (&g)[kPerThread]) {
+      if (k < nstash) {
+        const int4 q = stash[k * kThreads + threadIdx.x];
+        g[0] = q.x, g[1] = q.y, g[2] = q.z, g[3] = q.w;
+      } else {
+        load_quad(gidx + k * plane + at, n, full, g);
+      }
+    };
+    // the gate: which of this thread's samples count in the observable sums
+    bool on[kPerThread];
+    const int base = kMask ? (int)(((t0 + bt % T) * (long long)c + s0 + 1) % mf) : 0;
+#pragma unroll
+    for (int v = 0; v < kPerThread; ++v) on[v] = v < n && (!kMask || (base + v) % mf == 0);
 
     for (int i = 0; i < N; ++i) {
-      double so = 0.0, si = 0.0, sq = 0.0;
-      if (live) {
-        float f = jac;
-        for (int g = 0; g < P; ++g) {
-          if (!pad[i * P + g]) continue;
-          float gp = 1.0f;
-          for (int mm = 0; mm < M; ++mm) {
-            const int k = pair_slots[g * M + mm];
-            if (k < 0) break;
-            const float q = __fdiv_rn(1.0f, slot_invp(slots + kFields * k, tab,
-                                                      gidx[k * plane + at]));
-            gp = mm == 0 ? q : __fmul_rn(gp, q);
+      float f[kPerThread];
+#pragma unroll
+      for (int v = 0; v < kPerThread; ++v) f[v] = jac[v];
+      for (int pp = 0; pp < P; ++pp) {        // the padded pairs: 1/invp where needed
+        if (!pad[i * P + pp]) continue;
+        float gp[kPerThread] = {1.0f, 1.0f, 1.0f, 1.0f};
+        for (int mm = 0; mm < M; ++mm) {
+          const int k = pair_slots[pp * M + mm];
+          if (k < 0) break;
+          int g[kPerThread];
+          bins(k, g);
+          const int* fk = slots + kFields * k;
+          const int kind = fk[kKind], nb = fk[kNb];
+          const float* t = tab + fk[kTab];
+#pragma unroll
+          for (int v = 0; v < kPerThread; ++v) {
+            const float q = __fdiv_rn(1.0f, slot_invp(kind, nb, t, g[v]));
+            gp[v] = mm == 0 ? q : __fmul_rn(gp[v], q);
           }
-          f = __fmul_rn(f, gp);
         }
-        const Weight<kCplx> wi = Weight<kCplx>::load(w, i * plane + at);
-        const Weight<kCplx> relw = wi.scale(f);
-        if constexpr (kMode == kRelw) {
-          relw.store(relw_out, i * plane + at);
-        } else {
-          if (kMode == kDefault && on) {
-            so = (double)re_of(relw);
-            if constexpr (kCplx) si = (double)im_of(relw);
-          }
-          float a = __fmul_rn(wi.abs(), jac);
-          a = a > 1e17f ? 1e17f : a;             // NaN passes through, as torch.clamp
-          sq = (double)__fmul_rn(a, a);
-        }
+#pragma unroll
+        for (int v = 0; v < kPerThread; ++v) f[v] = __fmul_rn(f[v], gp[v]);
       }
-      if constexpr (kMode != kRelw) {
-        for (int k = 0; k < S; ++k) {          // warp-uniform: every lane adds or passes
+      Weight<kCplx> wi[kPerThread], relw[kPerThread];
+      load_weights<kCplx>(w, i * plane + at, n, full, wi);
+#pragma unroll
+      for (int v = 0; v < kPerThread; ++v) relw[v] = wi[v].scale(f[v]);
+      if constexpr (kMode == kRelw) {
+        store_weights<kCplx>(relw_out, i * plane + at, n, full, relw);
+      } else {
+        double sq[kPerThread];
+#pragma unroll
+        for (int v = 0; v < kPerThread; ++v) {
+          float a = __fmul_rn(wi[v].abs(), jac[v]);
+          a = a > 1e17f ? 1e17f : a;         // NaN passes through, as torch.clamp
+          sq[v] = v < n ? (double)__fmul_rn(a, a) : 0.0;
+        }
+        for (int k = 0; k < S; ++k) {        // warp-uniform: every lane adds or passes
           const int off = slots[kFields * k + kHistOff];
           if (off < 0 || !used[k * N + i]) continue;
-          int bin = live ? off + gidx[k * plane + at] - hlo : -1;
-          if (bin >= HW) bin = -1;
-          hist_add(hist_s, bin, bin >= 0 ? sq : 0.0);
+          int g[kPerThread], key[kPerThread];
+          bins(k, g);
+#pragma unroll
+          for (int v = 0; v < kPerThread; ++v) {
+            const int bin = off + g[v] - hlo;
+            key[v] = v < n && bin >= 0 && bin < HW ? bin : -1;
+          }
+          hist_add_runs(hist_s, key, sq);
         }
       }
-      if constexpr (kMode == kDefault) {
+      if constexpr (kMode == kDefault) {     // a thread's terms, then one warp sum
+        double so = 0.0, si = 0.0;
+#pragma unroll
+        for (int v = 0; v < kPerThread; ++v) {
+          if (!on[v]) continue;
+          so += (double)re_of(relw[v]);
+          if constexpr (kCplx) si += (double)im_of(relw[v]);
+        }
         so = warp_sum(so);
         if (kCplx) si = warp_sum(si);
+        const long long orow = (bt * gridDim.x + blockIdx.x) * kWarps + warp;
         if (lane == 0 && first) {
           if (kCplx) {
             obs_rows[2 * i * cstride + orow] = so;
@@ -320,8 +472,13 @@ __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
       }
     }
     if constexpr (kMode == kMeasure) {         // a measure's components, gated as relw would be
+      const long long orow = (bt * gridDim.x + blockIdx.x) * kWarps + warp;
       for (int q = 0; q < ncomp; ++q) {
-        double v = live && on ? (double)mobs[q * plane + at] : 0.0;
+        float m[kPerThread];
+        load_quad(mobs + q * plane + at, n, full, m);
+        double v = 0.0;
+#pragma unroll
+        for (int u = 0; u < kPerThread; ++u) v += on[u] ? (double)m[u] : 0.0;
         v = warp_sum(v);
         if (lane == 0 && first) obs_rows[q * cstride + orow] = v;
       }
@@ -341,7 +498,18 @@ int launch(const void* w, const void* gidx, const void* tab, const void* meta, i
            void* stream) {
   const int nspan = (c + kSpan - 1) / kSpan;
   const int nwin = kMode == kRelw || hist_smem ? 1 : (H + kWindow - 1) / kWindow;
-  const size_t smem = kMode == kRelw ? 0 : (size_t)(hist_smem ? H : kWindow) * sizeof(double);
+  const int HW = kMode == kRelw ? 0 : hist_smem ? H : kWindow;
+  // the layout whole in shared memory, and as many slots' bins as fit beside it
+  const long long nmeta = (long long)kFields * S + (long long)N * P + (long long)P * M +
+                          (long long)S * N;
+  const long long room = kSmemMax - (long long)((HW + 1) & ~1) * sizeof(double) -
+                         nmeta * (long long)sizeof(int);
+  if (room < 0) return (int)cudaErrorInvalidValue;
+  const int nstash = (int)min((long long)min(S, kStash), room / (long long)(kThreads * sizeof(int4)));
+  const uintptr_t any = (uintptr_t)w | (uintptr_t)gidx | (uintptr_t)mobs | (uintptr_t)relw;
+  const int vec = c % kPerThread == 0 && any % 16 == 0;
+  const size_t smem = (size_t)((HW + 1) & ~1) * sizeof(double) +
+                      (size_t)nstash * kThreads * sizeof(int4) + (size_t)nmeta * sizeof(int);
   auto kernel = vegas_reduce_mixed_kernel<kCplx, kMode, kMask>;
   int per_sm = 0;
   const int err = blocks_per_sm(kernel, kThreads, smem, &per_sm);
@@ -354,8 +522,8 @@ int launch(const void* w, const void* gidx, const void* tab, const void* meta, i
   const dim3 grid((unsigned)nspan, (unsigned)groups, (unsigned)nwin);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)w, (const int*)gidx, (const float*)tab, (const int*)meta, N, S, P, M, BT,
-      c, H, hist_smem, (const float*)mobs, ncomp, mf, t0, T, (double*)obs_rows, (double*)hist,
-      (float*)relw);
+      c, H, hist_smem, nstash, (int)nmeta, vec, (const float*)mobs, ncomp, mf, t0, T,
+      (double*)obs_rows, (double*)hist, (float*)relw);
   return (int)cudaGetLastError();
 }
 

@@ -91,7 +91,15 @@
 // - a custom measure: kRelw writes relw_i per sample for the measure
 //   (vplus_relw, the density formed as above) and nothing else; kMeasure
 //   sums the measure's float32 components m [ncomp, B, T, c] in place of
-//   relw, and sig and hist come from w as before;
+//   relw, and sig and hist come from w as before.  Its sums wait for
+//   kChunks = 4 of the chunks a warp walks; then lane 8u + j adds the
+//   terms j, j+8, j+16, j+24 of the warp's 32 samples in the u-th of them
+//   in registers, and 3 shuffle levels among 8 lanes finish each chunk's
+//   sum (measure_sums): the tree of the default mode's warp_sum, so each
+//   partial is the default sum bit for bit (given m = relw, the default
+//   observables), at 3 shuffles a component for 4 chunks where a warp_sum
+//   took 5 for one, with the loads of kBatch components in flight
+//   together;
 // - measurefreq = mf > 1 (kMask): sample s of chunk t (t0 plus the chunk's
 //   index in the launch) counts in the observable sums only if
 //   (t*c + (s + shift[b, t]) % c + 1) % mf == 0; sig and hist take every
@@ -114,8 +122,11 @@ constexpr int kThreads = 256;
 constexpr int kSpan = kThreads;               // ops/vplus_kernels.py:SPAN
 constexpr int kWarps = kThreads / 32;         // ops/vplus_kernels.py:WARPS
 constexpr int kBlocksPerSm = 8;               // at most 32 registers a thread
+constexpr int kMeasureBlocks = 6;             // given m: at most 40
 constexpr int kWaves = 8;                     // the grid, in blocks the card holds at once
 constexpr int kWindow = 4096;                 // ops/vplus_kernels.py:SMEM_HIST_BINS
+constexpr int kChunks = 4;                    // chunks whose measure sums a warp forms together
+constexpr int kBatch = 4;                     // a measure's components loaded together
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -128,14 +139,66 @@ __device__ __forceinline__ double warp_sum(double v) {
 enum Mode { kDefault, kMeasure, kRelw };
 
 // The real, ungated, default-measure kernel keeps 32 registers (eight blocks
-// an SM); the other instantiations may take up to 64
+// an SM); given m, 40 (six blocks: a warp's measure sums wait on their
+// loads, and more warps hide them: 1.89 ms at phase 6g against 2.35 at four
+// blocks, PERF.md); the other instantiations may take up to 64
 constexpr int min_blocks(bool cplx, int mode, bool mask) {
-  return !cplx && mode == kDefault && !mask ? kBlocksPerSm : kBlocksPerSm / 2;
+  return !cplx && mode == kDefault && !mask ? kBlocksPerSm
+         : mode == kMeasure                 ? kMeasureBlocks
+                                            : kBlocksPerSm / 2;
 }
 
 __device__ __forceinline__ float re_of(const Weight<false>& z) { return z.v; }
 __device__ __forceinline__ float re_of(const Weight<true>& z) { return z.re; }
 __device__ __forceinline__ float im_of(const Weight<true>& z) { return z.im; }
+
+// A measure's components over the warp's 32 samples from s0 (group s0/32)
+// in the nbt <= kChunks chunks bt0 + u*stride, u < nbt, in the order of
+// the default sums: warp_sum adds a chunk's 32 terms by a butterfly whose
+// first two levels add the terms 16 and then 8 apart; here lane 8u + j
+// holds the terms j, j+8, j+16, j+24 of chunk u and adds them in that
+// order in registers, and three shuffle levels among its 8 lanes finish the
+// same tree.  A sample counts if it lies in the chunk and the gate lets it
+// (the default mode's gate).  Every lane calls it; the partial of chunk bt
+// goes to the row the default mode gives it.
+template <bool kMask>
+__device__ __forceinline__ void measure_sums(const float* __restrict__ mobs, int ncomp, int c,
+                                             long long plane, long long bt0, int nbt,
+                                             int stride, int s0, int t0, int T, int mf,
+                                             const int* __restrict__ shift, bool first,
+                                             double* __restrict__ obs_rows) {
+  static_assert(kChunks * 8 == 32, "8 lanes a chunk, 4 terms a lane");
+  const int lane = threadIdx.x & 31, j = lane & 7, u = lane >> 3;
+  const long long bt = bt0 + (long long)u * stride;
+  const bool live = u < nbt;
+  bool in[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int s = s0 + j + 8 * r;
+    in[r] = live && s < c && (!kMask || ((t0 + bt % T) * (long long)c +
+                                         ((long long)s + (shift ? shift[bt] : 0)) % c + 1) %
+                                            mf == 0);
+  }
+  const long long at = live ? bt * c + s0 + j : 0;
+  const bool write = j == 0 && first && live;
+  const long long row = (bt * gridDim.x + blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  for (int q0 = 0; q0 < ncomp; q0 += kBatch) {
+    float t[kBatch][4];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const float* m = mobs + min(q0 + b, ncomp - 1) * plane + at;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) t[b][r] = q0 + b < ncomp && in[r] ? m[8 * r] : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (q0 + b >= ncomp) break;              // warp-uniform
+      double a = ((double)t[b][0] + (double)t[b][2]) + ((double)t[b][1] + (double)t[b][3]);
+      for (int o = 4; o > 0; o >>= 1) a += __shfl_down_sync(kFull, a, o, 8);
+      if (write) obs_rows[row * ncomp + q0 + b] = a;
+    }
+  }
+}
 
 template <bool kCplx, int kMode, bool kMask>
 __global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vplus_reduce_kernel(
@@ -170,6 +233,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vpl
   const int cb = s < c ? cube[s] : -1;
   const float cf = cb < 0 ? 1.0f : cfac[cb];
   double v2 = 0.0;
+  long long bt0 = blockIdx.y;                  // the first chunk whose measure sums wait
+  int nbt = 0;
 
   for (long long bt = blockIdx.y; bt < BT; bt += gridDim.y) {
     const long long at = bt * c + s;
@@ -249,12 +314,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vpl
       }
     }
     if (kMode == kRelw) continue;
-    // a measure's components, gated as relw would be
-    for (int q = 0; kMode == kMeasure && q < ncomp; ++q) {
-      double v = cb >= 0 && on ? (double)mobs[q * plane + at] : 0.0;
-      v = warp_sum(v);
-      if (lane == 0 && first)
-        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * ncomp + q] = v;
+    // a measure's components, gated as relw would be, every kChunks chunks
+    if (kMode == kMeasure && (++nbt == kChunks || bt + gridDim.y >= BT)) {
+      measure_sums<kMask>(mobs, ncomp, c, plane, bt0, nbt, gridDim.y, s - lane, t0, T, mf,
+                          shift, first, obs_rows);
+      bt0 = bt + gridDim.y;
+      nbt = 0;
     }
 
     float wj = __fdiv_rn(score, denom);

@@ -362,7 +362,9 @@ MIXED_FIELDS = 7         # kind, nb, tab_off, sm_off, lower, m_k, hist_off
 KIND_MAP, KIND_DISC, KIND_STRAT = 0, 1, 2   # per-sample Continuous, Discrete, stratified
 SMEM_CDF_BINS = 1024     # a Discrete CDF of at most this many bins is staged in shared memory
 SMEM_CDF_FLOATS = 8192   # the staged CDFs of a spec together: 32 KiB
-SPAN = 256               # samples of a chunk per thread block of vegas_reduce_mixed
+PER_THREAD = 4           # consecutive samples of a chunk per thread of vegas_reduce_mixed
+SPAN = 1024              # samples of a chunk per thread block of vegas_reduce_mixed:
+                         # 256 threads x PER_THREAD
 WARPS = 8                # warps per thread block of vegas_reduce_mixed
 SMEM_HIST_BINS = 4096    # 32 KiB of float64 histogram per thread block; a larger
                          # one is added in windows of this many bins
@@ -610,6 +612,27 @@ def _mixed_check(name, lay: MixedLayout, tab, w, gidx):
                          f"{lay.chunk}]")
 
 
+def _mixed_outputs(lay: MixedLayout, w, ncomp: int):
+    """The reduce kernel's outputs: per-warp partial sums ``obs_rows
+    [ncomp, B, T, R]`` (written whole; a row per warp of the ``ceil(c /
+    SPAN)`` blocks a chunk) and the zeroed compact histogram."""
+    N, B, T, c = w.shape
+    f64 = dict(dtype=torch.float64, device=w.device)
+    return (torch.empty((ncomp, B, T, -(-c // SPAN) * WARPS), **f64),
+            torch.zeros(max(lay.nhist, 1), **f64))
+
+
+def _mixed_args(lay: MixedLayout, tab, w, gidx, obs_rows, hist, m=None, mf=1, t0=0):
+    """The argument list of ``mci_vegas_reduce_mixed`` (without the
+    stream); a null pointer is 0."""
+    N, B, T, c = w.shape
+    P, M = lay.pair_slots.shape
+    return (w.data_ptr(), gidx.data_ptr(), tab.data_ptr(), lay.meta.data_ptr(), N, lay.S, P, M,
+            B * T, c, lay.nhist, int(lay.nhist <= SMEM_HIST_BINS), SPAN, WARPS,
+            0 if m is None else m.data_ptr(), obs_rows.shape[0], mf, t0, T,
+            obs_rows.data_ptr(), hist.data_ptr())
+
+
 def vegas_reduce_mixed(lay: MixedLayout, tab, w, gidx, m=None, mf=1, t0=0):
     """Observable sums and per-slot training histograms of one launch of
     the mixed route (see the section's notes)."""
@@ -629,18 +652,12 @@ def vegas_reduce_mixed(lay: MixedLayout, tab, w, gidx, m=None, mf=1, t0=0):
             raise ValueError("vegas_reduce_mixed: a measure with no components")
     if t0 + T >= 2 ** 31:
         raise ValueError("vegas_reduce_mixed: chunk index too large")
-    P, M = lay.pair_slots.shape
-    f64 = dict(dtype=torch.float64, device=dev)
-    obs_rows = torch.empty((ncomp, B, T, -(-c // SPAN) * WARPS), **f64)
-    hist = torch.zeros(max(lay.nhist, 1), **f64)
+    obs_rows, hist = _mixed_outputs(lay, w, ncomp)
     lib = _build.load()
     entry = lib.mci_vegas_reduce_mixed_complex if cplx else lib.mci_vegas_reduce_mixed
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(w.data_ptr(), gidx.data_ptr(), tab.data_ptr(), lay.meta.data_ptr(), N,
-                    lay.S, P, M, B * T, c, lay.nhist, int(lay.nhist <= SMEM_HIST_BINS), SPAN,
-                    WARPS, 0 if m is None else m.data_ptr(), ncomp, mf, t0, T,
-                    obs_rows.data_ptr(), hist.data_ptr(), stream)
+        err = entry(*_mixed_args(lay, tab, w, gidx, obs_rows, hist, m, mf, t0), stream)
     _build.check(lib, err, "vegas_reduce_mixed")
     launch_counts["vegas_reduce_mixed"] += 1
     # the kernel writes one partial per warp; this sum over the partials is

@@ -931,6 +931,62 @@ def test_vegas_mixed_kernels_match_plain(cuda, cplx, k):
     assert vk.launch_counts["vegas_reduce_mixed"] == before["vegas_reduce_mixed"] + 4
 
 
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_vegas_mixed_scalar_path(cuda, cplx):
+    """vegas_reduce_mixed and vegas_relw_mixed with w and m one element off
+    16-byte alignment, at c % 4 == 0 (the scalar loads and stores of the
+    kernel that otherwise takes 16 bytes at a time): relw bit for bit, the
+    reduce in every mode against plain."""
+    name, var, dof, f, npb, _, T = cs.MIXED_SPECS[1]
+    it, lay, tab, kd, t0, T, x, gidx, w = cs.mixed_launch(mt, var(mt), dof, f, npb, 2, T,
+                                                          cplx=cplx)
+    assert lay.chunk % vk.PER_THREAD == 0
+    wu = cs.misaligned(w)
+    relw = vk.vegas_relw_mixed(lay, tab, wu, gidx)
+    assert _bits_equal(relw, vk.vegas_relw_mixed_plain(lay, tab, w, gidx))
+    m = cs._measure_of(relw)
+    for mf in (1, 4):
+        for given in (None, cs.misaligned(m)):
+            obs, hist = vk.vegas_reduce_mixed(lay, tab, wu, gidx, given, mf, t0)
+            obs_p, hist_p = vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, given, mf, t0)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(obs, obs_p, rtol=1e-9, atol=0)
+            torch.testing.assert_close(hist, hist_p, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("mf", [1, 4])
+@pytest.mark.parametrize("ncomp", [1, 3, 10])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_vplus_given_m_components(cuda, cplx, ncomp, mf):
+    """vplus_reduce given a measure's output of 1, 3 and 10 components (its
+    sums formed four chunks at a time) against plain to rel 1e-12,
+    on phase 3d's all-branch spec, chunks 1-2, with and without the gate;
+    given relw's components, the default observables bit for bit on real
+    weights."""
+    it = cs.vplus_allbranch(mt, 2 ** 16, device=cuda, cplx=cplx)
+    lay, params = it.layout, it.spec.device_params()
+    it.run(params, block_keys(4, 0, 0, it.block))
+    tab, kd = lay.tables(params), it.seeds(block_keys(4, 1, 0, it.block))
+    cube, cfac = it.cube_tables()
+    x, gidx = vp.vplus_sample(lay, tab, kd, 1, 2, cube)
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    mobs = torch.randn((ncomp,) + tuple(w.shape[1:]),
+                       generator=torch.Generator(cuda).manual_seed(ncomp), device=cuda)
+    shift = vp.gate_shifts(kd, 1, 2, it.chunk) if mf > 1 else None
+    got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, mobs, mf, 1, shift)
+    want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, mobs, mf, 1, shift)
+    torch.cuda.synchronize()
+    assert got[0].shape == (it.block, 2, ncomp)
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
+    if not cplx:
+        relw = vp.vplus_relw(lay, tab, w, gidx, cube, cfac)
+        ident = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, cs.relw_components(relw), mf, 1,
+                                shift)
+        default = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, None, mf, 1, shift)
+        assert _bits_equal(ident[0], default[0])
+
+
 def test_cuda_vegas_mixed_integrates(cuda):
     """t d^2 over Continuous(0, 1) x Discrete(1, 100) and
     Discrete([(1, 3), (1, 4)]) on the card, within 7 sigma of their exact

@@ -1,8 +1,9 @@
-"""Variants of ``chain_accept``, ``vplus_reduce`` and ``chain_propose``, timed on the card beside the kept kernels.
+"""Variants of ``chain_accept``, ``vplus_reduce``, ``chain_propose`` and ``vegas_reduce_mixed``, timed on the card beside the kept kernels.
 
 Builds the kernel library of ``mcintegration_tpu_torch/csrc`` as it stands,
 then one library per variant: a copy of the sources with a few lines of
-``chain_accept.cu``, ``vplus_reduce.cu`` or ``chain_propose.cu`` rewritten
+``chain_accept.cu``, ``vplus_reduce.cu``, ``chain_propose.cu`` or
+``vegas_mixed.cu`` rewritten
 (threads per block and blocks per SM, the register cache of pair products
 and pads, the grid's waves, the merge of a warp's lanes before a histogram
 add, a large histogram's adds into device memory; threads per block, an
@@ -20,19 +21,32 @@ the 10-bin histogram) and of phase 6f (complex weights), and phase 6b's
 state with every walker in one histogram bin; ``vplus_reduce`` on one
 launch of phase 6d (``singular_3d``, 2^26 samples), the same launch with
 every sample of the first span in one bin, phase 3d's all-branch spec, and
-that spec with ninc = 5000 (more than SMEM_HIST_BINS bins);
+that spec with ninc = 5000 (more than SMEM_HIST_BINS bins), and given the
+10-bin histogram's output at phase 6g's launch (the quickstart's problem,
+2^26 samples, 10 components; real and complex weights, with and without
+the gate of measurefreq 4; also at 1 and 3 components);
 ``chain_propose`` on a step of 2^20 walkers of phase 6b and of phase 3b's
-spec (a staged Discrete CDF).  A variant runs the cases of the kernels it
-changes (the kept and the baseline kernels all).  Each is held against its
+spec (a staged Discrete CDF); ``vegas_reduce_mixed`` (and
+``vegas_relw_mixed``) at phase 6h's bubble launch (2^26 samples, 5 slots,
+4 measure components) in every instantiation (real and complex weights;
+the default observables and given m, each with and without the gate of
+measurefreq 4; relw), and the default observables of phase 4h's
+mixed-``ninc`` launch.  A variant runs the cases
+of the kernels it changes (the kept and the baseline kernels all; with
+``--only FILES``, a comma-separated list of the sources above, only the
+variants and cases of those).  Each is held against its
 plain version (bit for bit but the histograms and ``sig``: rel 1e-9 and
-1e-12) and timed on the device with the calls queued behind a sleep
-kernel, the median of three runs of 20 calls (10 for ``vplus_reduce``).
+1e-12; the mixed reduce's obs to REL_TOL_REDUCE) and timed on the device
+with the calls queued behind a sleep kernel, the median of three runs of
+20 calls (10 for ``vplus_reduce`` and the mixed route).
 Before the runs it prints each library's count of
 64-bit compare-and-swap loops (``ATOMS.CAST.SPIN.64`` in ``cuobjdump
 -sass``) and of instructions per kernel, and what ``ptxas -v`` says of the
 kept kernels' registers and spills.
 
-    python3 tools/accept_reduce_variants.py [--baseline DIR]   # on a CUDA card
+    python3 tools/accept_reduce_variants.py [--baseline DIR] [--only FILES] [--ablations]
+
+on a CUDA card (``--ablations``: the ablations alone, no variants).
 
 It prints one line per variant and case and exits non-zero if a variant
 fails to build or differs from the plain versions.
@@ -55,7 +69,10 @@ import chip_smoke as cs  # noqa: E402  (the configurations, timers and checks)
 import mcmc_variants as mv  # noqa: E402  (the variant builder)
 
 ACCEPT, REDUCE, PROPOSE = "chain_accept.cu", "vplus_reduce.cu", "chain_propose.cu"
-KERNELS = ("chain_accept_kernel", "vplus_reduce_kernel", "chain_propose_kernel")
+MIXED = "vegas_mixed.cu"
+SOURCES = (ACCEPT, REDUCE, PROPOSE, MIXED)
+KERNELS = ("chain_accept_kernel", "vplus_reduce_kernel", "chain_propose_kernel",
+           "vegas_reduce_mixed_kernel")
 # vplus_reduce's histogram adds, and the same with a warp's lanes merged per bin
 REDUCE_ADD = ("        const int bin = cb >= 0 ? off + gidx[k * plane + at] - hlo : -1;\n"
               "        if (bin < 0 || bin >= HW) continue;\n"
@@ -121,6 +138,25 @@ def variants():
            "      prefetch_l2(w + i * plane + at + gridDim.y * (long long)c);\n")], {}),
         ("reduce grid of 4 waves", [(REDUCE, "constexpr int kWaves = 8;",
                                      "constexpr int kWaves = 4;")], {}),
+        ("reduce given m, one component's loads at a time",
+         [(REDUCE, "constexpr int kBatch = 4; ", "constexpr int kBatch = 1; ")], {}),
+        ("reduce given m, each chunk's sums alone",
+         [(REDUCE, "constexpr int kChunks = 4; ", "constexpr int kChunks = 1; "),
+          (REDUCE, "  static_assert(kChunks * 8 == 32, \"8 lanes a chunk, 4 terms a lane\");\n",
+           "")], {}),
+        ("reduce given m at 4 blocks an SM",
+         [(REDUCE, "constexpr int kMeasureBlocks = 6; ", "constexpr int kMeasureBlocks = 4; ")],
+         {}),
+        ("reduce given m at 8 blocks an SM",
+         [(REDUCE, "constexpr int kMeasureBlocks = 6; ", "constexpr int kMeasureBlocks = 8; ")],
+         {}),
+        ("reduce given m, 8 components' loads in flight",
+         [(REDUCE, "constexpr int kBatch = 4; ", "constexpr int kBatch = 8; ")], {}),
+        ("reduce given m, streaming loads of m",
+         [(REDUCE, "t[b][r] = q0 + b < ncomp && in[r] ? m[8 * r] : 0.0f;",
+           "t[b][r] = q0 + b < ncomp && in[r] ? __ldcs(m + 8 * r) : 0.0f;")], {}),
+        ("mixed, bins read again from device memory",
+         [(MIXED, "constexpr int kStash = 8; ", "constexpr int kStash = 0; ")], {}),
         ("propose 128 threads a block", [(PROPOSE, "constexpr int kThreads = 256;",
                                           "constexpr int kThreads = 128;")], {}),
         ("propose 512 threads a block", [(PROPOSE, "constexpr int kThreads = 256;",
@@ -159,6 +195,21 @@ def ablations():
         ("reduce without the integrand loop",
          [(REDUCE, "    for (int i = 0; i < N; ++i) {\n      double so = 0.0, sq = 0.0;",
            "    for (int i = 0; i < 0; ++i) {\n      double so = 0.0, sq = 0.0;")]),
+        ("reduce given m without the component sums",
+         [(REDUCE, "  for (int q0 = 0; q0 < ncomp; q0 += kBatch) {",
+           "  for (int q0 = 0; q0 < 0; q0 += kBatch) {")]),
+        ("mixed without the component sums",
+         [(MIXED, "      for (int q = 0; q < ncomp; ++q) {\n        float m[kPerThread];",
+           "      for (int q = 0; q < 0; ++q) {\n        float m[kPerThread];")]),
+        ("mixed without histogram adds",
+         [(MIXED, "          hist_add_runs(hist_s, key, sq);",
+           "          if (key[0] == -2) hist_s[0] = sq[0];")]),
+        ("mixed without the padding loop",
+         [(MIXED, "      for (int pp = 0; pp < P; ++pp) {",
+           "      for (int pp = 0; pp < 0; ++pp) {")]),
+        ("mixed, jac from a single slot",
+         [(MIXED, "        jac[v] = k == 0 ? ip : __fmul_rn(jac[v], ip);",
+           "        jac[v] = k == 0 ? ip : jac[v];")]),
         ("propose, every slot stored in the row of slot 0",
          [(PROPOSE, "const long long i = (long long)(f[5] + s) * W + w;",
            "const long long i = (long long)f[5] * W + w;")]),
@@ -171,9 +222,20 @@ def ablations():
     ]
 
 
+def kernel_name(mangled):
+    """The short name of a kernel instantiation in the SASS, with its
+    template arguments (``vplus_reduce_kernel<0,1,0>``: real, given m,
+    ungated), or None."""
+    base = next((k for k in KERNELS if k in mangled), None)
+    if base is None:
+        return None
+    args = re.findall(r"L[ib](\d+)E", mangled)
+    return base + (f"<{','.join(args)}>" if args else "")
+
+
 def sass_counts(lib_path):
-    """{kernel: (count of ATOMS.CAST.SPIN.64, of instructions)} in the SASS
-    of a library."""
+    """{kernel instantiation: (count of ATOMS.CAST.SPIN.64, of
+    instructions)} in the SASS of a library."""
     from mcintegration_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
@@ -182,8 +244,7 @@ def sass_counts(lib_path):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((k + ("<true>" if "ILb1E" in m.group(1) else "")
-                         for k in KERNELS if k in m.group(1)), None)
+            name = kernel_name(m.group(1))
             if name:
                 counts.setdefault(name, [0, 0])
         elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
@@ -193,11 +254,11 @@ def sass_counts(lib_path):
 
 
 def ptxas_report(csrc):
-    """ptxas -v's lines on the kernels of chain_accept.cu, vplus_reduce.cu and
-    chain_propose.cu."""
+    """ptxas -v's lines on the kernels of chain_accept.cu, vplus_reduce.cu,
+    chain_propose.cu and vegas_mixed.cu."""
     from mcintegration_tpu_torch.ops import _build
     out = []
-    for src in (ACCEPT, REDUCE, PROPOSE):
+    for src in SOURCES:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                                "-o", str(_build.BUILD_DIR / "ptxas.o"), str(Path(csrc) / src)],
                               capture_output=True, text=True)
@@ -263,7 +324,9 @@ def chain_run(ck, case, check=True):
 
 
 def vplus_cases(mt, vp):
-    """(name, layout, tab, w, gidx, cube, cfac) of vplus_reduce's cases."""
+    """(name, layout, tab, w, gidx, cube, cfac, m, mf, t0, shift) of
+    vplus_reduce's cases (m None: the default observables)."""
+    import torch
     from mcintegration_tpu_torch.ops.rng import block_keys
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
@@ -281,9 +344,26 @@ def vplus_cases(mt, vp):
         x, gidx = vp.vplus_sample(lay, tab, kd, 0, it.chunks_per_launch, cube)
         w = it.evaluate(lay.leaf_values(x)).contiguous()
         del x
-        out.append((name, lay, tab, w, gidx, cube, cfac))
+        out.append((name, lay, tab, w, gidx, cube, cfac, None, 1, 0, None))
         if name == "6d":
-            out.append(("6d hot span", lay, tab, w, cs.one_bin_span(gidx), cube, cfac))
+            out.append(("6d hot span", lay, tab, w, cs.one_bin_span(gidx), cube, cfac, None, 1,
+                        0, None))
+    # phase 6g: given the 10-bin histogram's output on the quickstart's
+    # problem, real and complex weights (w + 0.5iw), with and without the gate
+    qs = mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)), dof=[[1, 1]],
+                          obs=[np.zeros(cs.NBIN)], seed=cs.SEED)
+    it, lay, tab, cube, cfac, x, gidx, w, t0, T = cs.vplus_branch_launch(
+        mt, vp, qs, cs._qs_f, cs.VEGAS_NEVAL // 16, cs.hist_measure(cs.NBIN), qs.observable)
+    m = it.measure(lay.leaf_values(x), vp.vplus_relw(lay, tab, w, gidx, cube, cfac)).contiguous()
+    del x
+    shift = vp.gate_shifts(it.seeds(block_keys(cs.SEED, 1, 0, it.block)), t0, T, it.chunk)
+    for kind, ww in (("real", w), ("complex", torch.complex(w, w * 0.5).contiguous())):
+        for mf, sh in ((1, None), (4, shift)):
+            out.append((f"6g {kind}, given m, mf {mf}", lay, tab, ww, gidx, cube, cfac, m, mf, t0,
+                        sh))
+    for q in (1, 3):
+        out.append((f"6g real, given m of {q} components", lay, tab, w, gidx, cube, cfac,
+                    m[:q].contiguous(), 1, t0, None))
     return out
 
 
@@ -291,17 +371,87 @@ def vplus_run(vp, case, check=True, strict=True):
     """(ms, max rel err) of vplus_reduce on one case; unchecked: (ms, 0).
     Raises beyond REL_TOL_VPLUS when ``strict``."""
     import torch
-    name, lay, tab, w, gidx, cube, cfac = case
+    name, lay, tab, w, gidx, cube, cfac, m, mf, t0, shift = case
+    fn = lambda: vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
     rel = 0.0
     if check:
-        got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac)
-        want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac)
+        got = fn()
+        want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
         torch.cuda.synchronize()
         rel = max(cs.rel_err(a.cpu(), b.cpu()) for a, b in zip(got, want))
     if rel > cs.REL_TOL_VPLUS and strict:
         raise AssertionError(f"vplus_reduce, {name}: rel {rel:.3g} > {cs.REL_TOL_VPLUS}")
-    ms = float(np.median([cs.device_ms(
-        lambda: vp.vplus_reduce(lay, tab, w, gidx, cube, cfac), 10) for _ in range(3)]))
+    ms = float(np.median([cs.device_ms(fn, 10) for _ in range(3)]))
+    return ms, rel
+
+
+def mixed_cases(mt, vk):
+    """(name, layout, tab, w, gidx, m, mf, t0) of vegas_reduce_mixed's cases
+    (m None: the default observables; a name ending in "relw":
+    vegas_relw_mixed), with the plain version's output on the host: phase
+    6h's bubble launch, real and complex weights, each instantiation; phase
+    4h's mixed-ninc launch, the default observables."""
+    import torch
+
+    out = []
+    for cplx in (False, True):
+        kw = cs.vegas_bubble_kw(mt, cplx)
+        it, lay, tab, kd, t0, T, x, gidx, w = cs.mixed_launch(
+            mt, kw["var"], kw["dof"], None, cs.VEGAS_NEVAL // 16, 16, None, cplx=cplx,
+            measure=kw["measure"], obs=kw["obs"])
+        relw = vk.vegas_relw_mixed(lay, tab, w, gidx)
+        m = it.measure(lay.leaf_values(x), relw).contiguous()
+        del x, relw
+        kind = "complex" if cplx else "real"
+        for mf in (1, 4):
+            for given in (None, m):
+                out.append((f"6h {kind}, {'given m' if given is not None else 'default'}, mf {mf}",
+                            lay, tab, w, gidx, given, mf, t0))
+        out.append((f"6h {kind}, relw", lay, tab, w, gidx, None, 1, t0))
+    C = mt.Continuous
+    _, lay, tab, _, t0, _, x, gidx, w = cs.mixed_launch(
+        mt, (C(0.0, 1.0, ninc=1024), C(0.0, 1.0, ninc=512), C(0.0, 1.0, ninc=1000)),
+        [[1, 1, 1]], cs._logxyz, cs.VEGAS_NEVAL // 16, 16, None)
+    del x
+    out.append(("4h mixed ninc, default, mf 1", lay, tab, w, gidx, None, 1, t0))
+    cases = []
+    for case in out:
+        name, lay, tab, w, gidx, m, mf, t0 = case
+        want = vk.vegas_relw_mixed_plain(lay, tab, w, gidx) if name.endswith("relw") else \
+            vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, m, mf, t0)
+        torch.cuda.synchronize()
+        cases.append((*case, [t.cpu() for t in ((want,) if torch.is_tensor(want) else want)]))
+        del want
+    return cases
+
+
+def mixed_run(vk, case, check=True, strict=True):
+    """(ms, max rel err) of vegas_reduce_mixed (or vegas_relw_mixed) on one
+    case; unchecked: (ms, 0).  Raises beyond the tolerances when
+    ``strict``: relw bit for bit, obs REL_TOL_REDUCE, histograms
+    REL_TOL_VPLUS."""
+    import torch
+    name, lay, tab, w, gidx, m, mf, t0, want = case
+    if name.endswith("relw"):
+        fn = lambda: vk.vegas_relw_mixed(lay, tab, w, gidx)
+        tols = (0.0,)
+    else:
+        fn = lambda: vk.vegas_reduce_mixed(lay, tab, w, gidx, m, mf, t0)
+        tols = (cs.REL_TOL_REDUCE, cs.REL_TOL_VPLUS)
+    rel = 0.0
+    if check:
+        got = fn()
+        got = (got,) if torch.is_tensor(got) else got
+        torch.cuda.synchronize()
+        if name.endswith("relw"):
+            rels = [0.0 if torch.equal(cs.bits(got[0]).cpu(), cs.bits(want[0])) else np.inf]
+        else:
+            rels = [cs.rel_err(a.cpu(), b) for a, b in zip(got, want)]
+        rel = max(rels)
+        if strict and any(r > t for r, t in zip(rels, tols)):
+            raise AssertionError(f"vegas_reduce_mixed, {name}: rel {rels} beyond {tols}")
+        del got
+    ms = float(np.median([cs.device_ms(fn, 10) for _ in range(3)]))
     return ms, rel
 
 
@@ -344,14 +494,19 @@ def propose_run(ck, case, check=True):
 
 
 def baseline(root):
-    """(library, chain and vplus SMEM_HIST_BINS) of checkout ``root``, whose
-    kernels take the same arguments."""
+    """(library, {constant of the wrappers: its value}) of checkout
+    ``root``, whose kernels take the same arguments: the chain and vplus
+    SMEM_HIST_BINS and the mixed reduce's SPAN (samples of a chunk a block,
+    which sizes its partials)."""
     from mcintegration_tpu_torch.ops import _build
     ops = Path(root) / "mcintegration_tpu_torch" / "ops"
-    bins = [int(re.search(r"^SMEM_HIST_BINS = (\d+)", (ops / f).read_text(), re.M).group(1))
-            for f in ("chain_kernels.py", "vplus_kernels.py")]
+    consts = {}
+    for key, f, c in (("chain SMEM_HIST_BINS", "chain_kernels.py", "SMEM_HIST_BINS"),
+                      ("vplus SMEM_HIST_BINS", "vplus_kernels.py", "SMEM_HIST_BINS"),
+                      ("vegas SPAN", "vegas_kernels.py", "SPAN")):
+        consts[key] = int(re.search(rf"^{c} = (\d+)", (ops / f).read_text(), re.M).group(1))
     lib = _build.bind(build_from(Path(root) / "mcintegration_tpu_torch" / "csrc", "baseline"))
-    return (lib, *bins)
+    return lib, consts
 
 
 def main() -> int:
@@ -361,36 +516,46 @@ def main() -> int:
         print("accept_reduce_variants: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     import mcintegration_tpu_torch as mt
-    from mcintegration_tpu_torch.ops import _build, chain_kernels as ck, vplus_kernels as vp
+    from mcintegration_tpu_torch.ops import (_build, chain_kernels as ck, vegas_kernels as vk,
+                                             vplus_kernels as vp)
 
     card = cs.card_line()
     root = sys.argv[sys.argv.index("--baseline") + 1] if "--baseline" in sys.argv else None
+    only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv \
+        else set(SOURCES)
+    if not only <= set(SOURCES):
+        print(f"accept_reduce_variants: --only takes some of {SOURCES}", file=sys.stderr)
+        return 2
     kept = _build.load()
     print(f"kept: (64-bit CAS loops, instructions) in the SASS "
           f"{sass_counts(_build.library_path())}", flush=True)
     print("\n".join(ptxas_report(_build.CSRC)), flush=True)
-    modules = {"chain": ck, "vplus": vp}
-    kept_constants = {f"{m} SMEM_HIST_BINS": modules[m].SMEM_HIST_BINS for m in modules}
+    modules = {"chain": ck, "vplus": vp, "vegas": vk}
+    kept_constants = {f"{m} SMEM_HIST_BINS": modules[m].SMEM_HIST_BINS for m in ("chain", "vplus")}
+    kept_constants["vegas SPAN"] = vk.SPAN
     runs = [("kept", kept, {})]
     if root:
-        lib, hc, hv = baseline(root)
-        runs.insert(0, ("baseline", lib, {"chain SMEM_HIST_BINS": hc,
-                                          "vplus SMEM_HIST_BINS": hv}))
+        lib, consts = baseline(root)
+        runs.insert(0, ("baseline", lib, consts))
         print(f"baseline: (64-bit CAS loops, instructions) in the SASS {sass_counts(lib._name)}",
               flush=True)
 
-    vs = variants() + [(name, edits, {}) for name, edits in ablations()]
-    unchecked = {name for name, _ in ablations()}
-    built = mv.build([(name, edits, None, None) for name, edits, _ in vs])
-    chains = chain_cases(mt)
-    reduces = vplus_cases(mt, vp)
-    proposals = propose_cases(mt)
-    print(f"device ms per call, median of 3 runs [{card}]", flush=True)
     # the kernels a variant changes: the files it edits, and the kernel of a
     # constant it sets
-    files = {name: {f for f, _, _ in edits} | {ACCEPT if k.startswith("chain") else REDUCE
-                                               for k in consts}
+    const_file = {"chain": ACCEPT, "vplus": REDUCE, "vegas": MIXED}
+    vs = [(name, edits, consts) for name, edits, consts in
+          ([] if "--ablations" in sys.argv else variants())
+          + [(name, edits, {}) for name, edits in ablations()]
+          if ({f for f, _, _ in edits} | {const_file[k.split()[0]] for k in consts}) & only]
+    files = {name: {f for f, _, _ in edits} | {const_file[k.split()[0]] for k in consts}
              for name, edits, consts in vs}
+    unchecked = {name for name, _ in ablations()}
+    built = mv.build([(name, edits, None, None) for name, edits, _ in vs])
+    chains = chain_cases(mt) if ACCEPT in only else []
+    reduces = vplus_cases(mt, vp) if REDUCE in only else []
+    proposals = propose_cases(mt) if PROPOSE in only else []
+    mixed = mixed_cases(mt, vk) if MIXED in only else []
+    print(f"device ms per call, median of 3 runs [{card}]", flush=True)
     runs += [(name, lib or kept, consts) for (name, _, consts), lib in zip(vs, built)]
     runs += [(name + ", again", *rest) for name, *rest in runs[:1 + bool(root)][::-1]]
     bad = []
@@ -400,7 +565,8 @@ def main() -> int:
             m, c = key.split()
             setattr(modules[m], c, value)
         cells = []
-        edited = files.get(name, {ACCEPT, REDUCE, PROPOSE})    # kept and baseline: all
+        edited = files.get(name, only)    # kept and baseline: all
+        strict = not name.startswith("baseline")
         try:
             check = name not in unchecked
             for case in chains if ACCEPT in edited else ():
@@ -410,8 +576,11 @@ def main() -> int:
                 ms, err = propose_run(ck, case, check)
                 cells.append(f"propose {case[0]} {ms!r} (err {err:.3g})")
             for case in reduces if REDUCE in edited else ():
-                ms, rel = vplus_run(vp, case, check, strict=not name.startswith("baseline"))
+                ms, rel = vplus_run(vp, case, check, strict)
                 cells.append(f"reduce {case[0]} {ms!r} (rel {rel:.3g})")
+            for case in mixed if MIXED in edited else ():
+                ms, rel = mixed_run(vk, case, check, strict)
+                cells.append(f"mixed {case[0]} {ms!r} (rel {rel:.3g})")
         except (AssertionError, RuntimeError) as e:
             cells.append(f"FAILED: {e}")
             bad.append(name)

@@ -1,6 +1,6 @@
 """Steady-state rates of the device-bound main paths of one checkout.
 
-    python3 tools/main_path_rates.py [DIR] [--mcmc]     # on a CUDA card
+    python3 tools/main_path_rates.py [DIR] [--mcmc | --measurement]   # on a CUDA card
 
 Runs ``chip_smoke.py``'s phases 4 (``:vegas`` on the 2-D pi problem at 2^30
 evaluations per iteration), 4b (``:vegasmc`` on it at 2^28 with 2^20
@@ -15,7 +15,12 @@ alone (``:mcmc`` on the Lindhard bubble at 2^28 evaluations per iteration
 with 2^18 walkers, every q bin within 7 sigma), a host-bound path whose
 rate swings by a third from run to run, and then times the host's side of
 one ``mcmc_measure`` call at that shape (the checkout's wrapper, whichever
-of its two signatures it has).  To compare two checkouts on one card,
+of its two signatures it has).  With ``--measurement`` it runs phases 4 and
+4d and then the measurement side's 4g (complex weights, the histogram
+measure on ``:vegasplus``, ``measurefreq``) and the mixed route's 4h (the
+Lindhard bubble on ``:vegas``, real, complex and gated, and the Discrete
+and mixed-``ninc`` runs), each checked and timed as ``chip_smoke.py`` does.
+To compare two checkouts on one card,
 run it for each in one call, in turns (parent, change, change, parent):
 each run is a process of its own and imports its own package.
 """
@@ -98,6 +103,11 @@ def main() -> int:
         measure_host_us(mt, mk, cs, card)
         return 0
     _, _, rate4 = cs.main_path(mt, vk, card)
+    if "--measurement" in sys.argv[1:]:
+        _, _, rate4d = cs.vplus_main_path(mt, vp, card)
+        cs.measurement_main_path(mt, vk, vp, card, {"4": rate4, "4d": rate4d})
+        cs.mixed_main_path(mt, vk, card, rate4)
+        return 0
     _, rate4b = cs.chain_main_path(mt, ck, card)
     cs.vplus_main_path(mt, vp, card)
     cs.measure_main_path(mt, vk, ck, card, {"4": rate4, "4b": rate4b})
