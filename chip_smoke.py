@@ -2795,10 +2795,18 @@ def measurement_timings(mt, vk, vp, card):
     obs_rows = 8 * 2 * N * it.block * T * -(-it.chunk // vp.SPAN) * vp.WARPS
     b = bound(nbytes(w, gidx, cube, cfac, tab, lay.meta, got[1], got[2]) + obs_rows,
               40 * n * (S + N) + 10 * n * N)
-    out["vplus_reduce_complex"] = (e, ms, pms, *b)
     print(f"phase 6g: one :vegasplus launch = {it.block} blocks x {T} chunks x {it.chunk} samples "
           f"({n} evals, {S} slots), complex weights: vplus_reduce_complex {ms!r} ms, plain torch "
           f"{pms!r} ms (host clock), bound {b[0]!r} ms [{card}]")
+    # the complex default and its gated form, beside the parent's times below
+    shift = vp.gate_shifts(it.seeds(block_keys(SEED, 1, 0, it.block)), t0, T, it.chunk)
+    e2, _ = _check_rel(f"vplus_reduce_complex, mf {MF}, at 6g",
+                       vp.vplus_reduce(*args, None, MF, t0, shift),
+                       vp.vplus_reduce_plain(*args, None, MF, t0, shift), REL_TOL_VPLUS)
+    out["vplus_reduce_complex"] = (max(e, e2), ms, pms, *b)
+    times = {"complex, default, mf 1": ms,
+             f"complex, default, mf {MF}": device_ms(
+                 lambda: vp.vplus_reduce(*args, None, MF, t0, shift), 10)}
     del x, gidx, w, got, args
 
     qs = mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)), dof=[[1, 1]],
@@ -2811,7 +2819,20 @@ def measurement_timings(mt, vk, vp, card):
     e = _check_bits("vplus_relw at 6g", relw, vp.vplus_relw_plain(*args))
     ms, pms = turns(lambda: vp.vplus_relw(*args), lambda: vp.vplus_relw_plain(*args))
     b = bound(nbytes(w, gidx, cube, cfac, tab, lay.meta, relw), 30 * n * (S + N))
-    out["vplus_relw"] = (e, ms, pms, *b)
+    # vplus_relw_complex, w + 0.5iw: its own line (the kernels' line keeps
+    # one vplus_relw entry, whose launches count both)
+    wc = torch.complex(w, w * 0.5).contiguous()
+    cargs = (lay, tab, wc, gidx, cube, cfac)
+    crelw = vp.vplus_relw(*cargs)
+    e2 = _check_bits("vplus_relw_complex at 6g", crelw, vp.vplus_relw_plain(*cargs))
+    out["vplus_relw"] = (max(e, e2), ms, pms, *b)
+    cms, cpms = turns(lambda: vp.vplus_relw(*cargs), lambda: vp.vplus_relw_plain(*cargs))
+    cb_ = bound(nbytes(wc, gidx, cube, cfac, tab, lay.meta, crelw), 30 * n * (S + 2 * N))
+    print(f"phase 6g: vplus_relw_complex at the same launch: {cms!r} ms, plain torch {cpms!r} "
+          f"ms, bound {cb_[0]!r} ms (by {cb_[1]}), {cms / cb_[0]!r} times it [{card}]")
+    times["real, relw"] = ms
+    times["complex, relw"] = cms
+    del cargs, crelw
     m = it.measure(lay.leaf_values(x), relw).contiguous()
     got = vp.vplus_reduce(*args, m)
     e, _ = _check_rel("vplus_reduce given m at 6g", got, vp.vplus_reduce_plain(*args, m),
@@ -2828,19 +2849,19 @@ def measurement_timings(mt, vk, vp, card):
     for name, (err, t, pt, bd, by) in out.items():
         print(f"phase 6g: {name} takes {t / bd!r} times its bound (by {by}) [{card}]")
     # vplus_reduce given m in every instantiation (real and complex weights,
-    # with and without the gate), beside the parent's times
+    # with and without the gate), beside the parent's times, as are the
+    # complex default and vplus_relw's above
     shift = vp.gate_shifts(it.seeds(block_keys(SEED, 1, 0, it.block)), t0, T, it.chunk)
-    wc = torch.complex(w, w * 0.5).contiguous()
-    times = {}
     for kind, ww in (("real", w), ("complex", wc)):
         for mf, sh in ((1, None), (MF, shift)):
             times[f"{kind}, given m, mf {mf}"] = device_ms(
                 lambda: vp.vplus_reduce(lay, tab, ww, gidx, cube, cfac, m, mf, t0, sh), 10)
     for what, t in times.items():
-        print(f"phase 6g: vplus_reduce {what}: {t!r} ms, the parent's {PARENT_6G[what]!r} ms, "
-              f"ratio {t / PARENT_6G[what]!r} [{card}]")
-    for line in ptxas_lines("vplus_reduce_kernel"):
-        print(f"phase 6g: ptxas -v {line}")
+        print(f"phase 6g: vplus_reduce.cu, {what}: {t!r} ms, the parent's {PARENT_6G[what]!r} "
+              f"ms, ratio {t / PARENT_6G[what]!r} [{card}]")
+    for key in ("vplus_reduce_kernel", "vplus_reduce_complex_kernel", "vplus_relw_kernel"):
+        for line in ptxas_lines(key):
+            print(f"phase 6g: ptxas -v {line}")
     return out
 
 
@@ -3352,17 +3373,20 @@ def mixed_timings(mt, vk, card):
 
 
 # The parent's device ms per launch of each instantiation that phases 6h and
-# 6g time: the kernels before vegas_reduce_mixed took four samples a thread
-# and vplus_reduce given m formed its sums four chunks at a time (the mean
-# of the baseline's two runs of tools/accept_reduce_variants.py --baseline,
-# run beside the change in one call; NVIDIA H100 80GB HBM3, 700.00 W)
+# 6g time: for 6h, the kernels before vegas_reduce_mixed took four samples a
+# thread; for 6g, before the complex default took four chunks at once and
+# vplus_relw was a kernel of its own (the mean of the baseline's two runs of
+# tools/accept_reduce_variants.py --baseline, run beside the change in one
+# call; NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_6H = {"real, default, mf 1": 2.282, "real, given m, mf 1": 2.855,
              "real, default, mf 4": 2.406, "real, given m, mf 4": 2.996, "real, relw": 1.024,
              "complex, default, mf 1": 2.415, "complex, given m, mf 1": 3.579,
              "complex, default, mf 4": 2.533, "complex, given m, mf 4": 3.722,
              "complex, relw": 1.129}
-PARENT_6G = {"real, given m, mf 1": 3.177, "real, given m, mf 4": 3.405,
-             "complex, given m, mf 1": 3.235, "complex, given m, mf 4": 3.466}
+PARENT_6G = {"complex, default, mf 1": 1.862, "complex, default, mf 4": 2.114,
+             "real, relw": 0.8198, "complex, relw": 0.8998,
+             "real, given m, mf 1": 1.905, "real, given m, mf 4": 2.059,
+             "complex, given m, mf 1": 1.969, "complex, given m, mf 4": 2.118}
 
 PEAK_BYTES = 3.35e12    # NVIDIA H100 SXM device memory, bytes/s
 # float32 outside the tensor cores, operations/s: the data sheet's, a fused

@@ -1,5 +1,6 @@
-// Helpers shared by the chain kernels (chain_*.cu) and the :mcmc kernels
-// (mcmc_*.cu, through mcmc_common.cuh).
+// Helpers shared by the chain kernels (chain_*.cu), the :mcmc kernels
+// (mcmc_*.cu, through mcmc_common.cuh), vegas_mixed.cu and the :vegasplus
+// kernels (through vplus_common.cuh).
 //
 // Random bits: the counter hash of ops/rng.py (lowbias32, as
 // mcintegration_tpu/ops/pallas_vegas.py:_mix32), with the step t in place of
@@ -189,6 +190,78 @@ int num_sms() {
       cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 132;
   return n;
+}
+
+// A quad: kQuad = 4 consecutive samples of a chunk that one thread of
+// vegas_mixed.cu or vplus_reduce.cu's vplus_relw takes, moved in 16-byte
+// accesses where they all lie in the chunk and the pointers are aligned.
+constexpr int kQuad = 4;
+
+// The kQuad consecutive values of a thread at p: one 16-byte load
+// (full: all kQuad in the chunk, and p 16-byte aligned), else n scalar
+// ones and zeros
+__device__ __forceinline__ void load_quad(const int* __restrict__ p, int n, bool full,
+                                          int (&o)[kQuad]) {
+  if (full) {
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v) o[v] = v < n ? p[v] : 0;
+  }
+}
+
+__device__ __forceinline__ void load_quad(const float* __restrict__ p, int n, bool full,
+                                          float (&o)[kQuad]) {
+  if (full) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v) o[v] = v < n ? p[v] : 0.0f;
+  }
+}
+
+// The weights of a thread's samples from sample index at: kQuad floats,
+// or with kCplx as many (re, im) pairs (two 16-byte loads)
+template <bool kCplx>
+__device__ __forceinline__ void load_weights(const float* __restrict__ w, long long at, int n,
+                                             bool full, Weight<kCplx> (&o)[kQuad]) {
+  if constexpr (!kCplx) {
+    float t[kQuad];
+    load_quad(w + at, n, full, t);
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v) o[v] = {t[v]};
+  } else {
+    float a[kQuad], b[kQuad];
+    load_quad(w + 2 * at, min(2 * n, kQuad), full, a);
+    load_quad(w + 2 * at + kQuad, max(2 * n - kQuad, 0), full, b);
+    o[0] = {a[0], a[1]}, o[1] = {a[2], a[3]}, o[2] = {b[0], b[1]}, o[3] = {b[2], b[3]};
+  }
+}
+
+template <bool kCplx>
+__device__ __forceinline__ void store_weights(float* __restrict__ out, long long at, int n,
+                                              bool full, const Weight<kCplx> (&r)[kQuad]) {
+  if constexpr (!kCplx) {
+    if (full) {
+      *reinterpret_cast<float4*>(out + at) = make_float4(r[0].v, r[1].v, r[2].v, r[3].v);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kQuad; ++v)
+        if (v < n) out[at + v] = r[v].v;
+    }
+  } else {
+    float4* q = reinterpret_cast<float4*>(out + 2 * at);
+    if (full) {
+      q[0] = make_float4(r[0].re, r[0].im, r[1].re, r[1].im);
+      q[1] = make_float4(r[2].re, r[2].im, r[3].re, r[3].im);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kQuad; ++v)
+        if (v < n) r[v].store(out, at + v);
+    }
+  }
 }
 
 // Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared memory

@@ -105,6 +105,7 @@ constexpr int kMk = 5, kHistOff = 6;
 constexpr int kNMult = 64;       // ops/vegas_kernels.py:N_MULT
 constexpr int kThreads = 256;
 constexpr int kPerThread = 4;    // consecutive samples of a chunk a thread takes
+static_assert(kPerThread == kQuad, "a thread's samples: one quad (chain_common.cuh)");
 constexpr int kSpan = kThreads * kPerThread;  // ops/vegas_kernels.py:SPAN, a reduce block's samples
 constexpr int kWarps = kThreads / 32;
 constexpr int kWaves = 8;        // the reduce's grid, in blocks the card holds at once
@@ -214,73 +215,6 @@ __device__ __forceinline__ double warp_sum(double v) {
 // Slot k's 1/probability at bin g, from its staged row (kind, nb, table)
 __device__ __forceinline__ float slot_invp(int kind, int nb, const float* t, int g) {
   return kind == kDisc ? __fdiv_rn(1.0f, t[nb + 1 + g]) : __fmul_rn((float)nb, t[nb + g]);
-}
-
-// The kPerThread consecutive values of a thread at p: one 16-byte load
-// (full: all kPerThread in the chunk, c % 4 == 0 and the pointers
-// aligned), else n scalar ones and zeros
-__device__ __forceinline__ void load_quad(const int* __restrict__ p, int n, bool full,
-                                          int (&o)[kPerThread]) {
-  if (full) {
-    const int4 q = *reinterpret_cast<const int4*>(p);
-    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
-  } else {
-#pragma unroll
-    for (int v = 0; v < kPerThread; ++v) o[v] = v < n ? p[v] : 0;
-  }
-}
-
-__device__ __forceinline__ void load_quad(const float* __restrict__ p, int n, bool full,
-                                          float (&o)[kPerThread]) {
-  if (full) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
-  } else {
-#pragma unroll
-    for (int v = 0; v < kPerThread; ++v) o[v] = v < n ? p[v] : 0.0f;
-  }
-}
-
-// The weights of a thread's samples from sample index at: kPerThread floats,
-// or with kCplx as many (re, im) pairs (two 16-byte loads)
-template <bool kCplx>
-__device__ __forceinline__ void load_weights(const float* __restrict__ w, long long at, int n,
-                                             bool full, Weight<kCplx> (&o)[kPerThread]) {
-  if constexpr (!kCplx) {
-    float t[kPerThread];
-    load_quad(w + at, n, full, t);
-#pragma unroll
-    for (int v = 0; v < kPerThread; ++v) o[v] = {t[v]};
-  } else {
-    float a[kPerThread], b[kPerThread];
-    load_quad(w + 2 * at, min(2 * n, kPerThread), full, a);
-    load_quad(w + 2 * at + kPerThread, max(2 * n - kPerThread, 0), full, b);
-    o[0] = {a[0], a[1]}, o[1] = {a[2], a[3]}, o[2] = {b[0], b[1]}, o[3] = {b[2], b[3]};
-  }
-}
-
-template <bool kCplx>
-__device__ __forceinline__ void store_weights(float* __restrict__ out, long long at, int n,
-                                              bool full, const Weight<kCplx> (&r)[kPerThread]) {
-  if constexpr (!kCplx) {
-    if (full) {
-      *reinterpret_cast<float4*>(out + at) = make_float4(r[0].v, r[1].v, r[2].v, r[3].v);
-    } else {
-#pragma unroll
-      for (int v = 0; v < kPerThread; ++v)
-        if (v < n) out[at + v] = r[v].v;
-    }
-  } else {
-    float4* q = reinterpret_cast<float4*>(out + 2 * at);
-    if (full) {
-      q[0] = make_float4(r[0].re, r[0].im, r[1].re, r[1].im);
-      q[1] = make_float4(r[2].re, r[2].im, r[3].re, r[3].im);
-    } else {
-#pragma unroll
-      for (int v = 0; v < kPerThread; ++v)
-        if (v < n) r[v].store(out, at + v);
-    }
-  }
 }
 
 // Add v into bin key of the shared histogram (key < 0: nothing), one add

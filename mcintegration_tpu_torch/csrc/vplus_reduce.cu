@@ -79,27 +79,45 @@
 // 1e-12 against the plain version).
 //
 // The reference's XLA route (mcintegration_tpu/solvers/vegasplus.py:131-312)
-// also serves what K4 never does, and so does this kernel, in instantiations
-// of the one body (the real, ungated, default-measure one is the kernel
-// above, unchanged):
-// - complex weights (kCplx): w complex64, read as (re, im) pairs (Weight
-//   of chain_common.cuh); relw_i = (re*f, im*f) with f = jac*pad_i, the
+// also serves what K4 never does, and so does this file:
+// - complex weights: w complex64, read as (re, im) pairs (Weight of
+//   chain_common.cuh); relw_i = (re*f, im*f) with f = jac*pad_i, the
 //   default observables Re and Im of relw_i in components 2i and 2i+1,
 //   score += |w_i|*pad_i and hist += min(|relw_i|, 1e17)^2, with |z| =
 //   sqrt(re*re + im*im) (vegasplus.py:272-300), so w + 0i gives the real
-//   run's bits;
-// - a custom measure: kRelw writes relw_i per sample for the measure
-//   (vplus_relw, the density formed as above) and nothing else; kMeasure
-//   sums the measure's float32 components m [ncomp, B, T, c] in place of
-//   relw, and sig and hist come from w as before.  Its sums wait for
-//   kChunks = 4 of the chunks a warp walks; then lane 8u + j adds the
-//   terms j, j+8, j+16, j+24 of the warp's 32 samples in the u-th of them
-//   in registers, and 3 shuffle levels among 8 lanes finish each chunk's
-//   sum (measure_sums): the tree of the default mode's warp_sum, so each
-//   partial is the default sum bit for bit (given m = relw, the default
-//   observables), at 3 shuffles a component for 4 chunks where a warp_sum
-//   took 5 for one, with the loads of kBatch components in flight
-//   together;
+//   run's bits.  |relw_i| is not formed from |w_i|: sqrt of the scaled
+//   parts' squares rounds otherwise than |w_i|*f, so both roots stay.  The
+//   complex default observables are a kernel of their own,
+//   vplus_reduce_complex_kernel: the layout of the work above, but a
+//   thread takes kCplxChunks = 4 of the chunks it walks at once (their
+//   density's loads in flight together, the layout's fields read once for
+//   the four), and a warp sums the Re and Im parts of the 4 chunks
+//   together in warp_sum's tree (tree_sums: 9 float64 shuffles where two
+//   warp_sums a chunk took 40), each partial in the row the real kernel's
+//   layout gives it; 8 blocks an SM.  Measured at phase 6g's quarter disc
+//   (tools/accept_reduce_variants.py, NVIDIA H100 80GB HBM3 at 700 W):
+//   1.13 ms, from 1.86 in the real kernel's body, against a bound of 0.33;
+//   6 blocks an SM 1.14, 4 blocks 1.40; 2 chunks at once 1.25, one 1.45.
+//   What holds it: the histogram's compare-and-swap adds (0.27 ms), the
+//   two square roots (0.15), the sums (0.07);
+// - a custom measure: vplus_relw_kernel writes relw_i per sample for the
+//   measure (the density formed as above) and nothing else, as a stream:
+//   a thread takes a quad of 4 consecutive samples of one chunk (16-byte
+//   loads of w and each slot's gidx, 16-byte stores of relw; scalar ones
+//   where the quad leaves the chunk or the pointers are not aligned), 8
+//   blocks an SM: 0.35 ms at phase 6g's histogram launch, from 0.82 in the
+//   reduce's body, against a bound of 0.32 (scalar accesses 0.56, the
+//   layout staged in shared memory 0.36, 6 blocks an SM 0.37); complex
+//   0.53 from 0.90.  kMeasure sums the measure's float32 components m
+//   [ncomp, B, T, c] in place of relw, and sig and hist come from w as
+//   before.  Its sums wait for kChunks = 4 of the chunks a warp walks;
+//   then lane 8u + j adds the terms j, j+8, j+16, j+24 of the warp's 32
+//   samples in the u-th of them in registers, and 3 shuffle levels among 8
+//   lanes finish each chunk's sum (measure_sums): the tree of the default
+//   mode's warp_sum, so each partial is the default sum bit for bit (given
+//   m = relw, the default observables), at 3 shuffles a component for 4
+//   chunks where a warp_sum took 5 for one, with the loads of kBatch
+//   components in flight together;
 // - measurefreq = mf > 1 (kMask): sample s of chunk t (t0 plus the chunk's
 //   index in the launch) counts in the observable sums only if
 //   (t*c + (s + shift[b, t]) % c + 1) % mf == 0; sig and hist take every
@@ -127,6 +145,11 @@ constexpr int kWaves = 8;                     // the grid, in blocks the card ho
 constexpr int kWindow = 4096;                 // ops/vplus_kernels.py:SMEM_HIST_BINS
 constexpr int kChunks = 4;                    // chunks whose measure sums a warp forms together
 constexpr int kBatch = 4;                     // a measure's components loaded together
+constexpr int kCplxChunks = 4;                // chunks the complex default takes at once
+constexpr int kCplxBlocks = 8;                // the complex default: at most 32 registers
+constexpr int kRelwThreads = 256;             // vplus_relw: a block's threads,
+constexpr int kRelwSpan = kRelwThreads * kQuad;  // and samples (ops/vplus_kernels.py:RELW_SPAN)
+constexpr int kRelwBlocks = 8;                // at most 32 registers
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -134,23 +157,20 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// What a launch makes of w: the default observables, the sums of a
-// measure's m, or relw alone (vplus_relw)
-enum Mode { kDefault, kMeasure, kRelw };
+// What a launch of vplus_reduce_kernel makes of w: the default observables
+// (real weights), or the sums of a measure's m
+enum Mode { kDefault, kMeasure };
 
 // The real, ungated, default-measure kernel keeps 32 registers (eight blocks
 // an SM); given m, 40 (six blocks: a warp's measure sums wait on their
 // loads, and more warps hide them: 1.89 ms at phase 6g against 2.35 at four
-// blocks, PERF.md); the other instantiations may take up to 64
-constexpr int min_blocks(bool cplx, int mode, bool mask) {
-  return !cplx && mode == kDefault && !mask ? kBlocksPerSm
-         : mode == kMeasure                 ? kMeasureBlocks
-                                            : kBlocksPerSm / 2;
+// blocks, PERF.md); the gated real default may take up to 64
+constexpr int min_blocks(int mode, bool mask) {
+  return mode == kMeasure ? kMeasureBlocks : mask ? kBlocksPerSm / 2 : kBlocksPerSm;
 }
 
 __device__ __forceinline__ float re_of(const Weight<false>& z) { return z.v; }
 __device__ __forceinline__ float re_of(const Weight<true>& z) { return z.re; }
-__device__ __forceinline__ float im_of(const Weight<true>& z) { return z.im; }
 
 // A measure's components over the warp's 32 samples from s0 (group s0/32)
 // in the nbt <= kChunks chunks bt0 + u*stride, u < nbt, in the order of
@@ -201,14 +221,15 @@ __device__ __forceinline__ void measure_sums(const float* __restrict__ mobs, int
 }
 
 template <bool kCplx, int kMode, bool kMask>
-__global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vplus_reduce_kernel(
+__global__ void __launch_bounds__(kThreads, min_blocks(kMode, kMask)) vplus_reduce_kernel(
     const float* __restrict__ w, const int* __restrict__ gidx,
     const int* __restrict__ cube, const float* __restrict__ cfac,
     const float* __restrict__ tab, const int* __restrict__ meta, int N, int S,
     int P, int M, long long BT, int c, int H, int hist_smem,
     const float* __restrict__ mobs, int ncomp, int mf, int t0, int T,
     const int* __restrict__ shift, double* __restrict__ obs_rows, double* __restrict__ sig,
-    double* __restrict__ hist, float* __restrict__ relw_out) {
+    double* __restrict__ hist) {
+  static_assert(!kCplx || kMode == kMeasure, "complex default: vplus_reduce_complex_kernel");
   extern __shared__ double hist_s[];           // [HW] this block's window of the histogram
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* slots = meta;                     // [S, 8]
@@ -266,7 +287,6 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vpl
 
     for (int i = 0; i < N; ++i) {
       double so = 0.0, sq = 0.0;
-      double si = 0.0;                         // Im of a complex relw_i
       if (cb >= 0) {
         float pad_i = 1.0f;
         for (int g = 0; g < P; ++g) {
@@ -282,20 +302,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vpl
         }
         const Weight<kCplx> wi = Weight<kCplx>::load(w, i * plane + at);
         const Weight<kCplx> relw = wi.scale(__fmul_rn(jac, pad_i));
-        if (kMode == kRelw) {
-          relw.store(relw_out, i * plane + at);
-          continue;
-        }
         score = __fadd_rn(score, __fmul_rn(wi.abs(), pad_i));
-        if (kMode == kDefault && on) {
-          so = (double)re_of(relw);
-          if constexpr (kCplx) si = (double)im_of(relw);
-        }
+        if (kMode == kDefault && on) so = (double)re_of(relw);
         float a = relw.abs();
         a = a > 1e17f ? 1e17f : a;   // NaN passes through, as torch.clamp
         sq = (double)__fmul_rn(a, a);
       }
-      if (kMode == kRelw) continue;
       for (int k = 0; k < S; ++k) {
         const int off = slots[kSlotFields * k + kHist];
         if (off < 0 || !used[k * N + i]) continue;
@@ -305,15 +317,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vpl
       }
       if (kMode != kDefault) continue;
       so = warp_sum(so);
-      if (kCplx) si = warp_sum(si);
-      if (lane == 0 && first && kCplx) {
-        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * ncomp + 2 * i] = so;
-        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * ncomp + 2 * i + 1] = si;
-      } else if (lane == 0 && first) {
+      if (lane == 0 && first)
         obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * N + i] = so;
-      }
     }
-    if (kMode == kRelw) continue;
     // a measure's components, gated as relw would be, every kChunks chunks
     if (kMode == kMeasure && (++nbt == kChunks || bt + gridDim.y >= BT)) {
       measure_sums<kMask>(mobs, ncomp, c, plane, bt0, nbt, gridDim.y, s - lane, t0, T, mf,
@@ -326,7 +332,6 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vpl
     wj = wj > 1e17f ? 1e17f : wj;
     if (cb >= 0) v2 += (double)__fmul_rn(wj, wj);
   }
-  if (kMode == kRelw) return;
 
   // per-cube second moments: a segmented sum over the warp's sorted cubes
   for (int o = 1; o < 32; o <<= 1) {
@@ -342,29 +347,342 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kCplx, kMode, kMask)) vpl
     if (hist_s[q] != 0.0) atomicAdd(hist + hlo + q, hist_s[q]);
 }
 
-template <bool kCplx, int kMode, bool kMask>
-int launch(const void* w, const void* gidx, const void* cube, const void* cfac,
-           const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
-           int c, int H, int hist_smem, const void* mobs, int ncomp, int mf, int t0, int T,
-           const void* shift, void* obs_rows, void* sig, void* hist, void* relw, void* stream) {
+// The sums over a warp's lanes of kV values a lane (t[q], q < kV), each in
+// warp_sum's tree: log2(kV) butterfly levels (16, 8, ...) in which a lane
+// keeps half of its values and trades the other half with its partner,
+// then shuffles down among 32/kV lanes.  Lane l ends with value
+// q = l / (32/kV); on lane l % (32/kV) == 0 its sum over the 32 lanes,
+// bit for bit warp_sum's: every level adds the same pairs of partials as
+// warp_sum's (a + b where warp_sum forms b + a on the upper lanes, and IEEE
+// addition commutes).  kV values cost kV - 1 + log2(32/kV) shuffles where
+// warp_sum took 5 each.  Every lane calls it.
+template <int kV>
+__device__ __forceinline__ double tree_sums(const float (&t)[kV]) {
+  static_assert(kV >= 1 && kV <= 32 && (kV & (kV - 1)) == 0, "a power of two up to 32");
+  const int lane = threadIdx.x & 31;
+  double v[kV];
+#pragma unroll
+  for (int q = 0; q < kV; ++q) v[q] = (double)t[q];
+#pragma unroll
+  for (int n = kV, o = 16; n > 1; n >>= 1, o >>= 1) {
+    const bool hi = lane & o;                  // keeps the upper half of its n values
+#pragma unroll
+    for (int q = 0; q < n / 2; ++q) {
+      const double mine = hi ? v[q + n / 2] : v[q];
+      v[q] = mine + __shfl_xor_sync(kFull, hi ? v[q] : v[q + n / 2], o);
+    }
+  }
+  double a = v[0];
+#pragma unroll
+  for (int o = 16 / kV; o > 0; o >>= 1) a += __shfl_down_sync(kFull, a, o, 32 / kV);
+  return a;
+}
+
+// Whether the gate of measurefreq mf lets sample s of chunk t count (the
+// gate of vplus_reduce_kernel): (t*c + (s + sh) % c + 1) % mf == 0, for
+// t < 2^31 and s, sh < c.  (s + sh) % c is one subtraction, and where mf <
+// 2^16 the rest takes 32-bit remainders, t*c = (t % mf)*(c % mf) modulo
+// mf, in place of three 64-bit ones.
+__device__ __forceinline__ bool gate_open(unsigned t, unsigned s, unsigned sh, unsigned c,
+                                          unsigned mf) {
+  unsigned x = s + sh;
+  x = x >= c ? x - c : x;
+  if (mf < 65536u) return ((t % mf) * (c % mf) + x % mf + 1u) % mf == 0u;
+  return ((unsigned long long)t * c + x + 1u) % mf == 0u;
+}
+
+// The complex default observables (vplus_reduce_kernel's law and layout of
+// the work with complex w; see the head of the file).  A thread takes
+// kCplxChunks chunks bt0 + u*gridDim.y at once at its sample s: their
+// gidx and w loads are in flight together, the layout's fields are read
+// once for all of them, and the Re and Im partials of the kCplxChunks
+// chunks are summed together (tree_sums), lane 4q of a warp writing the
+// row of value q (Re of chunk q, then Im of chunk q - kCplxChunks).
+template <bool kMask>
+__global__ void __launch_bounds__(kThreads, kCplxBlocks) vplus_reduce_complex_kernel(
+    const float* __restrict__ w, const int* __restrict__ gidx,
+    const int* __restrict__ cube, const float* __restrict__ cfac,
+    const float* __restrict__ tab, const int* __restrict__ meta, int N, int S,
+    int P, int M, long long BT, int c, int H, int hist_smem, int mf, int t0, int T,
+    const int* __restrict__ shift, double* __restrict__ obs_rows, double* __restrict__ sig,
+    double* __restrict__ hist) {
+  constexpr int kU = kCplxChunks, kV = 2 * kCplxChunks;
+  static_assert(kV <= 32, "a lane's values: Re and Im of each chunk");
+  extern __shared__ double hist_s[];           // [HW] this block's window of the histogram
+  const int warp = threadIdx.x >> 5;
+  const int* slots = meta;                     // [S, 8]
+  const int* pad = slots + kSlotFields * S;    // [N, P]
+  const int* pair_slots = pad + N * P;         // [P, M]
+  const int* used = pair_slots + P * M;        // [S, N]
+  const long long plane = BT * c;
+  const int HW = hist_smem ? H : kWindow;
+  const int hlo = blockIdx.z * HW;
+  const bool first = blockIdx.z == 0;
+  for (int q = threadIdx.x; q < HW; q += blockDim.x) hist_s[q] = 0.0;
+  __syncthreads();
+
+  const int s = (warp * gridDim.x + blockIdx.x) * 32 + (threadIdx.x & 31);
+  const int cb = s < c ? cube[s] : -1;
+  const float cf = cb < 0 ? 1.0f : cfac[cb];
+  const long long step = gridDim.y;
+  const unsigned sT = (unsigned)(step % T);   // the gate's chunk index t0 + bt % T, kept
+  unsigned tb0 = (unsigned)(blockIdx.y % T);  // as bt0 % T and stepped in 32 bits
+  double v2 = 0.0;
+
+  for (long long bt0 = blockIdx.y; bt0 < BT; bt0 += kU * step, tb0 = (tb0 + kU * sT) % T) {
+    // chunk u: bt0 + u*step, this thread's sample of it at at0 + u*cstep;
+    // bit u of ok: the chunk lies in the launch and s in the chunk, of on:
+    // the gate lets the sample count in the observable sums
+    const long long at0 = bt0 * c + s, cstep = step * c;
+    unsigned ok = 0, on = 0;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const long long bt = bt0 + u * step;
+      if (cb < 0 || bt >= BT) continue;
+      ok |= 1u << u;
+      if constexpr (kMask) {
+        unsigned tb = tb0 + u * sT;
+        while (tb >= (unsigned)T) tb -= T;
+        if (gate_open(t0 + tb, s, shift ? shift[bt] : 0, c, mf)) on |= 1u << u;
+      } else {
+        on |= 1u << u;
+      }
+    }
+    float prob[kU], pass[kU];
+    bool any_pass = false;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) prob[u] = pass[u] = 1.0f;
+    for (int k = 0; k < S; ++k) {
+      const int* f = slots + kSlotFields * k;
+      const bool disc = f[kKind] == kDisc;
+      any_pass |= disc;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (!(ok >> u & 1)) continue;
+        const float rho = slot_rho(f, tab, gidx[k * plane + at0 + u * cstep]);
+        if (disc) pass[u] = __fmul_rn(pass[u], rho);
+        else prob[u] = __fmul_rn(prob[u], rho);
+      }
+    }
+    float jac[kU], denom[kU], score[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float dens = __fmul_rn(cf, prob[u]);
+      denom[u] = prob[u];
+      if (any_pass) {
+        dens = __fmul_rn(dens, pass[u]);
+        denom[u] = __fmul_rn(prob[u], pass[u]);
+      }
+      jac[u] = __fdiv_rn(1.0f, dens);
+      score[u] = 0.0f;
+    }
+
+    for (int i = 0; i < N; ++i) {
+      float pad_i[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) pad_i[u] = 1.0f;
+      for (int g = 0; g < P; ++g) {
+        if (!pad[i * P + g]) continue;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (!(ok >> u & 1)) continue;
+          float gp = 1.0f;
+          for (int mm = 0; mm < M; ++mm) {
+            const int k = pair_slots[g * M + mm];
+            if (k < 0) break;
+            gp = __fmul_rn(gp, slot_rho(slots + kSlotFields * k, tab,
+                                        gidx[k * plane + at0 + u * cstep]));
+          }
+          pad_i[u] = __fmul_rn(pad_i[u], gp);
+        }
+      }
+      float t[kV], sq[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        t[u] = t[kU + u] = sq[u] = 0.0f;
+        if (!(ok >> u & 1)) continue;
+        const Weight<true> wi = Weight<true>::load(w, i * plane + at0 + u * cstep);
+        const Weight<true> relw = wi.scale(__fmul_rn(jac[u], pad_i[u]));
+        score[u] = __fadd_rn(score[u], __fmul_rn(wi.abs(), pad_i[u]));
+        if (on >> u & 1) {
+          t[u] = relw.re;
+          t[kU + u] = relw.im;
+        }
+        float r = relw.abs();
+        r = r > 1e17f ? 1e17f : r;   // NaN passes through, as torch.clamp
+        sq[u] = __fmul_rn(r, r);
+      }
+      // the sums first: t's registers are free for the histogram's CAS loops
+      const double part = tree_sums(t);
+      const int q = (threadIdx.x & 31) / (32 / kV);
+      const long long bt = bt0 + (q % kU) * step;
+      if ((threadIdx.x & (32 / kV - 1)) == 0 && first && bt < BT)
+        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * 2 * N + 2 * i + q / kU] = part;
+      for (int k = 0; k < S; ++k) {
+        const int off = slots[kSlotFields * k + kHist];
+        if (off < 0 || !used[k * N + i]) continue;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int bin = ok >> u & 1 ? off + gidx[k * plane + at0 + u * cstep] - hlo : -1;
+          if (bin >= 0 && bin < HW) atomicAdd(hist_s + bin, (double)sq[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float wj = __fdiv_rn(score[u], denom[u]);
+      wj = wj > 1e17f ? 1e17f : wj;
+      if (ok >> u & 1) v2 += (double)__fmul_rn(wj, wj);
+    }
+  }
+
+  // per-cube second moments and the histogram's flush, as vplus_reduce_kernel's
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double up = __shfl_down_sync(kFull, v2, o);
+    const int kup = __shfl_down_sync(kFull, cb, o);
+    if (lane + o < 32 && kup == cb) v2 += up;
+  }
+  const int kprev = __shfl_up_sync(kFull, cb, 1);
+  if (first && cb >= 0 && (lane == 0 || kprev != cb)) atomicAdd(sig + cb, v2);
+  __syncthreads();
+  for (int q = threadIdx.x; q < HW && hlo + q < H; q += blockDim.x)
+    if (hist_s[q] != 0.0) atomicAdd(hist + hlo + q, hist_s[q]);
+}
+
+// relw_i = w_i * (jac * pad_i) of every sample (vplus_reduce_kernel's
+// density, in its order; see the head of the file).  Block x takes chunk
+// x / nspan, its quads from (x % nspan) * kRelwSpan.  What bounds it:
+// device-memory bytes, w and relw (4 or 8 bytes each an integrand) and gidx
+// (4 a slot); cube, cfac, the tables and the layout stay in cache (staged
+// in shared memory once a block, the layout made the kernel 3 % slower at
+// phase 6g, PERF.md).
+template <bool kCplx>
+__global__ void __launch_bounds__(kRelwThreads, kRelwBlocks) vplus_relw_kernel(
+    const float* __restrict__ w, const int* __restrict__ gidx,
+    const int* __restrict__ cube, const float* __restrict__ cfac,
+    const float* __restrict__ tab, const int* __restrict__ meta, int N, int S,
+    int P, int M, long long BT, int c, int nspan, int vec, float* __restrict__ relw) {
+  const int* slots = meta;                     // [S, 8]
+  const int* pad = slots + kSlotFields * S;    // [N, P]
+  const int* pair_slots = pad + N * P;         // [P, M]
+  const long long plane = BT * c;
+  const long long bt = blockIdx.x / nspan;
+  const int s0 = ((int)(blockIdx.x % nspan) * kRelwThreads + threadIdx.x) * kQuad;
+  if (s0 >= c) return;
+  const int n = min(c - s0, kQuad);
+  // compared on s0, not on n (vegas_mixed.cu: a test built from n let a
+  // lane past the chunk's end store there)
+  const bool full = vec && s0 + kQuad <= c;
+  const long long at = bt * c + s0;
+
+  int cb[kQuad];
+  load_quad(cube + s0, n, full, cb);
+  float prob[kQuad], pass[kQuad];
+  bool any_pass = false;
+#pragma unroll
+  for (int v = 0; v < kQuad; ++v) prob[v] = pass[v] = 1.0f;
+  for (int k = 0; k < S; ++k) {
+    const int* f = slots + kSlotFields * k;
+    const bool disc = f[kKind] == kDisc;
+    any_pass |= disc;
+    int g[kQuad];
+    load_quad(gidx + k * plane + at, n, full, g);
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v) {
+      const float rho = slot_rho(f, tab, g[v]);
+      if (disc) pass[v] = __fmul_rn(pass[v], rho);
+      else prob[v] = __fmul_rn(prob[v], rho);
+    }
+  }
+  float jac[kQuad];
+#pragma unroll
+  for (int v = 0; v < kQuad; ++v) {
+    float dens = __fmul_rn(cfac[cb[v]], prob[v]);
+    if (any_pass) dens = __fmul_rn(dens, pass[v]);
+    jac[v] = __fdiv_rn(1.0f, dens);
+  }
+  for (int i = 0; i < N; ++i) {
+    float pad_i[kQuad];
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v) pad_i[v] = 1.0f;
+    for (int g = 0; g < P; ++g) {
+      if (!pad[i * P + g]) continue;
+      float gp[kQuad];
+#pragma unroll
+      for (int v = 0; v < kQuad; ++v) gp[v] = 1.0f;
+      for (int mm = 0; mm < M; ++mm) {
+        const int k = pair_slots[g * M + mm];
+        if (k < 0) break;
+        int b[kQuad];
+        load_quad(gidx + k * plane + at, n, full, b);
+#pragma unroll
+        for (int v = 0; v < kQuad; ++v)
+          gp[v] = __fmul_rn(gp[v], slot_rho(slots + kSlotFields * k, tab, b[v]));
+      }
+#pragma unroll
+      for (int v = 0; v < kQuad; ++v) pad_i[v] = __fmul_rn(pad_i[v], gp[v]);
+    }
+    Weight<kCplx> r[kQuad];
+    load_weights(w, i * plane + at, n, full, r);
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v) r[v] = r[v].scale(__fmul_rn(jac[v], pad_i[v]));
+    store_weights(relw, i * plane + at, n, full, r);
+  }
+}
+
+// The reduce's grid: (nspan, groups, nwin), groups of chunks enough for
+// kWaves waves of the blocks the card holds at once
+template <typename Kernel>
+int reduce_grid(Kernel kernel, long long BT, int c, int H, int hist_smem, dim3* grid,
+                size_t* smem) {
   const int nspan = (c + kSpan - 1) / kSpan;
   const int nwin = hist_smem ? 1 : (H + kWindow - 1) / kWindow;
-  const size_t smem = (size_t)(hist_smem ? H : kWindow) * sizeof(double);
-  auto kernel = vplus_reduce_kernel<kCplx, kMode, kMask>;
+  *smem = (size_t)(hist_smem ? H : kWindow) * sizeof(double);
   int per_sm = 0;
-  const int err = blocks_per_sm(kernel, kThreads, smem, &per_sm);
+  const int err = blocks_per_sm(kernel, kThreads, *smem, &per_sm);
   if (err) return err;
   long long groups = ((long long)kWaves * per_sm * num_sms() + nspan * nwin - 1) /
                      ((long long)nspan * nwin);
   if (groups > BT) groups = BT;
   if (groups > 65535) groups = 65535;
   if (groups < 1) groups = 1;
-  dim3 grid((unsigned)nspan, (unsigned)groups, (unsigned)nwin);
+  *grid = dim3((unsigned)nspan, (unsigned)groups, (unsigned)nwin);
+  return 0;
+}
+
+template <bool kCplx, int kMode, bool kMask>
+int launch(const void* w, const void* gidx, const void* cube, const void* cfac,
+           const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
+           int c, int H, int hist_smem, const void* mobs, int ncomp, int mf, int t0, int T,
+           const void* shift, void* obs_rows, void* sig, void* hist, void* stream) {
+  auto kernel = vplus_reduce_kernel<kCplx, kMode, kMask>;
+  dim3 grid;
+  size_t smem = 0;
+  const int err = reduce_grid(kernel, BT, c, H, hist_smem, &grid, &smem);
+  if (err) return err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
       (const float*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem,
       (const float*)mobs, ncomp, mf, t0, T, (const int*)shift, (double*)obs_rows, (double*)sig,
-      (double*)hist, (float*)relw);
+      (double*)hist);
+  return (int)cudaGetLastError();
+}
+
+template <bool kMask>
+int launch_complex(const void* w, const void* gidx, const void* cube, const void* cfac,
+                   const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
+                   int c, int H, int hist_smem, const void*, int, int mf, int t0, int T,
+                   const void* shift, void* obs_rows, void* sig, void* hist, void* stream) {
+  auto kernel = vplus_reduce_complex_kernel<kMask>;
+  dim3 grid;
+  size_t smem = 0;
+  const int err = reduce_grid(kernel, BT, c, H, hist_smem, &grid, &smem);
+  if (err) return err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
+      (const float*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem, mf, t0, T,
+      (const int*)shift, (double*)obs_rows, (double*)sig, (double*)hist);
   return (int)cudaGetLastError();
 }
 
@@ -377,22 +695,27 @@ int reduce_entry(const void* w, const void* gidx, const void* cube, const void* 
   if (span != kSpan || warps != kWarps || c < 1 || ncubes < 1 || mf < 1 || t0 < 0 ||
       T < 1 || BT % T != 0 || ncomp < 1 || (!mobs && ncomp != (kCplx ? 2 * N : N)))
     return (int)cudaErrorInvalidValue;      // the wrapper sized obs_rows otherwise
-  auto run = launch<kCplx, kDefault, false>;
+  auto run = kCplx ? launch_complex<false> : launch<false, kDefault, false>;
   if (mobs) run = mf > 1 ? launch<kCplx, kMeasure, true> : launch<kCplx, kMeasure, false>;
-  else if (mf > 1) run = launch<kCplx, kDefault, true>;
+  else if (mf > 1) run = kCplx ? launch_complex<true> : launch<false, kDefault, true>;
   return run(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, H, hist_smem, mobs, ncomp,
-             mf, t0, T, shift, obs_rows, sig, hist, nullptr, stream);
+             mf, t0, T, shift, obs_rows, sig, hist, stream);
 }
 
 template <bool kCplx>
 int relw_entry(const void* w, const void* gidx, const void* cube, const void* cfac,
                const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
                int c, int span, int warps, void* relw, void* stream) {
-  if (span != kSpan || warps != kWarps || c < 1) return (int)cudaErrorInvalidValue;
-  // no histogram (H = 0, whole), no observables, sig untouched
-  return launch<kCplx, kRelw, false>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, 0, 1,
-                                     nullptr, N, 1, 0, 1, nullptr, nullptr, nullptr, nullptr,
-                                     relw, stream);
+  if (span != kRelwSpan || warps != kRelwThreads / 32 || c < 1 || BT < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nspan = (c + kRelwSpan - 1) / kRelwSpan;
+  if (BT * nspan > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int vec = c % kQuad == 0 &&
+                  ((uintptr_t)w | (uintptr_t)gidx | (uintptr_t)cube | (uintptr_t)relw) % 16 == 0;
+  vplus_relw_kernel<kCplx><<<(unsigned)(BT * nspan), kRelwThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
+      (const float*)tab, (const int*)meta, N, S, P, M, BT, c, nspan, vec, (float*)relw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -33,7 +33,9 @@ adaptive leaves, one leaf after the other):
   measure's output ``m [ncomp,B,T,c] f32``, the sums of ``m``;
 - ``vplus_relw(lay, tab, w, gidx, cube, cfac) -> relw [N,B,T,c]`` of
   ``w``'s dtype: ``w_i * (jac * pad_i)`` per sample, what a custom measure
-  reads (a mode of ``csrc/vplus_reduce.cu``, the density formed as there).
+  reads (a streaming kernel of ``csrc/vplus_reduce.cu``, the density formed
+  as in the reduce: a thread takes four consecutive samples of a chunk, a
+  block ``RELW_SPAN`` of them).
 
 With ``mf > 1`` (``measurefreq``) sample ``s`` of chunk ``t`` (``t0`` plus
 its index in the launch) of block ``b`` counts in ``obs`` only if ``(t*c +
@@ -84,6 +86,8 @@ SALT_GATE = 0x47415445   # the gate's shift: a salt no slot's draw uses
 SLOT_FIELDS = 8          # kind, nb, tab_off, -1, lower, stride, hist_off, salt
 SPAN = 256               # samples of a chunk per thread block of vplus_reduce
 WARPS = 8                # warps per thread block of vplus_reduce
+RELW_SPAN = 1024         # samples of a chunk per thread block of vplus_relw, four a thread
+RELW_WARPS = 8           # warps per thread block of vplus_relw
 SMEM_HIST_BINS = 4096    # 32 KiB of float64 histogram per thread block; a larger
                          # one is added in windows of this many bins
 
@@ -492,6 +496,15 @@ def vplus_reduce(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1, t0=0,
     return _build.sum_obs(obs_rows, 2, cplx and m is None), sig, hist
 
 
+def _relw_args(lay: VplusLayout, tab, w, gidx, cube, cfac, relw):
+    """The argument list of ``mci_vplus_relw`` (without the stream)."""
+    N, B, T, c = w.shape
+    P, M = lay.pair_slots.shape
+    return (w.data_ptr(), gidx.data_ptr(), cube.data_ptr(), cfac.data_ptr(), tab.data_ptr(),
+            lay.meta.data_ptr(), N, lay.S, P, M, B * T, c, RELW_SPAN, RELW_WARPS,
+            relw.data_ptr())
+
+
 def vplus_relw(lay: VplusLayout, tab, w, gidx, cube, cfac):
     """The relative weights ``relw_i = w_i * (jac * pad_i)`` of every sample
     of one launch, for a custom measure (see module docstring)."""
@@ -499,16 +512,12 @@ def vplus_relw(lay: VplusLayout, tab, w, gidx, cube, cfac):
     if dev.type == "cpu":
         return vplus_relw_plain(lay, tab, w, gidx, cube, cfac)
     _check_inputs("vplus_relw", lay, tab, w, gidx, cube, cfac)
-    N, B, T, c = w.shape
-    P, M = lay.pair_slots.shape
     relw = torch.empty_like(w)
     lib = _build.load()
     entry = lib.mci_vplus_relw_complex if w.is_complex() else lib.mci_vplus_relw
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(w.data_ptr(), gidx.data_ptr(), cube.data_ptr(), cfac.data_ptr(),
-                    tab.data_ptr(), lay.meta.data_ptr(), N, lay.S, P, M, B * T, c, SPAN,
-                    WARPS, relw.data_ptr(), stream)
+        err = entry(*_relw_args(lay, tab, w, gidx, cube, cfac, relw), stream)
     _build.check(lib, err, "vplus_relw")
     launch_counts["vplus_relw"] += 1
     return relw

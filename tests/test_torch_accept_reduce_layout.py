@@ -220,6 +220,132 @@ def test_vplus_given_m_rows(c, ncomp):
         assert np.all(seen == 1)
 
 
+def _relw_args_case(c, cplx):
+    cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0, ninc=10), dof=[[2]], seed=2,
+                           type=complex if cplx else float)
+    lay = vp.VplusLayout.build(Spec(cfg, CPU), 3)
+    N, B, T = 1, 2, 3
+    w = torch.ones((N, B, T, c), dtype=torch.complex64 if cplx else torch.float32)
+    gidx = torch.zeros((lay.S, B, T, c), dtype=torch.int32)
+    cube = torch.zeros(c, dtype=torch.int32)
+    cfac = torch.ones(9, dtype=torch.float32)
+    tab = torch.ones(lay.tab_size, dtype=torch.float32)
+    return lay, tab, w, gidx, cube, cfac
+
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_vplus_relw_argument_list(cplx):
+    """mci_vplus_relw takes the layout's sizes, B * T and c, and RELW_SPAN
+    and RELW_WARPS, which the kernel checks against its own: 256 threads a
+    block (kRelwThreads), a quad of kQuad = 4 samples a thread."""
+    lay, tab, w, gidx, cube, cfac = _relw_args_case(1000, cplx)
+    relw = torch.empty_like(w)
+    args = vp._relw_args(lay, tab, w, gidx, cube, cfac, relw)
+    P, M = lay.pair_slots.shape
+    assert args[6:14] == (1, lay.S, P, M, 6, 1000, vp.RELW_SPAN, vp.RELW_WARPS)
+    assert args[-1] == relw.data_ptr() and args[0] == w.data_ptr()
+    _check_ints(args, "mci_vplus_relw_complex" if cplx else "mci_vplus_relw")
+    threads = _csrc_constant("vplus_reduce.cu", "kRelwThreads")
+    assert vp.RELW_SPAN == threads * _csrc_constant("chain_common.cuh", "kQuad")
+    assert vp.RELW_WARPS == threads // 32
+
+
+@pytest.mark.parametrize("c", CHUNKS + (1023, 1025, 2047))
+def test_vplus_relw_quads_cover_the_chunk(c):
+    """Model of vplus_relw's work: block x of the BT * nspan takes chunk
+    x // nspan, its thread t the samples from ((x % nspan) * threads + t) *
+    4, n = min(c - s0, 4) of them where s0 < c, with 16-byte accesses only
+    where s0 + 4 <= c; every sample of every chunk is taken once, and no
+    16-byte access leaves its chunk."""
+    threads, quad = vp.RELW_WARPS * 32, vp.RELW_SPAN // (vp.RELW_WARPS * 32)
+    nspan = -(-c // vp.RELW_SPAN)
+    BT = 3
+    seen = np.zeros((BT, c), np.int64)
+    for x in range(BT * nspan):
+        bt = x // nspan
+        for t in range(threads):
+            s0 = ((x % nspan) * threads + t) * quad
+            if s0 >= c:
+                continue
+            n = min(c - s0, quad)
+            if s0 + quad <= c:
+                assert n == quad
+            seen[bt, s0:s0 + n] += 1
+    assert np.all(seen == 1)
+
+
+def _tree_sums(t):
+    """vplus_reduce_complex's tree_sums over 32 lanes of kV values each (t
+    [32, kV]): butterfly levels 16, 8, ... in which a lane keeps the lower
+    half of its values (bit o of the lane clear) or the upper half and adds
+    its partner's copy, then shuffles down among 32 / kV lanes.  Returns
+    [32]: each lane's result."""
+    v = [list(np.asarray(row, np.float64)) for row in t]
+    n, o = t.shape[1], 16
+    while n > 1:
+        new = []
+        for lane in range(32):
+            hi = bool(lane & o)
+            partner = v[lane ^ o]
+            new.append([(v[lane][q + n // 2] if hi else v[lane][q])
+                        + (partner[q + n // 2] if hi else partner[q]) for q in range(n // 2)])
+        v, n, o = new, n // 2, o // 2
+    a = np.array([row[0] for row in v], np.float64)
+    width = 32 // t.shape[1]
+    o = width // 2
+    while o > 0:
+        a = np.array([a[lane] + a[lane + o] if lane % width + o < width else a[lane]
+                      for lane in range(32)])
+        o //= 2
+    return a
+
+
+@pytest.mark.parametrize("kv", [1, 2, 8])
+def test_complex_default_sums_as_warp_sum(kv):
+    """vplus_reduce_complex sums the Re and Im parts of four chunks (kV = 8
+    values a lane) in warp_sum's tree: lane l % (32 / kV) == 0 ends with
+    value l / (32 / kV)'s warp_sum, bit for bit, over float32 terms of any
+    magnitude and zeros (samples outside the chunk or shut by the gate); so
+    do 1 and 2 values a lane (one chunk's Re and Im, or one chunk)."""
+    assert 2 * _csrc_constant("vplus_reduce.cu", "kCplxChunks") == 8
+    rng = np.random.default_rng(5)
+    width = 32 // kv
+    for _ in range(300):
+        t = (rng.standard_normal((32, kv)) * 10.0 ** rng.integers(-30, 30, (32, kv)))
+        t = t.astype(np.float32)
+        t[rng.random((32, kv)) < 0.2] = 0.0
+        got = _tree_sums(t)
+        for lane in range(0, 32, width):
+            want = _warp_sum(t[:, lane // width])
+            assert got[lane].tobytes() == want.tobytes()
+
+
+def _gate_open(t, s, sh, c, mf):
+    """vplus_reduce_complex's gate_open in uint32 arithmetic (wrapping as
+    the card's does)."""
+    u32 = np.uint32
+    x = u32(s) + u32(sh)
+    x = x - u32(c) if x >= u32(c) else x
+    if mf < 65536:
+        return (((u32(t) % u32(mf)) * (u32(c) % u32(mf)) + x % u32(mf) + u32(1)) % u32(mf)) == 0
+    return (int(t) * int(c) + int(x) + 1) % mf == 0
+
+
+def test_complex_default_gate_as_the_reference_gate():
+    """The complex default's gate, (t*c + (s + shift) % c + 1) % mf == 0 in
+    32-bit remainders for mf < 2^16 (no product or sum wraps), against the
+    exact integers, at the edges of t < 2^31, c and mf."""
+    rng = np.random.default_rng(7)
+    cases = [(2 ** 31 - 1, 2 ** 31 - 1, 65535), (2 ** 31 - 1, 131072, 65535), (0, 1, 1),
+             (5, 3, 70001), (2 ** 31 - 1, 2 ** 30 + 3, 2 ** 31 - 1)]
+    cases += [(int(rng.integers(0, 2 ** 31)), int(rng.integers(1, 2 ** 31)),
+               int(rng.choice([2, 3, 4, 7, 1000, 65535, 65536, 10 ** 6]))) for _ in range(400)]
+    with np.errstate(over="raise"):
+        for t, c, mf in cases:
+            for s, sh in ((0, 0), (c - 1, c - 1), (int(rng.integers(0, c)), int(rng.integers(0, c)))):
+                assert _gate_open(t, s, sh, c, mf) == ((t * c + (s + sh) % c + 1) % mf == 0)
+
+
 def _variants_module():
     path = Path(__file__).resolve().parents[1] / "tools" / "accept_reduce_variants.py"
     spec = importlib.util.spec_from_file_location("accept_reduce_variants", path)

@@ -1003,3 +1003,76 @@ def test_cuda_vegas_mixed_integrates(cuda):
     assert abs(res.mean[0] - 12.0) < 7 * max(res.stdev[0], 12.0 * 2.0 ** -23)
     assert vk.launch_counts["vegas_sample_mixed"] == vk.launch_counts["vegas_reduce_mixed"] >= 10
     assert vk.launch_counts["vegas_sample"] == 0
+
+
+def _vplus_launch(it, cuda, seed=4):
+    """(lay, tab, kd, cube, cfac, gidx, w) of chunks 0.. of one launch of
+    ``it`` after one reallocation."""
+    lay, params = it.layout, it.spec.device_params()
+    it.run(params, block_keys(seed, 0, 0, it.block))
+    tab, kd = lay.tables(params), it.seeds(block_keys(seed, 1, 0, it.block))
+    cube, cfac = it.cube_tables()
+    x, gidx = vp.vplus_sample(lay, tab, kd, 0, it.chunks_per_launch, cube)
+    return lay, tab, kd, cube, cfac, gidx, it.evaluate(lay.leaf_values(x)).contiguous()
+
+
+@pytest.mark.parametrize("case", ["misaligned w", "chunk 3003", "chunk 1022"])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_vplus_relw_scalar_paths(cuda, cplx, case):
+    """vplus_relw's scalar accesses bit-equal to its plain version on phase
+    3d's all-branch spec (padding, a Discrete passenger): w one element off
+    16-byte alignment, and chunks of 3003 and 1022 samples (c % 4 != 0; the
+    second shorter than a block's RELW_SPAN)."""
+    c = {"misaligned w": 4096, "chunk 3003": 3003, "chunk 1022": 1022}[case]
+    it = cs.vplus_allbranch(mt, 3 * c, device=cuda, cplx=cplx, max_cubes=81, max_chunk=c)
+    assert it.chunk == c and it.chunks_per_launch == 3
+    lay, tab, _, cube, cfac, gidx, w = _vplus_launch(it, cuda)
+    if case == "misaligned w":
+        buf = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)
+        w = buf[1:].view(w.shape).copy_(w)
+        assert w.data_ptr() % 16 != 0
+    before = vp.launch_counts["vplus_relw"]
+    relw = vp.vplus_relw(lay, tab, w, gidx, cube, cfac)
+    want = vp.vplus_relw_plain(lay, tab, w, gidx, cube, cfac)
+    torch.cuda.synchronize()
+    assert _bits_equal(relw, want)
+    assert vp.launch_counts["vplus_relw"] == before + 1
+
+
+@pytest.mark.parametrize("mf", [1, 4])
+@pytest.mark.parametrize("npb,block", [(2 ** 20, 16), (5 * 2 ** 17, 3), (2 ** 17, 2)],
+                         ids=["128 chunks", "15 chunks", "2 chunks"])
+def test_vplus_reduce_complex_chunk_rounds(cuda, npb, block, mf):
+    """vplus_reduce's complex default (a thread takes four chunks at once)
+    against plain to rel 1e-12 on the quarter disc times e^{i(x+y)} at
+    131,072-sample chunks: 128 chunks (a block row walks several rounds of
+    four, the last one short, at six or eight blocks an SM alike), 15 and 2
+    (fewer chunks than block rows); gated with its random shifts or not.
+    w + 0i: the real parts' partial rows bit-equal to the real kernel's."""
+    cfg = mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=5, type=complex)
+    it = VegasPlusIteration(Spec(cfg, cuda), cs._qdisc, block=block, nevalperblock=npb)
+    assert it.chunk == 2 ** 17
+    lay, tab, kd, cube, cfac, gidx, w = _vplus_launch(it, cuda)
+    T = it.chunks_per_launch
+    shift = vp.gate_shifts(kd, 0, T, it.chunk) if mf > 1 else None
+    before = vp.launch_counts["vplus_reduce_complex"]
+    got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, None, mf, 0, shift)
+    want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, None, mf, 0, shift)
+    torch.cuda.synchronize()
+    assert vp.launch_counts["vplus_reduce_complex"] == before + 1
+    assert got[0].shape == (block, T, 2)
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=1e-12, atol=0)
+    wr = w.real.contiguous()
+    wz = torch.complex(wr, torch.zeros_like(wr)).contiguous()
+    lib = vp._build.load()
+    rows = []
+    for entry, ww in ((lib.mci_vplus_reduce_complex, wz), (lib.mci_vplus_reduce, wr)):
+        obs_rows, sig, hist = vp._reduce_outputs(lay, ww, cfac)
+        err = entry(*vp._reduce_args(lay, tab, ww, gidx, cube, cfac, obs_rows, sig, hist, None,
+                                     mf, 0, shift), torch.cuda.current_stream().cuda_stream)
+        vp._build.check(lib, err, "vplus_reduce")
+        rows.append(obs_rows)
+    torch.cuda.synchronize()
+    assert _bits_equal(rows[0][..., 0::2].contiguous(), rows[1])
+    assert not rows[0][..., 1::2].any()

@@ -7,12 +7,15 @@ then one library per variant: a copy of the sources with a few lines of
 (threads per block and blocks per SM, the register cache of pair products
 and pads, the grid's waves, the merge of a warp's lanes before a histogram
 add, a large histogram's adds into device memory; threads per block, an
-integer division by wb, the layout read from device memory).  Other variants
+integer division by wb, the layout read from device memory; the complex
+default's blocks per SM and chunks taken at once, vplus_relw's blocks per
+SM, scalar accesses and layout staged in shared memory).  Other variants
 keep the library and move a histogram between shared memory and device
 memory or windows of shared memory (``SMEM_HIST_BINS``).  Ablations take a
 part of a kept kernel out (results wrong, so unchecked) to price it.  With
 ``--baseline DIR``, the kernels of another checkout at ``DIR`` (its
-``csrc`` and its ``SMEM_HIST_BINS``) run first and last, in turns with the
+``csrc``, its ``SMEM_HIST_BINS`` and its ``vplus_relw`` block) run first
+and last, in turns with the
 kept ones; the baseline is held to the tolerances without failing the run.
 
 Cases, at ``chip_smoke.py``'s shapes: ``chain_accept`` on a measured step of
@@ -24,7 +27,10 @@ every sample of the first span in one bin, phase 3d's all-branch spec, and
 that spec with ninc = 5000 (more than SMEM_HIST_BINS bins), and given the
 10-bin histogram's output at phase 6g's launch (the quickstart's problem,
 2^26 samples, 10 components; real and complex weights, with and without
-the gate of measurefreq 4; also at 1 and 3 components);
+the gate of measurefreq 4; also at 1 and 3 components), ``vplus_relw`` on
+that launch (real and complex weights, bit for bit) and the complex
+default observables on phase 6g's quarter disc times e^{i(x+y)} (with and
+without the gate);
 ``chain_propose`` on a step of 2^20 walkers of phase 6b and of phase 3b's
 spec (a staged Discrete CDF); ``vegas_reduce_mixed`` (and
 ``vegas_relw_mixed``) at phase 6h's bubble launch (2^26 samples, 5 slots,
@@ -71,14 +77,14 @@ import mcmc_variants as mv  # noqa: E402  (the variant builder)
 ACCEPT, REDUCE, PROPOSE = "chain_accept.cu", "vplus_reduce.cu", "chain_propose.cu"
 MIXED = "vegas_mixed.cu"
 SOURCES = (ACCEPT, REDUCE, PROPOSE, MIXED)
-KERNELS = ("chain_accept_kernel", "vplus_reduce_kernel", "chain_propose_kernel",
-           "vegas_reduce_mixed_kernel")
+KERNELS = ("chain_accept_kernel", "vplus_reduce_kernel", "vplus_reduce_complex_kernel",
+           "vplus_relw_kernel", "chain_propose_kernel", "vegas_reduce_mixed_kernel")
 # vplus_reduce's histogram adds, and the same with a warp's lanes merged per bin
 REDUCE_ADD = ("        const int bin = cb >= 0 ? off + gidx[k * plane + at] - hlo : -1;\n"
               "        if (bin < 0 || bin >= HW) continue;\n"
               "        atomicAdd(hist_s + bin, sq);\n")
 # a histogram beyond SMEM_HIST_BINS added into device memory (no windows),
-# a warp's lanes merged per bin first
+# a warp's lanes merged per bin first (the complex default's lanes not)
 DEVICE_MERGED = [
     (REDUCE, REDUCE_ADD,
      "        const int bin = cb >= 0 ? off + gidx[k * plane + at] : -1;\n"
@@ -88,10 +94,17 @@ DEVICE_MERGED = [
      "        } else if (merge_by_key(kFull, bin, v) && bin >= 0) {\n"
      "          atomicAdd(hist + bin, v);\n"
      "        }\n"),
-    (REDUCE, "  const int HW = hist_smem ? H : kWindow;", "  const int HW = hist_smem ? H : 0;"),
+    (REDUCE, "of hist; window 0 also writes obs and sig\n  const int HW = hist_smem ? H : kWindow;",
+     "of hist; window 0 also writes obs and sig\n  const int HW = hist_smem ? H : 0;"),
     (REDUCE, "  const int nwin = hist_smem ? 1 : (H + kWindow - 1) / kWindow;\n"
-             "  const size_t smem = (size_t)(hist_smem ? H : kWindow) * sizeof(double);",
-     "  const int nwin = 1;\n  const size_t smem = (size_t)(hist_smem ? H : 0) * sizeof(double);")]
+             "  *smem = (size_t)(hist_smem ? H : kWindow) * sizeof(double);",
+     "  const int nwin = 1;\n  *smem = (size_t)(hist_smem ? H : 0) * sizeof(double);"),
+    # the complex default's adds, as they were, into device memory beyond it
+    (REDUCE, "const long long plane = BT * c;\n  const int HW = hist_smem ? H : kWindow;",
+     "const long long plane = BT * c;\n  const int HW = hist_smem ? H : 0;"),
+    (REDUCE, "          if (bin >= 0 && bin < HW) atomicAdd(hist_s + bin, (double)sq[u]);",
+     "          if (bin >= 0 && !hist_smem) atomicAdd(hist + bin, (double)sq[u]);\n"
+     "          else if (bin >= 0 && bin < HW) atomicAdd(hist_s + bin, (double)sq[u]);")]
 
 
 def variants():
@@ -155,6 +168,36 @@ def variants():
         ("reduce given m, streaming loads of m",
          [(REDUCE, "t[b][r] = q0 + b < ncomp && in[r] ? m[8 * r] : 0.0f;",
            "t[b][r] = q0 + b < ncomp && in[r] ? __ldcs(m + 8 * r) : 0.0f;")], {}),
+        ("reduce complex at 4 blocks an SM",
+         [(REDUCE, "constexpr int kCplxBlocks = 8; ", "constexpr int kCplxBlocks = 4; ")], {}),
+        ("reduce complex at 6 blocks an SM",
+         [(REDUCE, "constexpr int kCplxBlocks = 8; ", "constexpr int kCplxBlocks = 6; ")], {}),
+        ("reduce complex, 2 chunks at once",
+         [(REDUCE, "constexpr int kCplxChunks = 4; ", "constexpr int kCplxChunks = 2; ")], {}),
+        ("reduce complex, 1 chunk at once",
+         [(REDUCE, "constexpr int kCplxChunks = 4; ", "constexpr int kCplxChunks = 1; ")], {}),
+        ("relw at 6 blocks an SM",
+         [(REDUCE, "constexpr int kRelwBlocks = 8; ", "constexpr int kRelwBlocks = 6; ")], {}),
+        ("relw, scalar accesses",
+         [(REDUCE, "const bool full = vec && s0 + kQuad <= c;", "const bool full = false;")], {}),
+        ("relw, layout staged in shared memory",
+         [(REDUCE, "  const long long bt = blockIdx.x / nspan;\n",
+           "  extern __shared__ int lay[];\n"
+           "  for (int q = threadIdx.x; q < kSlotFields * S + N * P + P * M; q += blockDim.x)\n"
+           "    lay[q] = meta[q];\n  __syncthreads();\n"
+           "  slots = lay, pad = slots + kSlotFields * S, pair_slots = pad + N * P;\n"
+           "  const long long bt = blockIdx.x / nspan;\n"),
+          (REDUCE, "<<<(unsigned)(BT * nspan), kRelwThreads, 0,",
+           "<<<(unsigned)(BT * nspan), kRelwThreads, (kSlotFields * S + N * P + P * M) * 4,")],
+         {}),
+        ("reduce complex, the gate in 64-bit remainders",
+         [(REDUCE, "        if (gate_open(t0 + tb, s, shift ? shift[bt] : 0, c, mf)) on |= 1u << u;",
+           "        if (((t0 + bt % T) * (long long)c + ((long long)s + (shift ? shift[bt] : 0)) % c"
+           " + 1) % mf == 0) on |= 1u << u;")], {}),
+        ("reduce complex at 5 blocks an SM",
+         [(REDUCE, "constexpr int kCplxBlocks = 8; ", "constexpr int kCplxBlocks = 5; ")], {}),
+        ("reduce complex at 7 blocks an SM",
+         [(REDUCE, "constexpr int kCplxBlocks = 8; ", "constexpr int kCplxBlocks = 7; ")], {}),
         ("mixed, bins read again from device memory",
          [(MIXED, "constexpr int kStash = 8; ", "constexpr int kStash = 0; ")], {}),
         ("propose 128 threads a block", [(PROPOSE, "constexpr int kThreads = 256;",
@@ -195,6 +238,41 @@ def ablations():
         ("reduce without the integrand loop",
          [(REDUCE, "    for (int i = 0; i < N; ++i) {\n      double so = 0.0, sq = 0.0;",
            "    for (int i = 0; i < 0; ++i) {\n      double so = 0.0, sq = 0.0;")]),
+        ("reduce without the density's gathers",
+         [(REDUCE, "const float rho = slot_rho(f, tab, gidx[k * plane + at]);",
+           "const float rho = slot_rho(f, tab, 0);")]),
+        ("reduce without the padding loop",
+         [(REDUCE, "        for (int g = 0; g < P; ++g) {\n          if (!pad[i * P + g]) continue;",
+           "        for (int g = 0; g < 0; ++g) {\n          if (!pad[i * P + g]) continue;")]),
+        ("reduce complex without the square roots",
+         [(REDUCE, "__fmul_rn(wi.abs(), pad_i[u])", "__fmul_rn(wi.re, pad_i[u])"),
+          (REDUCE, "float r = relw.abs();", "float r = relw.re;")]),
+        ("reduce complex without the observables' sums",
+         [(REDUCE, "      const double part = tree_sums(t);", "      const double part = t[0];")]),
+        ("reduce complex without sig's segmented sum",
+         [(REDUCE, "flush, as vplus_reduce_kernel's\n  const int lane = threadIdx.x & 31;\n"
+                   "  for (int o = 1; o < 32; o <<= 1) {",
+           "flush, as vplus_reduce_kernel's\n  const int lane = threadIdx.x & 31;\n"
+           "  for (int o = 32; o < 32; o <<= 1) {")]),
+        ("reduce complex without the density's gathers",
+         [(REDUCE, "const float rho = slot_rho(f, tab, gidx[k * plane + at0 + u * cstep]);",
+           "const float rho = slot_rho(f, tab, 0);")]),
+        ("reduce complex without the padding loop",
+         [(REDUCE, "      for (int g = 0; g < P; ++g) {\n        if (!pad[i * P + g]) continue;",
+           "      for (int g = 0; g < 0; ++g) {\n        if (!pad[i * P + g]) continue;")]),
+        ("reduce complex without histogram adds",
+         [(REDUCE, "if (bin >= 0 && bin < HW) atomicAdd(hist_s + bin, (double)sq[u]);",
+           "if (bin == -2) atomicAdd(hist_s + bin, (double)sq[u]);")]),
+        ("relw without the density's gathers",
+         [(REDUCE, "const float rho = slot_rho(f, tab, g[v]);", "const float rho = slot_rho(f, tab, 0);")]),
+        ("relw without the padding loop",
+         [(REDUCE, "    for (int g = 0; g < P; ++g) {\n      if (!pad[i * P + g]) continue;",
+           "    for (int g = 0; g < 0; ++g) {\n      if (!pad[i * P + g]) continue;")]),
+        ("relw without the density",
+         [(REDUCE, "  for (int k = 0; k < S; ++k) {\n    const int* f = slots + kSlotFields * k;\n"
+                   "    const bool disc = f[kKind] == kDisc;\n    any_pass |= disc;\n    int g[kQuad];",
+           "  for (int k = 0; k < 0; ++k) {\n    const int* f = slots + kSlotFields * k;\n"
+           "    const bool disc = f[kKind] == kDisc;\n    any_pass |= disc;\n    int g[kQuad];")]),
         ("reduce given m without the component sums",
          [(REDUCE, "  for (int q0 = 0; q0 < ncomp; q0 += kBatch) {",
            "  for (int q0 = 0; q0 < 0; q0 += kBatch) {")]),
@@ -364,23 +442,45 @@ def vplus_cases(mt, vp):
     for q in (1, 3):
         out.append((f"6g real, given m of {q} components", lay, tab, w, gidx, cube, cfac,
                     m[:q].contiguous(), 1, t0, None))
+    # vplus_relw at the same launch, real and complex weights
+    for kind, ww in (("real", w), ("complex", torch.complex(w, w * 0.5).contiguous())):
+        out.append((f"6g {kind}, relw", lay, tab, ww, gidx, cube, cfac, None, 1, t0, None))
+    # the complex default observables on the quarter disc times e^{i(x+y)}
+    # (phase 6g's vplus_reduce_complex), with and without the gate
+    pi_c = mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=cs.SEED, type=complex)
+    it, lay, tab, cube, cfac, x, gidx, w, t0, T = cs.vplus_branch_launch(
+        mt, vp, pi_c, cs._qdisc, cs.VEGAS_NEVAL // 16)
+    del x
+    shift = vp.gate_shifts(it.seeds(block_keys(cs.SEED, 1, 0, it.block)), t0, T, it.chunk)
+    for mf, sh in ((1, None), (4, shift)):
+        out.append((f"6g complex, default, mf {mf}", lay, tab, w, gidx, cube, cfac, None, mf, t0,
+                    sh))
     return out
 
 
 def vplus_run(vp, case, check=True, strict=True):
-    """(ms, max rel err) of vplus_reduce on one case; unchecked: (ms, 0).
-    Raises beyond REL_TOL_VPLUS when ``strict``."""
+    """(ms, max rel err) of vplus_reduce (or, for a name ending in "relw",
+    vplus_relw) on one case; unchecked: (ms, 0).  Raises beyond REL_TOL_VPLUS
+    (relw: unless bit for bit) when ``strict``."""
     import torch
     name, lay, tab, w, gidx, cube, cfac, m, mf, t0, shift = case
-    fn = lambda: vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
-    rel = 0.0
-    if check:
+    relw = name.endswith("relw")
+    if relw:
+        fn = lambda: vp.vplus_relw(lay, tab, w, gidx, cube, cfac)
+    else:
+        fn = lambda: vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
+    rel, tol = 0.0, 0.0 if relw else cs.REL_TOL_VPLUS
+    if check and relw:
+        got, want = fn(), vp.vplus_relw_plain(lay, tab, w, gidx, cube, cfac)
+        rel = 0.0 if torch.equal(cs.bits(got), cs.bits(want)) else np.inf
+        del got, want
+    elif check:
         got = fn()
         want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
         torch.cuda.synchronize()
         rel = max(cs.rel_err(a.cpu(), b.cpu()) for a, b in zip(got, want))
-    if rel > cs.REL_TOL_VPLUS and strict:
-        raise AssertionError(f"vplus_reduce, {name}: rel {rel:.3g} > {cs.REL_TOL_VPLUS}")
+    if rel > tol and strict:
+        raise AssertionError(f"vplus_reduce, {name}: rel {rel:.3g} > {tol}")
     ms = float(np.median([cs.device_ms(fn, 10) for _ in range(3)]))
     return ms, rel
 
@@ -496,15 +596,25 @@ def propose_run(ck, case, check=True):
 def baseline(root):
     """(library, {constant of the wrappers: its value}) of checkout
     ``root``, whose kernels take the same arguments: the chain and vplus
-    SMEM_HIST_BINS and the mixed reduce's SPAN (samples of a chunk a block,
-    which sizes its partials)."""
+    SMEM_HIST_BINS, the mixed reduce's SPAN (samples of a chunk a block,
+    which sizes its partials) and vplus_relw's block (RELW_SPAN and
+    RELW_WARPS, or before vplus_relw had a kernel of its own the reduce's
+    SPAN and WARPS, which its entry checks)."""
     from mcintegration_tpu_torch.ops import _build
     ops = Path(root) / "mcintegration_tpu_torch" / "ops"
     consts = {}
     for key, f, c in (("chain SMEM_HIST_BINS", "chain_kernels.py", "SMEM_HIST_BINS"),
                       ("vplus SMEM_HIST_BINS", "vplus_kernels.py", "SMEM_HIST_BINS"),
-                      ("vegas SPAN", "vegas_kernels.py", "SPAN")):
-        consts[key] = int(re.search(rf"^{c} = (\d+)", (ops / f).read_text(), re.M).group(1))
+                      ("vegas SPAN", "vegas_kernels.py", "SPAN"),
+                      # vplus_relw's block, where a checkout has its own (else the reduce's)
+                      ("vplus RELW_SPAN", "vplus_kernels.py", "RELW_SPAN|SPAN"),
+                      ("vplus RELW_WARPS", "vplus_kernels.py", "RELW_WARPS|WARPS")):
+        text = (ops / f).read_text()
+        for name in c.split("|"):
+            found = re.search(rf"^{name} = (\d+)", text, re.M)
+            if found:
+                consts[key] = int(found.group(1))
+                break
     lib = _build.bind(build_from(Path(root) / "mcintegration_tpu_torch" / "csrc", "baseline"))
     return lib, consts
 
@@ -532,7 +642,8 @@ def main() -> int:
     print("\n".join(ptxas_report(_build.CSRC)), flush=True)
     modules = {"chain": ck, "vplus": vp, "vegas": vk}
     kept_constants = {f"{m} SMEM_HIST_BINS": modules[m].SMEM_HIST_BINS for m in ("chain", "vplus")}
-    kept_constants["vegas SPAN"] = vk.SPAN
+    kept_constants.update({"vegas SPAN": vk.SPAN, "vplus RELW_SPAN": vp.RELW_SPAN,
+                           "vplus RELW_WARPS": vp.RELW_WARPS})
     runs = [("kept", kept, {})]
     if root:
         lib, consts = baseline(root)
