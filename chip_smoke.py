@@ -489,7 +489,9 @@ def timings(mt, vk, shape, card):
         for kind in order:
             if kind == "kernel":
                 ms["sample"].append(device_ms(sample, 10))
-                ms["reduce"].append(device_ms(lambda: vk.vegas_reduce(w, invp, perm, *args), 10))
+                # the main path's call: the rows, summed once an iteration
+                ms["reduce"].append(device_ms(
+                    lambda: vk.vegas_reduce(w, invp, perm, *args, rows=True), 10))
             else:
                 ms["sample_plain"].append(time_ms(sample_plain, 3))
                 ms["reduce_plain"].append(
@@ -498,7 +500,7 @@ def timings(mt, vk, shape, card):
     ms_integrand = time_ms(lambda: it.evaluate(it.leaf_values(x)), 10)
     n = it.block * T * it.chunk
     nslots = len(it.slot_map)
-    obs, hrow = vk.vegas_reduce(w, invp, perm, *args)
+    obs, hrow = vk.vegas_reduce(w, invp, perm, *args, rows=True)
     sample_bytes = sum(t.numel() * t.element_size() for t in (*inputs.values(), x, invp, perm)
                        if isinstance(t, torch.Tensor))
     reduce_bytes = sum(t.numel() * t.element_size() for t in (w, invp, perm, *args, obs, hrow))
@@ -1405,7 +1407,7 @@ def vplus_sample_edges(mt, vp):
         it = VegasPlusIteration(Spec(cfg, "cuda"), _first, block=16, nevalperblock=npb,
                                 nstrat=nstrat)
         params = it.spec.device_params()
-        it.run(params, block_keys(SEED, 0, 0, it.block))
+        it.reallocate(it.run(params, block_keys(SEED, 0, 0, it.block))["sig"])
         lay = it.layout
         tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
         cube, _ = it.cube_tables()
@@ -1458,7 +1460,7 @@ def vplus_reduce_windows(mt, vp):
         it = vplus_allbranch(mt, 2 ** 20, ninc=5000)
         lay, params = it.layout, it.spec.device_params()
         assert lay.nhist > vp.SMEM_HIST_BINS, lay.nhist
-        it.run(params, block_keys(SEED + seed, 0, 0, it.block))
+        it.reallocate(it.run(params, block_keys(SEED + seed, 0, 0, it.block))["sig"])
         tab, kd = lay.tables(params), it.seeds(block_keys(SEED + seed, 1, 0, it.block))
         cube, cfac = it.cube_tables()
         what = f"all-branch spec, {lay.nhist} bins, seed {seed}"
@@ -1488,7 +1490,7 @@ def vplus_vs_plain(mt, vp, card):
     main = VegasPlusIteration(Spec(cfg, "cuda"), _sing3, block=16, nevalperblock=2 ** 26)
     for name, it in (("main path's shape", main), ("all-branch spec", vplus_allbranch(mt, 2 ** 20))):
         lay, params = it.layout, it.spec.device_params()
-        it.run(params, block_keys(SEED, 0, 0, it.block))          # reallocates the counts
+        it.reallocate(it.run(params, block_keys(SEED, 0, 0, it.block))["sig"])
         tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
         cube, cfac = it.cube_tables()
         T = it.chunks_per_launch
@@ -1508,13 +1510,15 @@ def vplus_vs_plain(mt, vp, card):
 
     it = vplus_allbranch(mt, 2 ** 20)
     params = it.spec.device_params()
-    it.run(params, block_keys(SEED, 0, 0, it.block))
+    it.reallocate(it.run(params, block_keys(SEED, 0, 0, it.block))["sig"])
     counts, kd = it.counts.copy(), block_keys(SEED, 2, 0, it.block)
     got = it.run(params, kd)
+    it.reallocate(got["sig"])
     got_counts, got_sig = it.counts.copy(), it.last_sig
     it.counts = counts.copy()
     with plain_versions(vp, "vplus_sample", "vplus_reduce"):
         want = it.run(params, kd)
+    it.reallocate(want["sig"])
     moved = int(np.abs(got_counts - it.counts).sum())
     rels = [rel_err(got["obs_blocks"], want["obs_blocks"]), rel_err(got_sig, it.last_sig),
             max(rel_err(h, r) for h, r in zip(got["hists"], want["hists"]) if r.any())]
@@ -1619,7 +1623,7 @@ def vplus_timings(mt, vp, shape, card):
 
     it, lay = shape, shape.layout
     params = it.spec.device_params()
-    it.run(params, block_keys(SEED, 0, 0, it.block))              # reallocates the counts
+    it.reallocate(it.run(params, block_keys(SEED, 0, 0, it.block))["sig"])
     tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
     cube, cfac = it.cube_tables()
     T = it.chunks_per_launch
@@ -2476,7 +2480,7 @@ def vplus_branch_launch(mt, vp, cfg, f, nevalperblock, measure=None, obs=None):
                             nevalperblock=nevalperblock)
     assert it.backend_reason == "", it.backend_reason
     lay, params = it.layout, it.spec.device_params()
-    it.run(params, block_keys(SEED, 0, 0, it.block))              # reallocates the counts
+    it.reallocate(it.run(params, block_keys(SEED, 0, 0, it.block))["sig"])
     tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
     cube, cfac = it.cube_tables()
     T = it.chunks_per_launch
@@ -2629,7 +2633,8 @@ def measurement_vs_plain(mt, vk, vp, card):
         for typ, g in ((float, f), (complex, lambda x, c, f=f: f(x, c) + 0j)):
             spec = Spec(mt.Configuration(var=var(), dof=dof, seed=SEED, type=typ), "cuda")
             it = cls(spec, g, block=16, nevalperblock=npb)
-            runs.append((it.run(spec.device_params(), kd), getattr(it, "last_sig", None)))
+            st = it.run(spec.device_params(), kd)
+            runs.append((st, st.get("sig")))
         (a, sa), (b, sb) = runs
         if not (np.array_equal(b["obs_blocks"].real, a["obs_blocks"])
                 and np.all(b["obs_blocks"].imag == 0.0)
@@ -3761,6 +3766,239 @@ def measure_two_sectors(mt, mk, card):
           f"32-byte sectors, {sector_bytes / PEAK_BYTES * 1e3!r} ms at 3.35 TB/s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# debug=True, the iteration cache and ranks (phase 8)
+# ---------------------------------------------------------------------------
+
+def _pi_idx(i, x, c):
+    return _pi(x, c)
+
+
+def _pi_inf(x, c):
+    """pi's integrand with inf on every sample of x > 0.5."""
+    import torch
+    return torch.where(x[0] > 0.5, torch.inf, _pi(x, c))
+
+
+def _inf_measure(x, relw, c):
+    """relw[0], inf on every sample of x > 0.5."""
+    import torch
+    return [torch.where(x[0] > 0.5, torch.inf, 1.0) * relw[0]]
+
+
+def _run_numbers(res) -> list:
+    """A run's means and error bars, of every iteration and in all."""
+    out = [np.asarray(x) for m, s, _ in res.iterations for x in (m, s)]
+    return out + [np.asarray(res.mean), np.asarray(res.stdev)]
+
+
+def _run_diff(a, b) -> float:
+    return max(float(np.max(np.abs(x - y))) for x, y in zip(_run_numbers(a), _run_numbers(b)))
+
+
+def _agrees(phase, name, ref, ref2, got, what, card):
+    """``got`` against ``ref`` at the agreement of two runs of ``ref``'s
+    call: at most 4 times their largest difference (float64 atomics on the
+    card make a run's histograms, and so its training, vary in the last
+    bits), and bit for bit where the two runs are."""
+    tol, d = _run_diff(ref, ref2), _run_diff(ref, got)
+    print(f"phase {phase}: {name}: two runs of one seed agree to {tol!r}; {what} differs "
+          f"from the first by {d!r} [{card}]")
+    assert d <= 4 * tol, (name, what, d, tol)
+
+
+def debug_checks(mt, card):
+    """Phase 8a: debug=True on the card leaves each solver's result as two
+    debug=False runs of its seed agree; the probe's TypeError; an integrand
+    with inf at known samples warns (its values zeroed by the guard), a
+    measure with inf there writes the non-finite line."""
+    import contextlib
+    import io
+    import warnings
+
+    def run(f, solver, **kw):
+        return mt.integrate(f, var=mt.Continuous(0.0, 1.0), dof=kw.pop("dof", [[2]]),
+                            neval=2 ** 24, niter=3, block=16, solver=solver, device="cuda",
+                            seed=SEED, verbose=-2, cache=False, **kw)
+
+    for solver in ("vegas", "vegasmc", "mcmc", "vegasplus"):
+        f = _pi_idx if solver == "mcmc" else _pi
+        a, b = run(f, solver), run(f, solver)
+        c = run(f, solver, debug=True)
+        assert abs(float(c.mean[0]) - np.pi / 4) < 5 * float(c.stdev[0])
+        _agrees("8a", solver, a, b, c, "debug=True", card)
+    try:
+        run(lambda x, c: (x[0], x[1]), "vegas", debug=True)
+        raise AssertionError("a wrong-count integrand ran under debug=True")
+    except TypeError as e:
+        assert "wrong number of weights (expected 1)" in str(e), e
+        print(f"phase 8a: wrong count: TypeError: {e}")
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        res = run(_pi_inf, "vegas", debug=True)
+    msgs = [str(w.message) for w in ws if "non-finite weights" in str(w.message)]
+    exact = float(np.sqrt(3) / 8 + np.pi / 12)          # the quarter disc at x <= 0.5
+    assert msgs and abs(float(res.mean[0]) - exact) < 5 * float(res.stdev[0]), (msgs, res.mean)
+    print(f"phase 8a: inf at x > 0.5: the probe warns ({msgs[0]!r}); the guard zeroes "
+          f"them: {float(res.mean[0])!r} +- {float(res.stdev[0])!r} (exact {exact!r})")
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        run(lambda x, c: x[0], "vegas", dof=[[1]], obs=[0.0], measure=_inf_measure,
+            debug=True)
+    lines = [ln for ln in buf.getvalue().splitlines() if "non-finite" in ln]
+    assert len(lines) == 3 and "iteration 0: non-finite observable statistics" in lines[0], \
+        buf.getvalue()
+    print(f"phase 8a: a measure with inf at x > 0.5 writes {lines[0]!r}")
+
+
+def cache_timings(mt, card):
+    """Phase 8b: at the main paths' widths (phases 4-4d, one iteration), a
+    fresh build's, a hit's and cache=False's seconds: the call's set-up (up
+    to its first iteration's seeds), the build within it and the whole call;
+    a hit's result against a fresh build's."""
+    import torch
+    import mcintegration_tpu_torch.main as tmain
+
+    marks = {}
+    build, keys = tmain._build_iteration, tmain.block_keys
+
+    def timed_build(*args, **kw):
+        t = time.perf_counter()
+        it = build(*args, **kw)
+        marks["build"] = time.perf_counter() - t
+        return it
+
+    def first_keys(*args):
+        marks.setdefault("setup", time.perf_counter() - marks["start"])
+        return keys(*args)
+
+    bubble = make_bubble("cuda")
+    cases = {
+        "vegas": lambda **kw: mt.integrate(
+            _pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 30, block=16,
+            solver="vegas", **kw),
+        "vegasmc": lambda **kw: mt.integrate(
+            _pi, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 28, block=16,
+            solver="vegasmc", nwalkers=2 ** 20, **kw),
+        "mcmc": lambda **kw: mt.integrate(bubble, neval=2 ** 28, nwalkers=2 ** 18,
+                                          **bubble_kw(mt), **kw),
+        "vegasplus": lambda **kw: mt.integrate(
+            _sing3, var=mt.Continuous(0.0, np.pi),
+            **{**SING3_KW, "device": "cuda", "seed": SEED, "verbose": -2}, **kw),
+    }
+    tmain._build_iteration, tmain.block_keys = timed_build, first_keys
+    try:
+        for name, call in cases.items():
+            mt.clear_kernel_cache()
+            out, res = {}, {}
+            for label, kw in (("fresh", {}), ("hit", {}), ("cache=False", {"cache": False})):
+                marks.clear()
+                torch.cuda.synchronize()
+                marks["start"] = time.perf_counter()
+                res[label] = call(niter=1, device="cuda", seed=SEED, verbose=-2, **kw) \
+                    if name != "vegasplus" else call(niter=1, **kw)
+                torch.cuda.synchronize()
+                out[label] = (marks["setup"], marks.get("build", 0.0),
+                              time.perf_counter() - marks["start"])
+            assert len(tmain._KERNEL_CACHE) == 1
+            _agrees("8b", name, res["fresh"], res["cache=False"], res["hit"], "a hit", card)
+            print(f"phase 8b: {name}: set-up / build / call seconds: " + "; ".join(
+                f"{k} {v[0]!r} / {v[1]!r} / {v[2]!r}" for k, v in out.items()) + f" [{card}]")
+    finally:
+        tmain._build_iteration, tmain.block_keys = build, keys
+        mt.clear_kernel_cache()
+
+
+RANKS_KW = dict(dof=[[2]], neval=2 ** 30, niter=3, block=16, solver="vegas", device="cuda",
+                seed=SEED, verbose=-2, debug=True)
+
+
+def _ranks_run(mt, **kw):
+    """:vegas on pi at RANKS_KW, with iteration 0's statistics after the
+    reduce (seen by debug's check)."""
+    import mcintegration_tpu_torch.main as tmain
+    seen, check = [], tmain.check_iteration_stats
+    tmain.check_iteration_stats = lambda stats, it: (seen.append(stats), check(stats, it))[1]
+    try:
+        res = mt.integrate(_pi, var=mt.Continuous(0.0, 1.0), **RANKS_KW, **kw)
+    finally:
+        tmain.check_iteration_stats = check
+    return res, np.asarray(seen[0]["obs_blocks"]), np.asarray(seen[0]["norm_blocks"])
+
+
+def rank_worker(rank: int, world: int, port: int, out: str):
+    """One rank of phase 8c, in a process of its own."""
+    import pickle
+    import torch
+    import mcintegration_tpu_torch as mt
+    from mcintegration_tpu_torch.main import _resolve_device
+    mt.init_distributed(f"127.0.0.1:{port}", world, rank)
+    res, obs0, norm0 = _ranks_run(mt)
+    with open(out, "wb") as fh:
+        pickle.dump({"numbers": _run_numbers(res), "obs0": obs0, "norm0": norm0,
+                     "mean": float(res.mean[0]), "stdev": float(res.stdev[0]),
+                     "device": str(_resolve_device("cuda", mt.default_mesh())),
+                     "world": world}, fh)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def ranks_on_card(mt, card):
+    """Phase 8c: two processes on cuda:0, a gloo group for the statistics,
+    each running 8 of :vegas' 16 blocks on pi at 2^30 an iteration; one rank
+    in a process group where the card takes one process."""
+    import os
+    import pickle
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    world = 2 if mode == "Default" else 1
+    print(f"phase 8c: compute mode {mode}: {world} rank(s) on cuda:0")
+    (one, obs_a, norm_a), (_, obs_b, norm_b) = _ranks_run(mt), _ranks_run(mt, cache=False)
+    agree = float(np.max(np.abs(obs_a - obs_b)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as c; c.rank_worker({r}, {world}, "
+                                   f"{port}, {str(Path(tmp) / f'rank{r}.pkl')!r})"],
+            cwd=root, env={**os.environ, "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [f"rank {r} exited with {p.returncode}:\n{log}"
+                  for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode != 0]
+        assert not failed, "\n".join(failed)
+        ranks = []
+        for r in range(world):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as fh:
+                ranks.append(pickle.load(fh))
+    for r, got in enumerate(ranks):
+        assert all(np.array_equal(x, y) for x, y in zip(got["numbers"], ranks[0]["numbers"])), \
+            f"rank {r}'s Result differs from rank 0's"
+        assert got["device"] in ("cuda:0", "cuda"), got["device"]    # "cuda": one rank
+    got = ranks[0]
+    d = float(np.max(np.abs(got["obs0"] - obs_a)))
+    assert got["obs0"].shape == obs_a.shape == (16, 1)
+    assert d <= 4 * agree and np.array_equal(got["norm0"], norm_a), (d, agree)
+    assert abs(got["mean"] - np.pi / 4) < 5 * got["stdev"], got
+    print(f"phase 8c: {world} rank(s) on {got['device']} return the same Result bit for bit: "
+          f"{got['mean']!r} +- {got['stdev']!r} (one rank {float(one.mean[0])!r} +- "
+          f"{float(one.stdev[0])!r}); iteration 0's per-block observables differ from the "
+          f"one-rank run's by {d!r}, two one-rank runs by {agree!r} [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -3846,6 +4084,9 @@ def main() -> int:
     res = timed("7d", profile_main_path, card, "7d", lambda: mt.integrate(
         _sing3, var=mt.Continuous(0.0, np.pi), niter=2, **SING3_KW))
     assert abs(float(res.mean[0]) - SING3_EXACT) < 5 * float(res.stdev[0])
+    timed("8a", debug_checks, mt, card)
+    timed("8b", cache_timings, mt, card)
+    timed("8c", ranks_on_card, mt, card)
 
     replaces = {"vegas_sample": "mcintegration_tpu/ops/pallas_vegas.py:343",
                 "vegas_reduce": "mcintegration_tpu/ops/pallas_vegas.py:343",

@@ -18,15 +18,25 @@ the reallocation of samples to hypercubes and statistics run in float64
 numpy on the host.  With ``device="cpu"`` the kernels' plain PyTorch
 versions run instead.
 
+``integrate(debug=True)`` probes the integrand and the measure before the
+run and flags non-finite statistics; repeated calls over one problem shape
+reuse the built iteration (``clear_kernel_cache`` empties that cache,
+``cache=False`` bypasses it); under a process group (``init_distributed``
+or ``torchrun``) a run spans the ranks of ``default_mesh()`` or
+``make_mesh(n)``, one process and device each, their statistics summed in
+rank order through gloo.
+
 The JAX package ``mcintegration_tpu`` stays the reference; this package
-imports torch and numpy, never jax.  ROADMAP.md lists what is not ported yet.
+imports torch and numpy, never jax.  ROADMAP.md lists what is not ported yet
+(``dtype`` other than float32).
 """
 
 from .checkpoint import load_state, save_state
 from .common import onehot
 from .configuration import Configuration
-from .main import integrate
+from .main import clear_kernel_cache, integrate
 from .models.variable import CompositeVar, Continuous, Discrete, FermiK
+from .parallel import default_mesh, init_distributed, make_mesh
 from .statistics import Result, average, report
 
 __version__ = "0.1.0"
@@ -39,6 +49,10 @@ __all__ = [
     "FermiK",
     "Result",
     "average",
+    "clear_kernel_cache",
+    "default_mesh",
+    "init_distributed",
+    "make_mesh",
     "integrate",
     "report",
     "save_state",

@@ -183,18 +183,23 @@ def check(lib, err: int, name: str):
                            f"({lib.mci_error_string(err).decode()})")
 
 
-def sum_obs(t, dim: int, pairs: bool):
-    """Partial sums ``t [..., ncomp]`` summed over ``dim``.  With ``pairs``
-    (a complex run's default observables, Re and Im of integrand ``i`` in
-    components ``2i`` and ``2i+1``) the real parts and the imaginary parts
-    are each summed as a contiguous ``[..., N]`` tensor, the real run's
-    layout: on the card the order of a reduction follows its layout and its
-    number of outputs, so the real parts of ``f + 0j`` then equal the real
-    run's ``f`` bit for bit."""
-    if not pairs:
+def tree_sum(t, dim: int):
+    """``t`` summed over ``dim`` in a fixed pairwise order: element ``k`` of
+    the first half plus element ``k`` of the second half, halving until one
+    is left (an odd count keeps its last element for the next round).  Each
+    round is an elementwise add, so a sum's bits depend only on the values
+    summed: not on the sizes of the other axes (how many blocks a rank
+    holds), the layout, the number of components or the device.  The real
+    parts of a complex run's ``f + 0j`` then sum as the real run's ``f``."""
+    n = t.shape[dim]
+    if n == 0:
         return t.sum(dim=dim)
-    re, im = (t[..., k::2].contiguous().sum(dim=dim) for k in (0, 1))
-    return torch.stack([re, im], dim=-1).flatten(-2)
+    while n > 1:
+        h = n // 2
+        s = t.narrow(dim, 0, h) + t.narrow(dim, h, h)
+        t = torch.cat([s, t.narrow(dim, 2 * h, 1)], dim=dim) if n % 2 else s
+        n = t.shape[dim]
+    return t.squeeze(dim)
 
 
 def check_tensor(t, name: str, dtype, shape, device):

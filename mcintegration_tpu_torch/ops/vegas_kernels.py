@@ -271,12 +271,17 @@ def vegas_reduce_plain(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0)
     return torch.stack(obs, dim=-1), hrow
 
 
-def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0):
-    """Observable sums and training histogram (see module docstring)."""
+def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0, rows=False):
+    """Observable sums and training histogram (see module docstring).  With
+    ``rows`` the observables are the partial sums ``[B, T, R, ncomp]`` for
+    the caller to reduce (the kernel's R = nb rows of a chunk; the plain
+    version's one row, the chunk's sum), so that an iteration sums all its
+    launches' rows in one pass."""
     if mf < 1 or t0 < 0:
         raise ValueError(f"vegas_reduce: measurefreq {mf} < 1 or first chunk {t0} < 0")
     if w.device.type == "cpu":
-        return vegas_reduce_plain(w, invp, perm, pad, pair_slots, used, m, mf, t0)
+        obs, hrow = vegas_reduce_plain(w, invp, perm, pad, pair_slots, used, m, mf, t0)
+        return (obs.unsqueeze(2) if rows else obs), hrow
     if w.device.type != "cuda":
         raise ValueError(f"vegas_reduce: unsupported device {w.device}")
     dev = w.device
@@ -318,7 +323,7 @@ def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0):
     launch_counts[key] += 1
     # the kernel writes one partial per stratum row; this sum over the rows
     # is the first step of the fixed-order float64 reduction
-    return _build.sum_obs(obs_rows, 2, cplx and m is None), hrow
+    return (obs_rows if rows else _build.tree_sum(obs_rows, 2)), hrow
 
 
 # ---------------------------------------------------------------------------
@@ -590,13 +595,10 @@ def vegas_reduce_mixed_plain(lay: MixedLayout, tab, w, gidx, m=None, mf=1, t0=0)
 
 
 def sum_components(t, dim: int):
-    """``t [ncomp, ...]`` summed over ``dim`` into ``[..., ncomp]``, each
-    component as a contiguous tensor of its own: on the card the order of a
-    reduction follows its layout and its number of outputs, so a
-    component's sum then has the same order whatever the number of
-    components (the real parts of a complex run's ``w + 0j`` sum as the
-    real run's ``w``)."""
-    return torch.stack([t[q].contiguous().sum(dim=dim) for q in range(t.shape[0])], dim=-1)
+    """``t [ncomp, ...]`` summed over ``dim`` into ``[..., ncomp]`` in the
+    fixed order of :func:`_build.tree_sum` (the real parts of a complex
+    run's ``w + 0j`` sum as the real run's ``w``)."""
+    return _build.tree_sum(t, dim).movedim(0, -1)
 
 
 def _mixed_check(name, lay: MixedLayout, tab, w, gidx):

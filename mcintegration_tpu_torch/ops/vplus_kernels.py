@@ -493,7 +493,7 @@ def vplus_reduce(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1, t0=0,
     launch_counts[key] += 1
     # the kernel writes one partial per warp; this sum over the partials is
     # the first step of the fixed-order float64 reduction of the observables
-    return _build.sum_obs(obs_rows, 2, cplx and m is None), sig, hist
+    return _build.tree_sum(obs_rows, 2), sig, hist
 
 
 def _relw_args(lay: VplusLayout, tab, w, gidx, cube, cfac, relw):

@@ -33,6 +33,7 @@ import torch
 from ..common import weight_abs
 from ..configuration import Configuration
 from ..models.variable import CompositeVar, Discrete, FermiK, leaves_of
+from ..ops._build import tree_sum
 
 
 class UserConfig:
@@ -532,14 +533,13 @@ def obs_tree(obs_b: np.ndarray, spec: Spec, obs_proto=None):
 
 def block_sums(acc: torch.Tensor, block: int) -> np.ndarray:
     """Per-walker float64 accumulators ``acc [ncomp, W]`` (walkers
-    block-major) summed per block: ``[block, ncomp]`` on the host.  Each
-    component is reduced alone, so its sums do not depend on how many
-    components there are (on the card, a reduction's order follows the
-    number of its outputs)."""
-    rows = [a.view(block, -1).sum(dim=-1) for a in acc]
-    if not rows:
+    block-major) summed per block: ``[block, ncomp]`` on the host, in the
+    fixed order of :func:`~mcintegration_tpu_torch.ops._build.tree_sum`, so
+    a block's sums do not depend on how many blocks or components there
+    are."""
+    if acc.shape[0] == 0:
         return np.zeros((block, 0))
-    return torch.stack(rows, dim=1).cpu().numpy()
+    return tree_sum(acc.view(acc.shape[0], block, -1), -1).T.cpu().numpy()
 
 
 def refuse_fermik(spec: Spec, solver: str):

@@ -38,6 +38,7 @@ import torch
 from ..models.variable import Continuous, Discrete, FermiK
 from ..ops import mcmc_kernels
 from ..ops.mcmc_kernels import NRETRY, McmcLayout, McmcState
+from ..ops._build import tree_sum
 from ..ops.rng import schedule_np
 from . import vegasmc
 from .engine import Spec, block_sums, obs_components, obs_tree
@@ -72,7 +73,7 @@ class MCMCIteration:
 
     def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
                  measurefreq=1, block=16, nevalperblock=10000, nwalkers=None,
-                 min_steps_per_walker=256, thermal_ratio=0.1):
+                 min_steps_per_walker=256, thermal_ratio=0.1, nranks=1):
         check_supported(spec)
         if int(measurefreq) < 1:
             raise ValueError(f"measurefreq must be >= 1, got {measurefreq}")
@@ -81,8 +82,13 @@ class MCMCIteration:
         self.spec = spec
         self.block = block
         self.measurefreq = int(measurefreq)
-        W, self.nsteps = choose_walkers(nevalperblock * block, block, nwalkers,
+        # ``block`` is this rank's share of the ``nranks`` ranks' blocks: the
+        # walkers are chosen for them all, so a block's chain is the one-rank
+        # run's
+        R = int(nranks)
+        W, self.nsteps = choose_walkers(nevalperblock * block * R, block * R, nwalkers,
                                         min_steps_per_walker, spec.N, spec.nvar)
+        W //= R
         self.nwalkers = W
         self.nburnin = int(np.floor(self.nsteps * thermal_ratio))
         self.ntot = self.nsteps + self.nburnin
@@ -110,6 +116,10 @@ class MCMCIteration:
                 reasons.append(f"measure: {why}")
         self.backend_reason = "; ".join(reasons)
         self.backend = "cuda" if spec.device.type == "cuda" else "torch"
+
+    def reset_state(self):
+        """Nothing carries over from one run to the next: a cached iteration
+        starts as a fresh one (the JAX package's no-op)."""
 
     # ------------------------------------------------------------------
     def seeds(self, kd: np.ndarray) -> torch.Tensor:
@@ -201,7 +211,7 @@ class MCMCIteration:
         tally = st.tally.cpu().numpy().astype(np.float64)
         return {
             "obs_blocks": obs_b,       # [block, N] (complex128), or the observable pytree
-            "norm_blocks": st.nrm.view(B, lay.wb).sum(dim=-1).cpu().numpy(),
+            "norm_blocks": tree_sum(st.nrm.view(B, lay.wb), -1).cpu().numpy(),
             "visited": st.vis.cpu().numpy().astype(np.float64),
             "hists": hists,
             "propose": tally[0],       # [3, nd, max(nd, nvar)]: CI, CV, swap

@@ -57,7 +57,7 @@ import torch
 
 from ..models.variable import Continuous
 from ..ops import vegas_kernels
-from ..ops._build import sum_obs
+from ..ops._build import tree_sum
 from ..ops.vplus_kernels import leaf_values, slot_tables
 from .engine import Spec, obs_components, obs_tree, refuse_fermik
 
@@ -218,6 +218,10 @@ class VegasIteration:
             spec, integrand, inplace, measure, obs_proto)
         self.backend = "cuda" if dev.type == "cuda" else "torch"
 
+    def reset_state(self):
+        """Nothing carries over from one run to the next: a cached iteration
+        starts as a fresh one (the JAX package's no-op)."""
+
     # ------------------------------------------------------------------
     def kernel_inputs(self, params, kd: np.ndarray):
         """The launch-invariant inputs of ``vegas_sample`` for ``params``
@@ -236,7 +240,8 @@ class VegasIteration:
         return leaf_values(self.spec, x)
 
     def launch(self, inputs, t0: int, T: int):
-        """Chunks [t0, t0+T) of every block: obs [B,T,ncomp], hrow [S,B,T,nb]."""
+        """Chunks [t0, t0+T) of every block: the observables' partial sums
+        [B,T,R,ncomp] (``vegas_reduce``'s rows), hrow [S,B,T,nb]."""
         x, invp, perm = vegas_kernels.vegas_sample(t0=t0, T=T, m=self.m_tile,
                                                    **inputs)
         w = self.evaluate(self.leaf_values(x)).contiguous()
@@ -252,7 +257,7 @@ class VegasIteration:
             del relw
         del x
         return vegas_kernels.vegas_reduce(w, invp, perm, self.pad, self.pair_slots,
-                                          self.used, m, self.measurefreq, t0)
+                                          self.used, m, self.measurefreq, t0, rows=True)
 
     def run(self, params, kd: np.ndarray):
         """Execute one iteration; returns host-side numpy statistics."""
@@ -266,8 +271,8 @@ class VegasIteration:
             obs_part, hrow = self.launch(inputs, t0, T)
             obs_parts.append(obs_part)
             hsum += hrow.sum(dim=(1, 2))
-        obs_b = sum_obs(torch.cat(obs_parts, dim=1), 1,                     # [B, ncomp]
-                        spec.cplx and self.measure is None).cpu().numpy()
+        # every row of every launch in one fixed-order pass: [B, ncomp]
+        obs_b = tree_sum(torch.cat(obs_parts, dim=1).flatten(1, 2), 1).cpu().numpy()
         obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
         return {
             "obs_blocks": obs_b,      # [block, N], or the observable pytree
@@ -340,6 +345,10 @@ class VegasMixedIteration:
         self.evaluate, self.measure, self.backend_reason = _evaluators(
             spec, integrand, inplace, measure, obs_proto)
         self.backend = "cuda" if spec.device.type == "cuda" else "torch"
+
+    def reset_state(self):
+        """Nothing carries over from one run to the next: a cached iteration
+        starts as a fresh one (the JAX package's no-op)."""
 
     def seeds(self, kd: np.ndarray) -> torch.Tensor:
         """Per-block seeds ``kd [block, 2]`` uint32 as the int32 bit

@@ -40,6 +40,7 @@ import torch
 from ..models.variable import Discrete
 from ..ops import chain_kernels
 from ..ops.chain_kernels import ChainLayout, ChainState
+from ..ops._build import tree_sum
 from .engine import Spec, block_sums, obs_components, obs_tree, refuse_fermik
 
 
@@ -67,7 +68,7 @@ class VegasMCIteration:
 
     def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
                  inplace=False, measurefreq=1, block=16, nevalperblock=10000,
-                 nwalkers=None, min_steps_per_walker=256, warmup=0.01):
+                 nwalkers=None, min_steps_per_walker=256, warmup=0.01, nranks=1):
         check_supported(spec)
         if not 0.0 <= warmup < 1.0:
             raise ValueError(f"warmup fraction must be in [0,1), got {warmup}")
@@ -76,8 +77,13 @@ class VegasMCIteration:
         self.spec = spec
         self.block = block
         self.measurefreq = int(measurefreq)
-        W, self.nsteps = choose_walkers(nevalperblock * block, block, nwalkers,
+        # ``block`` is this rank's share of the ``nranks`` ranks' blocks: the
+        # walkers are chosen for them all, so a block's chain is the one-rank
+        # run's
+        R = int(nranks)
+        W, self.nsteps = choose_walkers(nevalperblock * block * R, block * R, nwalkers,
                                         min_steps_per_walker)
+        W //= R
         self.nwalkers = W
         self.neval = W * self.nsteps
         # burn-in discard: measure only after `warmup` of each chain
@@ -96,6 +102,10 @@ class VegasMCIteration:
             spec.pick_measure(measure, obs_proto)
         self.backend_reason = "; ".join(r for r in (why, why_m) if r)
         self.backend = "cuda" if spec.device.type == "cuda" else "torch"
+
+    def reset_state(self):
+        """Nothing carries over from one run to the next: a cached iteration
+        starts as a fresh one (the JAX package's no-op)."""
 
     # ------------------------------------------------------------------
     def leaf_values(self, val: torch.Tensor):
@@ -151,7 +161,7 @@ class VegasMCIteration:
 
         nd, nvar, B = spec.N + 1, spec.nvar, self.block
         obs_b = obs_tree(block_sums(st.obs, B), spec, self.obs_proto)
-        norm_b = st.nrm.view(B, lay.wb).sum(dim=-1).cpu().numpy()
+        norm_b = tree_sum(st.nrm.view(B, lay.wb), -1).cpu().numpy()
         visited = st.vis.sum(dim=-1).cpu().numpy()
         pc = st.pc.sum(dim=-1).cpu().numpy().astype(np.float64)
         ac = st.ac.sum(dim=-1).cpu().numpy().astype(np.float64)

@@ -53,7 +53,7 @@ import torch
 
 from ..models.variable import Discrete
 from ..ops import vplus_kernels
-from ..ops._build import sum_obs
+from ..ops._build import tree_sum
 from ..ops.vplus_kernels import VplusLayout
 from .engine import Spec, obs_components, obs_tree, refuse_fermik
 
@@ -140,6 +140,13 @@ class VegasPlusIteration:
         counts[: self.chunk - base * self.ncubes] += 1
         return counts
 
+    def reallocate(self, sig: np.ndarray):
+        """Reallocate the counts from ``sig``, the per-cube second moments of
+        ``run``'s statistics summed over every rank's blocks (``integrate``
+        does this after the reduce, so every rank gets the same counts)."""
+        self.last_sig = sig
+        self._reallocate(sig)
+
     def _reallocate(self, sig: np.ndarray):
         """Neyman reallocation with ^beta damping (Lepage 2021 Eq.(24))."""
         acc = np.asarray(sig[: self.ncubes], dtype=np.float64)
@@ -209,8 +216,8 @@ class VegasPlusIteration:
 
     def run(self, params, kd: np.ndarray):
         """Execute one iteration with per-block seeds ``kd [block, 2]``
-        uint32, then reallocate the counts; returns host-side numpy
-        statistics."""
+        uint32; returns host-side numpy statistics, ``sig`` the per-cube
+        second moments that :meth:`reallocate` takes."""
         spec, lay = self.spec, self.layout
         tab = lay.tables(params)
         kd = self.seeds(kd)
@@ -221,16 +228,13 @@ class VegasPlusIteration:
             obs_part, sig_part, hist_part = self.launch(tab, kd, cube, cfac, t0, T)
             obs_parts.append(obs_part)
             sig, hist = sig + sig_part, hist + hist_part
-        obs_b = sum_obs(torch.cat(obs_parts, dim=1), 1,                     # [B, ncomp]
-                        spec.cplx and self.measure is None).cpu().numpy()
+        obs_b = tree_sum(torch.cat(obs_parts, dim=1), 1).cpu().numpy()     # [B, ncomp]
         obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
         hist = hist.cpu().numpy()
-        self.last_sig = sig.cpu().numpy()
         hists = []
         for li, off in zip(spec.leaves, lay.hist_off):
             hists.append(hist[off:off + li.nhist].copy() if off >= 0
                          else np.zeros(li.nhist, np.float64))
-        self._reallocate(self.last_sig)
         return {
             "obs_blocks": obs_b,      # [block, N], or the observable pytree
             # the samples the gate measures: the indices 1..nevalperblock
@@ -238,4 +242,5 @@ class VegasPlusIteration:
             "norm_blocks": np.full(self.block, float(self.nevalperblock // self.measurefreq)),
             "hists": hists,           # per-leaf histogram sums
             "neval": self.block * self.nevalperblock,
+            "sig": sig.cpu().numpy(),  # [ncubes], this rank's blocks
         }

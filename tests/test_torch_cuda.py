@@ -323,7 +323,7 @@ def test_vplus_kernels_match_plain(cuda, ninc, npb):
     lay, params = it.layout, spec.device_params()
     assert (lay.nhist <= vp.SMEM_HIST_BINS) == (ninc == 1000)
     before = dict(vp.launch_counts)
-    it.run(params, block_keys(3, 0, 0, 4))
+    it.reallocate(it.run(params, block_keys(3, 0, 0, 4))["sig"])
     assert it.counts.max() > it.counts.min()
     tab, kd = lay.tables(params), it.seeds(block_keys(3, 1, 0, 4))
     cube, cfac = it.cube_tables()

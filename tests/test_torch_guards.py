@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
             "mcintegration_tpu_torch.ops.fermik, mcintegration_tpu_torch.solvers.mcmc, "
             "mcintegration_tpu_torch.solvers.vegasmc, mcintegration_tpu_torch.checkpoint, "
             "mcintegration_tpu_torch.ops.vplus_kernels, mcintegration_tpu_torch.solvers.vegasplus, "
-            "mcintegration_tpu_torch.solvers.vegas\n"
+            "mcintegration_tpu_torch.solvers.vegas, mcintegration_tpu_torch.debug, "
+            "mcintegration_tpu_torch.parallel.mesh, mcintegration_tpu_torch.examples.quickstart, "
+            "mcintegration_tpu_torch.examples.bubble\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'mcintegration_tpu.'))]\n"
             "assert not bad, bad\n")
@@ -62,25 +64,48 @@ def _complex_obs(solver):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "item 15"),
-    ({"debug": True}, "item 16"),
     ({"dtype": torch.float64}, "item 22"),
     ({"solver": "vegasmc", "dtype": np.float16}, "item 22"),
     ({"backend": "xla"}, "one route per device"),
     ({"solver": "mcmc", "backend": "pallas"}, "one route per device"),
-    ({"cache": False}, "item 17"),
-    ({"parallel": "nothread"}, "item 15"),
     (_complex_obs("vegas"), "complex observables .* type=complex"),
     (_complex_obs("vegasmc"), "complex observables .* type=complex"),
     (_complex_obs("mcmc"), "complex observables .* type=complex"),
-], ids=["mesh", "debug", "dtype", "dtype-vegasmc",
-        "backend", "backend-mcmc", "cache", "parallel", "complex-obs-vegas",
+], ids=["dtype", "dtype-vegasmc",
+        "backend", "backend-mcmc", "complex-obs-vegas",
         "complex-obs-vegasmc", "complex-obs-mcmc"])
 def test_unported_options_raise(kwargs, item):
     kw = {"var": mt.Continuous(0.0, 1.0), "dof": [[2]], "neval": 2 ** 12,
           "solver": "vegas", "device": "cpu", "verbose": -2, **kwargs}
     with pytest.raises(NotImplementedError, match=item):
         mt.integrate(lambda x, c: x[0][0] * 1.0 if isinstance(x, tuple) else x[0], **kw)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"mesh": object()},
+    {"debug": True},
+    {"cache": False},
+    {"parallel": "nothread"},
+], ids=["mesh", "debug", "cache", "parallel"])
+def test_served_keywords(kwargs):
+    """The keywords of ROADMAP.md items 15-17, which raised before:
+    ``debug=True`` and ``parallel="nothread"`` (one rank without a process
+    group) run, ``cache=False`` runs and adds no cache entry, and a mesh that
+    is not the port's raises naming ``make_mesh``."""
+    from mcintegration_tpu_torch.main import _KERNEL_CACHE
+    mt.clear_kernel_cache()
+    kw = {"var": mt.Continuous(0.0, 1.0), "dof": [[2]], "neval": 2 ** 12, "niter": 2,
+          "solver": "vegas", "device": "cpu", "verbose": -2, "seed": 3, **kwargs}
+    if "mesh" in kwargs:
+        with pytest.raises(TypeError, match="make_mesh"):
+            mt.integrate(_pi, **kw)
+        return
+    res = mt.integrate(_pi, **kw)
+    assert len(_KERNEL_CACHE) == (0 if kwargs.get("cache") is False else 1)
+    assert abs(res.mean[0] - np.pi / 4) < 7 * res.stdev[0]
+    one = mt.integrate(_pi, **{**kw, "var": mt.Continuous(0.0, 1.0), "debug": False,
+                               "cache": False, "parallel": "none"})
+    assert np.array_equal(res.mean, one.mean) and np.array_equal(res.stdev, one.stdev)
 
 
 def _cx(x, c):

@@ -164,6 +164,8 @@ def test_identity_measure_matches_default(cplx):
     b = VegasPlusIteration(spec, f, measure=lambda x, relw, c: [relw[0], relw[1]],
                            obs_proto=obs, **KW)
     ra, rb = a.run(spec.device_params(), _kd(4)), b.run(spec.device_params(), _kd(4))
+    a.reallocate(ra["sig"])
+    b.reallocate(rb["sig"])
     ob = np.stack([np.asarray(o) for o in rb["obs_blocks"]], axis=1)
     assert ob.shape == ra["obs_blocks"].shape and np.iscomplexobj(ob) == cplx
     np.testing.assert_allclose(ob, ra["obs_blocks"], rtol=1e-12, atol=0)

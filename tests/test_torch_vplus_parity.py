@@ -199,7 +199,8 @@ def test_run_matches_jax_xla_route(case):
         assert tspec.leaves[0].leaf.ninc % tit.nstrat != 0
     jparams = dict(jspec.device_params())
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), tspec)
-    tit.run(tparams, np.random.default_rng(9).integers(0, 2 ** 32, (8, 2), dtype=np.uint32))
+    tit.reallocate(tit.run(tparams, np.random.default_rng(9).integers(0, 2 ** 32, (8, 2),
+                                                                     dtype=np.uint32))["sig"])
     counts = tit.counts.copy()                   # one reallocation from uniform
     assert counts.max() > 2 * counts.min()
     jparams["counts"] = jnp.asarray(counts, jnp.int32)
@@ -209,6 +210,7 @@ def test_run_matches_jax_xla_route(case):
     tit.counts = counts.copy()
     vp.reset_launch_counts()
     st = tit.run(tparams, np.random.default_rng(3).integers(0, 2 ** 32, (8, 2), dtype=np.uint32))
+    tit.reallocate(st["sig"])
     assert vp.launch_counts == {"vplus_sample": 0, "vplus_reduce": 0, "vplus_reduce_measure": 0,
                                 "vplus_reduce_complex": 0, "vplus_relw": 0}
     assert np.array_equal(st["norm_blocks"], np.asarray(norm_j, np.float64))
@@ -264,6 +266,7 @@ def test_run_matches_k4_interpret():
     tit.counts = lanes * plan["spp"]
     st_t = tit.run(tspec.device_params(),
                    np.random.default_rng(1).integers(0, 2 ** 32, (4, 2), dtype=np.uint32))
+    tit.reallocate(st_t["sig"])
 
     mt_, se_t = _block_stats(st_t["obs_blocks"], st_t["norm_blocks"])
     mj_, se_j = _block_stats(st_j["obs_blocks"], st_j["norm_blocks"])
@@ -295,6 +298,8 @@ def test_launch_splitting_matches_one_launch(monkeypatch):
     split = VegasPlusIteration(spec, f(torch), **kw)
     assert (one.launches_per_run, split.launches_per_run) == (1, 3)
     a, b = one.run(spec.device_params(), kd), split.run(spec.device_params(), kd)
+    one.reallocate(a["sig"])
+    split.reallocate(b["sig"])
     np.testing.assert_allclose(a["obs_blocks"], b["obs_blocks"], rtol=1e-12)
     np.testing.assert_allclose(one.last_sig, split.last_sig, rtol=1e-12)
     for ha, hb in zip(a["hists"], b["hists"]):

@@ -129,6 +129,7 @@ def test_counts_adapt_and_keep_their_sum_and_floor():
     it = VegasPlusIteration(spec, _peak, block=8, nevalperblock=40000)
     c0 = it.counts.copy()
     st = it.run(spec.device_params(), block_keys(2, 0, 0, 8))
+    it.reallocate(st["sig"])
     assert it.counts.sum() == c0.sum() == it.chunk
     assert not np.array_equal(it.counts, c0), "counts should adapt"
     assert it.counts.min() >= 2

@@ -415,7 +415,7 @@ def vplus_cases(mt, vp):
     for name, it in (("6d", main), ("3d all-branch", cs.vplus_allbranch(mt, 2 ** 20)),
                      ("3d all-branch, ninc 5000", cs.vplus_allbranch(mt, 2 ** 20, ninc=5000))):
         params = it.spec.device_params()
-        it.run(params, block_keys(cs.SEED, 0, 0, it.block))       # reallocates the counts
+        it.reallocate(it.run(params, block_keys(cs.SEED, 0, 0, it.block))["sig"])
         lay = it.layout
         tab, kd = lay.tables(params), it.seeds(block_keys(cs.SEED, 1, 0, it.block))
         cube, cfac = it.cube_tables()

@@ -284,7 +284,7 @@ def sample_cases(mt, vp):
     out = []
     for name, it in (("6d", main), ("3d all-branch", cs.vplus_allbranch(mt, 2 ** 20))):
         params = it.spec.device_params()
-        it.run(params, block_keys(cs.SEED, 0, 0, it.block))       # reallocates the counts
+        it.reallocate(it.run(params, block_keys(cs.SEED, 0, 0, it.block))["sig"])
         lay, T = it.layout, it.chunks_per_launch
         tab, kd = lay.tables(params), it.seeds(block_keys(cs.SEED, 1, 0, it.block))
         cube, _ = it.cube_tables()
