@@ -112,6 +112,10 @@ SEED = 20260817
 REL_TOL_REDUCE = 1e-9   # same float32 products, float64 sums in another order
 REL_TOL_HIST = 1e-9     # chain histograms: float64 atomics in another order
 REL_TOL_VPLUS = 1e-12   # vplus_reduce: the same float32 terms, float64 sums in another order
+# the float64 instantiations' histograms and second moments: the same
+# float64 terms summed in another order, where each add rounds (float32
+# terms have 29 spare bits): up to about 2^16 terms a bin at rel 2^-53
+REL_TOL_F64_HIST = 1e-10
 
 
 def _pi(x, c):
@@ -138,11 +142,12 @@ def card_line() -> str:
 
 def bits(t):
     """The int32 bits of a float32 tensor, and of both parts of a complex64
-    one; other tensors as they are."""
+    one; the int64 bits of a float64 one; other tensors as they are."""
     import torch
     if t.dtype == torch.complex64:
         t = torch.view_as_real(t)
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    views = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return t.view(views[t.dtype]) if t.dtype in views else t
 
 
 def rel_err(a, b) -> float:
@@ -195,11 +200,12 @@ REDUCE_EDGES = ((3, 1, 10, 2, 3, 37), (100, 3, 64, 2, 3, 37), (1024, 300, 10, 2,
                 (5, 2048, 3, 1, 2, 5))
 
 
-def reduce_inputs(m, N, ncomp, B=2, T=3, nb=37, seed=0, device="cuda", cplx=False):
+def reduce_inputs(m, N, ncomp, B=2, T=3, nb=37, seed=0, device="cuda", cplx=False, real=None):
     """Random inputs of vegas_reduce (three slots, four (group, slot) pairs
     of up to two slots, random pads and uses, one histogram weight above the
     clip; complex64 weights with ``cplx``) and a measure's output of
-    ``ncomp`` components, on ``device``."""
+    ``ncomp`` components, on ``device``; invp, real weights and a real
+    run's measure output of ``real`` (float32 unless given)."""
     import torch
     rng = np.random.default_rng(seed)
     S, P, M = 3, 4, 2
@@ -218,10 +224,15 @@ def reduce_inputs(m, N, ncomp, B=2, T=3, nb=37, seed=0, device="cuda", cplx=Fals
     used = rng.integers(0, 2, size=(S, N))
     used[0] = 0
     mobs = rng.normal(size=(ncomp, B, T, nb, m)).astype(np.float32)
+    real = real or torch.float32
+    if real == torch.float64:          # float64 values that float32 cannot hold
+        w, invp, mobs = (a * (1.0 + rng.uniform(-1e-9, 1e-9, a.shape)) for a in (w, invp, mobs))
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    re = lambda a: torch.as_tensor(a, dtype=real, device=device)
     i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
-    wt = torch.as_tensor(w.astype(np.complex64), device=device) if cplx else f32(w)
-    return (wt, f32(invp), i32(perm), i32(pad), i32(pair_slots), i32(used)), f32(mobs)
+    wt = torch.as_tensor(w.astype(np.complex64), device=device) if cplx else re(w)
+    return (wt, re(invp), i32(perm), i32(pad), i32(pair_slots), i32(used)), \
+        (f32 if cplx else re)(mobs)
 
 
 def relw_components(relw):
@@ -276,9 +287,10 @@ def _edge_f(x, c):
     return (x[0][0], x[1][0] * x[1][1])
 
 
-def vegas_sample_edge(mt, vk, edge, device="cuda"):
+def vegas_sample_edge(mt, vk, edge, device="cuda", real=None):
     """vegas_sample at one of VEGAS_EDGES (2 blocks), bit for bit against its
-    plain version, and two calls bit-equal; raises on any difference."""
+    plain version, and two calls bit-equal, on maps of ``real`` (float32
+    unless given); raises on any difference.  Returns the slots and perm."""
     import torch
     from mcintegration_tpu_torch.ops.rng import block_keys
     from mcintegration_tpu_torch.solvers.engine import Spec
@@ -289,7 +301,7 @@ def vegas_sample_edge(mt, vk, edge, device="cuda"):
     for k, leaf in enumerate(var):
         leaf.histogram = np.random.default_rng(nb + k).gamma(0.5, 1.0, nb) + 1e-3
         leaf.train()
-    spec = Spec(mt.Configuration(var=var, dof=dof, seed=SEED), device)
+    spec = Spec(mt.Configuration(var=var, dof=dof, seed=SEED), device, real or torch.float32)
     it = VegasIteration(spec, _edge_f if len(dof) == 2 else _first, block=2,
                         nevalperblock=nb * 4)
     inputs = it.kernel_inputs(spec.device_params(), block_keys(SEED, 2, 0, it.block))
@@ -300,13 +312,13 @@ def vegas_sample_edge(mt, vk, edge, device="cuda"):
     for what, a, b, c in zip(("x", "invp", "perm"), got, want, again):
         if not (torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))):
             raise AssertionError(f"vegas_sample {what} differs from the plain version ({name})")
-    return len(it.slot_map)
+    return len(it.slot_map), got[2]
 
 
 def vegas_sample_edges(mt, vk):
     """Phase 3: vegas_sample at VEGAS_EDGES."""
     for edge in VEGAS_EDGES:
-        S = vegas_sample_edge(mt, vk, edge)
+        S, _ = vegas_sample_edge(mt, vk, edge)
         print(f"phase 3: vegas_sample, {edge[0]}, {S} slots: x, invp and perm bit-equal, "
               f"repeat bit-identical")
 
@@ -2450,16 +2462,18 @@ def _check_bits(what, got, want):
     return float((got - want).abs().max())
 
 
-def vegas_branch_launch(mt, cfg, f, measure=None, obs=None):
+def vegas_branch_launch(mt, cfg, f, measure=None, obs=None, real=None):
     """(it, x, invp, perm, w, T): the second launch (t0 = T) of a :vegas
-    iteration at phase 4's shape (2^26 evals a block, 16 blocks)."""
+    iteration at phase 4's shape (2^26 evals a block, 16 blocks), at the
+    dtype ``real`` (float32 unless given)."""
+    import torch
     from mcintegration_tpu_torch.ops import vegas_kernels as vk
     from mcintegration_tpu_torch.ops.rng import block_keys
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.vegas import VegasIteration
 
-    it = VegasIteration(Spec(cfg, "cuda"), f, measure=measure, obs_proto=obs, block=16,
-                        nevalperblock=VEGAS_NEVAL // 16)
+    it = VegasIteration(Spec(cfg, "cuda", real or torch.float32), f, measure=measure,
+                        obs_proto=obs, block=16, nevalperblock=VEGAS_NEVAL // 16)
     assert it.backend_reason == "", it.backend_reason
     T = it.chunks_per_launch
     assert it.nchunks >= 2 * T, (it.nchunks, T)
@@ -2469,15 +2483,17 @@ def vegas_branch_launch(mt, cfg, f, measure=None, obs=None):
     return it, x, invp, perm, w, T
 
 
-def vplus_branch_launch(mt, vp, cfg, f, nevalperblock, measure=None, obs=None):
+def vplus_branch_launch(mt, vp, cfg, f, nevalperblock, measure=None, obs=None, real=None):
     """(it, lay, tab, cube, cfac, x, gidx, w, t0, T): a launch of a
-    :vegasplus iteration after one reallocation, at chunks [T, 2T)."""
+    :vegasplus iteration after one reallocation, at chunks [T, 2T), at the
+    dtype ``real`` (float32 unless given)."""
+    import torch
     from mcintegration_tpu_torch.ops.rng import block_keys
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
 
-    it = VegasPlusIteration(Spec(cfg, "cuda"), f, measure=measure, obs_proto=obs, block=16,
-                            nevalperblock=nevalperblock)
+    it = VegasPlusIteration(Spec(cfg, "cuda", real or torch.float32), f, measure=measure,
+                            obs_proto=obs, block=16, nevalperblock=nevalperblock)
     assert it.backend_reason == "", it.backend_reason
     lay, params = it.layout, it.spec.device_params()
     it.reallocate(it.run(params, block_keys(SEED, 0, 0, it.block))["sig"])
@@ -2975,11 +2991,12 @@ def misaligned(t):
 
 
 def mixed_launch(mt, var, dof, f, npb, block, T, seed=SEED, cplx=False, measure=None,
-                 obs=None):
+                 obs=None, real=None):
     """(it, lay, tab, kd, t0, T, x, gidx, w) of a launch of the mixed route
     at chunks [T, 2T) (or [0, T) with fewer chunks; ``T`` None: the
-    iteration's own launch), on maps trained at random; with ``cplx`` the
-    integrand times a phase, complex64."""
+    iteration's own launch), on maps trained at random, at the dtype
+    ``real`` (float32 unless given); with ``cplx`` the integrand times a
+    phase, complex64."""
     import torch
     from mcintegration_tpu_torch.ops import vegas_kernels as vk
     from mcintegration_tpu_torch.ops.rng import block_keys
@@ -2992,7 +3009,7 @@ def mixed_launch(mt, var, dof, f, npb, block, T, seed=SEED, cplx=False, measure=
         if leaf.adapt:
             leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
             leaf.train()
-    spec = Spec(cfg, "cuda")
+    spec = Spec(cfg, "cuda", real or torch.float32)
     it = VegasMixedIteration(spec, f or make_vegas_bubble("cuda"), measure=measure,
                              obs_proto=obs, block=block, nevalperblock=npb)
     lay = it.layout
@@ -3002,7 +3019,7 @@ def mixed_launch(mt, var, dof, f, npb, block, T, seed=SEED, cplx=False, measure=
     x, gidx = vk.vegas_sample_mixed(lay, tab, kd, t0, T)
     w = it.evaluate(lay.leaf_values(x)).contiguous()
     if cplx:
-        w = (w * torch.exp(1j * x[0].view(torch.int32).float() * 1e-3)).to(torch.complex64)
+        w = (w * torch.exp(1j * bits(x[0]).float() * 1e-3)).to(torch.complex64)
     return it, lay, tab, kd, t0, T, x, gidx, w.contiguous()
 
 
@@ -3227,6 +3244,8 @@ def mixed_main_path(mt, vk, card, rate4):
               f"{shape.launches_per_run} launches an iteration, slots of kinds "
               f"{shape.layout.slots[:, 0].tolist()}): {mean.tolist()} +- {std.tolist()}, sigma "
               f"{', '.join(zs)}; launches {dict((q, got[q]) for q in new)}")
+        if name == "bubble":
+            RATES["4h"] = steady
         print(f"phase 4h: {name}: steady-state {steady!r} evals/s, {rate4!r} for the uniform "
               f"route's pi (phase 4), ratio {steady / rate4!r} (per-iteration s "
               f"{res.iteration_times}) [{card}]")
@@ -3276,15 +3295,18 @@ def ptxas_lines(key):
     """ptxas -v's register and spill lines of each kernel whose mangled name
     holds ``key``, from the verbose build of phase 2, each under the
     kernel's name and template arguments (``vplus_reduce_kernel<0,1,0>``:
-    real, given m, ungated)."""
+    real, given m, ungated); the float32 instantiations only (the float64
+    ones: ``ptxas_f64_lines``)."""
     import re
     from mcintegration_tpu_torch.ops import _build
     out, name = [], None
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-        elif name and key in name and ("registers" in line or "spill" in line):
-            args = re.findall(r"L[ib](\d+)E", name)
+        elif name and key in name and key + "Id" not in name and (
+                "registers" in line or "spill" in line):
+            m = re.search(re.escape(key) + r"If?((?:L[ib]\d+E)*)", name)
+            args = re.findall(r"L[ib](\d+)E", m.group(1)) if m else []
             label = key + (f"<{','.join(args)}>" if args else "")
             out.append(f"{label}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -3767,6 +3789,579 @@ def measure_two_sectors(mt, mk, card):
 
 
 # ---------------------------------------------------------------------------
+# float64: integrate(dtype=torch.float64) on :vegas and :vegasplus (3i, 4i, 6i)
+# ---------------------------------------------------------------------------
+
+E100_EXACT = (np.exp(100.0) - 1.0) / 100.0     # int_0^1 e^{100x} dx = 2.688e41 > float32's 3.4e38
+# float64 outside the tensor cores, operations/s: the data sheet's 34 TFLOP/s
+# for the H100 SXM (NVIDIA H100 Tensor Core GPU data sheet), a fused
+# multiply-add counted as two, as PEAK_OPS counts float32's
+PEAK_F64_OPS = 34e12
+# the float64 instantiations and the TPU kernel each one's float32 twin replaces
+F64_KERNELS = {"vegas_sample": "vegas_sample", "vegas_reduce": "vegas_reduce",
+               "vegas_relw": "vegas_reduce", "vegas_reduce_measure": "vegas_reduce",
+               "vegas_reduce_complex": "vegas_reduce", "vegas_relw_complex": "vegas_reduce",
+               "vegas_sample_mixed": "vegas_mixed", "vegas_relw_mixed": "vegas_mixed",
+               "vegas_reduce_mixed": "vegas_mixed", "vplus_sample": "vplus_sample",
+               "vplus_reduce": "vplus_reduce", "vplus_reduce_measure": "vplus_reduce",
+               "vplus_reduce_complex": "vplus_reduce", "vplus_relw": "vplus_reduce"}
+RATES = {}      # phase -> float32 rate (evals/s) of its main run, for 4i to print beside
+
+
+def _e100(x, c):
+    import torch
+    return torch.exp(100.0 * x[0])
+
+
+def f64_vs_plain(mt, vk, vp, card):
+    """Phase 3i: every float64 instantiation against its plain version on
+    the card, and the float64 draw against the float32 one from the same
+    seeds.  x, invp, perm, gidx and relw bit for bit (the same _rn float64
+    products in the same order); the observable sums within REL_TOL_REDUCE
+    and the :vegasplus and mixed-route histograms and second moments within
+    REL_TOL_F64_HIST (float64 adds in another order: the kernels' warp trees
+    and atomics, the plain versions' torch sums).  At one launch of phase
+    4's shape (pi, and the 10-bin histogram of phase 4e, real and complex),
+    at REDUCE_EDGES (real and complex, both modes, mf 1 and 3) and
+    VEGAS_EDGES, at one launch of phase 4d's shape (singular_3d e^{ix}:
+    relw, reduce complex, given m and real, with and without the gate), on
+    MIXED_SPECS (the bubble at 4h's launch, the 60,000-sample chunk, the
+    misaligned w and m), each with and without the gate of measurefreq MF,
+    real and complex.  perm, and gidx where a bin is a function of the
+    random bits alone (stratified and per-sample Continuous slots), equal
+    the float32 launch's.  Returns the max abs error of each instantiation,
+    keyed by its float32 twin's name with "_f64"."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+    from mcintegration_tpu_torch.ops.vplus_kernels import VplusLayout
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+
+    F64 = torch.float64
+    errs = {f"{k}_f64": 0.0 for k in F64_KERNELS}
+
+    def keep(name, err):
+        errs[name + "_f64"] = max(errs[name + "_f64"], err)
+
+    # :vegas, pi at phase 4's launch shape, its second launch, at both dtypes
+    cfg = trained_config(mt)
+    its = [VegasIteration(Spec(cfg, "cuda", real), _pi, block=16,
+                          nevalperblock=VEGAS_NEVAL // 16) for real in (F64, torch.float32)]
+    it, T = its[0], its[0].chunks_per_launch
+    kd = block_keys(SEED, 1, 0, it.block)
+    inputs = [i.kernel_inputs(i.spec.device_params(), kd) for i in its]
+    got = vk.vegas_sample(t0=T, T=T, m=it.m_tile, **inputs[0])
+    want = vk.vegas_sample_plain(t0=T, T=T, m=it.m_tile, **inputs[0])
+    for what, a, b in zip(("x", "invp", "perm"), got, want):
+        keep("vegas_sample", _check_bits(f"vegas_sample_f64 {what}", a, b))
+    x, invp, perm = got
+    del want
+    x32, _, perm32 = vk.vegas_sample(t0=T, T=T, m=it.m_tile, **inputs[1])
+    # x differs from the float32 draw by the map arithmetic's float32 rounding
+    dx = float((x - x32.double()).abs().max())
+    if not (torch.equal(perm, perm32) and dx < 2.0 ** -20):
+        raise AssertionError(f"vegas_sample_f64: perm differs from the float32 launch's, or x "
+                             f"by {dx} > 2^-20")
+    del x32, perm32
+    w = it.evaluate(it.leaf_values(x)).contiguous()
+    masks = (it.pad, it.pair_slots, it.used)
+    relw = vk.vegas_relw(w, invp, it.pad, it.pair_slots)
+    keep("vegas_relw", _check_bits("vegas_relw_f64", relw,
+                                   vk.vegas_relw_plain(w, invp, it.pad, it.pair_slots)))
+    rels = [0.0]
+    for mf in (1, MF):
+        e, rel = _check_rel(f"vegas_reduce_f64, mf {mf}",
+                            vk.vegas_reduce(w, invp, perm, *masks, None, mf, T),
+                            vk.vegas_reduce_plain(w, invp, perm, *masks, None, mf, T),
+                            REL_TOL_REDUCE)
+        keep("vegas_reduce", e)
+        rels.append(rel)
+        default = vk.vegas_reduce(w, invp, perm, *masks, None, mf, T)
+        ident = vk.vegas_reduce(w, invp, perm, *masks, relw, mf, T)
+        if not all(torch_equal_bits(a, b) for a, b in zip(default, ident)):
+            raise AssertionError(f"vegas_reduce_f64 given m = relw, mf {mf}: the sums differ "
+                                 "from the default ones")
+    print(f"phase 3i: :vegas pi launch of {it.block} blocks x {T} chunks x {it.chunk} samples at "
+          f"t0={T}, float64: vegas_sample_f64 (x, invp, perm) and vegas_relw_f64 bit-equal; perm "
+          f"equal to the float32 launch's, x within {dx:.3g} of it; vegas_reduce_f64 (mf 1 and "
+          f"{MF}) rel <= {max(rels):.3g}; given m = relw, the default sums bit for bit")
+    del x, invp, perm, w, relw, default, ident
+
+    # the histogram measure at phase 4e's launch, real and complex (e^{i(x+y)})
+    cobs = [np.zeros(NBIN, np.complex64)]
+    for cplx in (False, True):
+        cfg = mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)),
+                               dof=[[1, 1]], obs=cobs if cplx else [np.zeros(NBIN)],
+                               type=complex if cplx else float, seed=SEED)
+        it, x, invp, perm, w, T = vegas_branch_launch(
+            mt, cfg, _qs_cexp if cplx else _qs_f, hist_measure(NBIN), cfg.observable, real=F64)
+        masks = (it.pad, it.pair_slots, it.used)
+        kind = "_complex" if cplx else ""
+        relw = vk.vegas_relw(w, invp, it.pad, it.pair_slots)
+        keep("vegas_relw" + kind, _check_bits(f"vegas_relw{kind}_f64", relw, vk.vegas_relw_plain(
+            w, invp, it.pad, it.pair_slots)))
+        m = it.measure(it.leaf_values(x), relw).contiguous()
+        rels = []
+        for mf in (1, MF):
+            for given in (None, m) if cplx else (m,):
+                what = (f"vegas_reduce{kind}_f64, {'m' if given is not None else 'default'}, "
+                        f"mf {mf}")
+                e, rel = _check_rel(what, vk.vegas_reduce(w, invp, perm, *masks, given, mf, T),
+                                    vk.vegas_reduce_plain(w, invp, perm, *masks, given, mf, T),
+                                    REL_TOL_REDUCE)
+                keep("vegas_reduce" + (kind or "_measure"), e)
+                rels.append(rel)
+        print(f"phase 3i: :vegas {NBIN}-bin histogram launch at t0={T}, float64, "
+              f"{'complex' if cplx else 'real'} weights ({m.dtype} m): vegas_relw{kind}_f64 "
+              f"bit-equal; vegas_reduce{kind or '_measure'}_f64 (mf 1 and {MF}) rel <= "
+              f"{max(rels):.3g}")
+        del x, invp, perm, w, relw, m
+
+    # REDUCE_EDGES, real and complex weights, both modes, ungated and gated
+    for mm, N, ncomp, B, T, nb in REDUCE_EDGES:
+        rel = 0.0
+        for cplx in (False, True):
+            args, mobs = reduce_inputs(mm, N, ncomp, B, T, nb, cplx=cplx, real=F64)
+            w, invp, _, pad, pair_slots, _ = args
+            kind = "_complex" if cplx else ""
+            keep("vegas_relw" + kind, _check_bits(
+                f"vegas_relw{kind}_f64 at m={mm}, N={N}", vk.vegas_relw(w, invp, pad, pair_slots),
+                vk.vegas_relw_plain(w, invp, pad, pair_slots)))
+            for given in (None, mobs):
+                for mf, t0 in ((1, 0), (3, 2)):
+                    e, r = _check_rel(f"vegas_reduce{kind}_f64 at m={mm}, N={N}",
+                                      vk.vegas_reduce(*args, given, mf, t0),
+                                      vk.vegas_reduce_plain(*args, given, mf, t0), REL_TOL_REDUCE)
+                    keep("vegas_reduce" + (kind or ("" if given is None else "_measure")), e)
+                    rel = max(rel, r)
+        print(f"phase 3i: vegas_reduce_f64 at m={mm}, N={N}, {ncomp} components, real and "
+              f"complex weights, both modes, mf 1 and 3: rel {rel:.3g}; vegas_relw_f64 bit-equal")
+
+    # VEGAS_EDGES: bit for bit, and perm equal to the float32 launch's
+    for edge in VEGAS_EDGES:
+        S, perm = vegas_sample_edge(mt, vk, edge, real=F64)
+        _, perm32 = vegas_sample_edge(mt, vk, edge)
+        if not torch.equal(perm, perm32):
+            raise AssertionError(f"vegas_sample_f64 ({edge[0]}): perm differs from float32's")
+        print(f"phase 3i: vegas_sample_f64, {edge[0]}, {S} slots: x, invp and perm bit-equal, "
+              f"repeat bit-identical, perm equal to the float32 launch's")
+
+    # :vegasplus at phase 4d's launch shape: singular_3d e^{ix} and its histogram
+    sing = mt.Configuration(var=mt.Continuous(0.0, np.pi), dof=[[3]], seed=SEED, type=complex,
+                            obs=[np.zeros(NBIN, np.complex64)])
+    leaf = sing.var[0]
+    leaf.histogram = np.random.default_rng(1).gamma(0.5, 1.0, leaf.ninc) + 1e-3
+    leaf.train()
+    it, lay, tab, cube, cfac, x, gidx, w, t0, T = vplus_branch_launch(
+        mt, vp, sing, _sing3_phase, 2 ** 26, _sing3_hist, sing.observable, real=F64)
+    kd = it.seeds(block_keys(SEED, 1, 0, it.block))
+    want = vp.vplus_sample_plain(lay, tab, kd, t0, T, cube)
+    keep("vplus_sample", _check_bits("vplus_sample_f64 x", x, want[0]))
+    _check_bits("vplus_sample_f64 gidx", gidx, want[1])
+    del want
+    spec32 = Spec(sing, "cuda")
+    lay32 = VplusLayout.build(spec32, it.nstrat)
+    x32, gidx32 = vp.vplus_sample(lay32, lay32.tables(spec32.device_params()), kd, t0, T, cube)
+    dx = float((x - x32.double()).abs().max())
+    if not (torch.equal(gidx, gidx32) and dx < 2.0 ** -20):
+        raise AssertionError(f"vplus_sample_f64: gidx differs from the float32 launch's, or x by "
+                             f"{dx} > 2^-20")
+    del x32, gidx32
+    args = (lay, tab, w, gidx, cube, cfac)
+    relw = vp.vplus_relw(*args)
+    keep("vplus_relw", _check_bits("vplus_relw_f64, complex", relw, vp.vplus_relw_plain(*args)))
+    rargs = (lay, tab, w.real.double().contiguous(), gidx, cube, cfac)
+    rrelw = vp.vplus_relw(*rargs)
+    keep("vplus_relw", _check_bits("vplus_relw_f64, real", rrelw, vp.vplus_relw_plain(*rargs)))
+    cm = it.measure(lay.leaf_values(x), relw).contiguous()
+    rm = _sing3_hist(lay.leaf_values(x)[0], rrelw, None)[0].contiguous()
+    rels = []
+    for mf in (1, MF):
+        shift = vp.gate_shifts(kd, t0, T, it.chunk) if mf > 1 else None
+        for name, a, given in (("vplus_reduce_complex", args, None),
+                               ("vplus_reduce_complex", args, cm),
+                               ("vplus_reduce_measure", rargs, rm),
+                               ("vplus_reduce_measure", rargs, rm[:3].contiguous()),
+                               ("vplus_reduce", rargs, None)):
+            got = vp.vplus_reduce(*a, given, mf, t0, shift)
+            want = vp.vplus_reduce_plain(*a, given, mf, t0, shift)
+            e0, r0 = _check_rel(f"{name}_f64, mf {mf}, obs", got[:1], want[:1], REL_TOL_REDUCE)
+            e1, r1 = _check_rel(f"{name}_f64, mf {mf}, sig and hist", got[1:], want[1:],
+                                REL_TOL_F64_HIST)
+            e, rel = max(e0, e1), max(r0, r1)
+            keep(name, e)
+            rels.append(rel)
+    print(f"phase 3i: :vegasplus launch of {it.block} blocks x {T} chunks x {it.chunk} samples at "
+          f"t0={t0}, float64, singular_3d e^{{ix}}: vplus_sample_f64 (x, gidx) bit-equal, gidx "
+          f"equal to the float32 launch's, x within {dx:.3g} of it; vplus_relw_f64 (complex, "
+          f"real) bit-equal; vplus_reduce_f64 complex (default, given m), given m (10 and 3 "
+          f"components), real, each at mf 1 and {MF}: rel <= {max(rels):.3g}")
+    del x, gidx, w, relw, rrelw, cm, rm, args, rargs
+
+    # the mixed route on MIXED_SPECS, and its misaligned block
+    KD = vk.KIND_DISC
+    for name, var, dof, f, npb, block, T0 in MIXED_SPECS:
+        rels = [0.0, 0.0]
+        for cplx in (False, True):
+            it, lay, tab, kd, t0, T, x, gidx, w = mixed_launch(mt, var(mt), dof, f, npb, block, T0,
+                                                               cplx=cplx, real=F64)
+            want = vk.vegas_sample_mixed_plain(lay, tab, kd, t0, T)
+            keep("vegas_sample_mixed", _check_bits(f"vegas_sample_mixed_f64 x, {name}", x,
+                                                   want[0]))
+            _check_bits(f"vegas_sample_mixed_f64 gidx, {name}", gidx, want[1])
+            del want
+            if not cplx:    # the same bins as float32's where the random bits alone decide
+                g32 = mixed_launch(mt, var(mt), dof, f, npb, block, T0)[7]
+                keep_bits = torch.as_tensor(lay.slots[:, 0] != KD, device=gidx.device)
+                if not torch.equal(gidx[keep_bits], g32[keep_bits]):
+                    raise AssertionError(f"vegas_sample_mixed_f64, {name}: a Continuous slot's "
+                                         "bin differs from the float32 launch's")
+                del g32
+            relw = vk.vegas_relw_mixed(lay, tab, w, gidx)
+            keep("vegas_relw_mixed", _check_bits(f"vegas_relw_mixed_f64, {name}, complex {cplx}",
+                                                 relw, vk.vegas_relw_mixed_plain(lay, tab, w, gidx)))
+            m = _measure_of(relw)
+            del relw
+            for mf in (1, MF):
+                for given in (None, m):
+                    got = vk.vegas_reduce_mixed(lay, tab, w, gidx, given, mf, t0)
+                    ref = vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, given, mf, t0)
+                    what = (f"vegas_reduce_mixed_f64, {name}, complex {cplx}, "
+                            f"{'m' if given is not None else 'default'}, mf {mf}")
+                    e0, r0 = _check_rel(what + ", obs", got[:1], ref[:1], REL_TOL_REDUCE)
+                    e1, r1 = _check_rel(what + ", hist", got[1:], ref[1:], REL_TOL_F64_HIST)
+                    keep("vegas_reduce_mixed", max(e0, e1))
+                    rels = [max(rels[0], r0), max(rels[1], r1)]
+            del x, gidx, w, m, got, ref
+        print(f"phase 3i: mixed route, {name}, float64: {lay.S} slots, {it.block} blocks x {T} "
+              f"chunks x {lay.chunk} samples at t0={t0}: vegas_sample_mixed_f64 and "
+              f"vegas_relw_mixed_f64 (real, complex) bit-equal, the Continuous slots' bins the "
+              f"float32 launch's; vegas_reduce_mixed_f64 (real, complex; default, given m; mf 1 "
+              f"and {MF}) obs rel {rels[0]:.3g}, hist rel {rels[1]:.3g}")
+    name, var, dof, f, npb, block, T0 = MIXED_SPECS[1]
+    rels = [0.0, 0.0]
+    for cplx in (False, True):
+        it, lay, tab, kd, t0, T, x, gidx, w = mixed_launch(mt, var(mt), dof, f, npb, block, T0,
+                                                           cplx=cplx, real=F64)
+        wu = misaligned(w)
+        relw = vk.vegas_relw_mixed(lay, tab, wu, gidx)
+        keep("vegas_relw_mixed", _check_bits(f"vegas_relw_mixed_f64, {name}, misaligned w",
+                                             relw, vk.vegas_relw_mixed_plain(lay, tab, w, gidx)))
+        m = _measure_of(relw)
+        for mf in (1, MF):
+            for given in (None, misaligned(m)):
+                what = f"vegas_reduce_mixed_f64, {name}, misaligned w and m, complex {cplx}"
+                got = vk.vegas_reduce_mixed(lay, tab, wu, gidx, given, mf, t0)
+                ref = vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, given, mf, t0)
+                e0, r0 = _check_rel(what + ", obs", got[:1], ref[:1], REL_TOL_REDUCE)
+                e1, r1 = _check_rel(what + ", hist", got[1:], ref[1:], REL_TOL_F64_HIST)
+                keep("vegas_reduce_mixed", max(e0, e1))
+                rels = [max(rels[0], r0), max(rels[1], r1)]
+        del x, gidx, w, wu, relw, m, got, ref
+    print(f"phase 3i: mixed route, {name}, float64, w and m one element off 16-byte alignment: "
+          f"vegas_relw_mixed_f64 (real, complex) bit-equal; vegas_reduce_mixed_f64 obs rel "
+          f"{rels[0]:.3g}, hist rel {rels[1]:.3g}")
+    return errs
+
+
+def f64_main_path(mt, vk, vp, card):
+    """Phase 4i: integrate(..., dtype=torch.float64, device="cuda") at 2^30
+    evals an iteration, 16 blocks, 10 iterations: phase 4's pi on :vegas
+    and 4d's singular_3d on :vegasplus (5 sigma), 4h's Lindhard bubble on
+    the mixed route with 4h's gates (also with type=complex and
+    measurefreq MF), e^{100x} on :vegas and :vegasplus (5 sigma of
+    (e^100 - 1)/100, above float32's range; the float32 run's mean printed
+    beside it), the complex quarter disc on :vegasplus (5 sigma) and 4e's
+    10-bin histogram on :vegas at measurefreq MF (7 sigma).  Each run's
+    launches counted from 0: only float64 instantiations, none of float32;
+    its rate beside its float32 phase's and its idle share from a profile
+    of two iterations.  Returns the float64 instantiations' launches over
+    the runs and each one's launches an iteration."""
+    import torch
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import make_vegas_iteration
+    from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
+
+    F64, niter, C = torch.float64, 10, mt.Continuous
+    bubble = make_vegas_bubble("cuda")
+    bgates = (("lindhard(q)", [lindhard(q[0]) for q in EXTQ], 20),
+              ("the value at BETA", [bubble_exact(q[0]) for q in EXTQ], 5))
+    # solver, name, integrand, keywords (fresh pools each call), gates, the
+    # float32 phase whose rate stands beside, print the float32 run's mean
+    runs = (("vegas", "pi", _pi, lambda: dict(var=C(0.0, 1.0), dof=[[2]]),
+             (("pi/4", np.pi / 4, 5),), "4", False),
+            ("vegasplus", "singular_3d", _sing3, lambda: dict(var=C(0.0, np.pi), dof=[[3]]),
+             (("exact", SING3_EXACT, 5),), "4d", False),
+            ("vegas", "bubble", bubble, lambda: vegas_bubble_kw(mt), bgates, "4h", False),
+            ("vegas", "bubble, type=complex", lambda v, c: bubble(v, c) + 0j,
+             lambda: vegas_bubble_kw(mt, True), bgates, "4h", False),
+            ("vegas", f"bubble, measurefreq {MF}", bubble,
+             lambda: dict(vegas_bubble_kw(mt), measurefreq=MF), bgates, "4h", False),
+            ("vegas", "e^{100x}", _e100, lambda: dict(var=C(0.0, 1.0), dof=[[1]]),
+             (("(e^100 - 1)/100", E100_EXACT, 5),), "4", True),
+            ("vegasplus", "e^{100x}", _e100, lambda: dict(var=C(0.0, 1.0), dof=[[1]]),
+             (("(e^100 - 1)/100", E100_EXACT, 5),), "4d", True),
+            ("vegasplus", "quarter disc e^{i(x+y)}", _qdisc,
+             lambda: dict(var=C(0.0, 1.0), dof=[[2]], type=complex),
+             (("exact", qdisc_exact(), 5),), "4d", False),
+            ("vegas", f"{NBIN}-bin histogram, measurefreq {MF}", _qs_f,
+             lambda: dict(var=(C(0.0, 1.0), C(0.0, 1.0)), dof=[[1, 1]], obs=[np.zeros(NBIN)],
+                          measure=hist_measure(NBIN), measurefreq=MF),
+             (("exact", qs_exact(), 7),), "4", False))
+    counts = {f"{k}_f64": 0 for k in F64_KERNELS}
+    per_iter = {}
+    for solver, name, f, kw_of, gates, phase, with32 in runs:
+        mod = vk if solver == "vegas" else vp
+        kw = kw_of()
+        mf = kw.pop("measurefreq", 1)
+        meas = kw.pop("measure", None)
+        spec = Spec(mt.Configuration(seed=SEED, **kw), "cuda", F64)
+        shape = (make_vegas_iteration(spec, f, measure=meas, obs_proto=spec.cfg.observable,
+                                      measurefreq=mf, block=16, nevalperblock=VEGAS_NEVAL // 16)
+                 if solver == "vegas" else
+                 VegasPlusIteration(spec, f, measure=meas, obs_proto=spec.cfg.observable,
+                                    measurefreq=mf, block=16, nevalperblock=VEGAS_NEVAL // 16))
+        fresh = lambda: {a: b for a, b in kw_of().items() if a != "measurefreq"}
+        mod.reset_launch_counts()
+        res = mt.integrate(f, measurefreq=mf, solver=solver, neval=VEGAS_NEVAL, niter=niter,
+                           block=16, device="cuda", seed=SEED, verbose=-2, dtype=F64, **fresh())
+        assert res.backend == "cuda" and res.backend_reason == "", res.backend_reason
+        if any(mod.launch_counts.values()):
+            raise AssertionError(f"phase 4i: {name} launched a float32 kernel: "
+                                 f"{mod.launch_counts}")
+        got = {k: v for k, v in mod.launch_counts_f64.items() if v}
+        L = niter * shape.launches_per_run
+        if not got or any(v != L for v in got.values()):
+            raise AssertionError(f"phase 4i: {name}: launches {got}, expected {L} each")
+        for k, v in got.items():
+            counts[k + "_f64"] += v
+            per_iter[k + "_f64"] = shape.launches_per_run
+        mean, std = np.asarray(res.mean[0]), np.asarray(res.stdev[0])
+        zs = []
+        for what, exact, k in gates:
+            z = _z(mean, std, exact)
+            if not (np.all(np.isfinite(mean)) and np.all(np.abs(z.real) < k)
+                    and np.all(np.abs(z.imag) < k)):
+                raise AssertionError(f"phase 4i: {name}: {mean.tolist()} +- {std.tolist()}, "
+                                     f"outside {k} sigma of {what} {np.asarray(exact).tolist()}")
+            zs.append(f"{np.round(z, 2).tolist()} from {what} (gate {k})")
+        evals = [h[2].neval for h in res.iterations]
+        steady = sum(evals[1:]) / sum(res.iteration_times[1:])
+        print(f"phase 4i: {solver} {name}, float64, {niter} iterations of {evals[0]} evals: "
+              f"{mean.tolist()} +- {std.tolist()}, sigma {', '.join(zs)}; launches {got}")
+        if with32:
+            r32 = mt.integrate(f, solver=solver, neval=VEGAS_NEVAL, niter=niter, block=16,
+                               device="cuda", seed=SEED, verbose=-2, **fresh())
+            print(f"phase 4i: {solver} {name}: the float32 run gives {float(r32.mean[0])!r} +- "
+                  f"{float(r32.stdev[0])!r} (its samples above 3.4e38 zeroed), float64 "
+                  f"{float(mean)!r}, exact {E100_EXACT!r}")
+        print(f"phase 4i: {solver} {name}: steady-state {steady!r} evals/s, float32 phase "
+              f"{phase}'s {RATES.get(phase, float('nan'))!r}, ratio "
+              f"{steady / RATES.get(phase, float('nan'))!r} [{card}]")
+        profile_main_path(card, "4i", lambda: mt.integrate(
+            f, measurefreq=mf, solver=solver, neval=VEGAS_NEVAL, niter=2, block=16,
+            device="cuda", seed=SEED, verbose=-2, dtype=F64, **fresh()), top=4)
+    return counts, per_iter
+
+
+def ptxas_f64_lines():
+    """ptxas -v's register and spill lines of every float64 instantiation
+    (a kernel template whose first argument is double: ``Id`` in its
+    mangled name), from the verbose build of phase 2."""
+    import re
+    from mcintegration_tpu_torch.ops import _build
+    out, name = [], None
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and "kernelId" in name and ("registers" in line or "spill" in line):
+            m = re.search(r"\d((?:vegas|vplus)[a-z_]*_kernel)Id([df]?)((?:L[ib]\d+E)*)", name)
+            args = ({"d": ["double"], "f": ["float"]}.get(m.group(2), [])
+                    + re.findall(r"L[ib](\d+)E", m.group(3)))
+            out.append(f"{m.group(1)}<double{''.join(',' + a for a in args)}>: "
+                       f"{line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def f64_timings(mt, vk, vp, card, per_iter):
+    """Phase 6i: each float64 instantiation's device ms behind the sleep
+    kernel, at the main paths' launch shapes (4's pi, 4e's histogram real
+    and, as 4g's, complex; 4d's singular_3d after one reallocation; 4g's
+    complex quarter disc and 10-bin histogram on :vegasplus; 4h's bubble),
+    in turns with its plain version (plain, kernel, kernel, plain), beside
+    its bound: the larger of the bytes it must move over 3.35 TB/s and its
+    operations (float64 ones over PEAK_F64_OPS, float32 ones over PEAK_OPS,
+    integer ones over PEAK_INT_OPS); its ptxas registers and spills; and
+    its launches an iteration in 4i.  Returns each one's (max abs err, ms,
+    plain_ms, bound_ms, bound_by)."""
+    import torch
+    from mcintegration_tpu_torch.ops.rng import block_keys
+
+    F64 = torch.float64
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts
+                             if isinstance(t, torch.Tensor))
+
+    def bound64(nb, f64_ops, f32_ops=0, int_ops=0):
+        tb = float(nb) / PEAK_BYTES * 1e3
+        to = max(float(f64_ops) / PEAK_F64_OPS, float(f32_ops) / PEAK_OPS,
+                 float(int_ops) / PEAK_INT_OPS) * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    def turns(kernel, plain, reps=10):
+        k, p = [], []
+        for order in ((plain, kernel), (kernel, plain)):
+            for fn in order:
+                if fn is kernel:
+                    k.append(device_ms(kernel, reps))
+                else:
+                    p.append(time_ms(plain, 2))
+        return float(np.mean(k)), float(np.mean(p))
+
+    out = {}
+
+    def record(name, err, kernel, plain, b):
+        ms, pms = turns(kernel, plain)
+        out[name + "_f64"] = (err, ms, pms, *b)
+
+    # :vegas at phase 4's launch: pi
+    from mcintegration_tpu_torch.solvers.engine import Spec
+    from mcintegration_tpu_torch.solvers.vegas import VegasIteration
+    spec = Spec(mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]], seed=SEED), "cuda", F64)
+    it = VegasIteration(spec, _pi, block=16, nevalperblock=VEGAS_NEVAL // 16)
+    T = it.chunks_per_launch
+    inputs = it.kernel_inputs(spec.device_params(), block_keys(SEED, 0, 0, it.block))
+    sample = lambda: vk.vegas_sample(t0=0, T=T, m=it.m_tile, **inputs)
+    x, invp, perm = sample()
+    e = _check_bits("vegas_sample_f64 at 6i", x, vk.vegas_sample_plain(t0=0, T=T, m=it.m_tile,
+                                                                        **inputs)[0])
+    n, S = it.block * T * it.chunk, len(it.slot_map)
+    record("vegas_sample", e, sample, lambda: vk.vegas_sample_plain(t0=0, T=T, m=it.m_tile,
+                                                                    **inputs),
+           bound64(nbytes(*inputs.values(), x, invp, perm), 2 * n * S, 3 * n * S,
+                   VEGAS_DRAW_INT * n * S))
+    w = it.evaluate(it.leaf_values(x))
+    del x
+    args = (it.pad, it.pair_slots, it.used)
+    obs, hrow = vk.vegas_reduce(w, invp, perm, *args, rows=True)
+    e, _ = _check_rel("vegas_reduce_f64 at 6i", vk.vegas_reduce(w, invp, perm, *args),
+                      vk.vegas_reduce_plain(w, invp, perm, *args), REL_TOL_REDUCE)
+    record("vegas_reduce", e, lambda: vk.vegas_reduce(w, invp, perm, *args, rows=True),
+           lambda: vk.vegas_reduce_plain(w, invp, perm, *args),
+           bound64(nbytes(w, invp, perm, *args, obs, hrow), 8 * n * (w.shape[0] + S)))
+    del w, invp, perm, obs, hrow
+    print(f"phase 6i: :vegas pi launch = {it.block} blocks x {T} chunks x {it.chunk} samples "
+          f"({n} evals, {S} slots), float64 [{card}]")
+
+    # the 10-bin histogram at 4e's launch: relw and the reduce given m, real
+    # and complex (e^{i(x+y)}, 4g's complex histogram)
+    cobs = [np.zeros(NBIN, np.complex64)]
+    for cplx in (False, True):
+        cfg = mt.Configuration(var=(mt.Continuous(0.0, 1.0), mt.Continuous(0.0, 1.0)),
+                               dof=[[1, 1]], obs=cobs if cplx else [np.zeros(NBIN)],
+                               type=complex if cplx else float, seed=SEED)
+        it, x, invp, perm, w, T = vegas_branch_launch(
+            mt, cfg, _qs_cexp if cplx else _qs_f, hist_measure(NBIN), cfg.observable, real=F64)
+        pads = (it.pad, it.pair_slots)
+        kind = "_complex" if cplx else ""
+        relw = vk.vegas_relw(w, invp, *pads)
+        n, S, N = w[0].numel(), invp.shape[0], w.shape[0]
+        e = _check_bits(f"vegas_relw{kind}_f64 at 6i", relw, vk.vegas_relw_plain(w, invp, *pads))
+        record("vegas_relw" + kind, e, lambda: vk.vegas_relw(w, invp, *pads),
+               lambda: vk.vegas_relw_plain(w, invp, *pads),
+               bound64(nbytes(w, invp, *pads, relw), n * N * (S + 2)))
+        m = it.measure(it.leaf_values(x), relw).contiguous()
+        del x, relw
+        margs = (w, invp, perm, it.pad, it.pair_slots, it.used, m)
+        got = vk.vegas_reduce(*margs)
+        e, _ = _check_rel(f"vegas_reduce{kind}_f64 given m at 6i", got,
+                          vk.vegas_reduce_plain(*margs), REL_TOL_REDUCE)
+        record("vegas_reduce" + (kind or "_measure"), e, lambda: vk.vegas_reduce(*margs),
+               lambda: vk.vegas_reduce_plain(*margs),
+               bound64(nbytes(*margs, *got), n * (8 * N + 2 * S) + m.numel()))
+        del w, invp, perm, m, margs, got
+
+    # :vegasplus at 4d's launch (singular_3d), 4g's complex quarter disc and histogram
+    sing = mt.Configuration(var=mt.Continuous(0.0, np.pi), dof=[[3]], seed=SEED)
+    it, lay, tab, cube, cfac, x, gidx, w, t0, T = vplus_branch_launch(mt, vp, sing, _sing3, 2 ** 26,
+                                                                      real=F64)
+    kd = it.seeds(block_keys(SEED, 1, 0, it.block))
+    n, S, N = w[0].numel(), lay.S, w.shape[0]
+    e = _check_bits("vplus_sample_f64 at 6i", x, vp.vplus_sample_plain(lay, tab, kd, t0, T, cube)[0])
+    record("vplus_sample", e, lambda: vp.vplus_sample(lay, tab, kd, t0, T, cube),
+           lambda: vp.vplus_sample_plain(lay, tab, kd, t0, T, cube),
+           bound64(nbytes(kd, cube, tab, lay.meta, x, gidx), 2 * n * S, 6 * n * S,
+                   n * S * (MIX32 + 2)))
+    del x
+    args = (lay, tab, w, gidx, cube, cfac)
+    got = vp.vplus_reduce(*args)
+    e, _ = _check_rel("vplus_reduce_f64 at 6i", got, vp.vplus_reduce_plain(*args),
+                      REL_TOL_F64_HIST)
+    record("vplus_reduce", e, lambda: vp.vplus_reduce(*args), lambda: vp.vplus_reduce_plain(*args),
+           bound64(nbytes(w, gidx, cube, cfac, tab, *got), n * (4 * S + 10 * N)))
+    del w, gidx, args, got
+    for name, cfg, f, meas in (
+            ("vplus_reduce_complex", mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]],
+                                                      type=complex, seed=SEED), _qdisc, None),
+            ("vplus_reduce_measure", qs_config(mt), _qs_f, hist_measure(NBIN))):
+        it, lay, tab, cube, cfac, x, gidx, w, t0, T = vplus_branch_launch(
+            mt, vp, cfg, f, VEGAS_NEVAL // 16, meas, cfg.observable, real=F64)
+        n, S, N = w[0].numel(), lay.S, w.shape[0]
+        args = (lay, tab, w, gidx, cube, cfac)
+        m = None
+        if meas is not None:
+            relw = vp.vplus_relw(*args)
+            e = _check_bits("vplus_relw_f64 at 6i", relw, vp.vplus_relw_plain(*args))
+            record("vplus_relw", e, lambda: vp.vplus_relw(*args),
+                   lambda: vp.vplus_relw_plain(*args),
+                   bound64(nbytes(w, gidx, cube, cfac, tab, relw), n * (S + 2 * N)))
+            m = it.measure(lay.leaf_values(x), relw).contiguous()
+            del relw
+        del x
+        got = vp.vplus_reduce(*args, m)
+        e, _ = _check_rel(f"{name}_f64 at 6i", got, vp.vplus_reduce_plain(*args, m),
+                          REL_TOL_F64_HIST)
+        record(name, e, lambda: vp.vplus_reduce(*args, m), lambda: vp.vplus_reduce_plain(*args, m),
+               bound64(nbytes(w, gidx, cube, cfac, tab, m, *got), n * (4 * S + 10 * N)))
+        del w, gidx, args, got, m
+
+    # the mixed route at 4h's bubble launch
+    kw = vegas_bubble_kw(mt)
+    it, lay, tab, kd, t0, T, x, gidx, w = mixed_launch(
+        mt, kw["var"], kw["dof"], None, VEGAS_NEVAL // 16, 16, None, measure=kw["measure"],
+        obs=kw["obs"], real=F64)
+    n, S, N = w[0].numel(), lay.S, w.shape[0]
+    e = _check_bits("vegas_sample_mixed_f64 at 6i", x,
+                    vk.vegas_sample_mixed_plain(lay, tab, kd, t0, T)[0])
+    record("vegas_sample_mixed", e, lambda: vk.vegas_sample_mixed(lay, tab, kd, t0, T),
+           lambda: vk.vegas_sample_mixed_plain(lay, tab, kd, t0, T),
+           bound64(nbytes(x, gidx, tab, lay.meta, lay.atab, kd), 2 * n * S, 3 * n * S,
+                   n * (MIX32 + 2) + n * S * (MIX32 + 2)))
+    relw = vk.vegas_relw_mixed(lay, tab, w, gidx)
+    e = _check_bits("vegas_relw_mixed_f64 at 6i", relw, vk.vegas_relw_mixed_plain(lay, tab, w, gidx))
+    record("vegas_relw_mixed", e, lambda: vk.vegas_relw_mixed(lay, tab, w, gidx),
+           lambda: vk.vegas_relw_mixed_plain(lay, tab, w, gidx),
+           bound64(nbytes(w, gidx, tab, lay.meta, relw), n * (S + 2 * N)))
+    m = it.measure(lay.leaf_values(x), relw).contiguous()
+    del x, relw
+    got = vk.vegas_reduce_mixed(lay, tab, w, gidx, m, 1, t0)
+    e, _ = _check_rel("vegas_reduce_mixed_f64 at 6i, obs", got[:1],
+                      vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, m, 1, t0)[:1], REL_TOL_REDUCE)
+    obs_rows = 8 * m.shape[0] * it.block * T * -(-lay.chunk // vk.SPAN) * vk.WARPS
+    record("vegas_reduce_mixed", e, lambda: vk.vegas_reduce_mixed(lay, tab, w, gidx, m, 1, t0),
+           lambda: vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, m, 1, t0),
+           bound64(nbytes(w, gidx, m, tab, lay.meta) + obs_rows + 8 * lay.nhist,
+                   n * (S + 8 * N) + n * m.shape[0]))
+    del w, gidx, m, got
+    for name, (err, t, pt, bd, by) in out.items():
+        print(f"phase 6i: {name} {t!r} ms, plain torch {pt!r} ms, bound {bd!r} ms (by {by}), "
+              f"{t / bd!r} times its bound, {per_iter.get(name, 0)} launches an iteration in "
+              f"phase 4i [{card}]")
+    for line in ptxas_f64_lines():
+        print(f"phase 6i: ptxas -v {line}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # debug=True, the iteration cache and ranks (phase 8)
 # ---------------------------------------------------------------------------
 
@@ -4036,6 +4631,7 @@ def main() -> int:
     complex_errs = timed("3f", complex_vs_plain, mt, ck, mk, card)
     measurement_errs = timed("3g", measurement_vs_plain, mt, vk, vp, card)
     mixed_errs = timed("3h", mixed_vs_plain, mt, vk, card)
+    f64_errs = timed("3i", f64_vs_plain, mt, vk, vp, card)
     counts, shape, rate4 = timed("4", main_path, mt, vk, card)
     chain_counts, rate4b = timed("4b", chain_main_path, mt, ck, card)
     counts.update(chain_counts)
@@ -4050,6 +4646,9 @@ def main() -> int:
     counts.update(timed("4g", measurement_main_path, mt, vk, vp, card,
                         {"4": rate4, "4d": rate4d}))
     counts.update(timed("4h", mixed_main_path, mt, vk, card, rate4))
+    RATES.update({"4": rate4, "4d": rate4d})
+    f64_counts, f64_per_iter = timed("4i", f64_main_path, mt, vk, vp, card)
+    counts.update(f64_counts)
     timed("5", adaptive_checks, mt)
     timed("5b", chain_checks, mt)
     timed("5c", mcmc_checks, mt)
@@ -4068,6 +4667,8 @@ def main() -> int:
         measured[name] = (max(err, measurement_errs[name]), *times)
     for name, (err, *times) in timed("6h", mixed_timings, mt, vk, card).items():
         measured[name] = (max(err, mixed_errs[name]), *times)
+    for name, (err, *times) in timed("6i", f64_timings, mt, vk, vp, card, f64_per_iter).items():
+        measured[name] = (max(err, f64_errs[name]), *times)
     common = dict(dof=[[2]], block=16, device="cuda", seed=SEED, verbose=-2, niter=3)
     for phase, kw in (("7", dict(neval=2 ** 30, solver="vegas", **common)),
                       ("7b", dict(neval=2 ** 28, solver="vegasmc", nwalkers=2 ** 20, **common))):
@@ -4123,6 +4724,14 @@ def main() -> int:
                "vplus_reduce_complex": "vplus_reduce", "vplus_relw": "vplus_reduce",
                "vplus_reduce_measure": "vplus_reduce", "vegas_sample_mixed": "vegas_mixed",
                "vegas_reduce_mixed": "vegas_mixed", "vegas_relw_mixed": "vegas_mixed"}
+    # the float64 instantiations that phase 4i launched (vegas_reduce.cu's
+    # complex entries and vplus_reduce.cu's relw and given-m modes at float64
+    # run in phases 3i and 6i only)
+    for name, src in F64_KERNELS.items():
+        if counts[name + "_f64"]:
+            replaces[name + "_f64"] = replaces["vegas_sample" if name.startswith("vegas")
+                                               else "vplus_sample"]
+            sources[name + "_f64"] = src
     kernels = []
     for name, where in replaces.items():
         err, ms, plain_ms, bound_ms, bound_by = measured[name]

@@ -63,13 +63,16 @@ def params_from_jax(jax_params, spec):
     leaf carries ``cdf [nbin+1]`` and ``dist_tab``, its ``[nbin]`` masses
     packed the same way; a FermiK leaf its float32 ``kF`` and ``dk``.
     Returns the port's ``{"leaf": [(grid, inc), (cdf, dist) or (kF, dk),
-    ...], "reweight": ...}`` on the spec's device, so that both packages
-    sample through the identical float32 map.
+    ...], "reweight": ...}`` on the spec's device, of the spec's dtype (a
+    float64 spec takes the JAX package's float64 tables as they are), so
+    that both packages sample through the identical map.
     """
     import torch
 
-    def f32(a):
-        return torch.as_tensor(np.array(a, dtype=np.float32), device=spec.device)
+    npdt = np.float64 if spec.dtype == torch.float64 else np.float32
+
+    def real(a):
+        return torch.as_tensor(np.array(a, dtype=npdt), device=spec.device)
 
     leaves = []
     for li, p in zip(spec.leaves, jax_params["leaf"]):
@@ -79,12 +82,12 @@ def params_from_jax(jax_params, spec):
             continue
         if isinstance(li.leaf, Discrete):
             nbin = li.leaf.nbin
-            dist = np.asarray(p["dist_tab"], dtype=np.float32).reshape(-1)[:nbin]
-            leaves.append((f32(p["cdf"]), f32(dist)))
+            dist = np.asarray(p["dist_tab"], dtype=npdt).reshape(-1)[:nbin]
+            leaves.append((real(p["cdf"]), real(dist)))
             continue
         nb = li.leaf.ninc
-        tab = np.asarray(p["tab"], dtype=np.float32).reshape(-1, 2)[:nb]
-        leaves.append((f32(tab[:, 0]), f32(tab[:, 1])))
+        tab = np.asarray(p["tab"], dtype=npdt).reshape(-1, 2)[:nb]
+        leaves.append((real(tab[:, 0]), real(tab[:, 1])))
     return {"leaf": leaves,
             "reweight": torch.tensor(np.asarray(jax_params["reweight"]),
-                                     dtype=torch.float32, device=spec.device)}
+                                     dtype=spec.dtype, device=spec.device)}

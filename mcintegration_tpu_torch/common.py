@@ -99,10 +99,12 @@ def weight_parts(w: torch.Tensor):
 
 
 def weight_scale(w: torch.Tensor, f) -> torch.Tensor:
-    """``w*f`` for a real float32 factor ``f``; a complex weight scales each
-    part alone (a complex product would add ``im*0`` terms, which can flip
-    the sign of a zero)."""
+    """``w*f`` for a real factor ``f``; a complex weight scales each part
+    alone (a complex product would add ``im*0`` terms, which can flip the
+    sign of a zero), by ``f`` rounded to float32: complex weights stay
+    complex64 at float64, and the reference casts the factor to their dtype
+    (``mcintegration_tpu/solvers/vegas.py:324``)."""
     if not w.is_complex():
         return w * f
-    f = f[..., None] if isinstance(f, torch.Tensor) else f
+    f = f.to(torch.float32)[..., None] if isinstance(f, torch.Tensor) else f
     return torch.view_as_complex(torch.view_as_real(w) * f)

@@ -14,9 +14,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "real.cuh"
+
 namespace {
 
 constexpr int kLeafFields = 8;   // kind, nb, tab_off, sm_off, lower, slot0, hist_off, group
+
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -43,7 +46,8 @@ __device__ __forceinline__ float uniform(uint32_t base, uint32_t c) {
 }
 
 // #{k < n: c[k] <= u} for a non-decreasing c (upper-bound binary search).
-__device__ __forceinline__ int count_le(const float* c, int n, float u) {
+template <typename R>
+__device__ __forceinline__ int count_le(const R* c, int n, R u) {
   int lo = 0;
   while (n > 0) {
     const int half = n >> 1;
@@ -68,15 +72,20 @@ constexpr int kDisc = 1;
 //               prob = 1/(nb*inc[iy])
 //   Discrete:   gidx = #{k: u >= cdf[k+1]}, clamped to nbin-1, prob = dist[gidx]
 // A Discrete CDF is read from shared memory when the leaf has one staged
-// there (sm >= 0), else from the table in device memory.
-__device__ __forceinline__ void map_draw(const int* f, const float* tab,
-                                         const float* smem, float u, int& val,
-                                         int& gidx, float& prob) {
+// there (sm >= 0), else from the table in device memory.  The tables are of
+// R; u, u*nb and its fraction stay float32 at R = double, as the reference's
+// float64 mode keeps them (mcintegration_tpu/ops/grid.py:153-162, 171-176),
+// and the CDF's comparison is taken in R.
+template <typename R>
+__device__ __forceinline__ void map_draw(const int* f, const R* tab,
+                                         const typename Same<R>::type* smem, float u,
+                                         bits_t<R>& val, int& gidx,
+                                         R& prob) {
   const int nb = f[kNb];
-  const float* t = tab + f[kTab];
+  const R* t = tab + f[kTab];
   if (f[kKind] == kDisc) {   // t = cdf [nb+1], then dist [nb]
-    const float* c = f[kSm] >= 0 ? smem + f[kSm] : t + 1;
-    const int g = min(count_le(c, nb, u), nb - 1);
+    const R* c = f[kSm] >= 0 ? smem + f[kSm] : t + 1;
+    const int g = min(count_le(c, nb, (R)u), nb - 1);
     gidx = g;
     prob = t[nb + 1 + g];
     val = f[kLower] + g;
@@ -84,17 +93,18 @@ __device__ __forceinline__ void map_draw(const int* f, const float* tab,
     const float s = __fmul_rn(u, (float)nb);
     const int iy = min(max((int)s, 0), nb - 1);
     const float dy = __fsub_rn(s, (float)iy);
-    const float dx = t[nb + iy];
+    const R dx = t[nb + iy];
     gidx = iy;
-    prob = __fdiv_rn(1.0f, __fmul_rn((float)nb, dx));
-    val = __float_as_int(__fadd_rn(t[iy], __fmul_rn(dy, dx)));
+    prob = div_rn((R)1, mul_rn((R)nb, dx));
+    val = as_bits(add_rn(t[iy], mul_rn((R)dy, dx)));
   }
 }
 
 // Stage the leaves' small Discrete CDFs (sm >= 0) in shared memory; leaf
 // rows are ``fields`` ints apart.
+template <typename R>
 __device__ __forceinline__ void stage_cdfs(const int* leaf, int L, int fields,
-                                           const float* tab, float* smem) {
+                                           const R* tab, R* smem) {
   for (int d = 0; d < L; ++d) {
     const int* f = leaf + fields * d;
     if (f[kKind] == kDisc && f[kSm] >= 0)
@@ -105,32 +115,39 @@ __device__ __forceinline__ void stage_cdfs(const int* leaf, int L, int fields,
 }
 
 // A walker's weight (pallas_chain.py:459-471, pallas_mcmc.py:526-551):
-// float32, or with kCplx a complex64 value, read and written as an
-// interleaved (re, im) float2 (torch.view_as_real of the complex64 tensor,
-// no copy).  Its algebra is written out on the pair with _rn intrinsics:
+// real, of the tables' type R, or with kCplx a complex64 value, read and
+// written as an interleaved (re, im) float2 (torch.view_as_real of the
+// complex64 tensor, no copy).  Its algebra is written out on the pair with
+// _rn intrinsics:
 //   |w|   = sqrt(re*re + im*im)   (not hypot: sqrt(fl(x*x)) = |x| for a
 //                                  real x, so w + 0i gives the real run's |w|)
 //   |w|^2 = re*re + im*im
 //   w*f   = (re*f, im*f)           for a real factor f
 // The real weight's operations are the ones the real kernels always ran.
-template <bool kCplx> struct Weight;
+// Complex weights stay complex64 at R = double (mcintegration_tpu/main.py:
+// 341), and a float64 factor is rounded to float32 before it scales them,
+// as the reference casts it to the weights' dtype (solvers/vegas.py:324,
+// solvers/vegasplus.py:252).  E is the element type of w's storage.
+template <bool kCplx, typename R = float> struct Weight;
 
-template <> struct Weight<false> {
-  float v;
-  static __device__ __forceinline__ Weight load(const float* p, long long i) {
+template <typename R> struct Weight<false, R> {
+  using E = R;
+  R v;
+  static __device__ __forceinline__ Weight load(const R* p, long long i) {
     return {p[i]};
   }
-  __device__ __forceinline__ void store(float* p, long long i) const { p[i] = v; }
-  __device__ __forceinline__ float abs() const { return fabsf(v); }
-  __device__ __forceinline__ float abs2() const { return __fmul_rn(v, v); }
-  __device__ __forceinline__ Weight scale(float f) const { return {__fmul_rn(v, f)}; }
+  __device__ __forceinline__ void store(R* p, long long i) const { p[i] = v; }
+  __device__ __forceinline__ R abs() const { return abs_of(v); }
+  __device__ __forceinline__ R abs2() const { return mul_rn(v, v); }
+  __device__ __forceinline__ Weight scale(R f) const { return {mul_rn(v, f)}; }
   // obs[i] += w, walker w of the [ncomp, W] float64 accumulators
   __device__ __forceinline__ void add_to(double* obs, int i, int W, int w) const {
     obs[(long long)i * W + w] += (double)v;
   }
 };
 
-template <> struct Weight<true> {
+template <typename R> struct Weight<true, R> {
+  using E = float;
   float re, im;
   static __device__ __forceinline__ Weight load(const float* p, long long i) {
     const float2 z = reinterpret_cast<const float2*>(p)[i];
@@ -146,6 +163,7 @@ template <> struct Weight<true> {
   __device__ __forceinline__ Weight scale(float f) const {
     return {__fmul_rn(re, f), __fmul_rn(im, f)};
   }
+  __device__ __forceinline__ Weight scale(double f) const { return scale(__double2float_rn(f)); }
   // obs[2i] += re, obs[2i+1] += im: the components of complex value i
   __device__ __forceinline__ void add_to(double* obs, int i, int W, int w) const {
     obs[(long long)(2 * i) * W + w] += (double)re;
@@ -222,13 +240,62 @@ __device__ __forceinline__ void load_quad(const float* __restrict__ p, int n, bo
   }
 }
 
-// The weights of a thread's samples from sample index at: kQuad floats,
-// or with kCplx as many (re, im) pairs (two 16-byte loads)
-template <bool kCplx>
-__device__ __forceinline__ void load_weights(const float* __restrict__ w, long long at, int n,
-                                             bool full, Weight<kCplx> (&o)[kQuad]) {
+// kQuad doubles: two 16-byte loads (full: p 16-byte aligned)
+__device__ __forceinline__ void load_quad(const double* __restrict__ p, int n, bool full,
+                                          double (&o)[kQuad]) {
+  if (full) {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    o[0] = a.x, o[1] = a.y, o[2] = b.x, o[3] = b.y;
+  } else {
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v) o[v] = v < n ? p[v] : 0.0;
+  }
+}
+
+// Four values at p, 16-byte aligned: one int4 store, or two of longlong2
+__device__ __forceinline__ void store4(int* p, int a, int b, int c, int d) {
+  *reinterpret_cast<int4*>(p) = make_int4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(long long* p, long long a, long long b, long long c,
+                                       long long d) {
+  reinterpret_cast<longlong2*>(p)[0] = make_longlong2(a, b);
+  reinterpret_cast<longlong2*>(p)[1] = make_longlong2(c, d);
+}
+
+// The kQuad values o of a thread at p: 16-byte stores where full (one of
+// four floats, two of four doubles), else the first n one by one
+__device__ __forceinline__ void store_quad(float* __restrict__ p, int n, bool full,
+                                           const float (&o)[kQuad]) {
+  if (full) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v)
+      if (v < n) p[v] = o[v];
+  }
+}
+
+__device__ __forceinline__ void store_quad(double* __restrict__ p, int n, bool full,
+                                           const double (&o)[kQuad]) {
+  if (full) {
+    reinterpret_cast<double2*>(p)[0] = make_double2(o[0], o[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < kQuad; ++v)
+      if (v < n) p[v] = o[v];
+  }
+}
+
+// The weights of a thread's samples from sample index at: kQuad reals,
+// or with kCplx as many (re, im) float pairs (two 16-byte loads)
+template <bool kCplx, typename R>
+__device__ __forceinline__ void load_weights(const typename Weight<kCplx, R>::E* __restrict__ w,
+                                             long long at, int n, bool full,
+                                             Weight<kCplx, R> (&o)[kQuad]) {
   if constexpr (!kCplx) {
-    float t[kQuad];
+    R t[kQuad];
     load_quad(w + at, n, full, t);
 #pragma unroll
     for (int v = 0; v < kQuad; ++v) o[v] = {t[v]};
@@ -240,17 +307,13 @@ __device__ __forceinline__ void load_weights(const float* __restrict__ w, long l
   }
 }
 
-template <bool kCplx>
-__device__ __forceinline__ void store_weights(float* __restrict__ out, long long at, int n,
-                                              bool full, const Weight<kCplx> (&r)[kQuad]) {
+template <bool kCplx, typename R>
+__device__ __forceinline__ void store_weights(typename Weight<kCplx, R>::E* __restrict__ out,
+                                              long long at, int n, bool full,
+                                              const Weight<kCplx, R> (&r)[kQuad]) {
   if constexpr (!kCplx) {
-    if (full) {
-      *reinterpret_cast<float4*>(out + at) = make_float4(r[0].v, r[1].v, r[2].v, r[3].v);
-    } else {
-#pragma unroll
-      for (int v = 0; v < kQuad; ++v)
-        if (v < n) out[at + v] = r[v].v;
-    }
+    const R t[kQuad] = {r[0].v, r[1].v, r[2].v, r[3].v};
+    store_quad(out + at, n, full, t);
   } else {
     float4* q = reinterpret_cast<float4*>(out + 2 * at);
     if (full) {

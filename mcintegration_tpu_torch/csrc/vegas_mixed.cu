@@ -94,6 +94,20 @@
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding, so x, gidx and relw match the plain versions bit for bit and the
 // float64 sums to the order of their adds.
+//
+// float64 (integrate(dtype=torch.float64), the _f64 entry points): every
+// kernel is templated on Fp, the type of tab, x and the densities, as the
+// reference's XLA route takes them under x64 (mcintegration_tpu/solvers/
+// vegas.py:218-356): tab, x (a Discrete value's int32 sign-extended to 64
+// bits), invp_k, jac, factor_i and real w, relw and m are double, formed with
+// the _rn intrinsics' float64 twins (real.cuh); the uniforms, u*nb and its
+// fraction stay float32 (mcintegration_tpu/ops/grid.py:153-176), so a
+// stratified or per-sample Continuous slot draws the float32 launch's bin
+// for the same kd and only a Discrete slot's bin, compared with its float64
+// CDF, may differ.  Complex w stays complex64: relw_i = w_i *
+// float(factor_i) (solvers/vegas.py:324), and the histogram term is
+// min(float64(|w_i|) * jac, 1e17)^2.  The staged CDFs double in bytes:
+// ops/vegas_kernels.py stages at most SMEM_CDF_BYTES of them either way.
 
 #include "chain_common.cuh"
 
@@ -125,16 +139,24 @@ struct Perm {
 
 // blockIdx.y strides over the (block, chunk) pairs, blockIdx.x over the
 // thread-sized groups of a chunk's samples.
-// shared memory: Perm [S], slot rows [S * kFields], staged CDFs [smem_floats].
+// The ints of shared memory before the staged CDFs: Perm [S] and the slot
+// rows, rounded up so that a CDF of doubles starts on 8 bytes
+template <typename Fp>
+__host__ __device__ constexpr int cdf_at(int S) {
+  return sizeof(Fp) == 4 ? (2 + kFields) * S : ((2 + kFields) * S + 1) & ~1;
+}
+
+// shared memory: Perm [S], slot rows [S * kFields], staged CDFs [smem_floats] of Fp.
+template <typename Fp>
 __global__ void __launch_bounds__(kThreads)
 vegas_sample_mixed_kernel(const uint32_t* __restrict__ kd, int t0, int B, int T, int c, int S,
                           const int* __restrict__ meta, const int* __restrict__ atab,
-                          const float* __restrict__ tab, int vec, int* __restrict__ x,
+                          const Fp* __restrict__ tab, int vec, bits_t<Fp>* __restrict__ x,
                           int* __restrict__ gidx) {
   extern __shared__ int smem[];
   Perm* perm = reinterpret_cast<Perm*>(smem);
   int* rows = smem + 2 * S;
-  float* cdfs = reinterpret_cast<float*>(rows + kFields * S);
+  Fp* cdfs = reinterpret_cast<Fp*>(smem + cdf_at<Fp>(S));
   for (int q = threadIdx.x; q < kFields * S; q += blockDim.x) rows[q] = meta[q];
   stage_cdfs(meta, S, kFields, tab, cdfs);              // ends in __syncthreads
   const int BT = B * T;
@@ -168,31 +190,32 @@ vegas_sample_mixed_kernel(const uint32_t* __restrict__ kd, int t0, int B, int T,
       for (int k = 0; k < S; ++k) {
         const int* f = rows + kFields * k;
         const uint32_t salt = (3u * (uint32_t)k + 3u) * 0x85EBCA6Bu;
-        int val[kPerThread], g[kPerThread];
+        bits_t<Fp> val[kPerThread];
+        int g[kPerThread];
         if (f[kKind] == kStrat) {
           const uint32_t nb = (uint32_t)f[kNb], m = (uint32_t)f[kMk];
           const Perm P = perm[k];
-          const float* gr = tab + f[kTab];
+          const Fp* gr = tab + f[kTab];
 #pragma unroll
           for (int v = 0; v < kPerThread; ++v) {
             const uint32_t p = (uint32_t)(s0 + v) / m;
             const int pk = (int)(((uint32_t)P.a * p + (uint32_t)P.s) % nb);
             const float dy = unit24(mix32(base[v] + salt));
-            val[v] = __float_as_int(__fadd_rn(gr[pk], __fmul_rn(dy, gr[nb + pk])));
+            val[v] = as_bits(add_rn(gr[pk], mul_rn((Fp)dy, gr[nb + pk])));
             g[v] = pk;
           }
         } else {
 #pragma unroll
           for (int v = 0; v < kPerThread; ++v) {
-            float prob;                                 // unused: the reduce reads the tables
+            Fp prob;                                    // unused: the reduce reads the tables
             map_draw(f, tab, cdfs, unit24(mix32(base[v] + salt)), val[v], g[v], prob);
           }
         }
         const size_t row = k * plane + (size_t)bt * c;  // slot k, chunk bt
-        int* xk = x + row;
+        bits_t<Fp>* xk = x + row;
         int* gk = gidx + row;
         if (full) {
-          *reinterpret_cast<int4*>(xk + s0) = make_int4(val[0], val[1], val[2], val[3]);
+          store4(xk + s0, val[0], val[1], val[2], val[3]);
           *reinterpret_cast<int4*>(gk + s0) = make_int4(g[0], g[1], g[2], g[3]);
         } else {
 #pragma unroll
@@ -213,8 +236,9 @@ __device__ __forceinline__ double warp_sum(double v) {
 }
 
 // Slot k's 1/probability at bin g, from its staged row (kind, nb, table)
-__device__ __forceinline__ float slot_invp(int kind, int nb, const float* t, int g) {
-  return kind == kDisc ? __fdiv_rn(1.0f, t[nb + 1 + g]) : __fmul_rn((float)nb, t[nb + g]);
+template <typename Fp>
+__device__ __forceinline__ Fp slot_invp(int kind, int nb, const Fp* t, int g) {
+  return kind == kDisc ? div_rn((Fp)1, t[nb + 1 + g]) : mul_rn((Fp)nb, t[nb + g]);
 }
 
 // Add v into bin key of the shared histogram (key < 0: nothing), one add
@@ -261,21 +285,31 @@ __device__ __forceinline__ void hist_add_runs(double* hist_s, const int (&key)[k
 // measure's m, or relw alone (vegas_relw_mixed)
 enum Mode { kDefault, kMeasure, kRelw };
 
-__device__ __forceinline__ float re_of(const Weight<false>& z) { return z.v; }
-__device__ __forceinline__ float re_of(const Weight<true>& z) { return z.re; }
-__device__ __forceinline__ float im_of(const Weight<true>& z) { return z.im; }
+template <typename Fp> __device__ __forceinline__ Fp re_of(const Weight<false, Fp>& z) {
+  return z.v;
+}
+template <typename Fp> __device__ __forceinline__ float re_of(const Weight<true, Fp>& z) {
+  return z.re;
+}
+template <typename Fp> __device__ __forceinline__ float im_of(const Weight<true, Fp>& z) {
+  return z.im;
+}
 
 // meta: slots [S, kFields], pad [N, P], pair_slots [P, M], used [S, N]
 // (nmeta ints).  Shared memory: this block's window of the histogram [HW]
 // double (none for relw), each thread's bins of slots k < nstash [nstash,
 // kThreads] int4, meta.
-template <bool kCplx, int kMode, bool kMask>
+// Fp: tab's type and the densities'; E = elem_t<kCplx, Fp>, of w's, m's
+// and relw's elements.
+template <typename Fp, bool kCplx, int kMode, bool kMask>
 __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
-    const float* __restrict__ w, const int* __restrict__ gidx, const float* __restrict__ tab,
-    const int* __restrict__ meta, int N, int S, int P, int M, long long BT, int c, int H,
-    int hist_smem, int nstash, int nmeta, int vec,
-    const float* __restrict__ mobs, int ncomp, int mf, int t0, int T,
-    double* __restrict__ obs_rows, double* __restrict__ hist, float* __restrict__ relw_out) {
+    const elem_t<kCplx, Fp>* __restrict__ w, const int* __restrict__ gidx,
+    const Fp* __restrict__ tab, const int* __restrict__ meta, int N, int S, int P, int M,
+    long long BT, int c, int H, int hist_smem, int nstash, int nmeta, int vec,
+    const elem_t<kCplx, Fp>* __restrict__ mobs, int ncomp, int mf, int t0, int T,
+    double* __restrict__ obs_rows, double* __restrict__ hist,
+    elem_t<kCplx, Fp>* __restrict__ relw_out) {
+  using E = elem_t<kCplx, Fp>;
   extern __shared__ __align__(16) double hist_s[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int HW = kMode == kRelw ? 0 : hist_smem ? H : kWindow;
@@ -305,18 +339,18 @@ __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
     const long long at = bt * c + s0;
     // each slot's bins read once: jac from their invp, the bins kept for
     // the histogram and the padding factors
-    float jac[kPerThread];
+    Fp jac[kPerThread];
     for (int k = 0; k < S; ++k) {
       int g[kPerThread];
       load_quad(gidx + k * plane + at, n, full, g);
       if (k < nstash) stash[k * kThreads + threadIdx.x] = make_int4(g[0], g[1], g[2], g[3]);
       const int* f = slots + kFields * k;
       const int kind = f[kKind], nb = f[kNb];
-      const float* t = tab + f[kTab];
+      const Fp* t = tab + f[kTab];
 #pragma unroll
       for (int v = 0; v < kPerThread; ++v) {
-        const float ip = slot_invp(kind, nb, t, g[v]);
-        jac[v] = k == 0 ? ip : __fmul_rn(jac[v], ip);
+        const Fp ip = slot_invp(kind, nb, t, g[v]);
+        jac[v] = k == 0 ? ip : mul_rn(jac[v], ip);
       }
     }
     auto bins = [&](int k, int (&g)[kPerThread]) {
@@ -334,12 +368,12 @@ __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
     for (int v = 0; v < kPerThread; ++v) on[v] = v < n && (!kMask || (base + v) % mf == 0);
 
     for (int i = 0; i < N; ++i) {
-      float f[kPerThread];
+      Fp f[kPerThread];
 #pragma unroll
       for (int v = 0; v < kPerThread; ++v) f[v] = jac[v];
       for (int pp = 0; pp < P; ++pp) {        // the padded pairs: 1/invp where needed
         if (!pad[i * P + pp]) continue;
-        float gp[kPerThread] = {1.0f, 1.0f, 1.0f, 1.0f};
+        Fp gp[kPerThread] = {(Fp)1, (Fp)1, (Fp)1, (Fp)1};
         for (int mm = 0; mm < M; ++mm) {
           const int k = pair_slots[pp * M + mm];
           if (k < 0) break;
@@ -347,17 +381,17 @@ __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
           bins(k, g);
           const int* fk = slots + kFields * k;
           const int kind = fk[kKind], nb = fk[kNb];
-          const float* t = tab + fk[kTab];
+          const Fp* t = tab + fk[kTab];
 #pragma unroll
           for (int v = 0; v < kPerThread; ++v) {
-            const float q = __fdiv_rn(1.0f, slot_invp(kind, nb, t, g[v]));
-            gp[v] = mm == 0 ? q : __fmul_rn(gp[v], q);
+            const Fp q = div_rn((Fp)1, slot_invp(kind, nb, t, g[v]));
+            gp[v] = mm == 0 ? q : mul_rn(gp[v], q);
           }
         }
 #pragma unroll
-        for (int v = 0; v < kPerThread; ++v) f[v] = __fmul_rn(f[v], gp[v]);
+        for (int v = 0; v < kPerThread; ++v) f[v] = mul_rn(f[v], gp[v]);
       }
-      Weight<kCplx> wi[kPerThread], relw[kPerThread];
+      Weight<kCplx, Fp> wi[kPerThread], relw[kPerThread];
       load_weights<kCplx>(w, i * plane + at, n, full, wi);
 #pragma unroll
       for (int v = 0; v < kPerThread; ++v) relw[v] = wi[v].scale(f[v]);
@@ -367,9 +401,9 @@ __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
         double sq[kPerThread];
 #pragma unroll
         for (int v = 0; v < kPerThread; ++v) {
-          float a = __fmul_rn(wi[v].abs(), jac[v]);
-          a = a > 1e17f ? 1e17f : a;         // NaN passes through, as torch.clamp
-          sq[v] = v < n ? (double)__fmul_rn(a, a) : 0.0;
+          Fp a = mul_rn((Fp)wi[v].abs(), jac[v]);
+          a = a > (Fp)1e17 ? (Fp)1e17 : a;   // NaN passes through, as torch.clamp
+          sq[v] = v < n ? (double)mul_rn(a, a) : 0.0;
         }
         for (int k = 0; k < S; ++k) {        // warp-uniform: every lane adds or passes
           const int off = slots[kFields * k + kHistOff];
@@ -408,7 +442,7 @@ __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
     if constexpr (kMode == kMeasure) {         // a measure's components, gated as relw would be
       const long long orow = (bt * gridDim.x + blockIdx.x) * kWarps + warp;
       for (int q = 0; q < ncomp; ++q) {
-        float m[kPerThread];
+        E m[kPerThread];
         load_quad(mobs + q * plane + at, n, full, m);
         double v = 0.0;
 #pragma unroll
@@ -425,7 +459,7 @@ __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
   }
 }
 
-template <bool kCplx, int kMode, bool kMask>
+template <typename Fp, bool kCplx, int kMode, bool kMask>
 int launch(const void* w, const void* gidx, const void* tab, const void* meta, int N, int S,
            int P, int M, long long BT, int c, int H, int hist_smem, const void* mobs,
            int ncomp, int mf, int t0, int T, void* obs_rows, void* hist, void* relw,
@@ -444,7 +478,8 @@ int launch(const void* w, const void* gidx, const void* tab, const void* meta, i
   const int vec = c % kPerThread == 0 && any % 16 == 0;
   const size_t smem = (size_t)((HW + 1) & ~1) * sizeof(double) +
                       (size_t)nstash * kThreads * sizeof(int4) + (size_t)nmeta * sizeof(int);
-  auto kernel = vegas_reduce_mixed_kernel<kCplx, kMode, kMask>;
+  auto kernel = vegas_reduce_mixed_kernel<Fp, kCplx, kMode, kMask>;
+  using E = elem_t<kCplx, Fp>;
   int per_sm = 0;
   const int err = blocks_per_sm(kernel, kThreads, smem, &per_sm);
   if (err) return err;
@@ -455,13 +490,13 @@ int launch(const void* w, const void* gidx, const void* tab, const void* meta, i
   if (groups < 1) groups = 1;
   const dim3 grid((unsigned)nspan, (unsigned)groups, (unsigned)nwin);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)w, (const int*)gidx, (const float*)tab, (const int*)meta, N, S, P, M, BT,
-      c, H, hist_smem, nstash, (int)nmeta, vec, (const float*)mobs, ncomp, mf, t0, T,
-      (double*)obs_rows, (double*)hist, (float*)relw);
+      (const E*)w, (const int*)gidx, (const Fp*)tab, (const int*)meta, N, S, P, M, BT, c, H,
+      hist_smem, nstash, (int)nmeta, vec, (const E*)mobs, ncomp, mf, t0, T, (double*)obs_rows,
+      (double*)hist, (E*)relw);
   return (int)cudaGetLastError();
 }
 
-template <bool kCplx>
+template <typename Fp, bool kCplx>
 int reduce_entry(const void* w, const void* gidx, const void* tab, const void* meta, int N,
                  int S, int P, int M, long long BT, int c, int H, int hist_smem, int span,
                  int warps, const void* mobs, int ncomp, int mf, int t0, int T,
@@ -470,39 +505,39 @@ int reduce_entry(const void* w, const void* gidx, const void* tab, const void* m
       c < 1 || H < 0 || mf < 1 || t0 < 0 || T < 1 || BT % T != 0 || ncomp < 1 ||
       (!mobs && ncomp != (kCplx ? 2 * N : N)))
     return (int)cudaErrorInvalidValue;       // the wrapper sized obs_rows otherwise
-  auto run = launch<kCplx, kDefault, false>;
-  if (mobs) run = mf > 1 ? launch<kCplx, kMeasure, true> : launch<kCplx, kMeasure, false>;
-  else if (mf > 1) run = launch<kCplx, kDefault, true>;
+  auto run = launch<Fp, kCplx, kDefault, false>;
+  if (mobs)
+    run = mf > 1 ? launch<Fp, kCplx, kMeasure, true> : launch<Fp, kCplx, kMeasure, false>;
+  else if (mf > 1) run = launch<Fp, kCplx, kDefault, true>;
   return run(w, gidx, tab, meta, N, S, P, M, BT, c, H, hist_smem, mobs, ncomp, mf, t0, T,
              obs_rows, hist, nullptr, stream);
 }
 
-template <bool kCplx>
+template <typename Fp, bool kCplx>
 int relw_entry(const void* w, const void* gidx, const void* tab, const void* meta, int N,
                int S, int P, int M, long long BT, int c, int span, int warps, void* relw,
                void* stream) {
   if (span != kSpan || warps != kWarps || N < 1 || S < 1 || P < 1 || M < 1 || BT < 1 || c < 1)
     return (int)cudaErrorInvalidValue;
   // no histogram, no observables
-  return launch<kCplx, kRelw, false>(w, gidx, tab, meta, N, S, P, M, BT, c, 0, 1, nullptr, N,
-                                     1, 0, 1, nullptr, nullptr, relw, stream);
+  return launch<Fp, kCplx, kRelw, false>(w, gidx, tab, meta, N, S, P, M, BT, c, 0, 1, nullptr,
+                                         N, 1, 0, 1, nullptr, nullptr, relw, stream);
 }
 
-}  // namespace
-
-extern "C" int mci_vegas_sample_mixed(const void* kd, int t0, int B, int T, int c, int S,
-                                      const void* meta, const void* atab, const void* tab,
-                                      int smem_floats, void* x, void* gidx, void* stream) {
+template <typename Fp>
+int sample_entry(const void* kd, int t0, int B, int T, int c, int S, const void* meta,
+                 const void* atab, const void* tab, int smem_floats, void* x, void* gidx,
+                 void* stream) {
   if (B < 1 || T < 1 || c < 1 || S < 1 || t0 < 0 || smem_floats < 0 ||
       (long long)B * T > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   // 16-byte stores of x and gidx: every group of four samples starts on a
   // quad when c % 4 == 0
   const int vec = c % 4 == 0 && ((uintptr_t)x | (uintptr_t)gidx) % 16 == 0;
-  const size_t smem = (size_t)(2 + kFields) * S * sizeof(int) + (size_t)smem_floats * sizeof(float);
+  const size_t smem = (size_t)cdf_at<Fp>(S) * sizeof(int) + (size_t)smem_floats * sizeof(Fp);
   int err = 0;
   if (smem > 48 * 1024)
-    err = (int)cudaFuncSetAttribute(vegas_sample_mixed_kernel,
+    err = (int)cudaFuncSetAttribute(vegas_sample_mixed_kernel<Fp>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const int per_block = kThreads * kPerThread;
@@ -510,42 +545,54 @@ extern "C" int mci_vegas_sample_mixed(const void* kd, int t0, int B, int T, int 
   long long by = (long long)B * T;
   if (bx > 65535) bx = 65535;
   if (by > 65535) by = 65535;
-  vegas_sample_mixed_kernel<<<dim3((unsigned)bx, (unsigned)by), kThreads, smem,
-                              (cudaStream_t)stream>>>(
-      (const uint32_t*)kd, t0, B, T, c, S, (const int*)meta, (const int*)atab,
-      (const float*)tab, vec, (int*)x, (int*)gidx);
+  vegas_sample_mixed_kernel<Fp><<<dim3((unsigned)bx, (unsigned)by), kThreads, smem,
+                                  (cudaStream_t)stream>>>(
+      (const uint32_t*)kd, t0, B, T, c, S, (const int*)meta, (const int*)atab, (const Fp*)tab,
+      vec, (bits_t<Fp>*)x, (int*)gidx);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mci_vegas_reduce_mixed(const void* w, const void* gidx, const void* tab,
-                                      const void* meta, int N, int S, int P, int M,
-                                      long long BT, int c, int H, int hist_smem, int span,
-                                      int warps, const void* mobs, int ncomp, int mf, int t0,
-                                      int T, void* obs_rows, void* hist, void* stream) {
-  return reduce_entry<false>(w, gidx, tab, meta, N, S, P, M, BT, c, H, hist_smem, span, warps,
-                             mobs, ncomp, mf, t0, T, obs_rows, hist, stream);
-}
+}  // namespace
 
-// w complex64 [N, B, T, c], read as interleaved (re, im) float pairs
-extern "C" int mci_vegas_reduce_mixed_complex(const void* w, const void* gidx, const void* tab,
-                                              const void* meta, int N, int S, int P, int M,
-                                              long long BT, int c, int H, int hist_smem,
-                                              int span, int warps, const void* mobs, int ncomp,
-                                              int mf, int t0, int T, void* obs_rows,
-                                              void* hist, void* stream) {
-  return reduce_entry<true>(w, gidx, tab, meta, N, S, P, M, BT, c, H, hist_smem, span, warps,
-                            mobs, ncomp, mf, t0, T, obs_rows, hist, stream);
-}
+#define MCI_SAMPLE_MIXED(name, Fp)                                                        \
+  extern "C" int name(const void* kd, int t0, int B, int T, int c, int S, const void* meta, \
+                      const void* atab, const void* tab, int smem_floats, void* x,          \
+                      void* gidx, void* stream) {                                           \
+    return sample_entry<Fp>(kd, t0, B, T, c, S, meta, atab, tab, smem_floats, x, gidx,      \
+                            stream);                                                        \
+  }
 
-extern "C" int mci_vegas_relw_mixed(const void* w, const void* gidx, const void* tab,
-                                    const void* meta, int N, int S, int P, int M, long long BT,
-                                    int c, int span, int warps, void* relw, void* stream) {
-  return relw_entry<false>(w, gidx, tab, meta, N, S, P, M, BT, c, span, warps, relw, stream);
-}
+#define MCI_REDUCE_MIXED(name, Fp, kCplx)                                                  \
+  extern "C" int name(const void* w, const void* gidx, const void* tab, const void* meta,   \
+                      int N, int S, int P, int M, long long BT, int c, int H, int hist_smem, \
+                      int span, int warps, const void* mobs, int ncomp, int mf, int t0,      \
+                      int T, void* obs_rows, void* hist, void* stream) {                   \
+    return reduce_entry<Fp, kCplx>(w, gidx, tab, meta, N, S, P, M, BT, c, H, hist_smem,     \
+                                   span, warps, mobs, ncomp, mf, t0, T, obs_rows, hist,    \
+                                   stream);                                                \
+  }
 
-extern "C" int mci_vegas_relw_mixed_complex(const void* w, const void* gidx, const void* tab,
-                                            const void* meta, int N, int S, int P, int M,
-                                            long long BT, int c, int span, int warps,
-                                            void* relw, void* stream) {
-  return relw_entry<true>(w, gidx, tab, meta, N, S, P, M, BT, c, span, warps, relw, stream);
-}
+#define MCI_RELW_MIXED(name, Fp, kCplx)                                                    \
+  extern "C" int name(const void* w, const void* gidx, const void* tab, const void* meta,   \
+                      int N, int S, int P, int M, long long BT, int c, int span, int warps,  \
+                      void* relw, void* stream) {                                          \
+    return relw_entry<Fp, kCplx>(w, gidx, tab, meta, N, S, P, M, BT, c, span, warps, relw,  \
+                                 stream);                                                  \
+  }
+
+// w complex64 [N, B, T, c] in the _complex entries, read as interleaved
+// (re, im) float pairs; tab and x float64 in the _f64 entries, and real w,
+// m and relw with them
+MCI_SAMPLE_MIXED(mci_vegas_sample_mixed, float)
+MCI_SAMPLE_MIXED(mci_vegas_sample_mixed_f64, double)
+MCI_REDUCE_MIXED(mci_vegas_reduce_mixed, float, false)
+MCI_REDUCE_MIXED(mci_vegas_reduce_mixed_complex, float, true)
+MCI_REDUCE_MIXED(mci_vegas_reduce_mixed_f64, double, false)
+MCI_REDUCE_MIXED(mci_vegas_reduce_mixed_complex_f64, double, true)
+MCI_RELW_MIXED(mci_vegas_relw_mixed, float, false)
+MCI_RELW_MIXED(mci_vegas_relw_mixed_complex, float, true)
+MCI_RELW_MIXED(mci_vegas_relw_mixed_f64, double, false)
+MCI_RELW_MIXED(mci_vegas_relw_mixed_complex_f64, double, true)
+#undef MCI_SAMPLE_MIXED
+#undef MCI_REDUCE_MIXED
+#undef MCI_RELW_MIXED

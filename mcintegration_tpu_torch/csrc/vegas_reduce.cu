@@ -73,41 +73,54 @@
 // column (quad j: elements 4j..4j+3, in order) and the group then adds its
 // lanes' sums in a butterfly.  The order depends on m alone, the same in
 // both modes and from run to run.
+//
+// float64 (integrate(dtype=torch.float64), the _f64 entry points): the same
+// bodies with invp, jac and factor_i in double (__dmul_rn, __ddiv_rn), and
+// real w, relw and m in double too; the reference's float64 law
+// (mcintegration_tpu/solvers/vegas.py:300-356 under x64).  Complex w stays
+// complex64 (mcintegration_tpu/main.py:341): relw_i = w_i * float(factor_i),
+// the factor rounded to float32 as the reference casts it to the weights'
+// dtype (solvers/vegas.py:324), and the histogram term is min(float64(|w_i|)
+// * jac, 1e17)^2 in double, as jnp.abs(w) * jac promotes there; given m, a
+// complex run's m stays float32.  A quad of doubles comes in two 16-byte
+// loads; the float64 bodies may take 80 registers a thread (3 blocks an SM).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "real.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;                 // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlocksPerSm = 4;               // at most 64 registers a thread
+// at most 64 registers a thread (4 blocks an SM); the float64 bodies 80
+template <typename Fp> constexpr int blocks_per_sm() { return sizeof(Fp) == 4 ? 4 : 3; }
 constexpr int kUnroll = 4;                    // quads a lane loads before adding
 constexpr int kSmemDoubles = 2048;            // whsum of a tile's rows: at most 16 KB
 
-__device__ __forceinline__ float row_jac(const float* __restrict__ invp, int nslots,
-                                         long long R, long long r) {
-  float jac = invp[r];
-  for (int k = 1; k < nslots; ++k) jac = __fmul_rn(jac, invp[k * R + r]);
+template <typename Fp>
+__device__ __forceinline__ Fp row_jac(const Fp* __restrict__ invp, int nslots,
+                                      long long R, long long r) {
+  Fp jac = invp[r];
+  for (int k = 1; k < nslots; ++k) jac = mul_rn(jac, invp[k * R + r]);
   return jac;
 }
 
-// factor_i of row r, in the plain version's float32 order.
-__device__ __forceinline__ float integrand_factor(float jac, const float* __restrict__ invp,
-                                                  const int32_t* __restrict__ pad,
-                                                  const int32_t* __restrict__ pair_slots,
-                                                  int i, int npair, int maxmem,
-                                                  long long R, long long r) {
-  float f = jac;
+// factor_i of row r, in the plain version's order.
+template <typename Fp>
+__device__ __forceinline__ Fp integrand_factor(Fp jac, const Fp* __restrict__ invp,
+                                               const int32_t* __restrict__ pad,
+                                               const int32_t* __restrict__ pair_slots,
+                                               int i, int npair, int maxmem,
+                                               long long R, long long r) {
+  Fp f = jac;
   for (int g = 0; g < npair; ++g) {
     if (!pad[i * npair + g]) continue;
-    float gp = __fdiv_rn(1.0f, invp[pair_slots[g * maxmem] * R + r]);
+    Fp gp = div_rn((Fp)1, invp[pair_slots[g * maxmem] * R + r]);
     for (int mm = 1; mm < maxmem; ++mm) {
       const int k = pair_slots[g * maxmem + mm];
       if (k < 0) break;
-      gp = __fmul_rn(gp, __fdiv_rn(1.0f, invp[k * R + r]));
+      gp = mul_rn(gp, div_rn((Fp)1, invp[k * R + r]));
     }
-    f = __fmul_rn(f, gp);
+    f = mul_rn(f, gp);
   }
   return f;
 }
@@ -124,6 +137,30 @@ __device__ __forceinline__ float4 load_quad(const float* __restrict__ col, int j
   if (q + 3 < m) v.w = col[q + 3];
   return v;
 }
+
+// Quad j of a column of m doubles: two 16-byte loads
+struct DQuad {
+  double x, y, z, w;
+};
+
+template <bool kVec>
+__device__ __forceinline__ DQuad load_quad(const double* __restrict__ col, int j, int m) {
+  if (kVec) {                                 // read once: streaming
+    const double2* p = reinterpret_cast<const double2*>(col) + 2 * j;
+    const double2 a = __ldcs(p), b = __ldcs(p + 1);
+    return DQuad{a.x, a.y, b.x, b.y};
+  }
+  const int q = 4 * j;
+  DQuad v = {0.0, 0.0, 0.0, 0.0};
+  v.x = col[q];
+  if (q + 1 < m) v.y = col[q + 1];
+  if (q + 2 < m) v.z = col[q + 2];
+  if (q + 3 < m) v.w = col[q + 3];
+  return v;
+}
+
+template <typename E> struct QuadOf { using type = float4; };
+template <> struct QuadOf<double> { using type = DQuad; };
 
 // Quad j of a complex column of m samples: samples 4j..4j+3 as (re, im)
 // pairs, lo the first two, hi the last two (samples past m left 0).
@@ -152,19 +189,21 @@ __device__ __forceinline__ CQuad load_cquad(const float* __restrict__ col, int j
 
 // What a unit adds per sample: kObs the column's values (an m column),
 // kWeighted w * factor and the histogram term (w in the default mode),
-// kHist the histogram term alone (w beside a measure).
+// kHist the histogram term alone (w beside a measure).  v and f are of the
+// column's type V, jac of the tables' J (a complex float64 run: float and
+// double).
 enum Terms { kObs, kWeighted, kHist };
 
-template <int kTerms>
-__device__ __forceinline__ void add_value(float v, float f, float jac, double& so, double& sh) {
+template <int kTerms, typename V, typename J>
+__device__ __forceinline__ void add_value(V v, V f, J jac, double& so, double& sh) {
   if (kTerms == kObs) {
     so += (double)v;
     return;
   }
-  if (kTerms == kWeighted) so += (double)__fmul_rn(v, f);
-  float a = __fmul_rn(fabsf(v), jac);
-  a = a > 1e17f ? 1e17f : a;   // NaN passes through, as torch.clamp
-  sh += (double)__fmul_rn(a, a);
+  if (kTerms == kWeighted) so += (double)mul_rn(v, f);
+  J a = mul_rn((J)abs_of(v), jac);
+  a = a > (J)1e17 ? (J)1e17 : a;   // NaN passes through, as torch.clamp
+  sh += (double)mul_rn(a, a);
 }
 
 // The measurement gate of sample e of a row: with kMask, a sample whose
@@ -176,20 +215,20 @@ struct Gate {
   __device__ __forceinline__ bool shut(int e) const { return (rem + (unsigned)e) % mf != 0u; }
 };
 
-template <int kTerms, bool kMask>
-__device__ __forceinline__ void add_sample(float v, int e, const Gate& g, float f, float jac,
+template <int kTerms, bool kMask, typename V, typename J>
+__device__ __forceinline__ void add_sample(V v, int e, const Gate& g, V f, J jac,
                                            double& so, double& sh) {
   if (kMask && g.shut(e)) {
-    if (kTerms == kObs) v = 0.0f;
-    f = 0.0f;
+    if (kTerms == kObs) v = (V)0;
+    f = (V)0;
   }
   add_value<kTerms>(v, f, jac, so, sh);
 }
 
 // Add the quads j0, j0 + G, ... (kUnroll of them, those below nq) in order.
-template <bool kVec, int kTerms, bool kMask>
-__device__ __forceinline__ void add_batch(const float4 (&v)[kUnroll], int j0, int G, int nq,
-                                          int m, const Gate& g, float f, float jac,
+template <bool kVec, int kTerms, bool kMask, typename Q, typename V, typename J>
+__device__ __forceinline__ void add_batch(const Q (&v)[kUnroll], int j0, int G, int nq,
+                                          int m, const Gate& g, V f, J jac,
                                           double& so, double& sh) {
 #pragma unroll
   for (int k = 0; k < kUnroll; ++k) {
@@ -206,9 +245,9 @@ __device__ __forceinline__ void add_batch(const float4 (&v)[kUnroll], int j0, in
 // A complex sample (re, im): kWeighted adds Re and Im of w * f into so and
 // si (a zero where the gate is shut), and both modes add the histogram term
 // of |w|, as the real kernel adds that of |v|.
-template <int kTerms, bool kMask>
+template <int kTerms, bool kMask, typename J>
 __device__ __forceinline__ void add_csample(float re, float im, int e, const Gate& g, float f,
-                                            float jac, double& so, double& si, double& sh) {
+                                            J jac, double& so, double& si, double& sh) {
   if (kTerms == kWeighted) {
     const float fe = kMask && g.shut(e) ? 0.0f : f;
     so += (double)__fmul_rn(re, fe);
@@ -221,9 +260,9 @@ __device__ __forceinline__ void add_csample(float re, float im, int e, const Gat
 // each, added in the real kernel's order), kCUnroll in flight.
 constexpr int kCUnroll = 2;
 
-template <bool kVec, int kTerms, bool kMask>
+template <bool kVec, int kTerms, bool kMask, typename J>
 __device__ __forceinline__ void add_ccolumn(const float* __restrict__ src, int lg, int G, int nq,
-                                            int m, const Gate& g, float f, float jac,
+                                            int m, const Gate& g, float f, J jac,
                                             double& so, double& si, double& sh) {
   for (int j0 = lg; j0 < nq; j0 += kCUnroll * G) {
     CQuad v[kCUnroll];
@@ -253,14 +292,17 @@ __device__ __forceinline__ void add_ccolumn(const float* __restrict__ src, int l
 // columns 0..N-1 the integrands' w and, given m, N..N+ncomp-1 its components.
 // kCplx: w complex (the default observables of w_i in components 2i, 2i+1);
 // kMask: the gate of measurefreq mf, the chunks t0..t0+T-1 of each block.
-template <bool kVec, bool kCplx, bool kMask>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-vegas_reduce_kernel(const float* __restrict__ w, const float* __restrict__ invp,
+// Fp: the type of invp, jac and factor_i; E = elem_t<kCplx, Fp>, of w's
+// and m's elements.
+template <typename Fp, bool kVec, bool kCplx, bool kMask>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<Fp>())
+vegas_reduce_kernel(const elem_t<kCplx, Fp>* __restrict__ w, const Fp* __restrict__ invp,
                     const int32_t* __restrict__ perm, const int32_t* __restrict__ pad,
                     const int32_t* __restrict__ pair_slots, const int32_t* __restrict__ used,
                     int N, int nslots, int npair, int maxmem, long long R, int nb, int m,
-                    const float* __restrict__ mobs, int ncomp, int G, int RT, int mf, int t0,
-                    int T, double* __restrict__ obs_rows, double* __restrict__ hrow) {
+                    const elem_t<kCplx, Fp>* __restrict__ mobs, int ncomp, int G, int RT, int mf,
+                    int t0, int T, double* __restrict__ obs_rows, double* __restrict__ hrow) {
+  using E = elem_t<kCplx, Fp>;
   extern __shared__ double whsum[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lg = lane & (G - 1);               // lane in its group
@@ -279,8 +321,8 @@ vegas_reduce_kernel(const float* __restrict__ w, const float* __restrict__ invp,
     const long long r = r0 + row;
     const bool wcol = col < N;
     const int terms = !wcol ? kObs : mobs ? kHist : kWeighted;
-    const float* src = wcol ? w + ((long long)col * R + r) * m * (kCplx ? 2 : 1)
-                            : mobs + ((long long)(col - N) * R + r) * m;
+    const E* src = wcol ? w + ((long long)col * R + r) * m * (kCplx ? 2 : 1)
+                        : mobs + ((long long)(col - N) * R + r) * m;
     Gate g = {0u, 1u};
     if (kMask) {   // the row's first sample: index (t0 + t)*nb*m + p*m + 1 in its block
       const long long t = t0 + (r / nb) % T;
@@ -288,26 +330,31 @@ vegas_reduce_kernel(const float* __restrict__ w, const float* __restrict__ invp,
     }
     double so = 0.0, sh = 0.0, si = 0.0;
     if (ok && kCplx && wcol) {
-      const float jac = row_jac(invp, nslots, R, r);
+      const Fp jac = row_jac(invp, nslots, R, r);
       if (terms == kWeighted) {
-        const float f = integrand_factor(jac, invp, pad, pair_slots, col, npair, maxmem, R, r);
-        add_ccolumn<kVec, kWeighted, kMask>(src, lg, G, nq, m, g, f, jac, so, si, sh);
+        // the factor rounded to the weights' float32 (a no-op at Fp = float)
+        const float f = (float)integrand_factor(jac, invp, pad, pair_slots, col, npair, maxmem,
+                                                R, r);
+        add_ccolumn<kVec, kWeighted, kMask>((const float*)src, lg, G, nq, m, g, f, jac, so,
+                                            si, sh);
       } else {
-        add_ccolumn<kVec, kHist, kMask>(src, lg, G, nq, m, g, 0.0f, jac, so, si, sh);
+        add_ccolumn<kVec, kHist, kMask>((const float*)src, lg, G, nq, m, g, 0.0f, jac, so, si,
+                                        sh);
       }
     } else if (ok) {
-      float jac = 0.0f, f = 0.0f;
+      // E = Fp unless kCplx, where this branch reads only m's columns
+      E jac = (E)0, f = (E)0;
       for (int j0 = lg; j0 < nq; j0 += kUnroll * G) {
-        float4 v[kUnroll];
+        typename QuadOf<E>::type v[kUnroll];
 #pragma unroll
         for (int k = 0; k < kUnroll; ++k) {
           const int j = j0 + k * G;
           if (j < nq) v[k] = load_quad<kVec>(src, j, m);
         }
         if (j0 == lg && wcol) {   // the factors, while the first loads are out
-          jac = row_jac(invp, nslots, R, r);
+          jac = (E)row_jac(invp, nslots, R, r);
           if (terms == kWeighted)
-            f = integrand_factor(jac, invp, pad, pair_slots, col, npair, maxmem, R, r);
+            f = (E)integrand_factor((Fp)jac, invp, pad, pair_slots, col, npair, maxmem, R, r);
         }
         if (terms == kObs)
           add_batch<kVec, kObs, kMask>(v, j0, G, nq, m, g, f, jac, so, sh);
@@ -343,34 +390,38 @@ vegas_reduce_kernel(const float* __restrict__ w, const float* __restrict__ invp,
 }
 
 // jac of stratum row r, returned to every thread, and factor_i into
-// factor[i] in shared memory, in the plain version's float32 order.
-__device__ __forceinline__ float row_factors(const float* __restrict__ invp,
-                                             const int32_t* __restrict__ pad,
-                                             const int32_t* __restrict__ pair_slots,
-                                             int N, int nslots, int npair, int maxmem,
-                                             long long R, long long r, float* factor) {
-  const float jac = row_jac(invp, nslots, R, r);
+// factor[i] in shared memory as E (rounded to float32 beside a complex64
+// w), in the plain version's order.
+template <typename Fp, typename E>
+__device__ __forceinline__ Fp row_factors(const Fp* __restrict__ invp,
+                                          const int32_t* __restrict__ pad,
+                                          const int32_t* __restrict__ pair_slots,
+                                          int N, int nslots, int npair, int maxmem,
+                                          long long R, long long r, E* factor) {
+  const Fp jac = row_jac(invp, nslots, R, r);
   for (int i = threadIdx.x; i < N; i += blockDim.x)
-    factor[i] = integrand_factor(jac, invp, pad, pair_slots, i, npair, maxmem, R, r);
+    factor[i] = (E)integrand_factor(jac, invp, pad, pair_slots, i, npair, maxmem, R, r);
   __syncthreads();
   return jac;
 }
 
-// shared memory: factor [N] float
-__global__ void vegas_relw_kernel(const float* __restrict__ w,
-                                  const float* __restrict__ invp,
+// shared memory: factor [N] of E, the element of w and relw
+template <typename Fp, typename E>
+__global__ void vegas_relw_kernel(const E* __restrict__ w,
+                                  const Fp* __restrict__ invp,
                                   const int32_t* __restrict__ pad,
                                   const int32_t* __restrict__ pair_slots,
                                   int N, int nslots, int npair, int maxmem,
-                                  long long R, int m, float* __restrict__ relw) {
-  extern __shared__ float factor[];
+                                  long long R, int m, E* __restrict__ relw) {
+  extern __shared__ __align__(8) unsigned char factor_bytes[];
+  E* factor = reinterpret_cast<E*>(factor_bytes);
   const long long r = blockIdx.x;
   row_factors(invp, pad, pair_slots, N, nslots, npair, maxmem, R, r, factor);
   for (int i = 0; i < N; ++i) {
     const long long base = ((long long)i * R + r) * m;
-    const float f = factor[i];
+    const E f = factor[i];
     for (int q = threadIdx.x; q < m; q += blockDim.x)
-      relw[base + q] = __fmul_rn(w[base + q], f);
+      relw[base + q] = mul_rn(w[base + q], f);
   }
 }
 
@@ -389,11 +440,11 @@ int group_lanes(int m) {
   return g;
 }
 
-template <bool kVec, bool kCplx, bool kMask>
-cudaError_t launch_reduce(const float* w, const float* invp, const int32_t* perm,
+template <typename Fp, bool kVec, bool kCplx, bool kMask>
+cudaError_t launch_reduce(const elem_t<kCplx, Fp>* w, const Fp* invp, const int32_t* perm,
                           const int32_t* pad, const int32_t* pair_slots, const int32_t* used,
                           int N, int nslots, int npair, int maxmem, long long R, int nb, int m,
-                          const float* mobs, int ncomp, int mf, int t0, int T,
+                          const elem_t<kCplx, Fp>* mobs, int ncomp, int mf, int t0, int T,
                           double* obs_rows, double* hrow, cudaStream_t stream) {
   const int G = group_lanes(m);
   int RT = kWarps * (32 / G);                   // a row per group at one column
@@ -401,15 +452,13 @@ cudaError_t launch_reduce(const float* w, const float* invp, const int32_t* perm
   const size_t smem = (size_t)RT * N * sizeof(double);
   const long long ntiles = (R + RT - 1) / RT;
   if (ntiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  vegas_reduce_kernel<kVec, kCplx, kMask><<<(unsigned)ntiles, kThreads, smem, stream>>>(
+  vegas_reduce_kernel<Fp, kVec, kCplx, kMask><<<(unsigned)ntiles, kThreads, smem, stream>>>(
       w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem, R, nb, m, mobs,
       mobs ? ncomp : (kCplx ? 2 * N : N), G, RT, mf, t0, T, obs_rows, hrow);
   return cudaGetLastError();
 }
 
-using ReduceLaunch = decltype(&launch_reduce<false, false, false>);
-
-template <bool kCplx>
+template <typename Fp, bool kCplx>
 int reduce_entry(const void* w, const void* invp, const void* perm, const void* pad,
                  const void* pair_slots, const void* used, int N, int nslots, int npair,
                  int maxmem, long long R, int nb, int m, const void* mobs, int ncomp, int mf,
@@ -420,48 +469,54 @@ int reduce_entry(const void* w, const void* invp, const void* perm, const void* 
   // 16-byte loads: every row starts on a quad when m % 4 == 0
   const bool vec = m % 4 == 0 && (uintptr_t)w % 16 == 0 && (uintptr_t)mobs % 16 == 0;
   // the gate's kernel only where mf > 1: the mf = 1 kernels are the ungated ones
-  ReduceLaunch run = launch_reduce<false, kCplx, false>;
-  if (vec) run = mf > 1 ? launch_reduce<true, kCplx, true> : launch_reduce<true, kCplx, false>;
-  else if (mf > 1) run = launch_reduce<false, kCplx, true>;
-  return (int)run((const float*)w, (const float*)invp, (const int32_t*)perm,
+  using E = elem_t<kCplx, Fp>;
+  auto run = launch_reduce<Fp, false, kCplx, false>;
+  if (vec)
+    run = mf > 1 ? launch_reduce<Fp, true, kCplx, true> : launch_reduce<Fp, true, kCplx, false>;
+  else if (mf > 1) run = launch_reduce<Fp, false, kCplx, true>;
+  return (int)run((const E*)w, (const Fp*)invp, (const int32_t*)perm,
                   (const int32_t*)pad, (const int32_t*)pair_slots, (const int32_t*)used,
-                  N, nslots, npair, maxmem, R, nb, m, (const float*)mobs, ncomp, mf, t0, T,
+                  N, nslots, npair, maxmem, R, nb, m, (const E*)mobs, ncomp, mf, t0, T,
                   (double*)obs_rows, (double*)hrow, (cudaStream_t)stream);
+}
+
+// relw of rows of m values of E (a complex row: 2m floats)
+template <typename Fp, typename E>
+int relw_entry(const void* w, const void* invp, const void* pad, const void* pair_slots,
+               int N, int nslots, int npair, int maxmem, long long R, int m, void* relw,
+               void* stream) {
+  vegas_relw_kernel<Fp, E><<<(unsigned)R, row_threads(m), (size_t)N * sizeof(E),
+                             (cudaStream_t)stream>>>(
+      (const E*)w, (const Fp*)invp, (const int32_t*)pad, (const int32_t*)pair_slots, N, nslots,
+      npair, maxmem, R, m, (E*)relw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mci_vegas_reduce(const void* w, const void* invp,
-                                const void* perm, const void* pad,
-                                const void* pair_slots, const void* used,
-                                int N, int nslots, int npair, int maxmem,
-                                long long R, int nb, int m, const void* mobs,
-                                int ncomp, int mf, int t0, int T, void* obs_rows,
-                                void* hrow, void* stream) {
-  return reduce_entry<false>(w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem,
-                             R, nb, m, mobs, ncomp, mf, t0, T, obs_rows, hrow, stream);
-}
+#define MCI_VEGAS_REDUCE(name, Fp, kCplx)                                                  \
+  extern "C" int name(const void* w, const void* invp, const void* perm, const void* pad,   \
+                      const void* pair_slots, const void* used, int N, int nslots, int npair, \
+                      int maxmem, long long R, int nb, int m, const void* mobs, int ncomp,   \
+                      int mf, int t0, int T, void* obs_rows, void* hrow, void* stream) {     \
+    return reduce_entry<Fp, kCplx>(w, invp, perm, pad, pair_slots, used, N, nslots, npair,  \
+                                   maxmem, R, nb, m, mobs, ncomp, mf, t0, T, obs_rows, hrow, \
+                                   stream);                                                   \
+  }
 
+MCI_VEGAS_REDUCE(mci_vegas_reduce, float, false)
 // w complex64 [N, B, T, nb, m], read as interleaved (re, im) float pairs
-extern "C" int mci_vegas_reduce_complex(const void* w, const void* invp,
-                                        const void* perm, const void* pad,
-                                        const void* pair_slots, const void* used,
-                                        int N, int nslots, int npair, int maxmem,
-                                        long long R, int nb, int m, const void* mobs,
-                                        int ncomp, int mf, int t0, int T, void* obs_rows,
-                                        void* hrow, void* stream) {
-  return reduce_entry<true>(w, invp, perm, pad, pair_slots, used, N, nslots, npair, maxmem,
-                            R, nb, m, mobs, ncomp, mf, t0, T, obs_rows, hrow, stream);
-}
+MCI_VEGAS_REDUCE(mci_vegas_reduce_complex, float, true)
+// invp float64; real w and m float64, complex w complex64 (m float32)
+MCI_VEGAS_REDUCE(mci_vegas_reduce_f64, double, false)
+MCI_VEGAS_REDUCE(mci_vegas_reduce_complex_f64, double, true)
+#undef MCI_VEGAS_REDUCE
 
 extern "C" int mci_vegas_relw(const void* w, const void* invp, const void* pad,
                               const void* pair_slots, int N, int nslots, int npair,
                               int maxmem, long long R, int m, void* relw, void* stream) {
-  vegas_relw_kernel<<<(unsigned)R, row_threads(m), (size_t)N * sizeof(float),
-                      (cudaStream_t)stream>>>(
-      (const float*)w, (const float*)invp, (const int32_t*)pad,
-      (const int32_t*)pair_slots, N, nslots, npair, maxmem, R, m, (float*)relw);
-  return (int)cudaGetLastError();
+  return relw_entry<float, float>(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, m,
+                                  relw, stream);
 }
 
 // complex64 w and relw: each part scaled alone by the real factor, so the
@@ -473,4 +528,23 @@ extern "C" int mci_vegas_relw_complex(const void* w, const void* invp, const voi
   if (m > 0x3fffffff) return (int)cudaErrorInvalidValue;
   return mci_vegas_relw(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, 2 * m, relw,
                         stream);
+}
+
+// invp, w and relw float64
+extern "C" int mci_vegas_relw_f64(const void* w, const void* invp, const void* pad,
+                                  const void* pair_slots, int N, int nslots, int npair,
+                                  int maxmem, long long R, int m, void* relw, void* stream) {
+  return relw_entry<double, double>(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, m,
+                                    relw, stream);
+}
+
+// invp float64, w and relw complex64: the float view with the factor
+// rounded to float32
+extern "C" int mci_vegas_relw_complex_f64(const void* w, const void* invp, const void* pad,
+                                          const void* pair_slots, int N, int nslots, int npair,
+                                          int maxmem, long long R, int m, void* relw,
+                                          void* stream) {
+  if (m > 0x3fffffff) return (int)cudaErrorInvalidValue;
+  return relw_entry<double, float>(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, 2 * m,
+                                   relw, stream);
 }

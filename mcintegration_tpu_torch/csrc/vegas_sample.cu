@@ -42,6 +42,15 @@
 //
 // Built with --fmad=false (ops/_build.py); the explicit _rn intrinsics below
 // pin the rounding anyway, so x matches the plain torch version bit for bit.
+//
+// float64 (integrate(dtype=torch.float64), mci_vegas_sample_f64): the same
+// body with grid, inc, x and invp of double, the reference's float64 law
+// (mcintegration_tpu/solvers/vegas.py:227-236 under x64): dy stays the
+// float32 uniform above (ops/grid.py:153-162 of the JAX package), and x =
+// grid + double(dy)*inc and invp = nb*inc are formed in float64 with
+// __dadd_rn and __dmul_rn.  The bits drawn, s, a and so perm are the float32
+// launch's for the same kd.  A quad of x leaves in two 16-byte stores, and
+// the instantiation may take 64 registers a thread (4 blocks an SM).
 
 #include "chain_common.cuh"
 #include "divide.cuh"
@@ -50,7 +59,8 @@ namespace {
 
 constexpr int kNMult = 64;       // multiplier-table width (solvers/vegas.py)
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;  // at most 32 registers a thread
+// at most 32 registers a thread (8 blocks an SM); the float64 body 64
+template <typename R> constexpr int blocks_per_sm() { return sizeof(R) == 4 ? 8 : 4; }
 constexpr int kQuads = 8;        // quads of draws (or 4 scalar draws) a thread takes a tile
 
 // What a group's draws share, formed once per thread block.
@@ -60,24 +70,36 @@ struct Group {
 };
 
 // The draw of flat index i: its x from the stratum's map row (g, dx).
-__device__ __forceinline__ float draw_x(uint32_t i, const Group& G, float g, float dx) {
+template <typename R>
+__device__ __forceinline__ R draw_x(uint32_t i, const Group& G, R g, R dx) {
   const uint32_t u = mix32(mix32(i ^ G.k1) + G.kc);
   const float dy = __fmul_rn(__fadd_rn((float)(u & 0xFFFFFFu), 0.5f),
                              5.9604644775390625e-08f);   // 2^-24
-  return __fadd_rn(g, __fmul_rn(dy, dx));
+  return add_rn(g, mul_rn((R)dy, dx));
+}
+
+// Quad Q of the chunk's x, in streaming stores: one float4, or two double2
+__device__ __forceinline__ void store_x(float* xg, uint32_t Q, float a, float b, float c,
+                                        float d) {
+  __stcs(reinterpret_cast<float4*>(xg) + Q, make_float4(a, b, c, d));
+}
+__device__ __forceinline__ void store_x(double* xg, uint32_t Q, double a, double b, double c,
+                                        double d) {
+  __stcs(reinterpret_cast<double2*>(xg) + 2 * Q, make_double2(a, b));
+  __stcs(reinterpret_cast<double2*>(xg) + 2 * Q + 1, make_double2(c, d));
 }
 
 // blockIdx.x is the group (slot k, block b, chunk t) with nb*m draws laid
 // out [nb, m]; blockIdx.y strides over the group's tiles of kThreads*kQuads
 // quads (kVec) or scalar quads of draws.  (mulm, shm) divide by m/4 (kVec)
 // or by m, (mulnb, shnb) by nb.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+template <typename R, bool kVec>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<R>())
 vegas_sample_kernel(const uint32_t* __restrict__ kd, int t0, uint32_t B, uint32_t T, int nb,
                     int m, uint32_t mulm, int shm, uint32_t mulnb, int shnb,
-                    const int32_t* __restrict__ atab, const float* __restrict__ grid,
-                    const float* __restrict__ inc, const int32_t* __restrict__ slot_leaf,
-                    float* __restrict__ x, float* __restrict__ invp,
+                    const int32_t* __restrict__ atab, const R* __restrict__ grid,
+                    const R* __restrict__ inc, const int32_t* __restrict__ slot_leaf,
+                    R* __restrict__ x, R* __restrict__ invp,
                     int32_t* __restrict__ perm_out) {
   __shared__ Group sg;
   const uint32_t g = blockIdx.x;
@@ -95,12 +117,12 @@ vegas_sample_kernel(const uint32_t* __restrict__ kd, int t0, uint32_t B, uint32_
   }
   __syncthreads();
   const Group G = sg;
-  const float* gr = grid + (long long)G.leaf * nb;
-  const float* ic = inc + (long long)G.leaf * nb;
-  const float fnb = (float)nb;
+  const R* gr = grid + (long long)G.leaf * nb;
+  const R* ic = inc + (long long)G.leaf * nb;
+  const R fnb = (R)nb;
   const uint32_t chunk = (uint32_t)nb * (uint32_t)m;
-  float* xg = x + (long long)g * chunk;
-  float* ig = invp + (long long)g * nb;
+  R* xg = x + (long long)g * chunk;
+  R* ig = invp + (long long)g * nb;
   int32_t* pg = perm_out + (long long)g * nb;
 
   if (kVec) {
@@ -114,13 +136,12 @@ vegas_sample_kernel(const uint32_t* __restrict__ kd, int t0, uint32_t B, uint32_
         const uint32_t p = divide(Q, mulm, shm);
         const uint32_t r = (uint32_t)G.a * p + (uint32_t)G.s;
         const int pm = (int)(r - divide(r, mulnb, shnb) * (uint32_t)nb);
-        const float gv = gr[pm], dx = ic[pm];
+        const R gv = gr[pm], dx = ic[pm];
         const uint32_t e = 4u * Q;
-        __stcs(reinterpret_cast<float4*>(xg) + Q,
-               make_float4(draw_x(e, G, gv, dx), draw_x(e + 1u, G, gv, dx),
-                           draw_x(e + 2u, G, gv, dx), draw_x(e + 3u, G, gv, dx)));
+        store_x(xg, Q, draw_x(e, G, gv, dx), draw_x(e + 1u, G, gv, dx),
+                draw_x(e + 2u, G, gv, dx), draw_x(e + 3u, G, gv, dx));
         if (Q == p * qrow) {   // this quad starts row p
-          ig[p] = __fmul_rn(fnb, dx);
+          ig[p] = mul_rn(fnb, dx);
           pg[p] = pm;
         }
       }
@@ -135,10 +156,10 @@ vegas_sample_kernel(const uint32_t* __restrict__ kd, int t0, uint32_t B, uint32_
         const uint32_t p = divide(e, mulm, shm);
         const uint32_t r = (uint32_t)G.a * p + (uint32_t)G.s;
         const int pm = (int)(r - divide(r, mulnb, shnb) * (uint32_t)nb);
-        const float dx = ic[pm];
+        const R dx = ic[pm];
         xg[e] = draw_x(e, G, gr[pm], dx);
         if (e == p * (uint32_t)m) {
-          ig[p] = __fmul_rn(fnb, dx);
+          ig[p] = mul_rn(fnb, dx);
           pg[p] = pm;
         }
       }
@@ -146,13 +167,10 @@ vegas_sample_kernel(const uint32_t* __restrict__ kd, int t0, uint32_t B, uint32_
   }
 }
 
-}  // namespace
-
-extern "C" int mci_vegas_sample(const void* kd, int t0, int B, int T, int nb,
-                                int m, int nslots, const void* atab,
-                                const void* grid, const void* inc,
-                                const void* slot_leaf, void* x, void* invp,
-                                void* perm, void* stream) {
+template <typename R>
+int sample_entry(const void* kd, int t0, int B, int T, int nb, int m, int nslots,
+                 const void* atab, const void* grid, const void* inc, const void* slot_leaf,
+                 void* x, void* invp, void* perm, void* stream) {
   const long long groups = (long long)nslots * B * T;
   const long long chunk = (long long)nb * m;
   // 16-byte stores of x: every quad of a row lies in it when m % 4 == 0
@@ -173,14 +191,35 @@ extern "C" int mci_vegas_sample(const void* kd, int t0, int B, int T, int nb,
   const cudaStream_t s = (cudaStream_t)stream;
 #define MCI_VEGAS_SAMPLE_ARGS                                                          \
   (const uint32_t*)kd, t0, (uint32_t)B, (uint32_t)T, nb, m, mulm, shm, mulnb, shnb,   \
-      (const int32_t*)atab, (const float*)grid, (const float*)inc,                     \
-      (const int32_t*)slot_leaf, (float*)x, (float*)invp, (int32_t*)perm
+      (const int32_t*)atab, (const R*)grid, (const R*)inc,                             \
+      (const int32_t*)slot_leaf, (R*)x, (R*)invp, (int32_t*)perm
   if (vec)
-    vegas_sample_kernel<true><<<grid_dim, kThreads, 0, s>>>(MCI_VEGAS_SAMPLE_ARGS);
+    vegas_sample_kernel<R, true><<<grid_dim, kThreads, 0, s>>>(MCI_VEGAS_SAMPLE_ARGS);
   else
-    vegas_sample_kernel<false><<<grid_dim, kThreads, 0, s>>>(MCI_VEGAS_SAMPLE_ARGS);
+    vegas_sample_kernel<R, false><<<grid_dim, kThreads, 0, s>>>(MCI_VEGAS_SAMPLE_ARGS);
 #undef MCI_VEGAS_SAMPLE_ARGS
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mci_vegas_sample(const void* kd, int t0, int B, int T, int nb,
+                                int m, int nslots, const void* atab,
+                                const void* grid, const void* inc,
+                                const void* slot_leaf, void* x, void* invp,
+                                void* perm, void* stream) {
+  return sample_entry<float>(kd, t0, B, T, nb, m, nslots, atab, grid, inc, slot_leaf, x, invp,
+                             perm, stream);
+}
+
+// grid, inc, x and invp float64
+extern "C" int mci_vegas_sample_f64(const void* kd, int t0, int B, int T, int nb,
+                                    int m, int nslots, const void* atab,
+                                    const void* grid, const void* inc,
+                                    const void* slot_leaf, void* x, void* invp,
+                                    void* perm, void* stream) {
+  return sample_entry<double>(kd, t0, B, T, nb, m, nslots, atab, grid, inc, slot_leaf, x, invp,
+                              perm, stream);
 }
 
 extern "C" const char* mci_error_string(int err) {

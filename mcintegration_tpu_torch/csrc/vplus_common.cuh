@@ -18,9 +18,10 @@ constexpr int kStride = 5, kHist = 6, kSalt = 7;
 // Continuous leaf's table is grid [nb], inc [nb] and rho [nb] = 1/(nb*inc),
 // made once per iteration; a Discrete leaf's is cdf [nb+1] and the bins'
 // masses dist [nb].
-__device__ __forceinline__ float slot_rho(const int* f, const float* tab, int g) {
+template <typename Fp>
+__device__ __forceinline__ Fp slot_rho(const int* f, const Fp* tab, int g) {
   const int nb = f[kNb];
-  const float* t = tab + f[kTab];
+  const Fp* t = tab + f[kTab];
   return f[kKind] == kDisc ? t[nb + 1 + g] : t[2 * nb + g];
 }
 

@@ -131,6 +131,19 @@
 //
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding.
+//
+// float64 (integrate(dtype=torch.float64), the _f64 entry points): every
+// kernel is templated on Fp, the type of tab and the density, with the
+// reference's float64 law (mcintegration_tpu/solvers/vegasplus.py:214-300
+// under x64): rho, prob, pass, dens = float64(cfac)*prob (cfac stays the
+// float32 factor of the counts, :159), jac, pad_i, score and wj are double
+// (__dmul_rn, __ddiv_rn, __dadd_rn); so are real w, relw, m and the
+// histogram term.  Complex w stays complex64: relw_i = w_i * float(jac *
+// pad_i) (the factor cast to the weights' dtype, :252), its histogram term
+// min(|relw_i|, 1e17)^2 stays float32 as the reference's abs of a complex64
+// is, and score += float64(|w_i|) * pad_i.  Each float64 instantiation has
+// half its float32 twin's blocks an SM in its register bound (two of a
+// double's registers).
 
 #include "vplus_common.cuh"
 
@@ -164,13 +177,21 @@ enum Mode { kDefault, kMeasure };
 // The real, ungated, default-measure kernel keeps 32 registers (eight blocks
 // an SM); given m, 40 (six blocks: a warp's measure sums wait on their
 // loads, and more warps hide them: 1.89 ms at phase 6g against 2.35 at four
-// blocks, PERF.md); the gated real default may take up to 64
+// blocks, PERF.md); the gated real default may take up to 64.  The float64
+// bodies (Fp = double) get half as many blocks an SM.
+template <typename Fp>
 constexpr int min_blocks(int mode, bool mask) {
-  return mode == kMeasure ? kMeasureBlocks : mask ? kBlocksPerSm / 2 : kBlocksPerSm;
+  return (mode == kMeasure ? kMeasureBlocks : mask ? kBlocksPerSm / 2 : kBlocksPerSm) /
+         (int)(sizeof(Fp) / 4);
 }
+template <typename Fp> constexpr int f64_halved(int blocks) { return blocks / (int)(sizeof(Fp) / 4); }
 
-__device__ __forceinline__ float re_of(const Weight<false>& z) { return z.v; }
-__device__ __forceinline__ float re_of(const Weight<true>& z) { return z.re; }
+template <typename Fp> __device__ __forceinline__ Fp re_of(const Weight<false, Fp>& z) {
+  return z.v;
+}
+template <typename Fp> __device__ __forceinline__ float re_of(const Weight<true, Fp>& z) {
+  return z.re;
+}
 
 // A measure's components over the warp's 32 samples from s0 (group s0/32)
 // in the nbt <= kChunks chunks bt0 + u*stride, u < nbt, in the order of
@@ -181,8 +202,8 @@ __device__ __forceinline__ float re_of(const Weight<true>& z) { return z.re; }
 // same tree.  A sample counts if it lies in the chunk and the gate lets it
 // (the default mode's gate).  Every lane calls it; the partial of chunk bt
 // goes to the row the default mode gives it.
-template <bool kMask>
-__device__ __forceinline__ void measure_sums(const float* __restrict__ mobs, int ncomp, int c,
+template <bool kMask, typename E>
+__device__ __forceinline__ void measure_sums(const E* __restrict__ mobs, int ncomp, int c,
                                              long long plane, long long bt0, int nbt,
                                              int stride, int s0, int t0, int T, int mf,
                                              const int* __restrict__ shift, bool first,
@@ -203,12 +224,12 @@ __device__ __forceinline__ void measure_sums(const float* __restrict__ mobs, int
   const bool write = j == 0 && first && live;
   const long long row = (bt * gridDim.x + blockIdx.x) * kWarps + (threadIdx.x >> 5);
   for (int q0 = 0; q0 < ncomp; q0 += kBatch) {
-    float t[kBatch][4];
+    E t[kBatch][4];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      const float* m = mobs + min(q0 + b, ncomp - 1) * plane + at;
+      const E* m = mobs + min(q0 + b, ncomp - 1) * plane + at;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) t[b][r] = q0 + b < ncomp && in[r] ? m[8 * r] : 0.0f;
+      for (int r = 0; r < 4; ++r) t[b][r] = q0 + b < ncomp && in[r] ? m[8 * r] : (E)0;
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
@@ -220,13 +241,15 @@ __device__ __forceinline__ void measure_sums(const float* __restrict__ mobs, int
   }
 }
 
-template <bool kCplx, int kMode, bool kMask>
-__global__ void __launch_bounds__(kThreads, min_blocks(kMode, kMask)) vplus_reduce_kernel(
-    const float* __restrict__ w, const int* __restrict__ gidx,
+// Fp: tab's type and the density's; E = elem_t<kCplx, Fp>, of w's and m's
+// elements.
+template <typename Fp, bool kCplx, int kMode, bool kMask>
+__global__ void __launch_bounds__(kThreads, min_blocks<Fp>(kMode, kMask)) vplus_reduce_kernel(
+    const elem_t<kCplx, Fp>* __restrict__ w, const int* __restrict__ gidx,
     const int* __restrict__ cube, const float* __restrict__ cfac,
-    const float* __restrict__ tab, const int* __restrict__ meta, int N, int S,
+    const Fp* __restrict__ tab, const int* __restrict__ meta, int N, int S,
     int P, int M, long long BT, int c, int H, int hist_smem,
-    const float* __restrict__ mobs, int ncomp, int mf, int t0, int T,
+    const elem_t<kCplx, Fp>* __restrict__ mobs, int ncomp, int mf, int t0, int T,
     const int* __restrict__ shift, double* __restrict__ obs_rows, double* __restrict__ sig,
     double* __restrict__ hist) {
   static_assert(!kCplx || kMode == kMeasure, "complex default: vplus_reduce_complex_kernel");
@@ -259,27 +282,27 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kMode, kMask)) vplus_redu
 
   for (long long bt = blockIdx.y; bt < BT; bt += gridDim.y) {
     const long long at = bt * c + s;
-    float jac = 1.0f, denom = 1.0f, score = 0.0f;
+    Fp jac = (Fp)1, denom = (Fp)1, score = (Fp)0;
     if (cb >= 0) {
-      float prob = 1.0f, pass = 1.0f;
+      Fp prob = (Fp)1, pass = (Fp)1;
       bool any_pass = false;
       for (int k = 0; k < S; ++k) {
         const int* f = slots + kSlotFields * k;
-        const float rho = slot_rho(f, tab, gidx[k * plane + at]);
+        const Fp rho = slot_rho(f, tab, gidx[k * plane + at]);
         if (f[kKind] == kDisc) {
-          pass = __fmul_rn(pass, rho);
+          pass = mul_rn(pass, rho);
           any_pass = true;
         } else {
-          prob = __fmul_rn(prob, rho);
+          prob = mul_rn(prob, rho);
         }
       }
-      float dens = __fmul_rn(cf, prob);
+      Fp dens = mul_rn((Fp)cf, prob);
       denom = prob;
       if (any_pass) {
-        dens = __fmul_rn(dens, pass);
-        denom = __fmul_rn(prob, pass);
+        dens = mul_rn(dens, pass);
+        denom = mul_rn(prob, pass);
       }
-      jac = __fdiv_rn(1.0f, dens);
+      jac = div_rn((Fp)1, dens);
     }
     // the gate: whether this sample counts in the observable sums
     const bool on = !kMask || ((t0 + bt % T) * (long long)c +
@@ -288,25 +311,24 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kMode, kMask)) vplus_redu
     for (int i = 0; i < N; ++i) {
       double so = 0.0, sq = 0.0;
       if (cb >= 0) {
-        float pad_i = 1.0f;
+        Fp pad_i = (Fp)1;
         for (int g = 0; g < P; ++g) {
           if (!pad[i * P + g]) continue;
-          float gp = 1.0f;
+          Fp gp = (Fp)1;
           for (int mm = 0; mm < M; ++mm) {
             const int k = pair_slots[g * M + mm];
             if (k < 0) break;
-            gp = __fmul_rn(gp, slot_rho(slots + kSlotFields * k, tab,
-                                        gidx[k * plane + at]));
+            gp = mul_rn(gp, slot_rho(slots + kSlotFields * k, tab, gidx[k * plane + at]));
           }
-          pad_i = __fmul_rn(pad_i, gp);
+          pad_i = mul_rn(pad_i, gp);
         }
-        const Weight<kCplx> wi = Weight<kCplx>::load(w, i * plane + at);
-        const Weight<kCplx> relw = wi.scale(__fmul_rn(jac, pad_i));
-        score = __fadd_rn(score, __fmul_rn(wi.abs(), pad_i));
+        const Weight<kCplx, Fp> wi = Weight<kCplx, Fp>::load(w, i * plane + at);
+        const Weight<kCplx, Fp> relw = wi.scale(mul_rn(jac, pad_i));
+        score = add_rn(score, mul_rn((Fp)wi.abs(), pad_i));
         if (kMode == kDefault && on) so = (double)re_of(relw);
-        float a = relw.abs();
-        a = a > 1e17f ? 1e17f : a;   // NaN passes through, as torch.clamp
-        sq = (double)__fmul_rn(a, a);
+        auto a = relw.abs();         // float for a complex relw, as the reference's
+        a = a > (decltype(a))1e17 ? (decltype(a))1e17 : a;   // NaN passes through, as torch.clamp
+        sq = (double)mul_rn(a, a);
       }
       for (int k = 0; k < S; ++k) {
         const int off = slots[kSlotFields * k + kHist];
@@ -328,9 +350,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kMode, kMask)) vplus_redu
       nbt = 0;
     }
 
-    float wj = __fdiv_rn(score, denom);
-    wj = wj > 1e17f ? 1e17f : wj;
-    if (cb >= 0) v2 += (double)__fmul_rn(wj, wj);
+    Fp wj = div_rn(score, denom);
+    wj = wj > (Fp)1e17 ? (Fp)1e17 : wj;
+    if (cb >= 0) v2 += (double)mul_rn(wj, wj);
   }
 
   // per-cube second moments: a segmented sum over the warp's sorted cubes
@@ -398,11 +420,12 @@ __device__ __forceinline__ bool gate_open(unsigned t, unsigned s, unsigned sh, u
 // once for all of them, and the Re and Im partials of the kCplxChunks
 // chunks are summed together (tree_sums), lane 4q of a warp writing the
 // row of value q (Re of chunk q, then Im of chunk q - kCplxChunks).
-template <bool kMask>
-__global__ void __launch_bounds__(kThreads, kCplxBlocks) vplus_reduce_complex_kernel(
+template <typename Fp, bool kMask>
+__global__ void __launch_bounds__(kThreads, f64_halved<Fp>(kCplxBlocks))
+vplus_reduce_complex_kernel(
     const float* __restrict__ w, const int* __restrict__ gidx,
     const int* __restrict__ cube, const float* __restrict__ cfac,
-    const float* __restrict__ tab, const int* __restrict__ meta, int N, int S,
+    const Fp* __restrict__ tab, const int* __restrict__ meta, int N, int S,
     int P, int M, long long BT, int c, int H, int hist_smem, int mf, int t0, int T,
     const int* __restrict__ shift, double* __restrict__ obs_rows, double* __restrict__ sig,
     double* __restrict__ hist) {
@@ -448,10 +471,10 @@ __global__ void __launch_bounds__(kThreads, kCplxBlocks) vplus_reduce_complex_ke
         on |= 1u << u;
       }
     }
-    float prob[kU], pass[kU];
+    Fp prob[kU], pass[kU];
     bool any_pass = false;
 #pragma unroll
-    for (int u = 0; u < kU; ++u) prob[u] = pass[u] = 1.0f;
+    for (int u = 0; u < kU; ++u) prob[u] = pass[u] = (Fp)1;
     for (int k = 0; k < S; ++k) {
       const int* f = slots + kSlotFields * k;
       const bool disc = f[kKind] == kDisc;
@@ -459,41 +482,41 @@ __global__ void __launch_bounds__(kThreads, kCplxBlocks) vplus_reduce_complex_ke
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         if (!(ok >> u & 1)) continue;
-        const float rho = slot_rho(f, tab, gidx[k * plane + at0 + u * cstep]);
-        if (disc) pass[u] = __fmul_rn(pass[u], rho);
-        else prob[u] = __fmul_rn(prob[u], rho);
+        const Fp rho = slot_rho(f, tab, gidx[k * plane + at0 + u * cstep]);
+        if (disc) pass[u] = mul_rn(pass[u], rho);
+        else prob[u] = mul_rn(prob[u], rho);
       }
     }
-    float jac[kU], denom[kU], score[kU];
+    Fp jac[kU], denom[kU], score[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      float dens = __fmul_rn(cf, prob[u]);
+      Fp dens = mul_rn((Fp)cf, prob[u]);
       denom[u] = prob[u];
       if (any_pass) {
-        dens = __fmul_rn(dens, pass[u]);
-        denom[u] = __fmul_rn(prob[u], pass[u]);
+        dens = mul_rn(dens, pass[u]);
+        denom[u] = mul_rn(prob[u], pass[u]);
       }
-      jac[u] = __fdiv_rn(1.0f, dens);
-      score[u] = 0.0f;
+      jac[u] = div_rn((Fp)1, dens);
+      score[u] = (Fp)0;
     }
 
     for (int i = 0; i < N; ++i) {
-      float pad_i[kU];
+      Fp pad_i[kU];
 #pragma unroll
-      for (int u = 0; u < kU; ++u) pad_i[u] = 1.0f;
+      for (int u = 0; u < kU; ++u) pad_i[u] = (Fp)1;
       for (int g = 0; g < P; ++g) {
         if (!pad[i * P + g]) continue;
 #pragma unroll
         for (int u = 0; u < kU; ++u) {
           if (!(ok >> u & 1)) continue;
-          float gp = 1.0f;
+          Fp gp = (Fp)1;
           for (int mm = 0; mm < M; ++mm) {
             const int k = pair_slots[g * M + mm];
             if (k < 0) break;
-            gp = __fmul_rn(gp, slot_rho(slots + kSlotFields * k, tab,
-                                        gidx[k * plane + at0 + u * cstep]));
+            gp = mul_rn(gp, slot_rho(slots + kSlotFields * k, tab,
+                                     gidx[k * plane + at0 + u * cstep]));
           }
-          pad_i[u] = __fmul_rn(pad_i[u], gp);
+          pad_i[u] = mul_rn(pad_i[u], gp);
         }
       }
       float t[kV], sq[kU];
@@ -501,9 +524,9 @@ __global__ void __launch_bounds__(kThreads, kCplxBlocks) vplus_reduce_complex_ke
       for (int u = 0; u < kU; ++u) {
         t[u] = t[kU + u] = sq[u] = 0.0f;
         if (!(ok >> u & 1)) continue;
-        const Weight<true> wi = Weight<true>::load(w, i * plane + at0 + u * cstep);
-        const Weight<true> relw = wi.scale(__fmul_rn(jac[u], pad_i[u]));
-        score[u] = __fadd_rn(score[u], __fmul_rn(wi.abs(), pad_i[u]));
+        const Weight<true, Fp> wi = Weight<true, Fp>::load(w, i * plane + at0 + u * cstep);
+        const Weight<true, Fp> relw = wi.scale(mul_rn(jac[u], pad_i[u]));
+        score[u] = add_rn(score[u], mul_rn((Fp)wi.abs(), pad_i[u]));
         if (on >> u & 1) {
           t[u] = relw.re;
           t[kU + u] = relw.im;
@@ -530,9 +553,9 @@ __global__ void __launch_bounds__(kThreads, kCplxBlocks) vplus_reduce_complex_ke
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      float wj = __fdiv_rn(score[u], denom[u]);
-      wj = wj > 1e17f ? 1e17f : wj;
-      if (ok >> u & 1) v2 += (double)__fmul_rn(wj, wj);
+      Fp wj = div_rn(score[u], denom[u]);
+      wj = wj > (Fp)1e17 ? (Fp)1e17 : wj;
+      if (ok >> u & 1) v2 += (double)mul_rn(wj, wj);
     }
   }
 
@@ -557,12 +580,12 @@ __global__ void __launch_bounds__(kThreads, kCplxBlocks) vplus_reduce_complex_ke
 // (4 a slot); cube, cfac, the tables and the layout stay in cache (staged
 // in shared memory once a block, the layout made the kernel 3 % slower at
 // phase 6g, PERF.md).
-template <bool kCplx>
-__global__ void __launch_bounds__(kRelwThreads, kRelwBlocks) vplus_relw_kernel(
-    const float* __restrict__ w, const int* __restrict__ gidx,
+template <typename Fp, bool kCplx>
+__global__ void __launch_bounds__(kRelwThreads, f64_halved<Fp>(kRelwBlocks)) vplus_relw_kernel(
+    const elem_t<kCplx, Fp>* __restrict__ w, const int* __restrict__ gidx,
     const int* __restrict__ cube, const float* __restrict__ cfac,
-    const float* __restrict__ tab, const int* __restrict__ meta, int N, int S,
-    int P, int M, long long BT, int c, int nspan, int vec, float* __restrict__ relw) {
+    const Fp* __restrict__ tab, const int* __restrict__ meta, int N, int S,
+    int P, int M, long long BT, int c, int nspan, int vec, elem_t<kCplx, Fp>* __restrict__ relw) {
   const int* slots = meta;                     // [S, 8]
   const int* pad = slots + kSlotFields * S;    // [N, P]
   const int* pair_slots = pad + N * P;         // [P, M]
@@ -578,10 +601,10 @@ __global__ void __launch_bounds__(kRelwThreads, kRelwBlocks) vplus_relw_kernel(
 
   int cb[kQuad];
   load_quad(cube + s0, n, full, cb);
-  float prob[kQuad], pass[kQuad];
+  Fp prob[kQuad], pass[kQuad];
   bool any_pass = false;
 #pragma unroll
-  for (int v = 0; v < kQuad; ++v) prob[v] = pass[v] = 1.0f;
+  for (int v = 0; v < kQuad; ++v) prob[v] = pass[v] = (Fp)1;
   for (int k = 0; k < S; ++k) {
     const int* f = slots + kSlotFields * k;
     const bool disc = f[kKind] == kDisc;
@@ -590,27 +613,27 @@ __global__ void __launch_bounds__(kRelwThreads, kRelwBlocks) vplus_relw_kernel(
     load_quad(gidx + k * plane + at, n, full, g);
 #pragma unroll
     for (int v = 0; v < kQuad; ++v) {
-      const float rho = slot_rho(f, tab, g[v]);
-      if (disc) pass[v] = __fmul_rn(pass[v], rho);
-      else prob[v] = __fmul_rn(prob[v], rho);
+      const Fp rho = slot_rho(f, tab, g[v]);
+      if (disc) pass[v] = mul_rn(pass[v], rho);
+      else prob[v] = mul_rn(prob[v], rho);
     }
   }
-  float jac[kQuad];
+  Fp jac[kQuad];
 #pragma unroll
   for (int v = 0; v < kQuad; ++v) {
-    float dens = __fmul_rn(cfac[cb[v]], prob[v]);
-    if (any_pass) dens = __fmul_rn(dens, pass[v]);
-    jac[v] = __fdiv_rn(1.0f, dens);
+    Fp dens = mul_rn((Fp)cfac[cb[v]], prob[v]);
+    if (any_pass) dens = mul_rn(dens, pass[v]);
+    jac[v] = div_rn((Fp)1, dens);
   }
   for (int i = 0; i < N; ++i) {
-    float pad_i[kQuad];
+    Fp pad_i[kQuad];
 #pragma unroll
-    for (int v = 0; v < kQuad; ++v) pad_i[v] = 1.0f;
+    for (int v = 0; v < kQuad; ++v) pad_i[v] = (Fp)1;
     for (int g = 0; g < P; ++g) {
       if (!pad[i * P + g]) continue;
-      float gp[kQuad];
+      Fp gp[kQuad];
 #pragma unroll
-      for (int v = 0; v < kQuad; ++v) gp[v] = 1.0f;
+      for (int v = 0; v < kQuad; ++v) gp[v] = (Fp)1;
       for (int mm = 0; mm < M; ++mm) {
         const int k = pair_slots[g * M + mm];
         if (k < 0) break;
@@ -618,15 +641,15 @@ __global__ void __launch_bounds__(kRelwThreads, kRelwBlocks) vplus_relw_kernel(
         load_quad(gidx + k * plane + at, n, full, b);
 #pragma unroll
         for (int v = 0; v < kQuad; ++v)
-          gp[v] = __fmul_rn(gp[v], slot_rho(slots + kSlotFields * k, tab, b[v]));
+          gp[v] = mul_rn(gp[v], slot_rho(slots + kSlotFields * k, tab, b[v]));
       }
 #pragma unroll
-      for (int v = 0; v < kQuad; ++v) pad_i[v] = __fmul_rn(pad_i[v], gp[v]);
+      for (int v = 0; v < kQuad; ++v) pad_i[v] = mul_rn(pad_i[v], gp[v]);
     }
-    Weight<kCplx> r[kQuad];
+    Weight<kCplx, Fp> r[kQuad];
     load_weights(w, i * plane + at, n, full, r);
 #pragma unroll
-    for (int v = 0; v < kQuad; ++v) r[v] = r[v].scale(__fmul_rn(jac[v], pad_i[v]));
+    for (int v = 0; v < kQuad; ++v) r[v] = r[v].scale(mul_rn(jac[v], pad_i[v]));
     store_weights(relw, i * plane + at, n, full, r);
   }
 }
@@ -651,42 +674,43 @@ int reduce_grid(Kernel kernel, long long BT, int c, int H, int hist_smem, dim3* 
   return 0;
 }
 
-template <bool kCplx, int kMode, bool kMask>
+template <typename Fp, bool kCplx, int kMode, bool kMask>
 int launch(const void* w, const void* gidx, const void* cube, const void* cfac,
            const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
            int c, int H, int hist_smem, const void* mobs, int ncomp, int mf, int t0, int T,
            const void* shift, void* obs_rows, void* sig, void* hist, void* stream) {
-  auto kernel = vplus_reduce_kernel<kCplx, kMode, kMask>;
+  auto kernel = vplus_reduce_kernel<Fp, kCplx, kMode, kMask>;
+  using E = elem_t<kCplx, Fp>;
   dim3 grid;
   size_t smem = 0;
   const int err = reduce_grid(kernel, BT, c, H, hist_smem, &grid, &smem);
   if (err) return err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
-      (const float*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem,
-      (const float*)mobs, ncomp, mf, t0, T, (const int*)shift, (double*)obs_rows, (double*)sig,
+      (const E*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
+      (const Fp*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem,
+      (const E*)mobs, ncomp, mf, t0, T, (const int*)shift, (double*)obs_rows, (double*)sig,
       (double*)hist);
   return (int)cudaGetLastError();
 }
 
-template <bool kMask>
+template <typename Fp, bool kMask>
 int launch_complex(const void* w, const void* gidx, const void* cube, const void* cfac,
                    const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
                    int c, int H, int hist_smem, const void*, int, int mf, int t0, int T,
                    const void* shift, void* obs_rows, void* sig, void* hist, void* stream) {
-  auto kernel = vplus_reduce_complex_kernel<kMask>;
+  auto kernel = vplus_reduce_complex_kernel<Fp, kMask>;
   dim3 grid;
   size_t smem = 0;
   const int err = reduce_grid(kernel, BT, c, H, hist_smem, &grid, &smem);
   if (err) return err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
-      (const float*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem, mf, t0, T,
+      (const Fp*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem, mf, t0, T,
       (const int*)shift, (double*)obs_rows, (double*)sig, (double*)hist);
   return (int)cudaGetLastError();
 }
 
-template <bool kCplx>
+template <typename Fp, bool kCplx>
 int reduce_entry(const void* w, const void* gidx, const void* cube, const void* cfac,
                  const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
                  int c, int ncubes, int H, int hist_smem, int span, int warps,
@@ -695,14 +719,15 @@ int reduce_entry(const void* w, const void* gidx, const void* cube, const void* 
   if (span != kSpan || warps != kWarps || c < 1 || ncubes < 1 || mf < 1 || t0 < 0 ||
       T < 1 || BT % T != 0 || ncomp < 1 || (!mobs && ncomp != (kCplx ? 2 * N : N)))
     return (int)cudaErrorInvalidValue;      // the wrapper sized obs_rows otherwise
-  auto run = kCplx ? launch_complex<false> : launch<false, kDefault, false>;
-  if (mobs) run = mf > 1 ? launch<kCplx, kMeasure, true> : launch<kCplx, kMeasure, false>;
-  else if (mf > 1) run = kCplx ? launch_complex<true> : launch<false, kDefault, true>;
+  auto run = kCplx ? launch_complex<Fp, false> : launch<Fp, false, kDefault, false>;
+  if (mobs)
+    run = mf > 1 ? launch<Fp, kCplx, kMeasure, true> : launch<Fp, kCplx, kMeasure, false>;
+  else if (mf > 1) run = kCplx ? launch_complex<Fp, true> : launch<Fp, false, kDefault, true>;
   return run(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, H, hist_smem, mobs, ncomp,
              mf, t0, T, shift, obs_rows, sig, hist, stream);
 }
 
-template <bool kCplx>
+template <typename Fp, bool kCplx>
 int relw_entry(const void* w, const void* gidx, const void* cube, const void* cfac,
                const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
                int c, int span, int warps, void* relw, void* stream) {
@@ -712,53 +737,45 @@ int relw_entry(const void* w, const void* gidx, const void* cube, const void* cf
   if (BT * nspan > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int vec = c % kQuad == 0 &&
                   ((uintptr_t)w | (uintptr_t)gidx | (uintptr_t)cube | (uintptr_t)relw) % 16 == 0;
-  vplus_relw_kernel<kCplx><<<(unsigned)(BT * nspan), kRelwThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
-      (const float*)tab, (const int*)meta, N, S, P, M, BT, c, nspan, vec, (float*)relw);
+  using E = elem_t<kCplx, Fp>;
+  vplus_relw_kernel<Fp, kCplx>
+      <<<(unsigned)(BT * nspan), kRelwThreads, 0, (cudaStream_t)stream>>>(
+          (const E*)w, (const int*)gidx, (const int*)cube, (const float*)cfac, (const Fp*)tab,
+          (const int*)meta, N, S, P, M, BT, c, nspan, vec, (E*)relw);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mci_vplus_reduce(const void* w, const void* gidx,
-                                const void* cube, const void* cfac,
-                                const void* tab, const void* meta, int N,
-                                int S, int P, int M, long long BT, int c,
-                                int ncubes, int H, int hist_smem, int span,
-                                int warps, const void* mobs, int ncomp, int mf,
-                                int t0, int T, const void* shift, void* obs_rows,
-                                void* sig, void* hist, void* stream) {
-  return reduce_entry<false>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, ncubes, H,
-                             hist_smem, span, warps, mobs, ncomp, mf, t0, T, shift, obs_rows,
-                             sig, hist, stream);
-}
+#define MCI_VPLUS_REDUCE(name, Fp, kCplx)                                                  \
+  extern "C" int name(const void* w, const void* gidx, const void* cube, const void* cfac,   \
+                      const void* tab, const void* meta, int N, int S, int P, int M,          \
+                      long long BT, int c, int ncubes, int H, int hist_smem, int span,        \
+                      int warps, const void* mobs, int ncomp, int mf, int t0, int T,          \
+                      const void* shift, void* obs_rows, void* sig, void* hist, void* stream) { \
+    return reduce_entry<Fp, kCplx>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, ncubes, \
+                                   H, hist_smem, span, warps, mobs, ncomp, mf, t0, T, shift,  \
+                                   obs_rows, sig, hist, stream);                              \
+  }
 
-// w complex64 [N, B, T, c], read as interleaved (re, im) float pairs
-extern "C" int mci_vplus_reduce_complex(const void* w, const void* gidx,
-                                        const void* cube, const void* cfac,
-                                        const void* tab, const void* meta, int N,
-                                        int S, int P, int M, long long BT, int c,
-                                        int ncubes, int H, int hist_smem, int span,
-                                        int warps, const void* mobs, int ncomp, int mf,
-                                        int t0, int T, const void* shift, void* obs_rows,
-                                        void* sig, void* hist, void* stream) {
-  return reduce_entry<true>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, ncubes, H,
-                            hist_smem, span, warps, mobs, ncomp, mf, t0, T, shift, obs_rows,
-                            sig, hist, stream);
-}
+#define MCI_VPLUS_RELW(name, Fp, kCplx)                                                    \
+  extern "C" int name(const void* w, const void* gidx, const void* cube, const void* cfac,   \
+                      const void* tab, const void* meta, int N, int S, int P, int M,          \
+                      long long BT, int c, int span, int warps, void* relw, void* stream) {   \
+    return relw_entry<Fp, kCplx>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, span,    \
+                                 warps, relw, stream);                                        \
+  }
 
-extern "C" int mci_vplus_relw(const void* w, const void* gidx, const void* cube,
-                              const void* cfac, const void* tab, const void* meta, int N,
-                              int S, int P, int M, long long BT, int c, int span, int warps,
-                              void* relw, void* stream) {
-  return relw_entry<false>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, span, warps,
-                           relw, stream);
-}
-
-extern "C" int mci_vplus_relw_complex(const void* w, const void* gidx, const void* cube,
-                                      const void* cfac, const void* tab, const void* meta,
-                                      int N, int S, int P, int M, long long BT, int c,
-                                      int span, int warps, void* relw, void* stream) {
-  return relw_entry<true>(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, span, warps,
-                          relw, stream);
-}
+// w complex64 [N, B, T, c] in the _complex entries, read as interleaved
+// (re, im) float pairs; tab float64 in the _f64 entries, and real w, m and
+// relw with it
+MCI_VPLUS_REDUCE(mci_vplus_reduce, float, false)
+MCI_VPLUS_REDUCE(mci_vplus_reduce_complex, float, true)
+MCI_VPLUS_REDUCE(mci_vplus_reduce_f64, double, false)
+MCI_VPLUS_REDUCE(mci_vplus_reduce_complex_f64, double, true)
+MCI_VPLUS_RELW(mci_vplus_relw, float, false)
+MCI_VPLUS_RELW(mci_vplus_relw_complex, float, true)
+MCI_VPLUS_RELW(mci_vplus_relw_f64, double, false)
+MCI_VPLUS_RELW(mci_vplus_relw_complex_f64, double, true)
+#undef MCI_VPLUS_REDUCE
+#undef MCI_VPLUS_RELW

@@ -49,6 +49,16 @@
 //
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding, so x and gidx match the plain version bit for bit.
+//
+// float64 (integrate(dtype=torch.float64), mci_vplus_sample_f64): the body
+// templated on Fp, the type of tab and x, with the reference's float64 law
+// (mcintegration_tpu/solvers/vegasplus.py:184-212 under x64): y = (coord +
+// u)/nstrat, y*ninc and its fraction dy stay float32 as there (:190), x =
+// grid[iy] + double(dy)*inc[iy] in float64, a Discrete passenger's CDF is
+// compared in float64 and its int32 value is stored sign-extended in 64
+// bits.  So a Continuous slot's bin is the float32 launch's for the same
+// kd.  Four samples' x leave in two 16-byte stores; the float64 body's
+// bound allows 80 registers a thread (3 blocks an SM).
 
 #include "divide.cuh"
 #include "vplus_common.cuh"
@@ -56,7 +66,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 4;    // at most 64 registers a thread
+// at most 64 registers a thread (4 blocks an SM); the float64 body 80
+template <typename Fp> constexpr int blocks_per_sm() { return sizeof(Fp) == 4 ? 4 : 3; }
 constexpr int kPerThread = 4;      // consecutive samples of a chunk per thread
 
 // A slot's row as a draw reads it.
@@ -69,29 +80,31 @@ struct Slot {
 
 // Slot f's map draw at uniform u: val's bits and the bin, as
 // chain_common.cuh:map_draw forms them, without the density.
-__device__ __forceinline__ void draw(const Slot& f, const float* __restrict__ tab, float u,
-                                     int& val, int& g) {
-  const float* t = tab + f.tab;
+template <typename Fp>
+__device__ __forceinline__ void draw(const Slot& f, const Fp* __restrict__ tab, float u,
+                                     bits_t<Fp>& val, int& g) {
+  const Fp* t = tab + f.tab;
   if (f.kind == kDisc) {     // t = cdf [nb+1], then dist [nb]
-    g = min(count_le(t + 1, f.nb, u), f.nb - 1);
+    g = min(count_le(t + 1, f.nb, (Fp)u), f.nb - 1);
     val = f.lower + g;
   } else {                   // t = grid [nb], then inc [nb]
     const float s = __fmul_rn(u, f.fnb);
     const int iy = min(max((int)s, 0), f.nb - 1);
     const float dy = __fsub_rn(s, (float)iy);
     g = iy;
-    val = __float_as_int(__fadd_rn(t[iy], __fmul_rn(dy, t[f.nb + iy])));
+    val = as_bits(add_rn(t[iy], mul_rn((Fp)dy, t[f.nb + iy])));
   }
 }
 
 // blockIdx.y strides over the (block, chunk) pairs, blockIdx.x over the
 // thread-sized groups of a chunk's samples.
 // shared memory: slot rows [S] (Slot).
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+template <typename Fp>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<Fp>())
 vplus_sample_kernel(const uint32_t* __restrict__ kd, int t0, int B, int T, int c, int S,
                     uint32_t nstrat, uint32_t mul, int shift, int vec,
                     const int* __restrict__ cube, const int* __restrict__ meta,
-                    const float* __restrict__ tab, int* __restrict__ x,
+                    const Fp* __restrict__ tab, bits_t<Fp>* __restrict__ x,
                     int* __restrict__ gidx) {
   extern __shared__ Slot slot[];
   for (int k = threadIdx.x; k < S; k += blockDim.x) {
@@ -129,7 +142,8 @@ vplus_sample_kernel(const uint32_t* __restrict__ kd, int t0, int B, int T, int c
       for (int v = 0; v < kPerThread; ++v) base[v] = mix32((uint32_t)(s0 + v) ^ k1) + k2;
       for (int k = 0; k < S; ++k) {
         const Slot f = slot[k];
-        int val[kPerThread], g[kPerThread];
+        bits_t<Fp> val[kPerThread];
+        int g[kPerThread];
 #pragma unroll
         for (int v = 0; v < kPerThread; ++v) {
           float u = uniform(base[v], f.salt);
@@ -142,13 +156,12 @@ vplus_sample_kernel(const uint32_t* __restrict__ kd, int t0, int B, int T, int c
           draw(f, tab, u, val[v], g[v]);
         }
         const size_t row = k * plane + (size_t)bt * c;   // slot k, chunk bt
-        int* xk = x + row;
+        bits_t<Fp>* xk = x + row;
         int* gk = gidx + row;
         if (full) {
 #pragma unroll
           for (int v = 0; v < kPerThread; v += 4) {
-            *reinterpret_cast<int4*>(xk + s0 + v) =
-                make_int4(val[v], val[v + 1], val[v + 2], val[v + 3]);
+            store4(xk + s0 + v, val[v], val[v + 1], val[v + 2], val[v + 3]);
             *reinterpret_cast<int4*>(gk + s0 + v) = make_int4(g[v], g[v + 1], g[v + 2], g[v + 3]);
           }
         } else {
@@ -164,12 +177,10 @@ vplus_sample_kernel(const uint32_t* __restrict__ kd, int t0, int B, int T, int c
   }
 }
 
-}  // namespace
-
-extern "C" int mci_vplus_sample(const void* kd, int t0, int B, int T, int c,
-                                int S, int nstrat, const void* cube,
-                                const void* meta, const void* tab, void* x,
-                                void* gidx, void* stream) {
+template <typename Fp>
+int sample_entry(const void* kd, int t0, int B, int T, int c, int S, int nstrat,
+                 const void* cube, const void* meta, const void* tab, void* x, void* gidx,
+                 void* stream) {
   if (B < 1 || T < 1 || c < 1 || S < 1 || nstrat < 1 || (long long)B * T > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   uint32_t mul;
@@ -185,8 +196,25 @@ extern "C" int mci_vplus_sample(const void* kd, int t0, int B, int T, int c,
   if (by > 65535) by = 65535;
   const dim3 grid((unsigned)bx, (unsigned)by);
   const size_t smem = (size_t)S * sizeof(Slot);
-  vplus_sample_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  vplus_sample_kernel<Fp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)kd, t0, B, T, c, S, (uint32_t)nstrat, mul, shift, vec,
-      (const int*)cube, (const int*)meta, (const float*)tab, (int*)x, (int*)gidx);
+      (const int*)cube, (const int*)meta, (const Fp*)tab, (bits_t<Fp>*)x, (int*)gidx);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mci_vplus_sample(const void* kd, int t0, int B, int T, int c,
+                                int S, int nstrat, const void* cube,
+                                const void* meta, const void* tab, void* x,
+                                void* gidx, void* stream) {
+  return sample_entry<float>(kd, t0, B, T, c, S, nstrat, cube, meta, tab, x, gidx, stream);
+}
+
+// tab and x float64
+extern "C" int mci_vplus_sample_f64(const void* kd, int t0, int B, int T, int c,
+                                    int S, int nstrat, const void* cube,
+                                    const void* meta, const void* tab, void* x,
+                                    void* gidx, void* stream) {
+  return sample_entry<double>(kd, t0, B, T, c, S, nstrat, cube, meta, tab, x, gidx, stream);
 }

@@ -14,7 +14,11 @@ the integrand returns before the non-finite guard of the evaluation zeroes
 them (``engine._finite_guard``), and before a complex value is cast to
 float32: the JAX package's probe looks after both, so its non-finite
 warning and its complex-weights error never fire (ROADMAP.md, known faults
-in the reference).
+in the reference).  At ``dtype=torch.float64`` the probe runs as it does
+at float32, with the run's weights' dtype (``Spec.wdtype``): the probe's
+``relw`` is float64 on a real run, and a shape error names the dtype.  The
+JAX probe's complex-weights check compares its weights' dtype with float32
+and so never fires at float64; the port's fires at either.
 """
 
 from __future__ import annotations
@@ -31,9 +35,10 @@ from .utils.color import red
 PROBE_BATCH = 4
 
 
-def _check_shape(w, shape):
+def _check_shape(w, shape, dtype):
     if tuple(w.shape) != shape:
-        raise ValueError(f"weights of shape {tuple(w.shape)}, expected {shape}")
+        raise ValueError(f"weights of shape {tuple(w.shape)} and {w.dtype}, expected "
+                         f"{shape} of {dtype}")
 
 
 def _check_values(spec: Spec, ws):
@@ -71,7 +76,7 @@ def probe_integrand(spec: Spec, integrand, measure, inplace: bool, solver: str,
         try:
             for idx, f in enumerate(spec.make_eval_batched_idx(integrand)):
                 ws.append(integrand(idx, x, spec.uconfig))
-                _check_shape(f(leaf_vals), (PROBE_BATCH,))
+                _check_shape(f(leaf_vals), (PROBE_BATCH,), spec.wdtype)
         except Exception as e:
             raise TypeError(
                 f"debug probe: mcmc integrand(idx, var, config) failed for "
@@ -92,7 +97,8 @@ def probe_integrand(spec: Spec, integrand, measure, inplace: bool, solver: str,
 
     try:
         raw = spec._call(integrand, inplace, leaf_vals)
-        _check_shape(spec.make_eval_batched(integrand, inplace)(leaf_vals), (n, PROBE_BATCH))
+        _check_shape(spec.make_eval_batched(integrand, inplace)(leaf_vals), (n, PROBE_BATCH),
+                     spec.wdtype)
     except Exception as e:
         sig = "(var, weights, config)" if inplace else "(var, config)"
         raise TypeError(

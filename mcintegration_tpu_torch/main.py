@@ -285,27 +285,36 @@ def _resolve_mesh(mesh, parallel):
     return None
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to mcintegration_tpu_torch yet (ROADMAP.md, "
-        f"queue 1, item {item}); mcintegration_tpu serves it")
-
-
-def _check_keywords(dtype, backend):
-    """The reference's ``dtype`` and ``backend`` keywords: their defaults
-    are served, any other value raises."""
-    if dtype is not torch.float32:
+def _check_keywords(dtype, backend, solver: str) -> torch.dtype:
+    """The reference's ``dtype`` and ``backend`` keywords: ``dtype`` float32
+    or float64 (as ``torch.float64``, ``np.float64`` or ``"float64"``), the
+    latter on the stratified solvers only, and ``backend="auto"``; returns
+    the torch dtype.  Any other value raises."""
+    if dtype in (torch.float32, torch.float64):
+        tdtype = dtype
+    else:
         try:
-            f32 = np.dtype(dtype) == np.float32
+            np_dtype = np.dtype(dtype)
         except TypeError:
-            f32 = False
-        if not f32:
-            _not_ported(f"dtype={dtype} (only float32)", 22)
+            np_dtype = None
+        tdtype = {np.dtype(np.float32): torch.float32,
+                  np.dtype(np.float64): torch.float64}.get(np_dtype)
+        if tdtype is None:
+            raise NotImplementedError(
+                f"dtype={dtype}: mcintegration_tpu_torch serves float32 and float64, as "
+                "mcintegration_tpu does")
+    if tdtype is torch.float64 and solver in ("vegasmc", "mcmc"):
+        raise NotImplementedError(
+            f"dtype=float64 on :{solver}: mcintegration_tpu crashes there (its "
+            f":{solver} XLA route mixes int32 and int64, or float32 and float64, "
+            "under jax x64), so both packages serve float32 on the Markov solvers; "
+            "float64 runs on :vegas and :vegasplus")
     if backend != "auto":
         raise NotImplementedError(
             f"backend={backend!r}: mcintegration_tpu_torch has one route per device, "
             "the CUDA kernels on device='cuda' and their plain PyTorch versions on "
             "device='cpu'; pass device= instead")
+    return tdtype
 
 
 def _reduce_stats(stats, mesh):
@@ -387,8 +396,19 @@ def integrate(integrand: Callable, *,
     chunk; a custom measure's output is summed over the measured samples
     only.
 
-    Weights are float32, or complex64 with ``type=complex`` on every
-    solver: the integrand may return complex values, ``|w|`` (``sqrt(re^2 +
+    ``dtype`` is float32 (the default) or float64 (``torch.float64``,
+    ``np.float64`` or ``"float64"``) on :vegas, both routes, and
+    :vegasplus, the law of the JAX package's float64 mode: the map tables,
+    the samples ``x``, the Jacobian, real weights, ``relw`` and a real run's
+    measure output in float64, the uniforms and :vegasplus' in-cube
+    coordinate float32.  :vegasmc and :mcmc refuse float64, where the JAX
+    package crashes.  For an integrand whose range float32 cannot hold,
+    ``integrate(lambda x, c: torch.exp(100 * x[0]), var=Continuous(0.0,
+    1.0), dtype=torch.float64, solver="vegas")`` gives (e^100 - 1)/100 =
+    2.688e41, where float32 zeroes every overflowing sample.
+
+    Weights are of ``dtype``, or complex64 with ``type=complex`` on every
+    solver (at either dtype): the integrand may return complex values, ``|w|`` (``sqrt(re^2 +
     im^2)``) drives the chains, reweighting, histograms and hypercube
     allocation, ``relw`` reaches a custom measure as complex64, observables
     may have complex leaves, and the result's means and error bars are
@@ -406,7 +426,7 @@ def integrate(integrand: Callable, *,
     the built iteration (up to ``_KERNEL_CACHE_MAX`` = 16, LRU), with the
     JAX package's rules: the key holds the integrand and measure by weakref
     and a content hash of their captured state (closure cells, attributes),
-    the seed, the device and the mesh; userdata or unhashable captured
+    the seed, the dtype, the device and the mesh; userdata or unhashable captured
     state refuse the cache.  Values reached through module globals are
     invisible to it: an integrand that reads a changed global must pass
     ``cache=False`` (build fresh, the cache left as it was) or call
@@ -425,9 +445,9 @@ def integrate(integrand: Callable, *,
     sums added in rank order through a gloo group, so every rank trains
     alike and returns the same :class:`Result`.  Only rank 0 prints.
 
-    ``dtype`` and ``backend`` are the reference's keywords; the port serves
-    their defaults (float32, ``"auto"``) and raises on any other value,
-    naming the ROADMAP.md item that will port float64.  Complex observables
+    ``backend`` is the reference's keyword; the port serves its default
+    ``"auto"`` and raises on any other value, as on a ``dtype`` other than
+    float32 or float64.  Complex observables
     on a real-weight run raise (the reference drops their imaginary part),
     and FermiK pools raise on every solver but :mcmc, as in the reference.
 
@@ -440,7 +460,7 @@ def integrate(integrand: Callable, *,
         solver = "vegasplus"
     if solver not in ("vegas", "vegasmc", "mcmc", "vegasplus"):
         raise ValueError(f"Solver {solver} is not supported!")
-    _check_keywords(dtype, backend)
+    dtype = _check_keywords(dtype, backend, solver)
     mesh = _resolve_mesh(mesh, parallel)
     nranks = mesh_size(mesh)
     rank = 0 if mesh is None else mesh.rank
@@ -461,12 +481,12 @@ def integrate(integrand: Callable, *,
 
     nevalperblock, block = _standardize_block(neval, block, nranks)
     lo, hi = rank * block // nranks, (rank + 1) * block // nranks
-    spec = Spec(config, dev)
+    spec = Spec(config, dev, dtype)
     if debug:
         probe_integrand(spec, integrand, measure, inplace, solver, config.observable)
 
     key = None if not cache else _cache_key(
-        config, solver, integrand, measure, mesh=mesh, device=str(dev),
+        config, solver, integrand, measure, mesh=mesh, device=str(dev), dtype=str(dtype),
         npb=int(nevalperblock), block=int(block), measurefreq=int(measurefreq),
         inplace=bool(inplace), nwalkers=nwalkers,
         min_steps_per_walker=int(min_steps_per_walker), warmup=warmup,

@@ -130,15 +130,16 @@ class Continuous(_LeafVar):
         self.grid = train_grid(self.grid, self.histogram, self.alpha)
         self.clear_statistics()
 
-    def device_params(self, device):
-        """(grid[:-1], inc) float32 tensors on ``device``.
+    def device_params(self, device, dtype=torch.float32):
+        """(grid[:-1], inc) tensors of ``dtype`` on ``device``.
 
         ``inc`` is differenced in float64 and then cast, so adjacent-node
-        cancellation never happens in float32 (JAX variable.py:192).
+        cancellation never happens in float32 (JAX variable.py:192); at
+        float64 both are the host's arrays as they are.
         """
         inc = np.diff(self.grid)
-        return (torch.as_tensor(self.grid[:-1], dtype=torch.float32, device=device),
-                torch.as_tensor(inc, dtype=torch.float32, device=device))
+        return (torch.as_tensor(self.grid[:-1], dtype=dtype, device=device),
+                torch.as_tensor(inc, dtype=dtype, device=device))
 
     def fixed_values(self, dtype=np.float32):
         """Deterministic initial values for offset (user-pinned) slots.
@@ -214,10 +215,10 @@ class Discrete(_LeafVar):
         self.distribution, self.accumulation = train_discrete(self.histogram, self.alpha)
         self.clear_statistics()
 
-    def device_params(self, device):
-        """(cdf [nbin+1], dist [nbin]) float32 tensors on ``device``."""
-        return (torch.as_tensor(self.accumulation, dtype=torch.float32, device=device),
-                torch.as_tensor(self.distribution, dtype=torch.float32, device=device))
+    def device_params(self, device, dtype=torch.float32):
+        """(cdf [nbin+1], dist [nbin]) tensors of ``dtype`` on ``device``."""
+        return (torch.as_tensor(self.accumulation, dtype=dtype, device=device),
+                torch.as_tensor(self.distribution, dtype=dtype, device=device))
 
     def fixed_values(self, dtype=np.int32):
         """Deterministic values for offset (user-pinned) slots."""
@@ -259,9 +260,10 @@ class FermiK(_LeafVar):
     def train(self):
         return
 
-    def device_params(self, device):
-        """(kF, delta_k) float64 scalars on ``device``; the solver derives
-        its float32 constants from them (ops/fermik.py:constants)."""
+    def device_params(self, device, dtype=torch.float32):
+        """(kF, delta_k) float64 scalars on ``device``, whatever ``dtype``
+        (FermiK pools run on :mcmc, at float32 only); the solver derives its
+        float32 constants from them (ops/fermik.py:constants)."""
         return (torch.tensor(self.kF, dtype=torch.float64, device=device),
                 torch.tensor(self.delta_k, dtype=torch.float64, device=device))
 

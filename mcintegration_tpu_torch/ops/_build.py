@@ -96,6 +96,14 @@ _SIGNATURES["mci_vegas_relw_mixed_complex"] = _SIGNATURES["mci_vegas_relw_mixed"
 _SIGNATURES["mci_vplus_reduce_complex"] = _SIGNATURES["mci_vplus_reduce"]
 _SIGNATURES["mci_vplus_relw_complex"] = _SIGNATURES["mci_vplus_relw"]
 _SIGNATURES["mci_mcmc_accept_complex"] = _SIGNATURES["mci_mcmc_accept"]
+# and the float64 instantiations (integrate(dtype=torch.float64)) the float32 ones'
+for _name in ("mci_vegas_sample", "mci_vegas_reduce", "mci_vegas_reduce_complex",
+              "mci_vegas_relw", "mci_vegas_relw_complex", "mci_vegas_sample_mixed",
+              "mci_vegas_reduce_mixed", "mci_vegas_reduce_mixed_complex",
+              "mci_vegas_relw_mixed", "mci_vegas_relw_mixed_complex", "mci_vplus_sample",
+              "mci_vplus_reduce", "mci_vplus_reduce_complex", "mci_vplus_relw",
+              "mci_vplus_relw_complex"):
+    _SIGNATURES[_name + "_f64"] = _SIGNATURES[_name]
 
 _lib = None
 build_seconds = None   # wall time of this process's build, None if cached

@@ -183,5 +183,7 @@ def sample_discrete(u: torch.Tensor, cdf: torch.Tensor, dist: torch.Tensor):
     (value = lower + gidx) and ``prob = dist[gidx]``, the bin's mass.
     """
     nbin = dist.shape[0]
-    gidx = torch.searchsorted(cdf[1:], u, right=True).clamp_(max=nbin - 1)
+    # a float32 u against a float64 CDF compares in float64, as the
+    # reference's float64 mode promotes it
+    gidx = torch.searchsorted(cdf[1:], u.to(cdf.dtype), right=True).clamp_(max=nbin - 1)
     return gidx.to(torch.int32), dist[gidx]

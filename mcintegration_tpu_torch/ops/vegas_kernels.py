@@ -44,6 +44,15 @@ chunk ``t`` (``t0`` plus its index in the launch) counts in ``obs`` only if
 (``solvers/vegas.py:327-335``, ``montecarlo.jl:148``); every sample feeds
 the histogram.
 
+float64 (``integrate(dtype=torch.float64)``): given float64 ``grid`` and
+``inc`` (``tab`` on the mixed route), ``x``, ``invp`` and the densities
+are float64, and so are real ``w``, ``relw`` and ``m``; complex ``w``
+stays complex64 (with float32 ``m``), and a float64 factor is rounded to
+float32 before it scales it.  The uniforms stay float32.  A wrapper picks
+the ``_f64`` entry point of its kernel by the tables' dtype and counts it
+in ``launch_counts_f64`` under the float32 launch's key; it never casts a
+float64 input to float32.
+
 ``kd`` holds uint32 seeds in int64.  ``pad[i, g]`` says whether the
 (group, slot) pair ``g`` enters integrand ``i``'s padding factor;
 ``pair_slots[g]`` lists the kernel slots of the pair's leaves (``-1``
@@ -65,7 +74,7 @@ from . import _build
 from ._build import check_tensor as _check
 from .grid import sample_continuous, sample_discrete
 from .rng import MASK32, chunk_keys, draw
-from .vplus_kernels import _device_of, leaf_values, pack_meta, slot_tables
+from .vplus_kernels import _BITS, _device_of, _suffix, leaf_values, pack_meta, slot_tables
 
 N_MULT = 64          # multiplier-table width (solvers/vegas.py)
 HIST_CLIP = 1e17     # histogram weight clip (pallas_vegas.py:507)
@@ -76,16 +85,24 @@ MAX_STRATA = 32768     # int32 guard of (a*p + s) mod nb, which stays below 2^30
 # "_complex" keys those of the complex instantiations (given m or not);
 # "vegas_reduce_mixed" counts every instantiation of the mixed route's
 # reduce (real or complex, given m or not, gated or not), "vegas_relw_mixed"
-# both of its own
+# both of its own; launch_counts_f64 counts the float64 instantiations'
+# launches under the same keys
 launch_counts = {"vegas_sample": 0, "vegas_reduce": 0, "vegas_relw": 0,
                  "vegas_reduce_measure": 0, "vegas_reduce_complex": 0,
                  "vegas_relw_complex": 0, "vegas_sample_mixed": 0,
                  "vegas_reduce_mixed": 0, "vegas_relw_mixed": 0}
+launch_counts_f64 = dict.fromkeys(launch_counts, 0)
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, launch_counts_f64):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(key: str, f64: str):
+    """One launch of ``key``'s kernel, float32 or (``f64``) float64."""
+    (launch_counts_f64 if f64 else launch_counts)[key] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +110,8 @@ def reset_launch_counts():
 # ---------------------------------------------------------------------------
 
 def vegas_sample_plain(kd, t0: int, T: int, atab, grid, inc, slot_leaf, m: int):
-    """Plain torch version of ``csrc/vegas_sample.cu`` (same bits)."""
+    """Plain torch version of ``csrc/vegas_sample.cu`` (same bits): x and
+    invp of ``grid``'s dtype, the uniform ``dy`` float32 at either."""
     dev = kd.device
     nslots, B, nb = atab.shape[0], kd.shape[0], grid.shape[1]
     t = torch.arange(t0, t0 + T, dtype=torch.int64, device=dev)
@@ -101,8 +119,8 @@ def vegas_sample_plain(kd, t0: int, T: int, atab, grid, inc, slot_leaf, m: int):
     p = torch.arange(nb, dtype=torch.int64, device=dev)
     idx = p[:, None] * m + torch.arange(m, dtype=torch.int64, device=dev)
     zero = torch.zeros_like(k1)
-    x = torch.empty((nslots, B, T, nb, m), dtype=torch.float32, device=dev)
-    invp = torch.empty((nslots, B, T, nb), dtype=torch.float32, device=dev)
+    x = torch.empty((nslots, B, T, nb, m), dtype=grid.dtype, device=dev)
+    invp = torch.empty((nslots, B, T, nb), dtype=grid.dtype, device=dev)
     perm = torch.empty((nslots, B, T, nb), dtype=torch.int32, device=dev)
     for k in range(nslots):
         s = (draw(k1, k2, zero, 3 * k + 1) & 0x7FFFFFFF) % nb
@@ -132,10 +150,11 @@ def vegas_sample(kd, t0: int, T: int, atab, grid, inc, slot_leaf, m: int):
     dev = kd.device
     nslots, B = atab.shape[0], kd.shape[0]
     nleaf, nb = grid.shape
+    f64 = _suffix(grid, "vegas_sample")
     _check(kd, "kd", torch.int64, (B, 2), dev)
     _check(atab, "atab", torch.int32, (nslots, N_MULT), dev)
-    _check(grid, "grid", torch.float32, (nleaf, nb), dev)
-    _check(inc, "inc", torch.float32, (nleaf, nb), dev)
+    _check(grid, "grid", grid.dtype, (nleaf, nb), dev)
+    _check(inc, "inc", grid.dtype, (nleaf, nb), dev)
     _check(slot_leaf, "slot_leaf", torch.int32, (nslots,), dev)
     # the kernel's flat indices: a quad's below 2^30 (m % 4 == 0), else a
     # draw's below 2^31, and the (slot, block, chunk) group's below 2^31
@@ -143,18 +162,18 @@ def vegas_sample(kd, t0: int, T: int, atab, grid, inc, slot_leaf, m: int):
             or nslots * B * T >= 2 ** 31):
         raise ValueError("vegas_sample: chunk or chunk index too large")
     kd32 = torch.where(kd >= 2 ** 31, kd - 2 ** 32, kd).to(torch.int32)
-    x = torch.empty((nslots, B, T, nb, m), dtype=torch.float32, device=dev)
-    invp = torch.empty((nslots, B, T, nb), dtype=torch.float32, device=dev)
+    x = torch.empty((nslots, B, T, nb, m), dtype=grid.dtype, device=dev)
+    invp = torch.empty((nslots, B, T, nb), dtype=grid.dtype, device=dev)
     perm = torch.empty((nslots, B, T, nb), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mci_vegas_sample(
+        err = getattr(lib, "mci_vegas_sample" + f64)(
             kd32.data_ptr(), t0, B, T, nb, m, nslots, atab.data_ptr(),
             grid.data_ptr(), inc.data_ptr(), slot_leaf.data_ptr(),
             x.data_ptr(), invp.data_ptr(), perm.data_ptr(), stream)
-    _build.check(lib, err, "vegas_sample")
-    launch_counts["vegas_sample"] += 1
+    _build.check(lib, err, "vegas_sample" + f64)
+    _count("vegas_sample", f64)
     return x, invp, perm
 
 
@@ -164,7 +183,8 @@ def vegas_sample(kd, t0: int, T: int, atab, grid, inc, slot_leaf, m: int):
 
 def _row_factors(invp, pad, pair_slots):
     """``(jac [B,T,nb], [factor_i [B,T,nb]])``: the jacobian and each
-    integrand's padding-weighted factor, in the kernels' float32 order."""
+    integrand's padding-weighted factor, in the kernels' order, in
+    ``invp``'s dtype."""
     nslots = invp.shape[0]
     jac = invp[0]
     for k in range(1, nslots):
@@ -190,7 +210,7 @@ def _row_factors(invp, pad, pair_slots):
 
 def vegas_relw_plain(w, invp, pad, pair_slots):
     """Plain torch version of ``vegas_relw`` (``csrc/vegas_reduce.cu``): the
-    same float32 products, each part of a complex weight scaled alone."""
+    same products, each part of a complex weight scaled alone."""
     _, factors = _row_factors(invp, pad, pair_slots)
     return torch.stack([weight_scale(w[i], f[..., None]) for i, f in enumerate(factors)])
 
@@ -207,8 +227,9 @@ def vegas_relw(w, invp, pad, pair_slots):
     nslots = invp.shape[0]
     npair, maxmem = pair_slots.shape
     cplx = w.dtype == torch.complex64
-    _check(w, "w", torch.complex64 if cplx else torch.float32, (N, B, T, nb, m), dev)
-    _check(invp, "invp", torch.float32, (nslots, B, T, nb), dev)
+    f64 = _suffix(invp, "vegas_relw")
+    _check(w, "w", torch.complex64 if cplx else invp.dtype, (N, B, T, nb, m), dev)
+    _check(invp, "invp", invp.dtype, (nslots, B, T, nb), dev)
     _check(pad, "pad", torch.int32, (N, npair), dev)
     _check(pair_slots, "pair_slots", torch.int32, (npair, maxmem), dev)
     if N > MAX_INTEGRANDS:
@@ -218,11 +239,11 @@ def vegas_relw(w, invp, pad, pair_slots):
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, "mci_" + name)(w.data_ptr(), invp.data_ptr(), pad.data_ptr(),
-                                          pair_slots.data_ptr(), N, nslots, npair, maxmem,
-                                          B * T * nb, m, relw.data_ptr(), stream)
-    _build.check(lib, err, name)
-    launch_counts[name] += 1
+        err = getattr(lib, "mci_" + name + f64)(w.data_ptr(), invp.data_ptr(), pad.data_ptr(),
+                                                pair_slots.data_ptr(), N, nslots, npair, maxmem,
+                                                B * T * nb, m, relw.data_ptr(), stream)
+    _build.check(lib, err, name + f64)
+    _count(name, f64)
     return relw
 
 
@@ -235,9 +256,9 @@ def measured_mask(T: int, nb: int, m: int, mf: int, t0: int, device):
 
 
 def vegas_reduce_plain(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0):
-    """Plain torch version of ``csrc/vegas_reduce.cu``: the same float32
-    products, summed in float64 in another order (a sample the gate shuts
-    adds a zero)."""
+    """Plain torch version of ``csrc/vegas_reduce.cu``: the same products
+    (in ``invp``'s dtype; a complex weight's |w| in float32), summed in
+    float64 in another order (a sample the gate shuts adds a zero)."""
     N, nslots = w.shape[0], invp.shape[0]
     used = used.tolist()
     jac, factors = _row_factors(invp, pad, pair_slots)
@@ -289,8 +310,9 @@ def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0, rows=
     nslots = invp.shape[0]
     npair, maxmem = pair_slots.shape
     cplx = w.dtype == torch.complex64
-    _check(w, "w", torch.complex64 if cplx else torch.float32, (N, B, T, nb, ms), dev)
-    _check(invp, "invp", torch.float32, (nslots, B, T, nb), dev)
+    f64 = _suffix(invp, "vegas_reduce")
+    _check(w, "w", torch.complex64 if cplx else invp.dtype, (N, B, T, nb, ms), dev)
+    _check(invp, "invp", invp.dtype, (nslots, B, T, nb), dev)
     _check(perm, "perm", torch.int32, (nslots, B, T, nb), dev)
     _check(pad, "pad", torch.int32, (N, npair), dev)
     _check(pair_slots, "pair_slots", torch.int32, (npair, maxmem), dev)
@@ -302,14 +324,14 @@ def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0, rows=
     ncomp = 2 * N if cplx else N
     if m is not None:
         ncomp = m.shape[0]
-        _check(m, "m", torch.float32, (ncomp, B, T, nb, ms), dev)
+        _check(m, "m", torch.float32 if cplx else invp.dtype, (ncomp, B, T, nb, ms), dev)
         if ncomp < 1:
             raise ValueError("vegas_reduce: a measure with no components")
     R = B * T * nb
     obs_rows = torch.empty((B, T, nb, ncomp), dtype=torch.float64, device=dev)
     hrow = torch.empty((nslots, B, T, nb), dtype=torch.float64, device=dev)
     lib = _build.load()
-    entry = lib.mci_vegas_reduce_complex if cplx else lib.mci_vegas_reduce
+    entry = getattr(lib, ("mci_vegas_reduce_complex" if cplx else "mci_vegas_reduce") + f64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(
@@ -317,10 +339,10 @@ def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0, rows=
             pair_slots.data_ptr(), used.data_ptr(), N, nslots, npair, maxmem,
             R, nb, ms, None if m is None else m.data_ptr(), ncomp, mf, t0, T,
             obs_rows.data_ptr(), hrow.data_ptr(), stream)
-    _build.check(lib, err, "vegas_reduce")
+    _build.check(lib, err, "vegas_reduce" + f64)
     key = "vegas_reduce_complex" if cplx else "vegas_reduce" if m is None else \
         "vegas_reduce_measure"
-    launch_counts[key] += 1
+    _count(key, f64)
     # the kernel writes one partial per stratum row; this sum over the rows
     # is the first step of the fixed-order float64 reduction
     return (obs_rows if rows else _build.tree_sum(obs_rows, 2)), hrow
@@ -339,7 +361,8 @@ def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0, rows=
 # in three entry points, each with its plain version below:
 #
 # - ``vegas_sample_mixed(lay, tab, kd [B,2] i32, t0, T) -> x [S,B,T,c] f32
-#   (int32 bits for a Discrete slot), gidx [S,B,T,c] i32``.  Sample q of a
+#   (int32 bits for a Discrete slot; f64 with int64 bits beside a float64
+#   ``tab``), gidx [S,B,T,c] i32``.  Sample q of a
 #   chunk in a stratified slot k lies in stratum row p = q // m_k, drawn as
 #   in ``vegas_sample`` (the salts 3k+1, 3k+2, 3k+3, the row's permuted
 #   stratum pk = (a*p + s) mod nb, x = grid[pk] + dy*inc[pk]), and its
@@ -366,7 +389,7 @@ def vegas_reduce(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0, rows=
 MIXED_FIELDS = 7         # kind, nb, tab_off, sm_off, lower, m_k, hist_off
 KIND_MAP, KIND_DISC, KIND_STRAT = 0, 1, 2   # per-sample Continuous, Discrete, stratified
 SMEM_CDF_BINS = 1024     # a Discrete CDF of at most this many bins is staged in shared memory
-SMEM_CDF_FLOATS = 8192   # the staged CDFs of a spec together: 32 KiB
+SMEM_CDF_BYTES = 32768   # the staged CDFs of a spec together: 8,192 float32 or 4,096 float64
 PER_THREAD = 4           # consecutive samples of a chunk per thread of vegas_reduce_mixed
 SPAN = 1024              # samples of a chunk per thread block of vegas_reduce_mixed:
                          # 256 threads x PER_THREAD
@@ -382,7 +405,7 @@ class MixedLayout:
     Kernel slots are the (leaf, slot) pairs of the drawn leaves in leaf
     order, slot-minor.  Per slot ``k`` a row of ``slots``: ``kind``
     (``KIND_MAP``, ``KIND_DISC`` or ``KIND_STRAT``), ``nb`` (strata, ninc or
-    nbin), ``tab_off`` (its leaf's table in the float32 ``tab``: grid then
+    nbin), ``tab_off`` (its leaf's table in ``tab``, of the spec's dtype: grid then
     inc, or cdf [nb+1] then dist), ``sm_off`` (its CDF's offset in shared
     memory, or -1), ``lower`` (a Discrete leaf's), ``m_k`` (samples per
     stratum, 0 unless stratified) and ``hist_off`` (its bins in the compact
@@ -401,7 +424,7 @@ class MixedLayout:
     used: np.ndarray         # [S, N] int32
     dleaf: List[int]         # spec leaves with drawn slots
     tab_size: int
-    smem_floats: int         # staged CDF floats
+    smem_floats: int         # staged CDF entries, of the spec's dtype
     nhist: int               # bins of the compact histogram
     nbmax: int
     hist_index: torch.Tensor  # [nhist] int64: each compact bin's place in [S, nbmax]
@@ -418,13 +441,14 @@ class MixedLayout:
         stratify, the others draw per sample)."""
         rows, kslot, arows = [], {}, []
         tab_off = sm_off = 0
+        smem_entries = SMEM_CDF_BYTES // spec.dtype.itemsize
         dleaf = [i for i, li in enumerate(spec.leaves) if li.ndraw > 0]
         for lidx in dleaf:
             li = spec.leaves[lidx]
             disc = isinstance(li.leaf, Discrete)
             nb = li.leaf.nbin if disc else li.leaf.ninc
             sm = -1
-            if disc and nb <= SMEM_CDF_BINS and sm_off + nb <= SMEM_CDF_FLOATS:
+            if disc and nb <= SMEM_CDF_BINS and sm_off + nb <= smem_entries:
                 sm, sm_off = sm_off, sm_off + nb
             strat = lidx in atabs
             kind = KIND_DISC if disc else KIND_STRAT if strat else KIND_MAP
@@ -453,9 +477,9 @@ class MixedLayout:
             meta=pack_meta(dev, slots, pad, pair_slots, used))
 
     def tables(self, params) -> torch.Tensor:
-        """The float32 map tables ``tab`` of this iteration's ``params``:
-        per drawn leaf its (grid, inc), or (cdf, dist)."""
-        return torch.cat([t.reshape(-1).to(torch.float32) for lidx in self.dleaf
+        """The map tables ``tab`` of this iteration's ``params``, of the
+        spec's dtype: per drawn leaf its (grid, inc), or (cdf, dist)."""
+        return torch.cat([t.reshape(-1).to(self.spec.dtype) for lidx in self.dleaf
                           for t in params["leaf"][lidx]]).contiguous()
 
     def leaf_values(self, x: torch.Tensor):
@@ -485,9 +509,9 @@ def vegas_sample_mixed_plain(lay: MixedLayout, tab, kd, t0: int, T: int):
     k1, k2 = chunk_keys((kd.long() & MASK32)[:, None, :], t[None, :])      # [B, T]
     q = torch.arange(c, dtype=torch.int64, device=dev)
     zero = torch.zeros_like(k1)
-    x = torch.empty((S, B, T, c), dtype=torch.float32, device=dev)
+    x = torch.empty((S, B, T, c), dtype=tab.dtype, device=dev)
     gidx = torch.empty((S, B, T, c), dtype=torch.int32, device=dev)
-    xbits = x.view(torch.int32)
+    xbits = x.view(_BITS[tab.dtype])
     for k in range(S):
         kind, nb, _, _, lower, m, _ = (int(v) for v in lay.slots[k])
         a_tab, b_tab = _slot_table(lay, tab, k)
@@ -513,6 +537,7 @@ def vegas_sample_mixed(lay: MixedLayout, tab, kd, t0: int, T: int):
     """Chunks ``[t0, t0+T)`` of every block through the mixed route's plan
     (see the section's notes)."""
     dev = _device_of(kd, "vegas_sample_mixed")
+    f64 = _suffix(tab, "vegas_sample_mixed")
     strat = lay.slots[:, 0] == KIND_STRAT
     if strat.any() and int(lay.slots[strat, 1].max()) > MAX_STRATA:
         raise ValueError(f"vegas_sample_mixed: more than {MAX_STRATA} strata "
@@ -521,27 +546,27 @@ def vegas_sample_mixed(lay: MixedLayout, tab, kd, t0: int, T: int):
         return vegas_sample_mixed_plain(lay, tab, kd, t0, T)
     B, c, S = kd.shape[0], lay.chunk, lay.S
     _check(kd, "kd", torch.int32, (B, 2), dev)
-    _check(tab, "tab", torch.float32, (lay.tab_size,), dev)
+    _check(tab, "tab", lay.spec.dtype, (lay.tab_size,), dev)
     _check(lay.atab, "atab", torch.int32, (S, N_MULT), dev)
     _check(lay.meta, "meta", torch.int32, lay.meta.shape, dev)
     if not (0 <= t0 and T >= 1 and t0 + T < 2 ** 31 and c < 2 ** 31 and B * T < 2 ** 31):
         raise ValueError("vegas_sample_mixed: chunk or chunk index out of range")
-    x = torch.empty((S, B, T, c), dtype=torch.float32, device=dev)
+    x = torch.empty((S, B, T, c), dtype=tab.dtype, device=dev)
     gidx = torch.empty((S, B, T, c), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mci_vegas_sample_mixed(kd.data_ptr(), t0, B, T, c, S, lay.meta.data_ptr(),
-                                         lay.atab.data_ptr(), tab.data_ptr(), lay.smem_floats,
-                                         x.data_ptr(), gidx.data_ptr(), stream)
-    _build.check(lib, err, "vegas_sample_mixed")
-    launch_counts["vegas_sample_mixed"] += 1
+        err = getattr(lib, "mci_vegas_sample_mixed" + f64)(
+            kd.data_ptr(), t0, B, T, c, S, lay.meta.data_ptr(), lay.atab.data_ptr(),
+            tab.data_ptr(), lay.smem_floats, x.data_ptr(), gidx.data_ptr(), stream)
+    _build.check(lib, err, "vegas_sample_mixed" + f64)
+    _count("vegas_sample_mixed", f64)
     return x, gidx
 
 
 def _mixed_invp(lay: MixedLayout, tab, gidx):
-    """``[S, B, T, c]`` float32: each slot's 1/probability at its bin,
-    ``nb * inc[g]`` or ``1 / dist[g]``."""
+    """``[S, B, T, c]`` of ``tab``'s dtype: each slot's 1/probability at its
+    bin, ``nb * inc[g]`` or ``1 / dist[g]``."""
     out = []
     for k in range(lay.S):
         nb = int(lay.slots[k, 1])
@@ -552,16 +577,16 @@ def _mixed_invp(lay: MixedLayout, tab, gidx):
 
 
 def vegas_relw_mixed_plain(lay: MixedLayout, tab, w, gidx):
-    """Plain torch version of ``vegas_relw_mixed``: the same float32
-    products, each part of a complex weight scaled alone."""
+    """Plain torch version of ``vegas_relw_mixed``: the same products, each
+    part of a complex weight scaled alone."""
     _, factors = _row_factors(_mixed_invp(lay, tab, gidx), lay.pad, lay.pair_slots)
     return torch.stack([weight_scale(w[i], f) for i, f in enumerate(factors)])
 
 
 def vegas_reduce_mixed_plain(lay: MixedLayout, tab, w, gidx, m=None, mf=1, t0=0):
-    """Plain torch version of ``vegas_reduce_mixed``: the same float32
-    terms, summed in float64 in another order (a sample the gate shuts adds
-    a zero)."""
+    """Plain torch version of ``vegas_reduce_mixed``: the same terms (in
+    ``tab``'s dtype), summed in float64 in another order (a sample the gate
+    shuts adds a zero)."""
     N, B, T, c = w.shape
     dev = w.device
     jac, factors = _row_factors(_mixed_invp(lay, tab, gidx), lay.pad, lay.pair_slots)
@@ -601,17 +626,20 @@ def sum_components(t, dim: int):
     return _build.tree_sum(t, dim).movedim(0, -1)
 
 
-def _mixed_check(name, lay: MixedLayout, tab, w, gidx):
-    """Raise unless the inputs are what the reduce kernel reads."""
+def _mixed_check(name, lay: MixedLayout, tab, w, gidx) -> str:
+    """Raise unless the inputs are what the reduce kernel reads; returns the
+    entry points' suffix (``_real``)."""
     dev = w.device
     N, B, T, c = w.shape
-    _check(w, "w", torch.complex64 if w.is_complex() else torch.float32, (N, B, T, c), dev)
+    f64 = _suffix(tab, name)
+    _check(w, "w", torch.complex64 if w.is_complex() else tab.dtype, (N, B, T, c), dev)
     _check(gidx, "gidx", torch.int32, (lay.S, B, T, c), dev)
-    _check(tab, "tab", torch.float32, (lay.tab_size,), dev)
+    _check(tab, "tab", lay.spec.dtype, (lay.tab_size,), dev)
     _check(lay.meta, "meta", torch.int32, lay.meta.shape, dev)
     if N != lay.spec.N or c != lay.chunk:
         raise ValueError(f"{name}: w is [{N}, ..., {c}], expected [{lay.spec.N}, ..., "
                          f"{lay.chunk}]")
+    return f64
 
 
 def _mixed_outputs(lay: MixedLayout, w, ncomp: int):
@@ -643,25 +671,26 @@ def vegas_reduce_mixed(lay: MixedLayout, tab, w, gidx, m=None, mf=1, t0=0):
         raise ValueError(f"vegas_reduce_mixed: measurefreq {mf} < 1 or first chunk {t0} < 0")
     if dev.type == "cpu":
         return vegas_reduce_mixed_plain(lay, tab, w, gidx, m, mf, t0)
-    _mixed_check("vegas_reduce_mixed", lay, tab, w, gidx)
+    f64 = _mixed_check("vegas_reduce_mixed", lay, tab, w, gidx)
     N, B, T, c = w.shape
     cplx = w.is_complex()
     ncomp = 2 * N if cplx else N
     if m is not None:
         ncomp = m.shape[0]
-        _check(m, "m", torch.float32, (ncomp, B, T, c), dev)
+        _check(m, "m", torch.float32 if cplx else tab.dtype, (ncomp, B, T, c), dev)
         if ncomp < 1:
             raise ValueError("vegas_reduce_mixed: a measure with no components")
     if t0 + T >= 2 ** 31:
         raise ValueError("vegas_reduce_mixed: chunk index too large")
     obs_rows, hist = _mixed_outputs(lay, w, ncomp)
     lib = _build.load()
-    entry = lib.mci_vegas_reduce_mixed_complex if cplx else lib.mci_vegas_reduce_mixed
+    entry = getattr(lib, ("mci_vegas_reduce_mixed_complex" if cplx else
+                          "mci_vegas_reduce_mixed") + f64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(*_mixed_args(lay, tab, w, gidx, obs_rows, hist, m, mf, t0), stream)
-    _build.check(lib, err, "vegas_reduce_mixed")
-    launch_counts["vegas_reduce_mixed"] += 1
+    _build.check(lib, err, "vegas_reduce_mixed" + f64)
+    _count("vegas_reduce_mixed", f64)
     # the kernel writes one partial per warp; this sum over the partials is
     # the first step of the fixed-order float64 reduction of the observables
     return sum_components(obs_rows, -1), lay.padded_hist(hist)
@@ -673,17 +702,18 @@ def vegas_relw_mixed(lay: MixedLayout, tab, w, gidx):
     dev = _device_of(w, "vegas_relw_mixed")
     if dev.type == "cpu":
         return vegas_relw_mixed_plain(lay, tab, w, gidx)
-    _mixed_check("vegas_relw_mixed", lay, tab, w, gidx)
+    f64 = _mixed_check("vegas_relw_mixed", lay, tab, w, gidx)
     N, B, T, c = w.shape
     P, M = lay.pair_slots.shape
     relw = torch.empty_like(w)
     lib = _build.load()
-    entry = lib.mci_vegas_relw_mixed_complex if w.is_complex() else lib.mci_vegas_relw_mixed
+    entry = getattr(lib, ("mci_vegas_relw_mixed_complex" if w.is_complex() else
+                          "mci_vegas_relw_mixed") + f64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(w.data_ptr(), gidx.data_ptr(), tab.data_ptr(), lay.meta.data_ptr(), N,
                     lay.S, P, M, B * T, c, SPAN, WARPS, relw.data_ptr(), stream)
-    _build.check(lib, err, "vegas_relw_mixed")
-    launch_counts["vegas_relw_mixed"] += 1
+    _build.check(lib, err, "vegas_relw_mixed" + f64)
+    _count("vegas_relw_mixed", f64)
     return relw
 

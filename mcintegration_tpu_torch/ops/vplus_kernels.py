@@ -64,6 +64,17 @@ seeds ``kd`` (int32 tensors holding the uint32 bits), with the chunk as
 The kernels and the plain versions draw the same bits and form the same
 float32 products in the same order: ``vplus_sample`` agrees bit for bit,
 ``vplus_reduce`` to the rounding of float64 sums taken in another order.
+
+float64 (``integrate(dtype=torch.float64)``): given a float64 ``tab``,
+``x`` is float64 (a Discrete slot's int32 value sign-extended to 64 bits)
+and so are the densities, ``jac``, ``pad_i`` and real ``w``, ``relw`` and
+``m``, the reference's float64 law (``mcintegration_tpu/solvers/
+vegasplus.py:184-300`` under x64); the in-cube ``y``, its bin's fraction
+and ``cfac`` stay float32 there and here, and complex ``w`` stays
+complex64, scaled by its factor rounded to float32.  A wrapper picks its
+kernel's ``_f64`` entry point by ``tab``'s dtype and counts it in
+``launch_counts_f64`` under the float32 launch's key; it never casts a
+float64 input down.
 """
 
 from __future__ import annotations
@@ -92,14 +103,32 @@ SMEM_HIST_BINS = 4096    # 32 KiB of float64 histogram per thread block; a large
                          # one is added in windows of this many bins
 
 # "vplus_reduce_measure" counts vplus_reduce given m, "vplus_reduce_complex"
-# its complex instantiations (given m or not), "vplus_relw" both of its own
+# its complex instantiations (given m or not), "vplus_relw" both of its own;
+# launch_counts_f64 counts the float64 instantiations' launches under the
+# same keys
 launch_counts = {"vplus_sample": 0, "vplus_reduce": 0, "vplus_reduce_measure": 0,
                  "vplus_reduce_complex": 0, "vplus_relw": 0}
+launch_counts_f64 = dict.fromkeys(launch_counts, 0)
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}   # x's bits beside tab
+
+
+def _suffix(tab, name: str) -> str:
+    """The entry-point suffix of a kernel reading ``tab``: "" for float32,
+    "_f64" for float64; any other dtype raises."""
+    if tab.dtype not in _BITS:
+        raise ValueError(f"{name}: tables of {tab.dtype}, not float32 or float64")
+    return "_f64" if tab.dtype == torch.float64 else ""
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, launch_counts_f64):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(key: str, f64: str):
+    """One launch of ``key``'s kernel, float32 or (``f64``) float64."""
+    (launch_counts_f64 if f64 else launch_counts)[key] += 1
 
 
 @dataclasses.dataclass
@@ -107,8 +136,8 @@ class VplusLayout:
     """The static shape of a spec as the :vegasplus kernels read it.
 
     Per kernel slot ``k`` a row of ``slots``: ``kind`` (0 Continuous, 1
-    Discrete), ``nb`` (bins), ``tab_off`` (its leaf's table in the float32
-    ``tab``: grid, inc and the density ``rho = 1/(nb*inc)``, or cdf then
+    Discrete), ``nb`` (bins), ``tab_off`` (its leaf's table in ``tab``, of
+    the spec's dtype: grid, inc and the density ``rho = 1/(nb*inc)``, or cdf then
     dist), -1 (no staged CDF), ``lower``,
     ``stride`` (``nstrat^d`` for the d-th stratified slot, 0 for a
     passenger), ``hist_off`` (its leaf's histogram in ``hist``, -1 if the
@@ -167,10 +196,11 @@ class VplusLayout:
                            meta=pack_meta(spec.device, slots, pad, pair_slots, used))
 
     def tables(self, params) -> torch.Tensor:
-        """The float32 map tables ``tab`` of this iteration's ``params``."""
+        """The map tables ``tab`` of this iteration's ``params``, of the
+        spec's dtype."""
         parts = []
         for lidx in self.dleaf:
-            a, b = (t.reshape(-1).to(torch.float32) for t in params["leaf"][lidx])
+            a, b = (t.reshape(-1).to(self.spec.dtype) for t in params["leaf"][lidx])
             parts += [a, b]
             if not isinstance(self.spec.leaves[lidx].leaf, Discrete):
                 parts.append(1.0 / (b.shape[0] * b))     # rho, as the reference rounds it
@@ -218,11 +248,14 @@ def pack_meta(device, *tables) -> torch.Tensor:
 
 def leaf_values(spec, x: torch.Tensor):
     """Per spec leaf, its ``[ndraw, ...]`` rows of the kernel-slot samples
-    ``x`` (slots in leaf order; int32 for a Discrete leaf)."""
+    ``x`` (slots in leaf order; int32 for a Discrete leaf, whose value a
+    float64 ``x`` holds as int64 bits)."""
     out, k = [], 0
     for li in spec.leaves:
         rows = x[k:k + li.ndraw]
-        out.append(rows.view(torch.int32) if isinstance(li.leaf, Discrete) else rows)
+        if isinstance(li.leaf, Discrete):
+            rows = rows.view(_BITS[x.dtype]).to(torch.int32)
+        out.append(rows)
         k += li.ndraw
     return out
 
@@ -255,9 +288,9 @@ def vplus_sample_plain(lay: VplusLayout, tab, kd, t0: int, T: int, cube):
     # a tensor divisor: a Python number would divide as a multiplication by
     # its reciprocal on the card
     nstrat = torch.full((1,), float(lay.nstrat), dtype=torch.float32, device=dev)
-    x = torch.empty((S, B, T, c), dtype=torch.float32, device=dev)
+    x = torch.empty((S, B, T, c), dtype=tab.dtype, device=dev)
     gidx = torch.empty((S, B, T, c), dtype=torch.int32, device=dev)
-    xbits = x.view(torch.int32)
+    xbits = x.view(_BITS[tab.dtype])
     for k in range(S):
         kind, nb, off, _, lower, stride, _, salt = (int(v) for v in lay.slots[k])
         bits = draw(k1[..., None], k2[..., None], idx, salt)
@@ -284,23 +317,25 @@ def vplus_sample(lay: VplusLayout, tab, kd, t0: int, T: int, cube):
     """Chunks ``[t0, t0+T)`` of every block: each sample drawn inside its
     hypercube through the maps (see module docstring)."""
     dev = _device_of(kd, "vplus_sample")
+    f64 = _suffix(tab, "vplus_sample")
     if dev.type == "cpu":
         return vplus_sample_plain(lay, tab, kd, t0, T, cube)
     B, c, S = kd.shape[0], cube.shape[0], lay.S
     _check(kd, "kd", torch.int32, (B, 2), dev)
     _check(cube, "cube", torch.int32, (c,), dev)
-    _check(tab, "tab", torch.float32, (lay.tab_size,), dev)
+    _check(tab, "tab", lay.spec.dtype, (lay.tab_size,), dev)
     _check(lay.meta, "meta", torch.int32, lay.meta.shape, dev)
     if not (0 <= t0 and T >= 1 and t0 + T < 2 ** 31 and c < 2 ** 31):
         raise ValueError("vplus_sample: chunk or chunk index out of range")
-    x = torch.empty((S, B, T, c), dtype=torch.float32, device=dev)
+    x = torch.empty((S, B, T, c), dtype=tab.dtype, device=dev)
     gidx = torch.empty((S, B, T, c), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mci_vplus_sample(*_sample_args(lay, tab, kd, t0, T, cube, x, gidx), stream)
-    _build.check(lib, err, "vplus_sample")
-    launch_counts["vplus_sample"] += 1
+        err = getattr(lib, "mci_vplus_sample" + f64)(
+            *_sample_args(lay, tab, kd, t0, T, cube, x, gidx), stream)
+    _build.check(lib, err, "vplus_sample" + f64)
+    _count("vplus_sample", f64)
     return x, gidx
 
 
@@ -310,8 +345,9 @@ def vplus_sample(lay: VplusLayout, tab, kd, t0: int, T: int, cube):
 
 def _density(lay: VplusLayout, tab, gidx, cube, cfac):
     """``(jac, denom, pads)`` of every sample ``[B, T, c]``, in the kernels'
-    float32 order: ``1/dens``, the map density ``prob (* pass)`` and each
-    integrand's padding factor ``pad_i``."""
+    order and ``tab``'s dtype (``dens`` takes the float32 ``cfac``):
+    ``1/dens``, the map density ``prob (* pass)`` and each integrand's
+    padding factor ``pad_i``."""
     dev = gidx.device
     g = gidx.long()
     cont = [k for k in range(lay.S) if lay.slots[k, 0] == 0]
@@ -376,9 +412,9 @@ def measured_mask(T: int, c: int, mf: int, t0: int, device, shift=None):
 
 def vplus_reduce_plain(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1, t0=0,
                        shift=None):
-    """Plain torch version of ``csrc/vplus_reduce.cu``: the same float32
-    products, summed in float64 in another order (a sample the gate shuts
-    adds a zero)."""
+    """Plain torch version of ``csrc/vplus_reduce.cu``: the same products
+    (in ``tab``'s dtype; a complex relw's |relw| in float32), summed in
+    float64 in another order (a sample the gate shuts adds a zero)."""
     N, B, T, c = w.shape
     dev = w.device
     g = gidx.long()
@@ -392,7 +428,7 @@ def vplus_reduce_plain(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1,
         return v.sum(dim=-1)
 
     obs, sq = [], []
-    score = torch.zeros((B, T, c), dtype=torch.float32, device=dev)
+    score = torch.zeros((B, T, c), dtype=jac.dtype, device=dev)
     for i in range(N):
         relw = weight_scale(w[i], jac * pads[i])
         score = score + weight_abs(w[i]) * pads[i]
@@ -444,19 +480,21 @@ def _reduce_args(lay: VplusLayout, tab, w, gidx, cube, cfac, obs_rows, sig, hist
             T, ptr(shift), obs_rows.data_ptr(), sig.data_ptr(), hist.data_ptr())
 
 
-def _check_inputs(name, lay: VplusLayout, tab, w, gidx, cube, cfac):
-    """Raise unless the inputs are what the kernel reads; returns the device."""
+def _check_inputs(name, lay: VplusLayout, tab, w, gidx, cube, cfac) -> str:
+    """Raise unless the inputs are what the kernel reads; returns the entry
+    points' suffix (``_suffix``)."""
     dev = w.device
     N, B, T, c = w.shape
-    _check(w, "w", torch.complex64 if w.is_complex() else torch.float32, (N, B, T, c), dev)
+    f64 = _suffix(tab, name)
+    _check(w, "w", torch.complex64 if w.is_complex() else tab.dtype, (N, B, T, c), dev)
     _check(gidx, "gidx", torch.int32, (lay.S, B, T, c), dev)
     _check(cube, "cube", torch.int32, (c,), dev)
     _check(cfac, "cfac", torch.float32, (cfac.shape[0],), dev)
-    _check(tab, "tab", torch.float32, (lay.tab_size,), dev)
+    _check(tab, "tab", lay.spec.dtype, (lay.tab_size,), dev)
     _check(lay.meta, "meta", torch.int32, lay.meta.shape, dev)
     if N != lay.spec.N:
         raise ValueError(f"{name}: {N} integrands, expected {lay.spec.N}")
-    return dev
+    return f64
 
 
 def vplus_reduce(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1, t0=0, shift=None):
@@ -467,14 +505,14 @@ def vplus_reduce(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1, t0=0,
         raise ValueError(f"vplus_reduce: measurefreq {mf} < 1 or first chunk {t0} < 0")
     if dev.type == "cpu":
         return vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
-    _check_inputs("vplus_reduce", lay, tab, w, gidx, cube, cfac)
+    f64 = _check_inputs("vplus_reduce", lay, tab, w, gidx, cube, cfac)
     N, B, T, c = w.shape
     if shift is not None:
         _check(shift, "shift", torch.int32, (B, T), dev)
     ncomp = None
     if m is not None:
         ncomp = m.shape[0]
-        _check(m, "m", torch.float32, (ncomp, B, T, c), dev)
+        _check(m, "m", torch.float32 if w.is_complex() else tab.dtype, (ncomp, B, T, c), dev)
         if ncomp < 1:
             raise ValueError("vplus_reduce: a measure with no components")
     if t0 + T >= 2 ** 31:
@@ -482,15 +520,15 @@ def vplus_reduce(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1, t0=0,
     cplx = w.is_complex()
     obs_rows, sig, hist = _reduce_outputs(lay, w, cfac, ncomp)
     lib = _build.load()
-    entry = lib.mci_vplus_reduce_complex if cplx else lib.mci_vplus_reduce
+    entry = getattr(lib, ("mci_vplus_reduce_complex" if cplx else "mci_vplus_reduce") + f64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(*_reduce_args(lay, tab, w, gidx, cube, cfac, obs_rows, sig, hist, m, mf, t0,
                                   shift), stream)
-    _build.check(lib, err, "vplus_reduce")
+    _build.check(lib, err, "vplus_reduce" + f64)
     key = "vplus_reduce_complex" if cplx else "vplus_reduce" if m is None else \
         "vplus_reduce_measure"
-    launch_counts[key] += 1
+    _count(key, f64)
     # the kernel writes one partial per warp; this sum over the partials is
     # the first step of the fixed-order float64 reduction of the observables
     return _build.tree_sum(obs_rows, 2), sig, hist
@@ -511,13 +549,14 @@ def vplus_relw(lay: VplusLayout, tab, w, gidx, cube, cfac):
     dev = _device_of(w, "vplus_relw")
     if dev.type == "cpu":
         return vplus_relw_plain(lay, tab, w, gidx, cube, cfac)
-    _check_inputs("vplus_relw", lay, tab, w, gidx, cube, cfac)
+    f64 = _check_inputs("vplus_relw", lay, tab, w, gidx, cube, cfac)
     relw = torch.empty_like(w)
     lib = _build.load()
-    entry = lib.mci_vplus_relw_complex if w.is_complex() else lib.mci_vplus_relw
+    entry = getattr(lib, ("mci_vplus_relw_complex" if w.is_complex() else "mci_vplus_relw") +
+                    f64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(*_relw_args(lay, tab, w, gidx, cube, cfac, relw), stream)
-    _build.check(lib, err, "vplus_relw")
-    launch_counts["vplus_relw"] += 1
+    _build.check(lib, err, "vplus_relw" + f64)
+    _count("vplus_relw", f64)
     return relw

@@ -3,8 +3,8 @@
 Counterpart of ``mcintegration_tpu/solvers/engine.py:35-286``.  A
 :class:`~mcintegration_tpu_torch.configuration.Configuration` compiles into
 a static :class:`Spec` (leaf layout, dof and padding masks) plus
-per-iteration device parameters (each leaf's float32 grid and increments,
-or CDF and masses).  The walker probability algebra (``slot_probs``,
+per-iteration device parameters (each leaf's grid and increments, or CDF
+and masses, of the run's dtype).  The walker probability algebra (``slot_probs``,
 ``padding_probability``, ``probability``, ``joint_probability``) works on
 ``[..., W]`` tensors with the slot axis leading; it is the plain version of
 the padding factors and joint density inside ``csrc/chain_accept.cu``.
@@ -15,8 +15,10 @@ User integrands are torch functions ``f(x, c)`` where ``x[k]`` is slot
 not elementwise across samples is detected by :meth:`Spec.probe_batched`
 and then evaluated per sample under ``torch.func.vmap``.
 
-Weights are float32, or complex64 for ``Configuration(type=complex)``
-(``Spec.wdtype``, as ``mcintegration_tpu/main.py:341``).  A complex
+Weights are of the run's ``dtype`` (float32, or float64 for
+``integrate(dtype=torch.float64)``), or complex64 for
+``Configuration(type=complex)`` at either dtype (``Spec.wdtype``, as
+``mcintegration_tpu/main.py:341``).  A complex
 observable leaf is two groups of real components, all its real parts and
 then all its imaginary parts (``pallas_chain.py:447-458``); the solvers
 accumulate real float64 sums and :func:`obs_tree` recombines them.
@@ -84,20 +86,29 @@ class LeafInfo:
 
 
 class Spec:
-    """Static compilation of a Configuration for the device path."""
+    """Static compilation of a Configuration for the device path.
 
-    def __init__(self, cfg: Configuration, device):
+    ``dtype`` (float32 or float64) is the type of the map tables, the
+    samples and the densities."""
+
+    def __init__(self, cfg: Configuration, device, dtype=torch.float32):
         self.cfg = cfg
         self.device = torch.device(device)
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"Spec: dtype {dtype} is neither float32 nor float64")
+        self.dtype = dtype
         self.N = cfg.N
         self.norm = cfg.norm
         self.nvar = cfg.nvar
         self.maxdof = list(cfg.maxdof)
         self.uconfig = UserConfig(cfg)
-        # the weights' dtype: complex64 for type=complex (main.py:341 of the
-        # JAX package), else float32
+        # the weights' dtype: complex64 for type=complex at either dtype
+        # (main.py:341 of the JAX package), else dtype
         self.cplx = cfg.type is complex
-        self.wdtype = torch.complex64 if self.cplx else torch.float32
+        self.wdtype = torch.complex64 if self.cplx else dtype
+        # a measure's real components: float32 beside complex64 weights (the
+        # reference's observables are then complex64), else dtype
+        self.mdtype = torch.float32 if self.cplx else dtype
 
         self.leaves: List[LeafInfo] = []
         self.group_leaves: List[List[int]] = [[] for _ in range(cfg.nvar)]
@@ -135,11 +146,11 @@ class Spec:
 
     # ------------------------------------------------------------------
     def device_params(self):
-        """Per-iteration device constants: each leaf's (grid, inc), or (cdf,
-        dist) for a Discrete leaf, and the reweight vector."""
+        """Per-iteration device constants of ``dtype``: each leaf's (grid,
+        inc), or (cdf, dist) for a Discrete leaf, and the reweight vector."""
         return {
-            "leaf": [li.leaf.device_params(self.device) for li in self.leaves],
-            "reweight": torch.as_tensor(self.cfg.reweight, dtype=torch.float32,
+            "leaf": [li.leaf.device_params(self.device, self.dtype) for li in self.leaves],
+            "reweight": torch.as_tensor(self.cfg.reweight, dtype=self.dtype,
                                         device=self.device),
         }
 
@@ -322,7 +333,7 @@ class Spec:
         return [make(i) for i in range(self.N)]
 
     def _measure_components(self, out, leaves, batch: tuple):
-        """A measure's output pytree as ``[ncomp, *batch]`` float32: its
+        """A measure's output pytree as ``[ncomp, *batch]`` of ``mdtype``: its
         leaves flattened in order, each broadcast to ``shape + batch``, a
         complex leaf as its real parts and then its imaginary parts.
         ``leaves`` is :func:`obs_leaves` of the observable pytree."""
@@ -338,7 +349,7 @@ class Spec:
                 raise ValueError(f"observable leaf {k} is real, but the measure returned "
                                  "complex values for it: declare it complex in obs")
             z = torch.broadcast_to(_as_weight(z, self.device, torch.complex64 if cplx
-                                              else torch.float32), sh + batch)
+                                              else self.mdtype), sh + batch)
             if cplx:
                 parts += [p.reshape((-1,) + batch) for p in torch.view_as_real(z).unbind(-1)]
             else:
@@ -352,7 +363,7 @@ class Spec:
         (pallas_chain.py:272-321), with imaginary parts in [-0.5, 0.5) on a
         complex run (``validate_measure_batched_pairs``)."""
         rng = np.random.default_rng(98765)
-        relw = torch.as_tensor(rng.uniform(0.1, 1.0, shape), dtype=torch.float32,
+        relw = torch.as_tensor(rng.uniform(0.1, 1.0, shape), dtype=self.mdtype,
                                device=self.device)
         if self.cplx:
             im = torch.as_tensor(rng.uniform(-0.5, 0.5, shape), dtype=torch.float32,
@@ -363,7 +374,7 @@ class Spec:
     def make_measure_batched(self, measure: Callable, obs_proto) -> Callable:
         """The batched custom measure of the :vegas and :vegasmc convention
         ``measure(x, relw, c)`` (pallas_chain.py:245-269): m(leaf_vals,
-        relw [N, *batch]) -> [ncomp, *batch] float32.  ``relw[i]`` is
+        relw [N, *batch]) -> [ncomp, *batch] of ``mdtype``.  ``relw[i]`` is
         integrand ``i``'s relative weight (complex64 on a complex run), so
         ``relw[0]`` reads as it does per sample."""
         leaves = obs_leaves(obs_proto, self.cplx)
@@ -428,7 +439,7 @@ class Spec:
             else:
                 u = rng.uniform(0.05, 0.95, (li.ndraw,) + batch)
                 leaf_vals.append(torch.as_tensor(leaf.lower + leaf.range * u,
-                                                 dtype=torch.float32, device=self.device))
+                                                 dtype=self.dtype, device=self.device))
         return leaf_vals
 
     def probe_batched(self, eval_batched, eval_vmapped, *extra):

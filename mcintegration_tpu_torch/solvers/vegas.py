@@ -35,6 +35,11 @@ the route sums it over every sample with ``relw`` zeroed at the others,
 ROADMAP.md, known faults in the reference); for a measure linear in
 ``relw`` the two agree.
 
+``integrate(dtype=torch.float64)`` runs both routes on the kernels'
+float64 instantiations (``Spec.dtype``): the tables, ``x``, the
+densities and real weights in float64, the uniforms float32, the
+reference's float64 law.
+
 Discrete pools, and drawn pools whose ``ninc`` differ, take the mixed
 route (``VegasMixedIteration``; ``make_vegas_iteration`` picks the route):
 the reference's XLA path (``mcintegration_tpu/solvers/vegas.py:82-356``),
@@ -62,11 +67,12 @@ from ..ops.vplus_kernels import leaf_values, slot_tables
 from .engine import Spec, obs_components, obs_tree, refuse_fermik
 
 N_MULT = vegas_kernels.N_MULT
-SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x at 4 bytes * slots * this
+SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x at 4 (float64: 8) bytes * slots * this
 # with a custom measure, x, w, relw and the measure's output m of one launch
-# (4 bytes per slot, integrand (8 if complex), integrand (8 if complex) and
-# component of a sample) stay within this many bytes; the measure's own
-# temporaries come on top
+# (per sample: the dtype's 4 or 8 bytes a slot, integrand (8 if complex),
+# integrand (8 if complex: relw stays complex64 at float64) and component (4
+# if complex)) stay within this many bytes; the measure's own temporaries
+# come on top
 MEASURE_LAUNCH_BYTES = 8 * 2 ** 30
 
 
@@ -125,12 +131,17 @@ def launch_chunks(spec: Spec, block: int, chunk: int, nchunks: int, measure, obs
     slot) within ``MEASURE_LAUNCH_BYTES``."""
     samples = SAMPLES_PER_LAUNCH
     if measure is not None:
-        nslots = sum(li.ndraw for li in spec.leaves)
-        wbytes = 8 if spec.cplx else 4
-        per_sample = (8 if gidx else 4) * nslots + 2 * wbytes * spec.N + \
-            4 * obs_components(spec, obs_proto)
-        samples = min(samples, MEASURE_LAUNCH_BYTES // per_sample)
+        samples = min(samples, MEASURE_LAUNCH_BYTES //
+                      measure_sample_bytes(spec, obs_proto, 4 if gidx else 0))
     return max(1, min(nchunks, samples // (block * chunk)))
+
+
+def measure_sample_bytes(spec: Spec, obs_proto, per_slot: int = 0) -> int:
+    """Bytes of one sample's x, w, relw and measure output m (and
+    ``per_slot`` more a slot, as gidx) at the spec's dtype and weights."""
+    nslots = sum(li.ndraw for li in spec.leaves)
+    return (spec.dtype.itemsize + per_slot) * nslots + 2 * spec.wdtype.itemsize * spec.N + \
+        spec.mdtype.itemsize * obs_components(spec, obs_proto)
 
 
 def _evaluators(spec: Spec, integrand: Callable, inplace: bool, measure, obs_proto):

@@ -55,13 +55,15 @@ from ..models.variable import Discrete
 from ..ops import vplus_kernels
 from ..ops._build import tree_sum
 from ..ops.vplus_kernels import VplusLayout
-from .engine import Spec, obs_components, obs_tree, refuse_fermik
+from .engine import Spec, obs_tree, refuse_fermik
+from .vegas import measure_sample_bytes
 
-SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x and gidx at 8 bytes * slots * this
+SAMPLES_PER_LAUNCH = 2 ** 26   # per slot; bounds x and gidx at 8 (float64: 12) bytes * slots * this
 # with a custom measure, x, gidx, w, relw and the measure's output m of one
-# launch (8 bytes per slot, 4 (8 if complex) per integrand twice and 4 per
-# component of a sample) stay within this many bytes; the measure's own
-# temporaries come on top
+# launch (per sample: 4 bytes of gidx and the dtype's 4 or 8 of x a slot,
+# the weights' 4, 8 or 8 (complex64) per integrand twice and the dtype's per
+# component; solvers/vegas.py:measure_sample_bytes) stay within this many
+# bytes; the measure's own temporaries come on top
 MEASURE_LAUNCH_BYTES = 8 * 2 ** 30
 MAX_DIMS = 10
 
@@ -113,10 +115,8 @@ class VegasPlusIteration:
         self.nevalperblock = self.chunk * self.nchunks
         samples = SAMPLES_PER_LAUNCH
         if measure is not None:
-            nslots = sum(li.ndraw for li in spec.leaves)
-            wbytes = 8 if spec.cplx else 4
-            per_sample = 8 * nslots + 2 * wbytes * spec.N + 4 * obs_components(spec, obs_proto)
-            samples = min(samples, MEASURE_LAUNCH_BYTES // per_sample)
+            samples = min(samples, MEASURE_LAUNCH_BYTES //
+                          measure_sample_bytes(spec, obs_proto, per_slot=4))
         self.chunks_per_launch = max(1, min(self.nchunks, samples // (block * self.chunk)))
         self.launches_per_run = -(-self.nchunks // self.chunks_per_launch)
         self.counts = self._uniform_counts()
@@ -187,7 +187,9 @@ class VegasPlusIteration:
         """``(cube [chunk] int32, cfac [ncubes] float32)`` of the current
         counts, on the device: the cube of every sample of a chunk
         (cube-major) and the stratification's factor ``n_c * ncubes / chunk``
-        of the density, rounded as the reference rounds it."""
+        of the density, rounded as the reference rounds it: float32 at
+        either dtype, as its float32 ``nsamp`` times a Python float stays
+        (``mcintegration_tpu/solvers/vegasplus.py:159``)."""
         counts = np.asarray(self.counts, np.int64)
         if counts.shape != (self.ncubes,) or counts.sum() != self.chunk or counts.min() < 0:
             raise ValueError("counts must be non-negative, one per cube, and sum to the chunk")

@@ -51,6 +51,18 @@ def test_hit_is_bit_equal_to_a_fresh_build(solver):
     assert len(_KERNEL_CACHE) == 2
 
 
+def test_float32_and_float64_each_get_their_own_build():
+    """The dtype is part of the key: a float64 call of one problem does not
+    hit the float32 call's iteration, and each then hits its own."""
+    mt.clear_kernel_cache()
+    r32 = _run(_pi)
+    r64 = _run(_pi, dtype=torch.float64)
+    assert len(_KERNEL_CACHE) == 2
+    assert not _same(r32, r64)
+    assert _same(r64, _run(_pi, dtype="float64")) and _same(r32, _run(_pi))
+    assert len(_KERNEL_CACHE) == 2
+
+
 def test_a_different_integrand_closure_or_attribute_misses():
     mt.clear_kernel_cache()
 

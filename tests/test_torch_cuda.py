@@ -1076,3 +1076,120 @@ def test_vplus_reduce_complex_chunk_rounds(cuda, npb, block, mf):
     torch.cuda.synchronize()
     assert _bits_equal(rows[0][..., 0::2].contiguous(), rows[1])
     assert not rows[0][..., 1::2].any()
+
+
+# ---- float64 (integrate(dtype=torch.float64)): the _f64 instantiations ----
+
+F64 = torch.float64
+
+
+@pytest.mark.parametrize("k", range(len(cs.VEGAS_EDGES)), ids=[e[0] for e in cs.VEGAS_EDGES])
+def test_f64_vegas_sample_shapes(cuda, k):
+    """vegas_sample_f64 bit-equal to its plain version at VEGAS_EDGES, and
+    its perm the float32 launch's from the same seeds; counted apart from
+    the float32 launches."""
+    before, before32 = vk.launch_counts_f64["vegas_sample"], vk.launch_counts["vegas_sample"]
+    _, perm = cs.vegas_sample_edge(mt, vk, cs.VEGAS_EDGES[k], device=cuda, real=F64)
+    assert vk.launch_counts_f64["vegas_sample"] == before + 2
+    assert vk.launch_counts["vegas_sample"] == before32
+    _, perm32 = cs.vegas_sample_edge(mt, vk, cs.VEGAS_EDGES[k], device=cuda)
+    assert torch.equal(perm, perm32)
+
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("k", range(len(cs.REDUCE_EDGES)), ids=[str(e[:2]) for e in cs.REDUCE_EDGES])
+def test_f64_vegas_reduce_and_relw_match_plain(cuda, k, cplx):
+    """vegas_relw_f64 bit for bit; vegas_reduce_f64 in both modes, ungated
+    and gated, to rel 1e-9 (float64 sums in another order)."""
+    m, N, ncomp, B, T, nb = cs.REDUCE_EDGES[k]
+    args, mobs = cs.reduce_inputs(m, N, ncomp, B, T, nb, device=cuda, cplx=cplx, real=F64)
+    w, invp, _, pad, pair_slots, _ = args
+    assert invp.dtype == F64 and mobs.dtype == (torch.float32 if cplx else F64)
+    assert _bits_equal(vk.vegas_relw(w, invp, pad, pair_slots),
+                       vk.vegas_relw_plain(w, invp, pad, pair_slots))
+    for given in (None, mobs):
+        for mf, t0 in ((1, 0), (3, 2)):
+            got = vk.vegas_reduce(*args, given, mf, t0)
+            want = vk.vegas_reduce_plain(*args, given, mf, t0)
+            torch.cuda.synchronize()
+            for g, p in zip(got, want):
+                torch.testing.assert_close(g, p, rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("k", range(len(cs.MIXED_SPECS)), ids=[e[0] for e in cs.MIXED_SPECS])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_f64_vegas_mixed_kernels_match_plain(cuda, cplx, k):
+    """The mixed route's float64 instantiations on phase 3h's specs:
+    sample and relw bit for bit, the reduce's obs to rel 1e-9 and its
+    histograms to rel 1e-10 (float64 terms added in another order, each add
+    rounding); the Continuous slots' bins the float32 launch's."""
+    name, var, dof, f, npb, _, T = cs.MIXED_SPECS[k]
+    it, lay, tab, kd, t0, T, x, gidx, w = cs.mixed_launch(mt, var(mt), dof, f, min(npb, 2 ** 20),
+                                                          2, T, cplx=cplx, real=F64)
+    assert tab.dtype == x.dtype == F64
+    want = vk.vegas_sample_mixed_plain(lay, tab, kd, t0, T)
+    assert _bits_equal(x, want[0]) and torch.equal(gidx, want[1])
+    g32 = cs.mixed_launch(mt, var(mt), dof, f, min(npb, 2 ** 20), 2, T, cplx=cplx)[7]
+    cont = torch.as_tensor(lay.slots[:, 0] != vk.KIND_DISC, device=cuda)
+    assert torch.equal(gidx[cont], g32[cont])
+    relw = vk.vegas_relw_mixed(lay, tab, w, gidx)
+    assert _bits_equal(relw, vk.vegas_relw_mixed_plain(lay, tab, w, gidx))
+    m = cs._measure_of(relw)
+    for mf in (1, 4):
+        for given in (None, m):
+            obs, hist = vk.vegas_reduce_mixed(lay, tab, w, gidx, given, mf, t0)
+            obs_p, hist_p = vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, given, mf, t0)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(obs, obs_p, rtol=1e-9, atol=0)
+            torch.testing.assert_close(hist, hist_p, rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_f64_vplus_kernels_match_plain(cuda, cplx):
+    """vplus_sample_f64 and vplus_relw_f64 bit for bit, vplus_reduce_f64
+    (default, given m; mf 1 and 4 with the gate's shifts) to rel 1e-10
+    (float64 terms added in another order)."""
+    cfg = mt.Configuration(var=(mt.Continuous(0.0, 1.0, ninc=100), mt.Discrete(1, 5)),
+                           dof=[[2, 1]], seed=5, type=complex if cplx else float,
+                           obs=[np.zeros(3)] if not cplx else [np.zeros(3, np.complex64)])
+    f = lambda v, c: v[0][0] * v[0][1] * v[1][0] * (1 + 0.5j if cplx else 1.0)
+    meas = lambda v, relw, c: [torch.stack([relw[0], relw[0] * 2, relw[0] * (v[0][0] < 0.5)])]
+    it = VegasPlusIteration(Spec(cfg, cuda, F64), f, measure=meas, obs_proto=cfg.observable,
+                            block=4, nevalperblock=2 ** 16)
+    lay = it.layout
+    tab, kd = lay.tables(it.spec.device_params()), it.seeds(block_keys(5, 0, 0, 4))
+    cube, cfac = it.cube_tables()
+    T = it.chunks_per_launch
+    x, gidx = vp.vplus_sample(lay, tab, kd, 0, T, cube)
+    want = vp.vplus_sample_plain(lay, tab, kd, 0, T, cube)
+    assert _bits_equal(x, want[0]) and torch.equal(gidx, want[1])
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    args = (lay, tab, w, gidx, cube, cfac)
+    relw = vp.vplus_relw(*args)
+    assert _bits_equal(relw, vp.vplus_relw_plain(*args))
+    m = it.measure(lay.leaf_values(x), relw).contiguous()
+    for mf in (1, 4):
+        shift = vp.gate_shifts(kd, 0, T, it.chunk) if mf > 1 else None
+        for given in (None, m):
+            got = vp.vplus_reduce(*args, given, mf, 0, shift)
+            ref = vp.vplus_reduce_plain(*args, given, mf, 0, shift)
+            torch.cuda.synchronize()
+            for g, p in zip(got, ref):
+                torch.testing.assert_close(g, p, rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("solver", ["vegas", "vegasplus"])
+def test_cuda_float64_integrates_e100(cuda, solver):
+    """e^{100x} over [0, 1) at float64 on the card within 5 sigma of
+    (e^100 - 1)/100 = 2.688e41, which float32 cannot hold; only float64
+    instantiations launch."""
+    vk.reset_launch_counts()
+    vp.reset_launch_counts()
+    res = mt.integrate(lambda x, c: torch.exp(100.0 * x[0]), var=mt.Continuous(0.0, 1.0),
+                       dof=[[1]], neval=2 ** 22, niter=6, solver=solver, device=cuda, seed=3,
+                       verbose=-2, dtype=torch.float64)
+    exact = (np.exp(100.0) - 1.0) / 100.0
+    assert res.backend == "cuda" and abs(float(res.mean[0]) - exact) < 5 * float(res.stdev[0])
+    assert not any(vk.launch_counts.values()) and not any(vp.launch_counts.values())
+    mod = vk if solver == "vegas" else vp
+    assert mod.launch_counts_f64[f"{'vegas' if solver == 'vegas' else 'vplus'}_sample"] > 0

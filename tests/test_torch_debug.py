@@ -166,6 +166,65 @@ def test_debug_leaves_result_bits(solver, capsys):
     assert capsys.readouterr().err == ""
 
 
+def _probe64(pkg, case):
+    """``_probe`` at float64: the JAX probe under jax.enable_x64 with
+    float64 weights, the port's probe on a float64 Spec."""
+    f, solver, n, measure, obs, cplx = CASES[case]
+    cfg = pkg.Configuration(var=pkg.Continuous(0.0, 1.0), dof=[[2]] * n, obs=obs,
+                            type=complex if cplx else float)
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        try:
+            if pkg is mj:
+                import jax
+                with jax.enable_x64(True):
+                    wd = jnp.complex64 if cplx else jnp.float64
+                    jdebug.probe_integrand(JSpec(cfg, dtype=jnp.float64), f, measure, False,
+                                           solver, wd)
+            else:
+                tdebug.probe_integrand(Spec(cfg, "cpu", torch.float64), f, measure, False,
+                                       solver, obs)
+            err = None
+        except Exception as e:
+            err = e
+    return err, [str(w.message) for w in ws]
+
+
+@pytest.mark.parametrize("case", ["raises", "measure-fails", "wrong-count", "good-measure",
+                                  "non-finite", "complex-no-type"])
+def test_float64_probe(case):
+    """At float64 the probe gives the JAX package's message (or its prefix)
+    for a call that fails, the wrong count and a failing measure, passes a
+    good measure, warns on non-finite weights, and raises the complex-weights
+    TypeError, which the JAX probe, comparing its weights' dtype with
+    float32, skips at float64."""
+    te, tw = _probe64(mt, case)
+    if case in ("good-measure", "non-finite"):
+        assert te is None and len(tw) == (case == "non-finite")
+        return
+    assert type(te) is TypeError
+    if case == "complex-no-type":
+        je, _ = _probe64(mj, case)
+        assert je is None and "type=complex" in str(te)
+        return
+    je, _ = _probe64(mj, case)
+    assert type(je) is TypeError and _prefix(te) == _prefix(je)
+
+
+def test_debug_leaves_a_float64_run_bits():
+    def f(x, c):
+        return torch.exp(30.0 * x[0]) * x[1]
+
+    def run(debug, solver):
+        return mt.integrate(f, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 12, niter=2,
+                            solver=solver, device="cpu", verbose=-2, seed=4, debug=debug,
+                            cache=False, dtype=torch.float64)
+
+    for solver in ("vegas", "vegasplus"):
+        a, b = run(False, solver), run(True, solver)
+        assert np.array_equal(a.mean, b.mean) and np.array_equal(a.stdev, b.stdev)
+
+
 def test_non_finite_measure_writes_the_line(capsys):
     """The integrand's non-finite values are zeroed before any sum (both
     packages' guard), so a measure with inf at known samples is what makes an

@@ -64,14 +64,16 @@ def _complex_obs(solver):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"dtype": torch.float64}, "item 22"),
-    ({"solver": "vegasmc", "dtype": np.float16}, "item 22"),
+    ({"solver": "vegasmc", "dtype": torch.float64}, "crashes there .* float32 on the Markov"),
+    ({"solver": "mcmc", "dtype": "float64"}, "crashes there .* float32 on the Markov"),
+    ({"dtype": np.float16}, "serves float32 and float64"),
+    ({"solver": "vegasmc", "dtype": np.float16}, "serves float32 and float64"),
     ({"backend": "xla"}, "one route per device"),
     ({"solver": "mcmc", "backend": "pallas"}, "one route per device"),
     (_complex_obs("vegas"), "complex observables .* type=complex"),
     (_complex_obs("vegasmc"), "complex observables .* type=complex"),
     (_complex_obs("mcmc"), "complex observables .* type=complex"),
-], ids=["dtype", "dtype-vegasmc",
+], ids=["dtype-f64-vegasmc", "dtype-f64-mcmc", "dtype-float16", "dtype-vegasmc",
         "backend", "backend-mcmc", "complex-obs-vegas",
         "complex-obs-vegasmc", "complex-obs-mcmc"])
 def test_unported_options_raise(kwargs, item):
@@ -160,6 +162,24 @@ def test_reference_keyword_defaults_run():
                            niter=2, solver="vegas", device="cpu", verbose=-2, seed=1,
                            dtype=dtype, backend="auto", cache=True, parallel="auto")
         assert res.backend == "torch"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, np.float64, "float64"],
+                         ids=["torch", "numpy", "str"])
+def test_float64_named_three_ways_runs(dtype):
+    """float64 named as torch, numpy or a string runs :vegas with float64
+    maps and samples (ROADMAP.md item 22)."""
+    seen = []
+
+    def f(x, c):
+        seen.append(x.dtype)
+        return torch.where(x[0] ** 2 + x[1] ** 2 < 1.0, 1.0, 0.0)
+
+    res = mt.integrate(f, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 12, niter=2,
+                       solver="vegas", device="cpu", verbose=-2, seed=1, dtype=dtype,
+                       cache=False)
+    assert res.backend == "torch" and set(seen) == {torch.float64}
+    assert abs(float(res.mean[0]) - np.pi / 4) < 7 * float(res.stdev[0])
 
 
 def test_average_is_exported():

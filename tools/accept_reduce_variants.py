@@ -166,8 +166,8 @@ def variants():
         ("reduce given m, 8 components' loads in flight",
          [(REDUCE, "constexpr int kBatch = 4; ", "constexpr int kBatch = 8; ")], {}),
         ("reduce given m, streaming loads of m",
-         [(REDUCE, "t[b][r] = q0 + b < ncomp && in[r] ? m[8 * r] : 0.0f;",
-           "t[b][r] = q0 + b < ncomp && in[r] ? __ldcs(m + 8 * r) : 0.0f;")], {}),
+         [(REDUCE, "t[b][r] = q0 + b < ncomp && in[r] ? m[8 * r] : (E)0;",
+           "t[b][r] = q0 + b < ncomp && in[r] ? __ldcs(m + 8 * r) : (E)0;")], {}),
         ("reduce complex at 4 blocks an SM",
          [(REDUCE, "constexpr int kCplxBlocks = 8; ", "constexpr int kCplxBlocks = 4; ")], {}),
         ("reduce complex at 6 blocks an SM",
@@ -233,19 +233,19 @@ def ablations():
          [(REDUCE, "        if (bin < 0 || bin >= HW) continue;",
            "        if (sq != -1.0) continue;")]),
         ("reduce without the density loop",
-         [(REDUCE, "    if (cb >= 0) {\n      float prob = 1.0f, pass = 1.0f;",
-           "    if (cb < -1) {\n      float prob = 1.0f, pass = 1.0f;")]),
+         [(REDUCE, "    if (cb >= 0) {\n      Fp prob = (Fp)1, pass = (Fp)1;",
+           "    if (cb < -1) {\n      Fp prob = (Fp)1, pass = (Fp)1;")]),
         ("reduce without the integrand loop",
          [(REDUCE, "    for (int i = 0; i < N; ++i) {\n      double so = 0.0, sq = 0.0;",
            "    for (int i = 0; i < 0; ++i) {\n      double so = 0.0, sq = 0.0;")]),
         ("reduce without the density's gathers",
-         [(REDUCE, "const float rho = slot_rho(f, tab, gidx[k * plane + at]);",
-           "const float rho = slot_rho(f, tab, 0);")]),
+         [(REDUCE, "const Fp rho = slot_rho(f, tab, gidx[k * plane + at]);",
+           "const Fp rho = slot_rho(f, tab, 0);")]),
         ("reduce without the padding loop",
          [(REDUCE, "        for (int g = 0; g < P; ++g) {\n          if (!pad[i * P + g]) continue;",
            "        for (int g = 0; g < 0; ++g) {\n          if (!pad[i * P + g]) continue;")]),
         ("reduce complex without the square roots",
-         [(REDUCE, "__fmul_rn(wi.abs(), pad_i[u])", "__fmul_rn(wi.re, pad_i[u])"),
+         [(REDUCE, "mul_rn((Fp)wi.abs(), pad_i[u])", "mul_rn((Fp)wi.re, pad_i[u])"),
           (REDUCE, "float r = relw.abs();", "float r = relw.re;")]),
         ("reduce complex without the observables' sums",
          [(REDUCE, "      const double part = tree_sums(t);", "      const double part = t[0];")]),
@@ -255,8 +255,8 @@ def ablations():
            "flush, as vplus_reduce_kernel's\n  const int lane = threadIdx.x & 31;\n"
            "  for (int o = 32; o < 32; o <<= 1) {")]),
         ("reduce complex without the density's gathers",
-         [(REDUCE, "const float rho = slot_rho(f, tab, gidx[k * plane + at0 + u * cstep]);",
-           "const float rho = slot_rho(f, tab, 0);")]),
+         [(REDUCE, "const Fp rho = slot_rho(f, tab, gidx[k * plane + at0 + u * cstep]);",
+           "const Fp rho = slot_rho(f, tab, 0);")]),
         ("reduce complex without the padding loop",
          [(REDUCE, "      for (int g = 0; g < P; ++g) {\n        if (!pad[i * P + g]) continue;",
            "      for (int g = 0; g < 0; ++g) {\n        if (!pad[i * P + g]) continue;")]),
@@ -264,7 +264,7 @@ def ablations():
          [(REDUCE, "if (bin >= 0 && bin < HW) atomicAdd(hist_s + bin, (double)sq[u]);",
            "if (bin == -2) atomicAdd(hist_s + bin, (double)sq[u]);")]),
         ("relw without the density's gathers",
-         [(REDUCE, "const float rho = slot_rho(f, tab, g[v]);", "const float rho = slot_rho(f, tab, 0);")]),
+         [(REDUCE, "const Fp rho = slot_rho(f, tab, g[v]);", "const Fp rho = slot_rho(f, tab, 0);")]),
         ("relw without the padding loop",
          [(REDUCE, "    for (int g = 0; g < P; ++g) {\n      if (!pad[i * P + g]) continue;",
            "    for (int g = 0; g < 0; ++g) {\n      if (!pad[i * P + g]) continue;")]),
@@ -277,8 +277,8 @@ def ablations():
          [(REDUCE, "  for (int q0 = 0; q0 < ncomp; q0 += kBatch) {",
            "  for (int q0 = 0; q0 < 0; q0 += kBatch) {")]),
         ("mixed without the component sums",
-         [(MIXED, "      for (int q = 0; q < ncomp; ++q) {\n        float m[kPerThread];",
-           "      for (int q = 0; q < 0; ++q) {\n        float m[kPerThread];")]),
+         [(MIXED, "      for (int q = 0; q < ncomp; ++q) {\n        E m[kPerThread];",
+           "      for (int q = 0; q < 0; ++q) {\n        E m[kPerThread];")]),
         ("mixed without histogram adds",
          [(MIXED, "          hist_add_runs(hist_s, key, sq);",
            "          if (key[0] == -2) hist_s[0] = sq[0];")]),
@@ -286,7 +286,7 @@ def ablations():
          [(MIXED, "      for (int pp = 0; pp < P; ++pp) {",
            "      for (int pp = 0; pp < 0; ++pp) {")]),
         ("mixed, jac from a single slot",
-         [(MIXED, "        jac[v] = k == 0 ? ip : __fmul_rn(jac[v], ip);",
+         [(MIXED, "        jac[v] = k == 0 ? ip : mul_rn(jac[v], ip);",
            "        jac[v] = k == 0 ? ip : jac[v];")]),
         ("propose, every slot stored in the row of slot 0",
          [(PROPOSE, "const long long i = (long long)(f[5] + s) * W + w;",

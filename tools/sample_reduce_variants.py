@@ -62,10 +62,10 @@ KERNELS = ("vegas_reduce_kernel", "vplus_sample_kernel", "vegas_sample_kernel")
 def variants():
     """(name, source edits) of each variant; each stays right and is checked."""
     return [
-        ("reduce 6 blocks per SM", [(REDUCE, "constexpr int kBlocksPerSm = 4; ",
-                                     "constexpr int kBlocksPerSm = 6; ")]),
-        ("reduce 5 blocks per SM", [(REDUCE, "constexpr int kBlocksPerSm = 4; ",
-                                     "constexpr int kBlocksPerSm = 5; ")]),
+        ("reduce 6 blocks per SM", [(REDUCE, "return sizeof(Fp) == 4 ? 4 : 3;",
+                                     "return sizeof(Fp) == 4 ? 6 : 3;")]),
+        ("reduce 5 blocks per SM", [(REDUCE, "return sizeof(Fp) == 4 ? 4 : 3;",
+                                     "return sizeof(Fp) == 4 ? 5 : 3;")]),
         ("reduce 2 quads in flight", [(REDUCE, "constexpr int kUnroll = 4; ",
                                        "constexpr int kUnroll = 2; ")]),
         ("reduce 8 quads in flight", [(REDUCE, "constexpr int kUnroll = 4; ",
@@ -75,8 +75,8 @@ def variants():
         ("reduce cached loads",
          [(REDUCE, "if (kVec) return __ldcs(reinterpret_cast<const float4*>(col) + j);",
            "if (kVec) return reinterpret_cast<const float4*>(col)[j];")]),
-        ("reduce 3 blocks per SM", [(REDUCE, "constexpr int kBlocksPerSm = 4; ",
-                                     "constexpr int kBlocksPerSm = 3; ")]),
+        ("reduce 3 blocks per SM", [(REDUCE, "return sizeof(Fp) == 4 ? 4 : 3;",
+                                     "return sizeof(Fp) == 4 ? 3 : 3;")]),
         ("reduce, bins of a row at N = 1 from its unit's lanes",
          [(REDUCE, "    if (wcol && lg == 0) whsum[row * N + col] = sh;\n",
            "    if (wcol && N == 1) {\n"
@@ -92,10 +92,10 @@ def variants():
            "  for (int e = threadIdx.x; e < rows * nslots * (N > 1); e += kThreads) {")]),
         ("sample 8 samples a thread", [(SAMPLE, "constexpr int kPerThread = 4; ",
                                         "constexpr int kPerThread = 8; ")]),
-        ("sample 6 blocks per SM", [(SAMPLE, "constexpr int kBlocksPerSm = 4; ",
-                                     "constexpr int kBlocksPerSm = 6; ")]),
-        ("sample 3 blocks per SM", [(SAMPLE, "constexpr int kBlocksPerSm = 4; ",
-                                     "constexpr int kBlocksPerSm = 3; ")]),
+        ("sample 6 blocks per SM", [(SAMPLE, "return sizeof(Fp) == 4 ? 4 : 3;",
+                                     "return sizeof(Fp) == 4 ? 6 : 3;")]),
+        ("sample 3 blocks per SM", [(SAMPLE, "return sizeof(Fp) == 4 ? 4 : 3;",
+                                     "return sizeof(Fp) == 4 ? 3 : 3;")]),
         ("sample, salt term formed once a block",
          [(SAMPLE, "(uint32_t)f[kSalt], f[kStride] > 0};",
            "(uint32_t)f[kSalt] * 0x85EBCA6Bu, f[kStride] > 0};"),
@@ -114,20 +114,20 @@ def variants():
         ("vegas sample 16 quads a thread", [(VSAMPLE, "constexpr int kQuads = 8; ",
                                              "constexpr int kQuads = 16; ")]),
         ("vegas sample, cached stores",
-         [(VSAMPLE, "        __stcs(reinterpret_cast<float4*>(xg) + Q,",
-           "        __stwb(reinterpret_cast<float4*>(xg) + Q,")]),
-        ("vegas sample 4 blocks per SM", [(VSAMPLE, "constexpr int kBlocksPerSm = 8; ",
-                                           "constexpr int kBlocksPerSm = 4; ")]),
+         [(VSAMPLE, "  __stcs(reinterpret_cast<float4*>(xg) + Q, make_float4(",
+           "  __stwb(reinterpret_cast<float4*>(xg) + Q, make_float4(")]),
+        ("vegas sample 4 blocks per SM", [(VSAMPLE, "return sizeof(R) == 4 ? 8 : 4;",
+                                           "return sizeof(R) == 4 ? 4 : 4;")]),
         ("vegas sample, scalar stores",
          [(VSAMPLE, "const bool vec = m % 4 == 0 &&", "const bool vec = false && m % 4 == 0 &&")]),
         ("vegas sample, integer divisions",
          [(VSAMPLE, "        const uint32_t p = divide(Q, mulm, shm);\n"
                     "        const uint32_t r = (uint32_t)G.a * p + (uint32_t)G.s;\n"
                     "        const int pm = (int)(r - divide(r, mulnb, shnb) * (uint32_t)nb);\n"
-                    "        const float gv = gr[pm], dx = ic[pm];",
+                    "        const R gv = gr[pm], dx = ic[pm];",
            "        const uint32_t p = Q / qrow;\n"
            "        const int pm = (int)(((uint32_t)G.a * p + (uint32_t)G.s) % (uint32_t)nb);\n"
-           "        const float gv = gr[pm], dx = ic[pm];")]),
+           "        const R gv = gr[pm], dx = ic[pm];")]),
         ("vegas sample, the group's values formed by every thread",
          [(VSAMPLE, "  __shared__ Group sg;\n", "  Group sg;\n"),
           (VSAMPLE, "  if (threadIdx.x == 0) {\n    const uint32_t bt = g % (B * T);",
@@ -145,10 +145,10 @@ def ablations():
          [(REDUCE, "    so += (double)v;\n    return;",
            "    so = __longlong_as_double(__double_as_longlong(so) ^ __float_as_int(v));\n"
            "    return;"),
-          (REDUCE, "if (kTerms == kWeighted) so += (double)__fmul_rn(v, f);",
+          (REDUCE, "if (kTerms == kWeighted) so += (double)mul_rn(v, f);",
            "if (kTerms == kWeighted) so = __longlong_as_double(__double_as_longlong(so) ^ "
-           "__float_as_int(__fmul_rn(v, f)));"),
-          (REDUCE, "  sh += (double)__fmul_rn(a, a);",
+           "__float_as_int(mul_rn(v, f)));"),
+          (REDUCE, "  sh += (double)mul_rn(a, a);",
            "  sh = __longlong_as_double(__double_as_longlong(sh) ^ __float_as_int(a));")]),
         ("reduce without the factors", [(REDUCE, "if (j0 == lg && wcol) {", "if (j0 < 0) {")]),
         ("reduce without the butterfly", [(REDUCE, "for (int o = G >> 1; o > 0; o >>= 1) {",
@@ -166,8 +166,8 @@ def ablations():
          [(SAMPLE, "u = __fdiv_rn(__fadd_rn((float)coord, u), fns);",
            "u = __fmul_rn(__fadd_rn((float)coord, u), 0.04f);")]),
         ("sample without the map's gathers",
-         [(SAMPLE, "val = __float_as_int(__fadd_rn(t[iy], __fmul_rn(dy, t[f.nb + iy])));",
-           "val = __float_as_int(dy);")]),
+         [(SAMPLE, "val = as_bits(add_rn(t[iy], mul_rn((Fp)dy, t[f.nb + iy])));",
+           "val = as_bits((Fp)dy);")]),
         ("sample, every slot stored over slot 0",
          [(SAMPLE, "const size_t row = k * plane + (size_t)bt * c;",
            "const size_t row = (size_t)bt * c;")]),
@@ -175,8 +175,8 @@ def ablations():
          [(VSAMPLE, "const uint32_t u = mix32(mix32(i ^ G.k1) + G.kc);",
            "const uint32_t u = i ^ G.k1;")]),
         ("vegas sample without the map's gathers",
-         [(VSAMPLE, "const float gv = gr[pm], dx = ic[pm];\n        const uint32_t e = 4u * Q;",
-           "const float gv = (float)pm, dx = 0.5f;\n        const uint32_t e = 4u * Q;")]),
+         [(VSAMPLE, "const R gv = gr[pm], dx = ic[pm];\n        const uint32_t e = 4u * Q;",
+           "const R gv = (R)pm, dx = (R)0.5;\n        const uint32_t e = 4u * Q;")]),
         ("vegas sample without invp and perm",
          [(VSAMPLE, "        if (Q == p * qrow) {   // this quad starts row p",
            "        if (Q == p * qrow && G.a < 0) {   // this quad starts row p")]),
