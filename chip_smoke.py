@@ -89,6 +89,13 @@ with nvcc and drives every ported path on the card.
   Discrete, ``Discrete([(1, 3), (1, 4)])`` and mixed ninc, against their
   exact values, each with its rate beside phase 4's and its idle share; the
   three kernels' times, bounds and ptxas registers at the bubble's launch.
+- the float64 mode, ``integrate(dtype=torch.float64)`` (phases 3i, 4i,
+  6i): every ``_f64`` instantiation against its plain version at the main
+  paths' launches and edge shapes (``vplus_reduce``'s float64 default
+  observables also at ``REDUCE_EDGES``, 60,000-sample chunks and beyond
+  4,096 bins, gated and not), the float64 runs at 2^30 evals per iteration
+  against their exact values with their rates, and each instantiation's
+  time, bound and ptxas registers.
 
 Each path's launch counts are set to 0 just before its main path runs and
 read just after.  Any failed phase raises, so the exit code is non-zero.
@@ -233,6 +240,47 @@ def reduce_inputs(m, N, ncomp, B=2, T=3, nb=37, seed=0, device="cuda", cplx=Fals
     wt = torch.as_tensor(w.astype(np.complex64), device=device) if cplx else re(w)
     return (wt, re(invp), i32(perm), i32(pad), i32(pair_slots), i32(used)), \
         (f32 if cplx else re)(mobs)
+
+
+def vplus_reduce_inputs(mt, m, N, B=2, T=3, nb=37, seed=0, device="cuda", cplx=False,
+                        real=None):
+    """Random inputs ``(lay, tab, w, gidx, cube, cfac)`` of vplus_reduce at
+    an edge shape of REDUCE_EDGES: chunks of m * nb samples; two trained
+    maps of nb bins, the first bundled with a Discrete(1, 7) passenger; N
+    integrands, each using one or two slots of the first group and none or
+    one of the second (pads and histogram uses vary); cubes of nstrat 3
+    (27) drawn at random and sorted, their factors at random; weights
+    (complex64 with ``cplx``) normal with one above the clip; at the dtype
+    ``real`` (float32 unless given)."""
+    import torch
+    from mcintegration_tpu_torch.ops.vplus_kernels import VplusLayout
+    from mcintegration_tpu_torch.solvers.engine import Spec
+
+    rng = np.random.default_rng(seed)
+    a, b, d = (mt.Continuous(0.0, 1.0, ninc=nb), mt.Continuous(0.0, 2.0, ninc=nb),
+               mt.Discrete(1, 7))
+    for leaf in (a, b, d):
+        leaf.histogram = rng.gamma(0.5, 1.0, leaf.nhist) + 1e-3
+        leaf.train()
+    dof = [[2, 1]] + [[int(rng.integers(1, 3)), int(rng.integers(0, 2))] for _ in range(N - 1)]
+    cfg = mt.Configuration(var=(mt.CompositeVar(a, d), b), dof=dof, seed=SEED,
+                           type=complex if cplx else float)
+    spec = Spec(cfg, device, real or torch.float32)
+    lay = VplusLayout.build(spec, 3)
+    tab = lay.tables(spec.device_params())
+    c = m * nb
+    gidx = np.stack([rng.integers(0, nbk, size=(B, T, c)) for nbk in lay.slots[:, 1]])
+    cube = np.sort(rng.integers(0, 3 ** lay.D, size=c))
+    cfac = rng.uniform(0.5, 2.0, 3 ** lay.D).astype(np.float32)
+    w = rng.normal(size=(N, B, T, c))
+    w[0, 0, 0, 0] = 1e30
+    if cplx:
+        w = (w + 1j * rng.normal(size=w.shape)).astype(np.complex64)
+    elif spec.dtype == torch.float64:      # values that float32 cannot hold
+        w = w * (1.0 + rng.uniform(-1e-9, 1e-9, w.shape))
+    i32 = lambda t: torch.as_tensor(np.asarray(t, np.int32), device=device)
+    return (lay, tab, torch.as_tensor(w, dtype=None if cplx else spec.dtype, device=device),
+            i32(gidx), i32(cube), torch.as_tensor(cfac, device=device))
 
 
 def relw_components(relw):
@@ -1366,12 +1414,15 @@ def _vplus_allbranch_cf(x, c):
     return w0 * torch.exp(2j * u[0]), w1 * torch.exp(-3j * t[0])
 
 
-def vplus_allbranch(mt, nevalperblock, ninc=1000, device="cuda", cplx=False, **kw):
+def vplus_allbranch(mt, nevalperblock, ninc=1000, device="cuda", cplx=False, real=None,
+                    block=16, **kw):
     """Phase 3d's spec: trained maps of ``ninc`` (1000; 5000 puts its
     histogram beyond SMEM_HIST_BINS) and 64 bins, a trained Discrete(1, 7)
     passenger bundled with the first, a non-adaptive pool, and two
     integrands of which the first leaves a slot of two groups unused; with
-    ``cplx``, complex weights (the integrands times a phase each)."""
+    ``cplx``, complex weights (the integrands times a phase each); at the
+    dtype ``real`` (float32 unless given)."""
+    import torch
     from mcintegration_tpu_torch.solvers.engine import Spec
     from mcintegration_tpu_torch.solvers.vegasplus import VegasPlusIteration
 
@@ -1383,8 +1434,10 @@ def vplus_allbranch(mt, nevalperblock, ninc=1000, device="cuda", cplx=False, **k
         leaf.train()
     cfg = mt.Configuration(var=(mt.CompositeVar(a, d), b, e), dof=[[1, 1, 0], [2, 1, 1]],
                            seed=SEED, type=complex if cplx else float)
-    return VegasPlusIteration(Spec(cfg, device), _vplus_allbranch_cf if cplx else
-                              _vplus_allbranch_f, block=16, nevalperblock=nevalperblock, **kw)
+    return VegasPlusIteration(Spec(cfg, device, real or torch.float32),
+                              _vplus_allbranch_cf if cplx else
+                              _vplus_allbranch_f, block=block, nevalperblock=nevalperblock,
+                              **kw)
 
 
 def _first(x, c):
@@ -2880,7 +2933,7 @@ def measurement_timings(mt, vk, vp, card):
     for what, t in times.items():
         print(f"phase 6g: vplus_reduce.cu, {what}: {t!r} ms, the parent's {PARENT_6G[what]!r} "
               f"ms, ratio {t / PARENT_6G[what]!r} [{card}]")
-    for key in ("vplus_reduce_kernel", "vplus_reduce_complex_kernel", "vplus_relw_kernel"):
+    for key in ("vplus_reduce_kernel", "vplus_reduce_chunks_kernel", "vplus_relw_kernel"):
         for line in ptxas_lines(key):
             print(f"phase 6g: ptxas -v {line}")
     return out
@@ -3824,7 +3877,10 @@ def f64_vs_plain(mt, vk, vp, card):
     4's shape (pi, and the 10-bin histogram of phase 4e, real and complex),
     at REDUCE_EDGES (real and complex, both modes, mf 1 and 3) and
     VEGAS_EDGES, at one launch of phase 4d's shape (singular_3d e^{ix}:
-    relw, reduce complex, given m and real, with and without the gate), on
+    relw, reduce complex, given m and real, with and without the gate),
+    vplus_reduce's default observables (real and complex, several chunks a
+    thread) at REDUCE_EDGES, at 60,000-sample chunks in 111 (w aligned and
+    misaligned) and beyond SMEM_HIST_BINS bins, gated and not, on
     MIXED_SPECS (the bubble at 4h's launch, the 60,000-sample chunk, the
     misaligned w and m), each with and without the gate of measurefreq MF,
     real and complex.  perm, and gidx where a bin is a function of the
@@ -3997,6 +4053,67 @@ def f64_vs_plain(mt, vk, vp, card):
           f"real) bit-equal; vplus_reduce_f64 complex (default, given m), given m (10 and 3 "
           f"components), real, each at mf 1 and {MF}: rel <= {max(rels):.3g}")
     del x, gidx, w, relw, rrelw, cm, rm, args, rargs
+
+    # vplus_reduce's float64 default observables (vplus_reduce_chunks_kernel:
+    # a thread takes several chunks at once), real and complex w, ungated and
+    # gated with shifts: at REDUCE_EDGES; on phase 3d's all-branch spec at
+    # 60,000-sample chunks, 3 blocks x 37 chunks (B*T = 111, not a multiple
+    # of the chunks taken at once), w aligned and one element off; and with
+    # ninc 5000 (windows beyond SMEM_HIST_BINS bins)
+    def vplus_default(what, lay, tab, w, gidx, cube, cfac, t0, shift):
+        name = "vplus_reduce_complex" if w.is_complex() else "vplus_reduce"
+        rel = 0.0
+        for mf in (1, MF):
+            sh = shift if mf > 1 else None
+            got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, None, mf, t0, sh)
+            want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, None, mf, t0, sh)
+            e0, r0 = _check_rel(f"{name}_f64, {what}, mf {mf}, obs", got[:1], want[:1],
+                                REL_TOL_REDUCE)
+            e1, r1 = _check_rel(f"{name}_f64, {what}, mf {mf}, sig and hist", got[1:], want[1:],
+                                REL_TOL_F64_HIST)
+            keep(name, max(e0, e1))
+            rel = max(rel, r0, r1)
+        return rel
+
+    def allbranch_launch(it):
+        lay, params = it.layout, it.spec.device_params()
+        it.reallocate(it.run(params, block_keys(SEED, 0, 0, it.block))["sig"])
+        tab, kd = lay.tables(params), it.seeds(block_keys(SEED, 1, 0, it.block))
+        cube, cfac = it.cube_tables()
+        T = it.chunks_per_launch
+        x, gidx = vp.vplus_sample(lay, tab, kd, 0, T, cube)
+        w = it.evaluate(lay.leaf_values(x)).contiguous()
+        return lay, tab, w, gidx, cube, cfac, vp.gate_shifts(kd, 0, T, it.chunk)
+
+    for mm, N, _, B, T, nb in REDUCE_EDGES:
+        rel = 0.0
+        for cplx in (False, True):
+            lay, tab, w, gidx, cube, cfac = vplus_reduce_inputs(mt, mm, N, B, T, nb, cplx=cplx,
+                                                                real=F64)
+            shift = torch.as_tensor(np.random.default_rng(mm).integers(0, w.shape[-1], (B, T)),
+                                    dtype=torch.int32, device="cuda")
+            rel = max(rel, vplus_default(f"m={mm}, N={N}", lay, tab, w, gidx, cube, cfac, 2,
+                                         shift))
+        print(f"phase 3i: vplus_reduce_f64 default (real and complex w) at chunks of {mm * nb} "
+              f"samples, N={N}, {B} x {T} chunks, mf 1 and {MF}: rel {rel:.3g}")
+        del lay, tab, w, gidx, cube, cfac
+    for cplx in (False, True):
+        it = vplus_allbranch(mt, 37 * 60000, cplx=cplx, real=F64, block=3, max_chunk=60000)
+        lay, tab, w, gidx, cube, cfac, shift = allbranch_launch(it)
+        BT = it.block * it.chunks_per_launch
+        assert it.chunk == 60000 and BT == 111, (it.chunk, BT)
+        rel = vplus_default("60,000-sample chunks", lay, tab, w, gidx, cube, cfac, 0, shift)
+        rel_mis = vplus_default("60,000-sample chunks, w misaligned", lay, tab, misaligned(w),
+                                gidx, cube, cfac, 0, shift)
+        it = vplus_allbranch(mt, 2 ** 20, ninc=5000, cplx=cplx, real=F64)
+        lay, tab, w, gidx, cube, cfac, shift = allbranch_launch(it)
+        assert lay.nhist > vp.SMEM_HIST_BINS, lay.nhist
+        rel_win = vplus_default(f"{lay.nhist} bins", lay, tab, w, gidx, cube, cfac, 0, shift)
+        print(f"phase 3i: vplus_reduce{'_complex' if cplx else ''}_f64 default on the all-branch "
+              f"spec, mf 1 and {MF}: 60,000-sample chunks, {BT} of them, rel {rel:.3g}, w one "
+              f"element off 16-byte alignment rel {rel_mis:.3g}; {lay.nhist} bins (windows of "
+              f"{vp.SMEM_HIST_BINS}) rel {rel_win:.3g}")
+        del lay, tab, w, gidx, cube, cfac
 
     # the mixed route on MIXED_SPECS, and its misaligned block
     KD = vk.KIND_DISC
@@ -4192,8 +4309,9 @@ def f64_timings(mt, vk, vp, card, per_iter):
     its bound: the larger of the bytes it must move over 3.35 TB/s and its
     operations (float64 ones over PEAK_F64_OPS, float32 ones over PEAK_OPS,
     integer ones over PEAK_INT_OPS); its ptxas registers and spills; and
-    its launches an iteration in 4i.  Returns each one's (max abs err, ms,
-    plain_ms, bound_ms, bound_by)."""
+    its launches an iteration in 4i; vplus_reduce_f64's real and complex
+    defaults also gated (measurefreq MF), printed beside.  Returns each
+    one's (max abs err, ms, plain_ms, bound_ms, bound_by)."""
     import torch
     from mcintegration_tpu_torch.ops.rng import block_keys
 
@@ -4218,10 +4336,17 @@ def f64_timings(mt, vk, vp, card, per_iter):
         return float(np.mean(k)), float(np.mean(p))
 
     out = {}
+    gated = []      # vplus_reduce_f64's real and complex defaults at measurefreq MF
 
     def record(name, err, kernel, plain, b):
         ms, pms = turns(kernel, plain)
         out[name + "_f64"] = (err, ms, pms, *b)
+
+    def record_gated(name, args, t0, shift, b):
+        kernel = lambda: vp.vplus_reduce(*args, None, MF, t0, shift)
+        plain = lambda: vp.vplus_reduce_plain(*args, None, MF, t0, shift)
+        e, _ = _check_rel(f"{name}_f64 at 6i, mf {MF}", kernel(), plain(), REL_TOL_F64_HIST)
+        gated.append((name + "_f64", e, *turns(kernel, plain), *b))
 
     # :vegas at phase 4's launch: pi
     from mcintegration_tpu_torch.solvers.engine import Spec
@@ -4296,8 +4421,10 @@ def f64_timings(mt, vk, vp, card, per_iter):
     got = vp.vplus_reduce(*args)
     e, _ = _check_rel("vplus_reduce_f64 at 6i", got, vp.vplus_reduce_plain(*args),
                       REL_TOL_F64_HIST)
+    b = bound64(nbytes(w, gidx, cube, cfac, tab, *got), n * (4 * S + 10 * N))
     record("vplus_reduce", e, lambda: vp.vplus_reduce(*args), lambda: vp.vplus_reduce_plain(*args),
-           bound64(nbytes(w, gidx, cube, cfac, tab, *got), n * (4 * S + 10 * N)))
+           b)
+    record_gated("vplus_reduce", args, t0, vp.gate_shifts(kd, t0, T, it.chunk), b)
     del w, gidx, args, got
     for name, cfg, f, meas in (
             ("vplus_reduce_complex", mt.Configuration(var=mt.Continuous(0.0, 1.0), dof=[[2]],
@@ -4320,8 +4447,12 @@ def f64_timings(mt, vk, vp, card, per_iter):
         got = vp.vplus_reduce(*args, m)
         e, _ = _check_rel(f"{name}_f64 at 6i", got, vp.vplus_reduce_plain(*args, m),
                           REL_TOL_F64_HIST)
+        b = bound64(nbytes(w, gidx, cube, cfac, tab, m, *got), n * (4 * S + 10 * N))
         record(name, e, lambda: vp.vplus_reduce(*args, m), lambda: vp.vplus_reduce_plain(*args, m),
-               bound64(nbytes(w, gidx, cube, cfac, tab, m, *got), n * (4 * S + 10 * N)))
+               b)
+        if m is None:
+            record_gated(name, args, t0, vp.gate_shifts(it.seeds(block_keys(SEED, 1, 0, it.block)),
+                                                        t0, T, it.chunk), b)
         del w, gidx, args, got, m
 
     # the mixed route at 4h's bubble launch
@@ -4356,6 +4487,10 @@ def f64_timings(mt, vk, vp, card, per_iter):
         print(f"phase 6i: {name} {t!r} ms, plain torch {pt!r} ms, bound {bd!r} ms (by {by}), "
               f"{t / bd!r} times its bound, {per_iter.get(name, 0)} launches an iteration in "
               f"phase 4i [{card}]")
+    for name, err, t, pt, bd, by in gated:
+        print(f"phase 6i: {name} gated (measurefreq {MF}, the gate's shifts) {t!r} ms, plain "
+              f"torch {pt!r} ms, bound {bd!r} ms (by {by}), {t / bd!r} times its bound, max abs "
+              f"err {err!r} [{card}]")
     for line in ptxas_f64_lines():
         print(f"phase 6i: ptxas -v {line}")
     return out

@@ -88,7 +88,8 @@
 //   run's bits.  |relw_i| is not formed from |w_i|: sqrt of the scaled
 //   parts' squares rounds otherwise than |w_i|*f, so both roots stay.  The
 //   complex default observables are a kernel of their own,
-//   vplus_reduce_complex_kernel: the layout of the work above, but a
+//   vplus_reduce_chunks_kernel (which also serves the float64 default
+//   ones, below): the layout of the work above, but a
 //   thread takes kCplxChunks = 4 of the chunks it walks at once (their
 //   density's loads in flight together, the layout's fields read once for
 //   the four), and a warp sums the Re and Im parts of the 4 chunks
@@ -141,9 +142,19 @@
 // histogram term.  Complex w stays complex64: relw_i = w_i * float(jac *
 // pad_i) (the factor cast to the weights' dtype, :252), its histogram term
 // min(|relw_i|, 1e17)^2 stays float32 as the reference's abs of a complex64
-// is, and score += float64(|w_i|) * pad_i.  Each float64 instantiation has
-// half its float32 twin's blocks an SM in its register bound (two of a
-// double's registers).
+// is, and score += float64(|w_i|) * pad_i.  Given m and vplus_relw at
+// float64 have half their float32 twins' blocks an SM in their register
+// bound (two of a double's registers).  The float64 default observables,
+// real and complex, are vplus_reduce_chunks_kernel's, at kF64Chunks =
+// kCplxF64Chunks = 2 chunks at once and 8 blocks an SM (32 registers; the
+// real body spills 56 bytes, the complex 72), the fastest pair of 1, 2 or
+// 4 chunks and 2 to 8 blocks (tools/accept_reduce_variants.py at phase
+// 6i's launches, NVIDIA H100 80GB HBM3 at 700 W): singular_3d at 2^26
+// samples 1.345 ms against a bound of 0.401 (the float32 body templated on
+// double, 4 blocks: 2.156), gated 1.494 (3.08); the complex quarter disc
+// 1.194 against 0.321 (1.461), gated 1.394 (1.654).  Warps an SM decide
+// it, not chunks: 4 chunks at 3 blocks (80 registers, no spill) took
+// 1.848 and 1.790, 2 chunks at 5 (48, no spill) 1.564 and 1.428.
 
 #include "vplus_common.cuh"
 
@@ -160,6 +171,10 @@ constexpr int kChunks = 4;                    // chunks whose measure sums a war
 constexpr int kBatch = 4;                     // a measure's components loaded together
 constexpr int kCplxChunks = 4;                // chunks the complex default takes at once
 constexpr int kCplxBlocks = 8;                // the complex default: at most 32 registers
+constexpr int kF64Chunks = 2;                 // the same of the real float64 default,
+constexpr int kF64Blocks = 8;                 // at most 32 registers,
+constexpr int kCplxF64Chunks = 2;             // and of the complex float64 default,
+constexpr int kCplxF64Blocks = 8;             // at most 32
 constexpr int kRelwThreads = 256;             // vplus_relw: a block's threads,
 constexpr int kRelwSpan = kRelwThreads * kQuad;  // and samples (ops/vplus_kernels.py:RELW_SPAN)
 constexpr int kRelwBlocks = 8;                // at most 32 registers
@@ -177,14 +192,26 @@ enum Mode { kDefault, kMeasure };
 // The real, ungated, default-measure kernel keeps 32 registers (eight blocks
 // an SM); given m, 40 (six blocks: a warp's measure sums wait on their
 // loads, and more warps hide them: 1.89 ms at phase 6g against 2.35 at four
-// blocks, PERF.md); the gated real default may take up to 64.  The float64
-// bodies (Fp = double) get half as many blocks an SM.
+// blocks, PERF.md); the gated real default may take up to 64.  Given m at
+// float64 (Fp = double), and vplus_relw's float64 body, get half as many
+// blocks an SM; the default observables at float64 are
+// vplus_reduce_chunks_kernel's.
 template <typename Fp>
 constexpr int min_blocks(int mode, bool mask) {
   return (mode == kMeasure ? kMeasureBlocks : mask ? kBlocksPerSm / 2 : kBlocksPerSm) /
          (int)(sizeof(Fp) / 4);
 }
 template <typename Fp> constexpr int f64_halved(int blocks) { return blocks / (int)(sizeof(Fp) / 4); }
+
+// vplus_reduce_chunks_kernel's chunks taken at once and blocks an SM: the
+// complex default at float32, and the real and complex defaults at float64
+// (tools/accept_reduce_variants.py chose each pair, PERF.md)
+template <typename Fp> __host__ __device__ constexpr int chunks_at_once(bool cplx) {
+  return sizeof(Fp) == 4 ? kCplxChunks : cplx ? kCplxF64Chunks : kF64Chunks;
+}
+template <typename Fp> constexpr int chunk_blocks(bool cplx) {
+  return sizeof(Fp) == 4 ? kCplxBlocks : cplx ? kCplxF64Blocks : kF64Blocks;
+}
 
 template <typename Fp> __device__ __forceinline__ Fp re_of(const Weight<false, Fp>& z) {
   return z.v;
@@ -252,7 +279,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<Fp>(kMode, kMask)) vplus_
     const elem_t<kCplx, Fp>* __restrict__ mobs, int ncomp, int mf, int t0, int T,
     const int* __restrict__ shift, double* __restrict__ obs_rows, double* __restrict__ sig,
     double* __restrict__ hist) {
-  static_assert(!kCplx || kMode == kMeasure, "complex default: vplus_reduce_complex_kernel");
+  static_assert(kMode == kMeasure || (!kCplx && sizeof(Fp) == 4),
+                "the complex and float64 defaults: vplus_reduce_chunks_kernel");
   extern __shared__ double hist_s[];           // [HW] this block's window of the histogram
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* slots = meta;                     // [S, 8]
@@ -369,17 +397,18 @@ __global__ void __launch_bounds__(kThreads, min_blocks<Fp>(kMode, kMask)) vplus_
     if (hist_s[q] != 0.0) atomicAdd(hist + hlo + q, hist_s[q]);
 }
 
-// The sums over a warp's lanes of kV values a lane (t[q], q < kV), each in
-// warp_sum's tree: log2(kV) butterfly levels (16, 8, ...) in which a lane
-// keeps half of its values and trades the other half with its partner,
-// then shuffles down among 32/kV lanes.  Lane l ends with value
-// q = l / (32/kV); on lane l % (32/kV) == 0 its sum over the 32 lanes,
-// bit for bit warp_sum's: every level adds the same pairs of partials as
-// warp_sum's (a + b where warp_sum forms b + a on the upper lanes, and IEEE
-// addition commutes).  kV values cost kV - 1 + log2(32/kV) shuffles where
-// warp_sum took 5 each.  Every lane calls it.
-template <int kV>
-__device__ __forceinline__ double tree_sums(const float (&t)[kV]) {
+// The sums over a warp's lanes of kV values a lane (t[q], q < kV; float or
+// double terms, each made a double), each in warp_sum's tree: log2(kV)
+// butterfly levels (16, 8, ...) in which a lane keeps half of its values
+// and trades the other half with its partner, then shuffles down among
+// 32/kV lanes.  Lane l ends with value q = l / (32/kV); on lane
+// l % (32/kV) == 0 its sum over the 32 lanes, bit for bit warp_sum's:
+// every level adds the same pairs of partials as warp_sum's (a + b where
+// warp_sum forms b + a on the upper lanes, and IEEE addition commutes).  kV
+// values cost kV - 1 + log2(32/kV) shuffles where warp_sum took 5 each.
+// Every lane calls it.
+template <int kV, typename T>
+__device__ __forceinline__ double tree_sums(const T (&t)[kV]) {
   static_assert(kV >= 1 && kV <= 32 && (kV & (kV - 1)) == 0, "a power of two up to 32");
   const int lane = threadIdx.x & 31;
   double v[kV];
@@ -413,24 +442,29 @@ __device__ __forceinline__ bool gate_open(unsigned t, unsigned s, unsigned sh, u
   return ((unsigned long long)t * c + x + 1u) % mf == 0u;
 }
 
-// The complex default observables (vplus_reduce_kernel's law and layout of
-// the work with complex w; see the head of the file).  A thread takes
-// kCplxChunks chunks bt0 + u*gridDim.y at once at its sample s: their
-// gidx and w loads are in flight together, the layout's fields are read
-// once for all of them, and the Re and Im partials of the kCplxChunks
-// chunks are summed together (tree_sums), lane 4q of a warp writing the
-// row of value q (Re of chunk q, then Im of chunk q - kCplxChunks).
-template <typename Fp, bool kMask>
-__global__ void __launch_bounds__(kThreads, f64_halved<Fp>(kCplxBlocks))
-vplus_reduce_complex_kernel(
-    const float* __restrict__ w, const int* __restrict__ gidx,
+// The default observables of complex w, and of real w at float64
+// (vplus_reduce_kernel's law and layout of the work; see the head of the
+// file).  A thread takes kU = chunks_at_once chunks bt0 + u*gridDim.y at
+// once at its sample s: their gidx and w loads are in flight together, the
+// layout's fields are read once for all of them, their divisions are issued
+// back to back, and the partials of the kU chunks (Re, and for complex w
+// Im, of each) are summed together (tree_sums), lane (32/kV)*q of a warp
+// writing the row of value q: Re of chunk q, then Im of chunk q - kU.
+// E = elem_t<kCplx, Fp> is the type of a partial's terms and of |relw|:
+// float for complex64 w, double for real float64 w.
+template <typename Fp, bool kCplx, bool kMask>
+__global__ void __launch_bounds__(kThreads, chunk_blocks<Fp>(kCplx))
+vplus_reduce_chunks_kernel(
+    const elem_t<kCplx, Fp>* __restrict__ w, const int* __restrict__ gidx,
     const int* __restrict__ cube, const float* __restrict__ cfac,
     const Fp* __restrict__ tab, const int* __restrict__ meta, int N, int S,
     int P, int M, long long BT, int c, int H, int hist_smem, int mf, int t0, int T,
     const int* __restrict__ shift, double* __restrict__ obs_rows, double* __restrict__ sig,
     double* __restrict__ hist) {
-  constexpr int kU = kCplxChunks, kV = 2 * kCplxChunks;
-  static_assert(kV <= 32, "a lane's values: Re and Im of each chunk");
+  static_assert(kCplx || sizeof(Fp) == 8, "the real float32 default: vplus_reduce_kernel");
+  using E = elem_t<kCplx, Fp>;
+  constexpr int kU = chunks_at_once<Fp>(kCplx), kParts = kCplx ? 2 : 1, kV = kParts * kU;
+  static_assert(kV <= 32, "a lane's values: Re (and Im) of each chunk");
   extern __shared__ double hist_s[];           // [HW] this block's window of the histogram
   const int warp = threadIdx.x >> 5;
   const int* slots = meta;                     // [S, 8]
@@ -519,28 +553,30 @@ vplus_reduce_complex_kernel(
           pad_i[u] = mul_rn(pad_i[u], gp);
         }
       }
-      float t[kV], sq[kU];
+      E t[kV], sq[kU];
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
-        t[u] = t[kU + u] = sq[u] = 0.0f;
+        t[u] = sq[u] = (E)0;
+        if constexpr (kCplx) t[kU + u] = (E)0;
         if (!(ok >> u & 1)) continue;
-        const Weight<true, Fp> wi = Weight<true, Fp>::load(w, i * plane + at0 + u * cstep);
-        const Weight<true, Fp> relw = wi.scale(mul_rn(jac[u], pad_i[u]));
+        const Weight<kCplx, Fp> wi = Weight<kCplx, Fp>::load(w, i * plane + at0 + u * cstep);
+        const Weight<kCplx, Fp> relw = wi.scale(mul_rn(jac[u], pad_i[u]));
         score[u] = add_rn(score[u], mul_rn((Fp)wi.abs(), pad_i[u]));
         if (on >> u & 1) {
-          t[u] = relw.re;
-          t[kU + u] = relw.im;
+          t[u] = re_of(relw);
+          if constexpr (kCplx) t[kU + u] = relw.im;
         }
-        float r = relw.abs();
-        r = r > 1e17f ? 1e17f : r;   // NaN passes through, as torch.clamp
-        sq[u] = __fmul_rn(r, r);
+        E r = relw.abs();             // float for a complex relw, as the reference's
+        r = r > (E)1e17 ? (E)1e17 : r;   // NaN passes through, as torch.clamp
+        sq[u] = mul_rn(r, r);
       }
       // the sums first: t's registers are free for the histogram's CAS loops
       const double part = tree_sums(t);
       const int q = (threadIdx.x & 31) / (32 / kV);
       const long long bt = bt0 + (q % kU) * step;
       if ((threadIdx.x & (32 / kV - 1)) == 0 && first && bt < BT)
-        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * 2 * N + 2 * i + q / kU] = part;
+        obs_rows[((bt * gridDim.x + blockIdx.x) * kWarps + warp) * kParts * N + kParts * i +
+                 q / kU] = part;
       for (int k = 0; k < S; ++k) {
         const int off = slots[kSlotFields * k + kHist];
         if (off < 0 || !used[k * N + i]) continue;
@@ -693,18 +729,18 @@ int launch(const void* w, const void* gidx, const void* cube, const void* cfac,
   return (int)cudaGetLastError();
 }
 
-template <typename Fp, bool kMask>
-int launch_complex(const void* w, const void* gidx, const void* cube, const void* cfac,
-                   const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
-                   int c, int H, int hist_smem, const void*, int, int mf, int t0, int T,
-                   const void* shift, void* obs_rows, void* sig, void* hist, void* stream) {
-  auto kernel = vplus_reduce_complex_kernel<Fp, kMask>;
+template <typename Fp, bool kCplx, bool kMask>
+int launch_chunks(const void* w, const void* gidx, const void* cube, const void* cfac,
+                  const void* tab, const void* meta, int N, int S, int P, int M, long long BT,
+                  int c, int H, int hist_smem, const void*, int, int mf, int t0, int T,
+                  const void* shift, void* obs_rows, void* sig, void* hist, void* stream) {
+  auto kernel = vplus_reduce_chunks_kernel<Fp, kCplx, kMask>;
   dim3 grid;
   size_t smem = 0;
   const int err = reduce_grid(kernel, BT, c, H, hist_smem, &grid, &smem);
   if (err) return err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
+      (const elem_t<kCplx, Fp>*)w, (const int*)gidx, (const int*)cube, (const float*)cfac,
       (const Fp*)tab, (const int*)meta, N, S, P, M, BT, c, H, hist_smem, mf, t0, T,
       (const int*)shift, (double*)obs_rows, (double*)sig, (double*)hist);
   return (int)cudaGetLastError();
@@ -719,10 +755,16 @@ int reduce_entry(const void* w, const void* gidx, const void* cube, const void* 
   if (span != kSpan || warps != kWarps || c < 1 || ncubes < 1 || mf < 1 || t0 < 0 ||
       T < 1 || BT % T != 0 || ncomp < 1 || (!mobs && ncomp != (kCplx ? 2 * N : N)))
     return (int)cudaErrorInvalidValue;      // the wrapper sized obs_rows otherwise
-  auto run = kCplx ? launch_complex<Fp, false> : launch<Fp, false, kDefault, false>;
-  if (mobs)
-    run = mf > 1 ? launch<Fp, kCplx, kMeasure, true> : launch<Fp, kCplx, kMeasure, false>;
-  else if (mf > 1) run = kCplx ? launch_complex<Fp, true> : launch<Fp, false, kDefault, true>;
+  // the default observables: vplus_reduce_kernel for real w at float32,
+  // vplus_reduce_chunks_kernel for complex w and at float64
+  auto run = launch<Fp, kCplx, kMeasure, false>;
+  if (mobs) {
+    if (mf > 1) run = launch<Fp, kCplx, kMeasure, true>;
+  } else if constexpr (kCplx || sizeof(Fp) == 8) {
+    run = mf > 1 ? launch_chunks<Fp, kCplx, true> : launch_chunks<Fp, kCplx, false>;
+  } else {
+    run = mf > 1 ? launch<Fp, false, kDefault, true> : launch<Fp, false, kDefault, false>;
+  }
   return run(w, gidx, cube, cfac, tab, meta, N, S, P, M, BT, c, H, hist_smem, mobs, ncomp,
              mf, t0, T, shift, obs_rows, sig, hist, stream);
 }

@@ -320,6 +320,76 @@ def test_complex_default_sums_as_warp_sum(kv):
             assert got[lane].tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("kv", [1, 2, 4, 8])
+def test_f64_default_sums_as_warp_sum(kv):
+    """The float64 default observables (vplus_reduce_chunks_kernel at Fp =
+    double) sum float64 terms, kV = 1, 2 or 4 chunks' Re a lane (8: the
+    complex body's Re and Im of four) in warp_sum's tree: lane l % (32 /
+    kV) == 0 ends with value l / (32 / kV)'s warp_sum, bit for bit, over
+    float64 terms that float32 cannot hold, of any magnitude, and zeros
+    (samples outside the chunk or shut by the gate)."""
+    rng = np.random.default_rng(11)
+    width = 32 // kv
+    for _ in range(300):
+        t = rng.standard_normal((32, kv)) * 10.0 ** rng.integers(-280, 280, (32, kv))
+        t *= 1.0 + rng.uniform(-1e-12, 1e-12, t.shape)
+        t[rng.random((32, kv)) < 0.2] = 0.0
+        got = _tree_sums(t)
+        for lane in range(0, 32, width):
+            want = _warp_sum(t[:, lane // width])
+            assert got[lane].tobytes() == want.tobytes()
+
+
+def _chunk_rounds(BT, G, kU, kParts, nspan, N):
+    """Model of vplus_reduce_chunks_kernel's walk: block row y < G takes
+    chunks bt0 + u*G (u < kU, bt < BT) for bt0 = y, y + kU*G, ...; in warp
+    j of block x, the lane (32/kV)*q writes value q (part q // kU of chunk
+    bt0 + (q % kU)*G; kV = kParts*kU) of integrand i into row ((bt*nspan +
+    x)*WARPS + j)*kParts*N + kParts*i + q // kU.  Returns [B*T, nspan *
+    WARPS, kParts*N]: the times each partial was written, and the chunk
+    whose samples each write summed."""
+    kV = kParts * kU
+    writes = np.zeros(BT * nspan * vp.WARPS * kParts * N, np.int64)
+    summed = np.full(writes.shape, -1, np.int64)
+    for y in range(G):
+        for bt0 in range(y, BT, kU * G):
+            for x in range(nspan):
+                for j in range(vp.WARPS):
+                    for i in range(N):
+                        for lane in range(0, 32, 32 // kV):
+                            q = lane // (32 // kV)
+                            bt = bt0 + (q % kU) * G
+                            if bt >= BT:
+                                continue
+                            row = ((bt * nspan + x) * vp.WARPS + j) * kParts * N + kParts * i \
+                                + q // kU
+                            writes[row] += 1
+                            summed[row] = bt
+    shape = (BT, nspan * vp.WARPS, kParts * N)
+    return writes.reshape(shape), summed.reshape(shape)
+
+
+@pytest.mark.parametrize("kparts", [1, 2], ids=["real", "complex"])
+@pytest.mark.parametrize("ku", [1, 2, 4])
+def test_f64_default_chunk_rounds(ku, kparts):
+    """vplus_reduce_chunks_kernel, kU chunks a thread at once: over launches
+    of B*T chunks below, at and not a multiple of kU, and grids of fewer or
+    as many block rows as chunks, every chunk's partial of every warp and
+    integrand (Re, and Im) is written exactly once, in the row of the
+    wrapper's obs_rows [B, T, ceil(c / SPAN) * WARPS, ncomp] that belongs
+    to the chunk it summed.  The kernel's own chunk counts are among kU."""
+    assert {_csrc_constant("vplus_reduce.cu", k) for k in
+            ("kF64Chunks", "kCplxF64Chunks", "kCplxChunks")} <= {1, 2, 4}
+    nspan, N = 2, 3
+    for BT in (1, ku - 1, ku, 2 * ku, 111, 37):
+        for G in {1, 5, 14, BT}:
+            if BT < 1 or G < 1 or G > BT:
+                continue
+            writes, summed = _chunk_rounds(BT, G, ku, kparts, nspan, N)
+            assert np.all(writes == 1), (BT, G)
+            assert np.all(summed == np.arange(BT)[:, None, None]), (BT, G)
+
+
 def _gate_open(t, s, sh, c, mf):
     """vplus_reduce_complex's gate_open in uint32 arithmetic (wrapping as
     the card's does)."""

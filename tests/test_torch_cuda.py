@@ -1178,6 +1178,35 @@ def test_f64_vplus_kernels_match_plain(cuda, cplx):
                 torch.testing.assert_close(g, p, rtol=1e-10, atol=0)
 
 
+@pytest.mark.parametrize("mf", [1, 4])
+@pytest.mark.parametrize("ninc", [1000, 5000], ids=["whole histogram", "windows"])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_f64_vplus_default_chunk_rounds(cuda, cplx, ninc, mf):
+    """vplus_reduce_f64's default observables (vplus_reduce_chunks_kernel:
+    several chunks a thread at once), real and complex w, against plain on
+    phase 3d's all-branch spec at 3 blocks x 37 chunks of 60,000 samples
+    (B*T = 111, not a multiple of the chunks taken at once), its histogram
+    whole in shared memory or, at ninc 5000, in windows of SMEM_HIST_BINS
+    bins; ungated and gated with the gate's shifts: obs to rel 1e-9, sig
+    and hist to rel 1e-10 (float64 sums in another order)."""
+    it = cs.vplus_allbranch(mt, 37 * 60000, ninc=ninc, device=cuda, cplx=cplx, real=F64,
+                            block=3, max_chunk=60000)
+    assert it.chunk == 60000 and it.block * it.chunks_per_launch == 111
+    lay, tab, kd, cube, cfac, gidx, w = _vplus_launch(it, cuda)
+    assert (lay.nhist > vp.SMEM_HIST_BINS) == (ninc == 5000)
+    T = it.chunks_per_launch
+    shift = vp.gate_shifts(kd, 0, T, it.chunk) if mf > 1 else None
+    key = "vplus_reduce_complex" if cplx else "vplus_reduce"
+    before = vp.launch_counts_f64[key]
+    got = vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, None, mf, 0, shift)
+    want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, None, mf, 0, shift)
+    torch.cuda.synchronize()
+    assert vp.launch_counts_f64[key] == before + 1
+    torch.testing.assert_close(got[0], want[0], rtol=1e-9, atol=0)
+    for g, p in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, p, rtol=1e-10, atol=0)
+
+
 @pytest.mark.parametrize("solver", ["vegas", "vegasplus"])
 def test_cuda_float64_integrates_e100(cuda, solver):
     """e^{100x} over [0, 1) at float64 on the card within 5 sigma of

@@ -8,7 +8,8 @@ then one library per variant: a copy of the sources with a few lines of
 and pads, the grid's waves, the merge of a warp's lanes before a histogram
 add, a large histogram's adds into device memory; threads per block, an
 integer division by wb, the layout read from device memory; the complex
-default's blocks per SM and chunks taken at once, vplus_relw's blocks per
+default's blocks per SM and chunks taken at once, and the float64 real and
+complex defaults' (``vplus_reduce_chunks_kernel``), vplus_relw's blocks per
 SM, scalar accesses and layout staged in shared memory).  Other variants
 keep the library and move a histogram between shared memory and device
 memory or windows of shared memory (``SMEM_HIST_BINS``).  Ablations take a
@@ -30,7 +31,10 @@ that spec with ninc = 5000 (more than SMEM_HIST_BINS bins), and given the
 the gate of measurefreq 4; also at 1 and 3 components), ``vplus_relw`` on
 that launch (real and complex weights, bit for bit) and the complex
 default observables on phase 6g's quarter disc times e^{i(x+y)} (with and
-without the gate);
+without the gate), and the float64 default observables at phase 6i's
+launches (``singular_3d`` at 2^26 samples, real; the quarter disc, complex
+and its real part; each with and without the gate) and on phase 3d's
+all-branch spec with ninc = 5000;
 ``chain_propose`` on a step of 2^20 walkers of phase 6b and of phase 3b's
 spec (a staged Discrete CDF); ``vegas_reduce_mixed`` (and
 ``vegas_relw_mixed``) at phase 6h's bubble launch (2^26 samples, 5 slots,
@@ -42,17 +46,23 @@ of the kernels it changes (the kept and the baseline kernels all; with
 ``--only FILES``, a comma-separated list of the sources above, only the
 variants and cases of those).  Each is held against its
 plain version (bit for bit but the histograms and ``sig``: rel 1e-9 and
-1e-12; the mixed reduce's obs to REL_TOL_REDUCE) and timed on the device
+1e-12; the mixed reduce's obs to REL_TOL_REDUCE; at float64 obs to
+REL_TOL_REDUCE and sig and hist to REL_TOL_F64_HIST) and timed on the device
 with the calls queued behind a sleep kernel, the median of three runs of
 20 calls (10 for ``vplus_reduce`` and the mixed route).
 Before the runs it prints each library's count of
 64-bit compare-and-swap loops (``ATOMS.CAST.SPIN.64`` in ``cuobjdump
--sass``) and of instructions per kernel, and what ``ptxas -v`` says of the
-kept kernels' registers and spills.
+-sass``) and of instructions per kernel instantiation (named with its
+real type: ``vplus_reduce_chunks_kernel<double,0,1>``), and what ``ptxas
+-v`` says of the kept kernels' registers and spills.
 
     python3 tools/accept_reduce_variants.py [--baseline DIR] [--only FILES] [--ablations]
+        [--names WORDS] [--cases WORDS]
 
-on a CUDA card (``--ablations``: the ablations alone, no variants).
+on a CUDA card (``--ablations``: the ablations alone, no variants;
+``--names`` and ``--cases``: lists split at ``|``, only the variants and
+ablations, or the cases, whose names hold one of them, as ``f64`` for the
+float64 cases).
 
 It prints one line per variant and case and exits non-zero if a variant
 fails to build or differs from the plain versions.
@@ -77,12 +87,17 @@ import mcmc_variants as mv  # noqa: E402  (the variant builder)
 ACCEPT, REDUCE, PROPOSE = "chain_accept.cu", "vplus_reduce.cu", "chain_propose.cu"
 MIXED = "vegas_mixed.cu"
 SOURCES = (ACCEPT, REDUCE, PROPOSE, MIXED)
-KERNELS = ("chain_accept_kernel", "vplus_reduce_kernel", "vplus_reduce_complex_kernel",
+KERNELS = ("chain_accept_kernel", "vplus_reduce_kernel", "vplus_reduce_chunks_kernel",
            "vplus_relw_kernel", "chain_propose_kernel", "vegas_reduce_mixed_kernel")
 # vplus_reduce's histogram adds, and the same with a warp's lanes merged per bin
 REDUCE_ADD = ("        const int bin = cb >= 0 ? off + gidx[k * plane + at] - hlo : -1;\n"
               "        if (bin < 0 || bin >= HW) continue;\n"
               "        atomicAdd(hist_s + bin, sq);\n")
+# vplus_reduce_chunks_kernel's histogram adds of the kU chunks
+CHUNK_ADDS = ("#pragma unroll\n        for (int u = 0; u < kU; ++u) {\n"
+              "          const int bin = ok >> u & 1 ? off + gidx[k * plane + at0 + u * cstep] - hlo : -1;\n"
+              "          if (bin >= 0 && bin < HW) atomicAdd(hist_s + bin, (double)sq[u]);\n"
+              "        }\n")
 # a histogram beyond SMEM_HIST_BINS added into device memory (no windows),
 # a warp's lanes merged per bin first (the complex default's lanes not)
 DEVICE_MERGED = [
@@ -198,6 +213,31 @@ def variants():
          [(REDUCE, "constexpr int kCplxBlocks = 8; ", "constexpr int kCplxBlocks = 5; ")], {}),
         ("reduce complex at 7 blocks an SM",
          [(REDUCE, "constexpr int kCplxBlocks = 8; ", "constexpr int kCplxBlocks = 7; ")], {}),
+        *f64_grid(),
+        ("reduce chunks, the adds' compare-and-swap loops interleaved", [(REDUCE, CHUNK_ADDS, """\
+        int bin[kU];
+        unsigned long long old[kU];
+        unsigned todo = 0;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          bin[u] = ok >> u & 1 ? off + gidx[k * plane + at0 + u * cstep] - hlo : -1;
+          if (bin[u] >= 0 && bin[u] < HW) {
+            todo |= 1u << u;
+            old[u] = __double_as_longlong(hist_s[bin[u]]);
+          }
+        }
+        while (todo) {
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            if (!(todo >> u & 1)) continue;
+            const unsigned long long got = atomicCAS(
+                reinterpret_cast<unsigned long long*>(hist_s + bin[u]), old[u],
+                __double_as_longlong(__dadd_rn(__longlong_as_double(old[u]), (double)sq[u])));
+            if (got == old[u]) todo &= ~(1u << u);
+            old[u] = got;
+          }
+        }
+""")], {}),
         ("mixed, bins read again from device memory",
          [(MIXED, "constexpr int kStash = 8; ", "constexpr int kStash = 0; ")], {}),
         ("propose 128 threads a block", [(PROPOSE, "constexpr int kThreads = 256;",
@@ -215,6 +255,52 @@ def variants():
           (PROPOSE, "  for (int q = threadIdx.x; q < nint; q += blockDim.x) leaf[q] = meta[q];\n",
            "")], {}),
     ]
+
+
+# (chunks taken at once, blocks an SM) of the float64 default bodies' variants
+F64_GRID = ((1, 2), (1, 3), (1, 4), (1, 6), (1, 8), (2, 2), (2, 3), (2, 4), (2, 5), (2, 6),
+            (2, 8), (4, 2), (4, 3), (4, 4), (4, 5), (4, 6))
+
+
+def f64_grid():
+    """Variants of vplus_reduce_chunks_kernel's float64 real and complex
+    defaults: every pair of F64_GRID but the kept one."""
+    text = (Path(__file__).resolve().parents[1] / "mcintegration_tpu_torch" / "csrc" /
+            REDUCE).read_text()
+    out = []
+    for kind, pre in (("", "kF64"), ("complex ", "kCplxF64")):
+        kept = [int(re.search(rf"constexpr int {pre}{c} = (\d+); ", text).group(1))
+                for c in ("Chunks", "Blocks")]
+        for u, b in F64_GRID:
+            edits = [(REDUCE, f"constexpr int {pre}{c} = {k}; ", f"constexpr int {pre}{c} = {v}; ")
+                     for c, k, v in (("Chunks", kept[0], u), ("Blocks", kept[1], b)) if k != v]
+            if edits:
+                out.append((f"reduce {kind}f64, {u} chunk{'s' * (u > 1)} at once, {b} blocks an SM",
+                            edits, {}))
+    return out
+
+
+def variant_ptxas(vs, names):
+    """ptxas -v's lines on vplus_reduce_chunks_kernel of each variant in
+    ``names`` (its copy of the sources, as tools/mcmc_variants.py:build
+    laid it out), compiled in parallel."""
+    from mcintegration_tpu_torch.ops import _build
+    procs = []
+    for k, (name, edits, _) in enumerate(vs):
+        src = _build.BUILD_DIR / "variants" / f"v{k}" / "src" / REDUCE
+        if name in names and src.exists():
+            procs.append((name, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 str(src.with_suffix(".ptxas.o")), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    for name, proc in procs:
+        kernel = None
+        for line in proc.communicate()[0].splitlines():
+            if "Compiling entry function" in line:
+                kernel = kernel_name(line.split("'")[1])
+            elif kernel and kernel.startswith("vplus_reduce_chunks_kernel<double") and (
+                    "registers" in line or "spill" in line):
+                print(f"{name}: ptxas -v {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
 
 
 def ablations():
@@ -245,8 +331,8 @@ def ablations():
          [(REDUCE, "        for (int g = 0; g < P; ++g) {\n          if (!pad[i * P + g]) continue;",
            "        for (int g = 0; g < 0; ++g) {\n          if (!pad[i * P + g]) continue;")]),
         ("reduce complex without the square roots",
-         [(REDUCE, "mul_rn((Fp)wi.abs(), pad_i[u])", "mul_rn((Fp)wi.re, pad_i[u])"),
-          (REDUCE, "float r = relw.abs();", "float r = relw.re;")]),
+         [(REDUCE, "mul_rn((Fp)wi.abs(), pad_i[u])", "mul_rn((Fp)re_of(wi), pad_i[u])"),
+          (REDUCE, "E r = relw.abs();", "E r = re_of(relw);")]),
         ("reduce complex without the observables' sums",
          [(REDUCE, "      const double part = tree_sums(t);", "      const double part = t[0];")]),
         ("reduce complex without sig's segmented sum",
@@ -273,6 +359,21 @@ def ablations():
                    "    const bool disc = f[kKind] == kDisc;\n    any_pass |= disc;\n    int g[kQuad];",
            "  for (int k = 0; k < 0; ++k) {\n    const int* f = slots + kSlotFields * k;\n"
            "    const bool disc = f[kKind] == kDisc;\n    any_pass |= disc;\n    int g[kQuad];")]),
+        ("reduce f64, the divisions made products",
+         [(REDUCE, "      jac[u] = div_rn((Fp)1, dens);", "      jac[u] = mul_rn((Fp)1, dens);"),
+          (REDUCE, "      Fp wj = div_rn(score[u], denom[u]);",
+           "      Fp wj = mul_rn(score[u], denom[u]);")]),
+        ("reduce chunks without the pad and score chain",
+         [(REDUCE, "      for (int g = 0; g < P; ++g) {\n        if (!pad[i * P + g]) continue;",
+           "      for (int g = 0; g < 0; ++g) {\n        if (!pad[i * P + g]) continue;"),
+          (REDUCE, "        score[u] = add_rn(score[u], mul_rn((Fp)wi.abs(), pad_i[u]));\n", "")]),
+        ("reduce chunks without the second moments",
+         [(REDUCE, "      Fp wj = div_rn(score[u], denom[u]);\n      wj = wj > (Fp)1e17 ? (Fp)1e17 : wj;\n"
+                   "      if (ok >> u & 1) v2 += (double)mul_rn(wj, wj);\n", ""),
+          (REDUCE, "flush, as vplus_reduce_kernel's\n  const int lane = threadIdx.x & 31;\n"
+                   "  for (int o = 1; o < 32; o <<= 1) {",
+           "flush, as vplus_reduce_kernel's\n  const int lane = threadIdx.x & 31;\n"
+           "  for (int o = 32; o < 32; o <<= 1) {")]),
         ("reduce given m without the component sums",
          [(REDUCE, "  for (int q0 = 0; q0 < ncomp; q0 += kBatch) {",
            "  for (int q0 = 0; q0 < 0; q0 += kBatch) {")]),
@@ -302,12 +403,14 @@ def ablations():
 
 def kernel_name(mangled):
     """The short name of a kernel instantiation in the SASS, with its
-    template arguments (``vplus_reduce_kernel<0,1,0>``: real, given m,
-    ungated), or None."""
+    template arguments (``vplus_reduce_kernel<float,0,1,0>``: float32
+    tables, real, given m, ungated), or None."""
     base = next((k for k in KERNELS if k in mangled), None)
     if base is None:
         return None
-    args = re.findall(r"L[ib](\d+)E", mangled)
+    found = re.match(r"I((?:[fd]|L[ib]\d+E)+)E", mangled[mangled.index(base) + len(base):])
+    args = [{"f": "float", "d": "double"}.get(a.group(0), a.group(1))
+            for a in re.finditer(r"[fd]|L[ib](\d+)E", found.group(1))] if found else []
     return base + (f"<{','.join(args)}>" if args else "")
 
 
@@ -455,13 +558,41 @@ def vplus_cases(mt, vp):
     for mf, sh in ((1, None), (4, shift)):
         out.append((f"6g complex, default, mf {mf}", lay, tab, w, gidx, cube, cfac, None, mf, t0,
                     sh))
+    # the float64 default observables at phase 6i's launches: singular_3d at
+    # 2^26 samples and the quarter disc times e^{i(x+y)} (complex, and its
+    # real part), with and without the gate; phase 3d's all-branch spec with
+    # ninc 5000 (windows)
+    F64 = torch.float64
+    for name, cfg, f, npb in (("singular_3d", cfg, cs._sing3, 2 ** 26),
+                              ("quarter disc", pi_c, cs._qdisc, cs.VEGAS_NEVAL // 16)):
+        it, lay, tab, cube, cfac, x, gidx, w, t0, T = cs.vplus_branch_launch(
+            mt, vp, cfg, f, npb, real=F64)
+        del x
+        shift = vp.gate_shifts(it.seeds(block_keys(cs.SEED, 1, 0, it.block)), t0, T, it.chunk)
+        kinds = (("real", w),) if not w.is_complex() else \
+            (("real", w.real.double().contiguous()), ("complex", w))
+        for kind, ww in kinds:
+            for mf, sh in ((1, None), (4, shift)):
+                out.append((f"6i f64 {name} {kind}, mf {mf}", lay, tab, ww, gidx, cube, cfac, None,
+                            mf, t0, sh))
+    it = cs.vplus_allbranch(mt, 2 ** 20, ninc=5000, real=F64)
+    params = it.spec.device_params()
+    it.reallocate(it.run(params, block_keys(cs.SEED, 0, 0, it.block))["sig"])
+    lay = it.layout
+    tab, kd = lay.tables(params), it.seeds(block_keys(cs.SEED, 1, 0, it.block))
+    cube, cfac = it.cube_tables()
+    x, gidx = vp.vplus_sample(lay, tab, kd, 0, it.chunks_per_launch, cube)
+    w = it.evaluate(lay.leaf_values(x)).contiguous()
+    del x
+    out.append(("3d f64 all-branch, ninc 5000", lay, tab, w, gidx, cube, cfac, None, 1, 0, None))
     return out
 
 
 def vplus_run(vp, case, check=True, strict=True):
     """(ms, max rel err) of vplus_reduce (or, for a name ending in "relw",
     vplus_relw) on one case; unchecked: (ms, 0).  Raises beyond REL_TOL_VPLUS
-    (relw: unless bit for bit) when ``strict``."""
+    (relw: unless bit for bit; float64: obs beyond REL_TOL_REDUCE, sig and
+    hist beyond REL_TOL_F64_HIST, as phase 3i) when ``strict``."""
     import torch
     name, lay, tab, w, gidx, cube, cfac, m, mf, t0, shift = case
     relw = name.endswith("relw")
@@ -469,18 +600,21 @@ def vplus_run(vp, case, check=True, strict=True):
         fn = lambda: vp.vplus_relw(lay, tab, w, gidx, cube, cfac)
     else:
         fn = lambda: vp.vplus_reduce(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
-    rel, tol = 0.0, 0.0 if relw else cs.REL_TOL_VPLUS
+    tols = (0.0,) if relw else (cs.REL_TOL_REDUCE, cs.REL_TOL_F64_HIST, cs.REL_TOL_F64_HIST) \
+        if tab.dtype == torch.float64 else (cs.REL_TOL_VPLUS,) * 3
+    rels = [0.0]
     if check and relw:
         got, want = fn(), vp.vplus_relw_plain(lay, tab, w, gidx, cube, cfac)
-        rel = 0.0 if torch.equal(cs.bits(got), cs.bits(want)) else np.inf
+        rels = [0.0 if torch.equal(cs.bits(got), cs.bits(want)) else np.inf]
         del got, want
     elif check:
         got = fn()
         want = vp.vplus_reduce_plain(lay, tab, w, gidx, cube, cfac, m, mf, t0, shift)
         torch.cuda.synchronize()
-        rel = max(cs.rel_err(a.cpu(), b.cpu()) for a, b in zip(got, want))
-    if rel > tol and strict:
-        raise AssertionError(f"vplus_reduce, {name}: rel {rel:.3g} > {tol}")
+        rels = [cs.rel_err(a.cpu(), b.cpu()) for a, b in zip(got, want)]
+    rel = max(rels)
+    if strict and any(r > t for r, t in zip(rels, tols)):
+        raise AssertionError(f"vplus_reduce, {name}: rel {rels} beyond {tols}")
     ms = float(np.median([cs.device_ms(fn, 10) for _ in range(3)]))
     return ms, rel
 
@@ -651,21 +785,31 @@ def main() -> int:
         print(f"baseline: (64-bit CAS loops, instructions) in the SASS {sass_counts(lib._name)}",
               flush=True)
 
+    def named(flag, items):
+        """The items whose names hold one of the words after ``flag``."""
+        if flag not in sys.argv:
+            return items
+        words = sys.argv[sys.argv.index(flag) + 1].split("|")
+        return [x for x in items if any(w in x[0] for w in words)]
+
     # the kernels a variant changes: the files it edits, and the kernel of a
     # constant it sets
     const_file = {"chain": ACCEPT, "vplus": REDUCE, "vegas": MIXED}
     vs = [(name, edits, consts) for name, edits, consts in
-          ([] if "--ablations" in sys.argv else variants())
-          + [(name, edits, {}) for name, edits in ablations()]
+          named("--names", ([] if "--ablations" in sys.argv else variants())
+                + [(name, edits, {}) for name, edits in ablations()])
           if ({f for f, _, _ in edits} | {const_file[k.split()[0]] for k in consts}) & only]
     files = {name: {f for f, _, _ in edits} | {const_file[k.split()[0]] for k in consts}
              for name, edits, consts in vs}
     unchecked = {name for name, _ in ablations()}
     built = mv.build([(name, edits, None, None) for name, edits, _ in vs])
+    variant_ptxas(vs, {name for name, _, _ in vs if "f64" in name or "interleaved" in name})
     chains = chain_cases(mt) if ACCEPT in only else []
     reduces = vplus_cases(mt, vp) if REDUCE in only else []
     proposals = propose_cases(mt) if PROPOSE in only else []
     mixed = mixed_cases(mt, vk) if MIXED in only else []
+    chains, reduces, proposals, mixed = (named("--cases", c)
+                                         for c in (chains, reduces, proposals, mixed))
     print(f"device ms per call, median of 3 runs [{card}]", flush=True)
     runs += [(name, lib or kept, consts) for (name, _, consts), lib in zip(vs, built)]
     runs += [(name + ", again", *rest) for name, *rest in runs[:1 + bool(root)][::-1]]

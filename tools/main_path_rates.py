@@ -1,6 +1,6 @@
 """Steady-state rates of the device-bound main paths of one checkout.
 
-    python3 tools/main_path_rates.py [DIR] [--mcmc | --measurement]   # on a CUDA card
+    python3 tools/main_path_rates.py [DIR] [--mcmc | --measurement | --f64]   # on a CUDA card
 
 Runs ``chip_smoke.py``'s phases 4 (``:vegas`` on the 2-D pi problem at 2^30
 evaluations per iteration), 4b (``:vegasmc`` on it at 2^28 with 2^20
@@ -20,6 +20,11 @@ of its two signatures it has).  With ``--measurement`` it runs phases 4 and
 measure on ``:vegasplus``, ``measurefreq``) and the mixed route's 4h (the
 Lindhard bubble on ``:vegas``, real, complex and gated, and the Discrete
 and mixed-``ninc`` runs), each checked and timed as ``chip_smoke.py`` does.
+With ``--f64`` it runs phase 4i alone: the float64 runs
+(``integrate(dtype=torch.float64)`` at 2^30 evaluations per iteration:
+pi, ``singular_3d``, the bubble three ways, e^{100x} on both stratified
+solvers, the complex quarter disc, the histogram at ``measurefreq=4``),
+each checked, with its steady-state rate and idle share.
 To compare two checkouts on one card,
 run it for each in one call, in turns (parent, change, change, parent):
 each run is a process of its own and imports its own package.
@@ -101,6 +106,9 @@ def main() -> int:
     if "--mcmc" in sys.argv[1:]:
         cs.mcmc_main_path(mt, mk, card)
         measure_host_us(mt, mk, cs, card)
+        return 0
+    if "--f64" in sys.argv[1:]:
+        cs.f64_main_path(mt, vk, vp, card)
         return 0
     _, _, rate4 = cs.main_path(mt, vk, card)
     if "--measurement" in sys.argv[1:]:
