@@ -1,0 +1,5 @@
+"""``chain_measure`` (csrc/chain_measure.cu), a kernel of the Markov solvers.  Named so
+that the device trace counts it among the port's own kernels; no cell runs
+it yet."""
+
+NAMES = [r"\bchain_measure_kernel\b"]

@@ -1,0 +1,5 @@
+"""``mcmc_accept`` (csrc/mcmc_accept.cu), a kernel of the Markov solvers.  Named so
+that the device trace counts it among the port's own kernels; no cell runs
+it yet."""
+
+NAMES = [r"\bmcmc_accept_kernel\b"]

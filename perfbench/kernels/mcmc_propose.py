@@ -1,0 +1,5 @@
+"""``mcmc_propose`` (csrc/mcmc_propose.cu), a kernel of the Markov solvers.  Named so
+that the device trace counts it among the port's own kernels; no cell runs
+it yet."""
+
+NAMES = [r"\bmcmc_propose_kernel\b"]
