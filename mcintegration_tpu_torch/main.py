@@ -24,6 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .configuration import Configuration
 from .debug import check_iteration_stats, probe_integrand
 from .ops.rng import block_keys
@@ -321,19 +322,20 @@ def _reduce_stats(stats, mesh):
     """One iteration's statistics over the mesh's ranks, the same bits on
     every rank: the per-block rows gathered in rank order, the sums added
     in rank order (the reference's ``MPIreduceConfig!``)."""
-    parts = allgather(stats, mesh)
-    out = dict(stats)
-    obs = [tree_leaves(p["obs_blocks"]) for p in parts]
-    out["obs_blocks"] = tree_unflatten(stats["obs_blocks"], [
-        np.concatenate([o[k] for o in obs]) for k in range(len(obs[0]))])
-    out["norm_blocks"] = np.concatenate([p["norm_blocks"] for p in parts])
-    out["hists"] = [sum_in_order([p["hists"][k] for p in parts])
-                    for k in range(len(stats["hists"]))]
-    for k in ("visited", "propose", "accept", "sig"):
-        if k in stats:
-            out[k] = sum_in_order([p[k] for p in parts])
-    out["neval"] = sum(int(p["neval"]) for p in parts)
-    return out
+    with tracing.span("mct.ranks.gather"):
+        parts = allgather(stats, mesh)
+        out = dict(stats)
+        obs = [tree_leaves(p["obs_blocks"]) for p in parts]
+        out["obs_blocks"] = tree_unflatten(stats["obs_blocks"], [
+            np.concatenate([o[k] for o in obs]) for k in range(len(obs[0]))])
+        out["norm_blocks"] = np.concatenate([p["norm_blocks"] for p in parts])
+        out["hists"] = [sum_in_order([p["hists"][k] for p in parts])
+                        for k in range(len(stats["hists"]))]
+        for k in ("visited", "propose", "accept", "sig"):
+            if k in stats:
+                out[k] = sum_in_order([p[k] for p in parts])
+        out["neval"] = sum(int(p["neval"]) for p in parts)
+        return out
 
 
 def integrate(integrand: Callable, *,
@@ -445,6 +447,22 @@ def integrate(integrand: Callable, *,
     sums added in rank order through a gloo group, so every rank trains
     alike and returns the same :class:`Result`.  Only rank 0 prints.
 
+    **Tracing.**  After ``tracing.enable()`` (``mcintegration_tpu_torch.tracing``),
+    or inside a ``torch.profiler`` profile, a call records spans that
+    ``tracing.spans()`` returns, each with its parent and the id of its call;
+    under a profiler they also appear on its host timeline and in its chrome
+    trace.  ``mct.call`` is the whole call, its ``cache`` attribute ``hit``,
+    ``miss``, ``uncacheable`` or ``off``; within it ``mct.cache_key``,
+    ``mct.build`` (on a miss), ``mct.iteration`` each iteration and
+    ``mct.result``.  An iteration holds the solver's ``mct.issue`` (its
+    launches), ``mct.wait`` (its first read of the statistics, which blocks
+    until the device drains) and ``mct.collect`` (the rest of the copy and
+    shaping), then ``mct.ranks.gather`` over ranks (the wait for the slowest
+    rank included), ``mct.reallocate`` (:vegasplus), ``mct.merge``,
+    ``mct.train`` and ``mct.snapshot``.  A span only reads the clock: it
+    adds no synchronize or collective, and with recording off it costs a
+    flag test.
+
     ``backend`` is the reference's keyword; the port serves its default
     ``"auto"`` and raises on any other value, as on a ``dtype`` other than
     float32 or float64.  Complex observables
@@ -460,121 +478,135 @@ def integrate(integrand: Callable, *,
         solver = "vegasplus"
     if solver not in ("vegas", "vegasmc", "mcmc", "vegasplus"):
         raise ValueError(f"Solver {solver} is not supported!")
-    dtype = _check_keywords(dtype, backend, solver)
-    mesh = _resolve_mesh(mesh, parallel)
-    nranks = mesh_size(mesh)
-    rank = 0 if mesh is None else mesh.rank
-    dev = _resolve_device(device, mesh)
-    lead = rank == 0          # the rank that prints
+    with tracing.span("mct.call", solver=solver, niter=niter) as call:
+        dtype = _check_keywords(dtype, backend, solver)
+        mesh = _resolve_mesh(mesh, parallel)
+        nranks = mesh_size(mesh)
+        rank = 0 if mesh is None else mesh.rank
+        dev = _resolve_device(device, mesh)
+        lead = rank == 0          # the rank that prints
 
-    verbose = max(print, verbose)
-    if config is None:
-        config = Configuration(**kwargs)
-    if gamma > 1.0 and verbose >= 0 and lead:
-        sys.stderr.write(red("learning rate gamma should be less than 1.0") + "\n")
-    if ignore is None:
-        ignore = 1 if adapt else 0
+        verbose = max(print, verbose)
+        if config is None:
+            config = Configuration(**kwargs)
+        if gamma > 1.0 and verbose >= 0 and lead:
+            sys.stderr.write(red("learning rate gamma should be less than 1.0") + "\n")
+        if ignore is None:
+            ignore = 1 if adapt else 0
 
-    timers = list(timer) if timer is not None else []
-    if verbose > 0 and lead:
-        timers.append(StopWatch(verbose, lambda cfg, *_: cfg.report()))
+        timers = list(timer) if timer is not None else []
+        if verbose > 0 and lead:
+            timers.append(StopWatch(verbose, lambda cfg, *_: cfg.report()))
 
-    nevalperblock, block = _standardize_block(neval, block, nranks)
-    lo, hi = rank * block // nranks, (rank + 1) * block // nranks
-    spec = Spec(config, dev, dtype)
-    if debug:
-        probe_integrand(spec, integrand, measure, inplace, solver, config.observable)
-
-    key = None if not cache else _cache_key(
-        config, solver, integrand, measure, mesh=mesh, device=str(dev), dtype=str(dtype),
-        npb=int(nevalperblock), block=int(block), measurefreq=int(measurefreq),
-        inplace=bool(inplace), nwalkers=nwalkers,
-        min_steps_per_walker=int(min_steps_per_walker), warmup=warmup,
-        thermal_ratio=float(thermal_ratio))
-    it_kernel = _checkout(key)
-    if it_kernel is not None:
-        # a hit: this call's spec (its live config), and no state carried over
-        it_kernel.spec = spec
-        it_kernel.reset_state()
-    else:
-        it_kernel = _build_iteration(
-            solver, spec, integrand, measure=measure, obs_proto=config.observable,
-            inplace=inplace, measurefreq=measurefreq, block=hi - lo,
-            nevalperblock=nevalperblock, nwalkers=nwalkers,
-            min_steps_per_walker=min_steps_per_walker, warmup=warmup,
-            thermal_ratio=thermal_ratio, nranks=nranks)
-    backend_reason = it_kernel.backend_reason
-    if verbose >= 0 and backend_reason and lead:
-        sys.stdout.write(yellow(f"{solver}: {backend_reason}\n"))
-
-    progress = ProgressBar(niter * block, desc="iters x blocks: ",
-                           enabled=(verbose >= -1 and lead))
-    start = time.time()
-    results, iter_times = [], []
-    for it in range(niter):
-        t_it = time.time()
-        # one iteration shape whatever the timers: they are polled between
-        # iterations, so a progress report never changes the numbers
-        kd = block_keys(config.seed, it, 0, block)[lo:hi]
-        stats = it_kernel.run(spec.device_params(), kd)
-        if nranks > 1:
-            stats = _reduce_stats(stats, mesh)
+        nevalperblock, block = _standardize_block(neval, block, nranks)
+        lo, hi = rank * block // nranks, (rank + 1) * block // nranks
+        spec = Spec(config, dev, dtype)
         if debug:
-            check_iteration_stats(stats, it)
-        if "sig" in stats:
-            # :vegasplus' cubes, from the second moments of every rank's
-            # blocks: the same counts on each rank
-            it_kernel.reallocate(stats["sig"])
-        # ---- merge device statistics into the host config (the
-        # reference's addConfig!/MPIreduceConfig!, configuration.jl:238-299)
-        config.neval += stats["neval"]
-        for lidx, (_, leaf) in enumerate(config.var_leaves()):
-            leaf.add_statistics(stats["hists"][lidx])
-        if "visited" in stats:
-            config.visited += stats["visited"]
-            config.propose += stats["propose"]
-            config.accept += stats["accept"]
+            probe_integrand(spec, integrand, measure, inplace, solver, config.observable)
 
-        norm_b = stats["norm_blocks"]
-        if not np.all(norm_b > 0):
-            raise RuntimeError(
-                f"Block normalization = {norm_b.min()} is not positively defined!")
-        config.normalization += float(norm_b.sum())
+        key = None
+        if cache:
+            with tracing.span("mct.cache_key"):
+                key = _cache_key(
+                    config, solver, integrand, measure, mesh=mesh, device=str(dev),
+                    dtype=str(dtype), npb=int(nevalperblock), block=int(block),
+                    measurefreq=int(measurefreq), inplace=bool(inplace), nwalkers=nwalkers,
+                    min_steps_per_walker=int(min_steps_per_walker), warmup=warmup,
+                    thermal_ratio=float(thermal_ratio))
+        it_kernel = _checkout(key)
+        if it_kernel is not None:
+            # a hit: this call's spec (its live config), and no state carried over
+            call.set(cache="hit")
+            it_kernel.spec = spec
+            it_kernel.reset_state()
+        else:
+            call.set(cache="off" if not cache else "uncacheable" if key is None else "miss")
+            with tracing.span("mct.build"):
+                it_kernel = _build_iteration(
+                    solver, spec, integrand, measure=measure, obs_proto=config.observable,
+                    inplace=inplace, measurefreq=measurefreq, block=hi - lo,
+                    nevalperblock=nevalperblock, nwalkers=nwalkers,
+                    min_steps_per_walker=min_steps_per_walker, warmup=warmup,
+                    thermal_ratio=thermal_ratio, nranks=nranks)
+        backend_reason = it_kernel.backend_reason
+        if verbose >= 0 and backend_reason and lead:
+            sys.stdout.write(yellow(f"{solver}: {backend_reason}\n"))
 
-        # ---- block statistics (src/main.jl:275-287, 296-320) ----
-        obs_sum, obs_sq = [], []
-        for o in range(config.N):
-            m = _divide_norm(_component(stats["obs_blocks"], o), norm_b)
-            obs_sum.append(tree_map(lambda a: a.sum(axis=0), m))
-            obs_sq.append(tree_map(_sq_sum_blocks, m))
-        means, stds = mean_std(obs_sum, obs_sq, block)
+        progress = ProgressBar(niter * block, desc="iters x blocks: ",
+                               enabled=(verbose >= -1 and lead))
+        start = time.time()
+        results, iter_times = [], []
+        for it in range(niter):
+            with tracing.span("mct.iteration", it=it):
+                t_it = time.time()
+                # one iteration shape whatever the timers: they are polled between
+                # iterations, so a progress report never changes the numbers
+                kd = block_keys(config.seed, it, 0, block)[lo:hi]
+                stats = it_kernel.run(spec.device_params(), kd)
+                if nranks > 1:
+                    stats = _reduce_stats(stats, mesh)
+                if debug:
+                    check_iteration_stats(stats, it)
+                if "sig" in stats:
+                    # :vegasplus' cubes, from the second moments of every rank's
+                    # blocks: the same counts on each rank
+                    with tracing.span("mct.reallocate"):
+                        it_kernel.reallocate(stats["sig"])
+                with tracing.span("mct.merge"):
+                    # ---- merge device statistics into the host config (the
+                    # reference's addConfig!/MPIreduceConfig!, configuration.jl:238-299)
+                    config.neval += stats["neval"]
+                    for lidx, (_, leaf) in enumerate(config.var_leaves()):
+                        leaf.add_statistics(stats["hists"][lidx])
+                    if "visited" in stats:
+                        config.visited += stats["visited"]
+                        config.propose += stats["propose"]
+                        config.accept += stats["accept"]
 
-        # ---- self-learning (src/main.jl:183-199) ----
-        if solver in ("mcmc", "vegasmc"):
-            do_reweight(config, gamma, reweight_goal)
-        if adapt:
-            for v in config.var:
-                v.train()
+                    norm_b = stats["norm_blocks"]
+                    if not np.all(norm_b > 0):
+                        raise RuntimeError(
+                            f"Block normalization = {norm_b.min()} is not positively defined!")
+                    config.normalization += float(norm_b.sum())
 
-        results.append((means, stds, _snapshot_config(config, stats["neval"])))
-        iter_times.append(time.time() - t_it)
-        progress.update(block, evals=stats["neval"])
-        for t in timers:
-            t.check(config)
+                    # ---- block statistics (src/main.jl:275-287, 296-320) ----
+                    obs_sum, obs_sq = [], []
+                    for o in range(config.N):
+                        m = _divide_norm(_component(stats["obs_blocks"], o), norm_b)
+                        obs_sum.append(tree_map(lambda a: a.sum(axis=0), m))
+                        obs_sq.append(tree_map(_sq_sum_blocks, m))
+                    means, stds = mean_std(obs_sum, obs_sq, block)
 
-    result = Result(results, ignore, config=config)
-    result.backend = it_kernel.backend
-    result.backend_reason = backend_reason
-    result.wall_time = time.time() - start
-    result.evals_per_s = result.neval / max(result.wall_time, 1e-12)
-    result.iteration_times = iter_times
-    _checkin(key, it_kernel)
-    if verbose >= 0 and lead:
-        report(result)
-        if verbose > 0:
-            sys.stdout.write(yellow(
-                f"Total time: {time.time() - start:.2f} seconds.\n"))
-    return result
+                with tracing.span("mct.train"):
+                    # ---- self-learning (src/main.jl:183-199) ----
+                    if solver in ("mcmc", "vegasmc"):
+                        do_reweight(config, gamma, reweight_goal)
+                    if adapt:
+                        for v in config.var:
+                            v.train()
+
+                with tracing.span("mct.snapshot"):
+                    snap = _snapshot_config(config, stats["neval"])
+                results.append((means, stds, snap))
+                iter_times.append(time.time() - t_it)
+            progress.update(block, evals=stats["neval"])
+            for t in timers:
+                t.check(config)
+
+        with tracing.span("mct.result"):
+            result = Result(results, ignore, config=config)
+            result.backend = it_kernel.backend
+            result.backend_reason = backend_reason
+            result.wall_time = time.time() - start
+            result.evals_per_s = result.neval / max(result.wall_time, 1e-12)
+            result.iteration_times = iter_times
+        _checkin(key, it_kernel)
+        if verbose >= 0 and lead:
+            report(result)
+            if verbose > 0:
+                sys.stdout.write(yellow(
+                    f"Total time: {time.time() - start:.2f} seconds.\n"))
+        return result
 
 
 def _build_iteration(solver, spec, integrand, *, measure, obs_proto, inplace, measurefreq,

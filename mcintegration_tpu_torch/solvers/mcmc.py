@@ -35,6 +35,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.variable import Continuous, Discrete, FermiK
 from ..ops import mcmc_kernels
 from ..ops.mcmc_kernels import NRETRY, McmcLayout, McmcState
@@ -195,29 +196,33 @@ class MCMCIteration:
         uint32; returns host-side numpy statistics in the JAX package's
         layout (``solvers/mcmc.py:628-686``)."""
         spec, lay, B = self.spec, self.layout, self.block
-        sched, groups = self.schedule(kd)
-        kd = self.seeds(kd)
-        tab, rw, st = self.start(params, kd, sched)
-        for t in range(self.ntot):
-            self.step(tab, rw, kd, sched, groups[t], st, t)
+        with tracing.span("mct.issue"):
+            sched, groups = self.schedule(kd)
+            kd = self.seeds(kd)
+            tab, rw, st = self.start(params, kd, sched)
+            for t in range(self.ntot):
+                self.step(tab, rw, kd, sched, groups[t], st, t)
+        with tracing.span("mct.wait"):
+            obs_b = block_sums(st.obs, B)
 
-        obs_b = obs_tree(block_sums(st.obs, B), spec, self.obs_proto)
-        hist = st.hist.cpu().numpy()
-        hists = []
-        for lidx, li in enumerate(spec.leaves):
-            off = (int(lay.leaf[lay.dleaf.index(lidx), 8]) if lidx in lay.dleaf else -1)
-            hists.append(hist[off:off + li.nhist].copy() if off >= 0
-                         else np.zeros(li.nhist, np.float64))
-        tally = st.tally.cpu().numpy().astype(np.float64)
-        return {
-            "obs_blocks": obs_b,       # [block, N] (complex128), or the observable pytree
-            "norm_blocks": tree_sum(st.nrm.view(B, lay.wb), -1).cpu().numpy(),
-            "visited": st.vis.cpu().numpy().astype(np.float64),
-            "hists": hists,
-            "propose": tally[0],       # [3, nd, max(nd, nvar)]: CI, CV, swap
-            "accept": tally[1],
-            "neval": self.neval,
-        }
+        with tracing.span("mct.collect"):
+            obs_b = obs_tree(obs_b, spec, self.obs_proto)
+            hist = st.hist.cpu().numpy()
+            hists = []
+            for lidx, li in enumerate(spec.leaves):
+                off = (int(lay.leaf[lay.dleaf.index(lidx), 8]) if lidx in lay.dleaf else -1)
+                hists.append(hist[off:off + li.nhist].copy() if off >= 0
+                             else np.zeros(li.nhist, np.float64))
+            tally = st.tally.cpu().numpy().astype(np.float64)
+            return {
+                "obs_blocks": obs_b,       # [block, N] (complex128), or the observable pytree
+                "norm_blocks": tree_sum(st.nrm.view(B, lay.wb), -1).cpu().numpy(),
+                "visited": st.vis.cpu().numpy().astype(np.float64),
+                "hists": hists,
+                "propose": tally[0],       # [3, nd, max(nd, nvar)]: CI, CV, swap
+                "accept": tally[1],
+                "neval": self.neval,
+            }
 
 
 def _stacked(fns):

@@ -60,6 +60,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.variable import Continuous
 from ..ops import vegas_kernels
 from ..ops._build import tree_sum
@@ -273,26 +274,32 @@ class VegasIteration:
     def run(self, params, kd: np.ndarray):
         """Execute one iteration; returns host-side numpy statistics."""
         spec = self.spec
-        inputs = self.kernel_inputs(params, kd)
-        obs_parts = []
-        hsum = torch.zeros((len(self.slot_map), self.nb), dtype=torch.float64,
-                           device=spec.device)
-        for t0 in range(0, self.nchunks, self.chunks_per_launch):
-            T = min(self.chunks_per_launch, self.nchunks - t0)
-            obs_part, hrow = self.launch(inputs, t0, T)
-            obs_parts.append(obs_part)
-            hsum += hrow.sum(dim=(1, 2))
-        # every row of every launch in one fixed-order pass: [B, ncomp]
-        obs_b = tree_sum(torch.cat(obs_parts, dim=1).flatten(1, 2), 1).cpu().numpy()
-        obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
-        return {
-            "obs_blocks": obs_b,      # [block, N], or the observable pytree
-            # the samples the gate measures: the indices 1..nevalperblock
-            # that measurefreq divides
-            "norm_blocks": np.full(self.block, float(self.nevalperblock // self.measurefreq)),
-            "hists": _leaf_hists(spec, hsum),   # per-leaf histogram sums
-            "neval": self.block * self.nevalperblock,
-        }
+        with tracing.span("mct.issue"):
+            inputs = self.kernel_inputs(params, kd)
+            obs_parts = []
+            hsum = torch.zeros((len(self.slot_map), self.nb), dtype=torch.float64,
+                               device=spec.device)
+            for t0 in range(0, self.nchunks, self.chunks_per_launch):
+                T = min(self.chunks_per_launch, self.nchunks - t0)
+                obs_part, hrow = self.launch(inputs, t0, T)
+                obs_parts.append(obs_part)
+                hsum += hrow.sum(dim=(1, 2))
+            # every row of every launch in one fixed-order pass: [B, ncomp]
+            obs_b = tree_sum(torch.cat(obs_parts, dim=1).flatten(1, 2), 1)
+        with tracing.span("mct.wait"):
+            obs_b = obs_b.cpu()
+        with tracing.span("mct.collect"):
+            obs_b = obs_tree(obs_b.numpy(), spec,
+                             self.obs_proto if self.measure is not None else None)
+            return {
+                "obs_blocks": obs_b,      # [block, N], or the observable pytree
+                # the samples the gate measures: the indices 1..nevalperblock
+                # that measurefreq divides
+                "norm_blocks": np.full(self.block,
+                                       float(self.nevalperblock // self.measurefreq)),
+                "hists": _leaf_hists(spec, hsum),   # per-leaf histogram sums
+                "neval": self.block * self.nevalperblock,
+            }
 
 
 MAX_CHUNK = 131072   # the mixed route's largest chunk (mcintegration_tpu/solvers/vegas.py:63)
@@ -383,19 +390,25 @@ class VegasMixedIteration:
     def run(self, params, kd: np.ndarray):
         """Execute one iteration; returns host-side numpy statistics."""
         spec, lay = self.spec, self.layout
-        tab, kd = lay.tables(params), self.seeds(kd)
-        obs_parts, hsum = [], 0.0
-        for t0 in range(0, self.nchunks, self.chunks_per_launch):
-            T = min(self.chunks_per_launch, self.nchunks - t0)
-            obs_part, hist = self.launch(tab, kd, t0, T)
-            obs_parts.append(obs_part)
-            hsum = hsum + hist
-        obs = torch.cat(obs_parts, dim=1).movedim(-1, 0)                      # [ncomp, B, nchunks]
-        obs_b = vegas_kernels.sum_components(obs, -1).cpu().numpy()          # [B, ncomp]
-        obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
-        return {
-            "obs_blocks": obs_b,      # [block, N], or the observable pytree
-            "norm_blocks": np.full(self.block, float(self.nevalperblock // self.measurefreq)),
-            "hists": _leaf_hists(spec, hsum),   # per-leaf histogram sums
-            "neval": self.block * self.nevalperblock,
-        }
+        with tracing.span("mct.issue"):
+            tab, kd = lay.tables(params), self.seeds(kd)
+            obs_parts, hsum = [], 0.0
+            for t0 in range(0, self.nchunks, self.chunks_per_launch):
+                T = min(self.chunks_per_launch, self.nchunks - t0)
+                obs_part, hist = self.launch(tab, kd, t0, T)
+                obs_parts.append(obs_part)
+                hsum = hsum + hist
+            obs = torch.cat(obs_parts, dim=1).movedim(-1, 0)                  # [ncomp, B, nchunks]
+            obs_b = vegas_kernels.sum_components(obs, -1)                    # [B, ncomp]
+        with tracing.span("mct.wait"):
+            obs_b = obs_b.cpu()
+        with tracing.span("mct.collect"):
+            obs_b = obs_tree(obs_b.numpy(), spec,
+                             self.obs_proto if self.measure is not None else None)
+            return {
+                "obs_blocks": obs_b,      # [block, N], or the observable pytree
+                "norm_blocks": np.full(self.block,
+                                       float(self.nevalperblock // self.measurefreq)),
+                "hists": _leaf_hists(spec, hsum),   # per-leaf histogram sums
+                "neval": self.block * self.nevalperblock,
+            }

@@ -37,6 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.variable import Discrete
 from ..ops import chain_kernels
 from ..ops.chain_kernels import ChainLayout, ChainState
@@ -154,34 +155,38 @@ class VegasMCIteration:
         """Execute one iteration with per-block seeds ``kd [block, 2]``
         uint32; returns host-side numpy statistics."""
         spec, lay = self.spec, self.layout
-        kd = self.seeds(kd)
-        tab, rw, st = self.start(params, kd)
-        for t in range(self.nsteps):
-            self.step(tab, rw, kd, st, t)
+        with tracing.span("mct.issue"):
+            kd = self.seeds(kd)
+            tab, rw, st = self.start(params, kd)
+            for t in range(self.nsteps):
+                self.step(tab, rw, kd, st, t)
+        with tracing.span("mct.wait"):
+            obs_b = block_sums(st.obs, self.block)
 
-        nd, nvar, B = spec.N + 1, spec.nvar, self.block
-        obs_b = obs_tree(block_sums(st.obs, B), spec, self.obs_proto)
-        norm_b = tree_sum(st.nrm.view(B, lay.wb), -1).cpu().numpy()
-        visited = st.vis.sum(dim=-1).cpu().numpy()
-        pc = st.pc.sum(dim=-1).cpu().numpy().astype(np.float64)
-        ac = st.ac.sum(dim=-1).cpu().numpy().astype(np.float64)
-        hist = st.hist.cpu().numpy()
-        hists = []
-        for lidx, li in enumerate(spec.leaves):
-            off = (int(lay.leaf[lay.dleaf.index(lidx), 6])
-                   if lidx in lay.dleaf else -1)
-            hists.append(hist[off:off + li.nhist].copy() if off >= 0
-                         else np.zeros(li.nhist, np.float64))
-        propose = np.zeros((3, nd, max(nd, nvar)))
-        accept = np.zeros((3, nd, max(nd, nvar)))
-        propose[1, 0, :nvar] = pc
-        accept[1, 0, :nvar] = ac
-        return {
-            "obs_blocks": obs_b,       # [block, N] (complex128), or the observable pytree
-            "norm_blocks": norm_b,     # [block]
-            "visited": visited,        # [nd]
-            "hists": hists,            # per-leaf histogram sums
-            "propose": propose,
-            "accept": accept,
-            "neval": self.neval,
-        }
+        with tracing.span("mct.collect"):
+            nd, nvar, B = spec.N + 1, spec.nvar, self.block
+            obs_b = obs_tree(obs_b, spec, self.obs_proto)
+            norm_b = tree_sum(st.nrm.view(B, lay.wb), -1).cpu().numpy()
+            visited = st.vis.sum(dim=-1).cpu().numpy()
+            pc = st.pc.sum(dim=-1).cpu().numpy().astype(np.float64)
+            ac = st.ac.sum(dim=-1).cpu().numpy().astype(np.float64)
+            hist = st.hist.cpu().numpy()
+            hists = []
+            for lidx, li in enumerate(spec.leaves):
+                off = (int(lay.leaf[lay.dleaf.index(lidx), 6])
+                       if lidx in lay.dleaf else -1)
+                hists.append(hist[off:off + li.nhist].copy() if off >= 0
+                             else np.zeros(li.nhist, np.float64))
+            propose = np.zeros((3, nd, max(nd, nvar)))
+            accept = np.zeros((3, nd, max(nd, nvar)))
+            propose[1, 0, :nvar] = pc
+            accept[1, 0, :nvar] = ac
+            return {
+                "obs_blocks": obs_b,       # [block, N] (complex128), or the observable pytree
+                "norm_blocks": norm_b,     # [block]
+                "visited": visited,        # [nd]
+                "hists": hists,            # per-leaf histogram sums
+                "propose": propose,
+                "accept": accept,
+                "neval": self.neval,
+            }

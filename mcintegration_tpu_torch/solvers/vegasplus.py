@@ -51,6 +51,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.variable import Discrete
 from ..ops import vplus_kernels
 from ..ops._build import tree_sum
@@ -221,28 +222,34 @@ class VegasPlusIteration:
         uint32; returns host-side numpy statistics, ``sig`` the per-cube
         second moments that :meth:`reallocate` takes."""
         spec, lay = self.spec, self.layout
-        tab = lay.tables(params)
-        kd = self.seeds(kd)
-        cube, cfac = self.cube_tables()
-        obs_parts, sig, hist = [], 0.0, 0.0
-        for t0 in range(0, self.nchunks, self.chunks_per_launch):
-            T = min(self.chunks_per_launch, self.nchunks - t0)
-            obs_part, sig_part, hist_part = self.launch(tab, kd, cube, cfac, t0, T)
-            obs_parts.append(obs_part)
-            sig, hist = sig + sig_part, hist + hist_part
-        obs_b = tree_sum(torch.cat(obs_parts, dim=1), 1).cpu().numpy()     # [B, ncomp]
-        obs_b = obs_tree(obs_b, spec, self.obs_proto if self.measure is not None else None)
-        hist = hist.cpu().numpy()
-        hists = []
-        for li, off in zip(spec.leaves, lay.hist_off):
-            hists.append(hist[off:off + li.nhist].copy() if off >= 0
-                         else np.zeros(li.nhist, np.float64))
-        return {
-            "obs_blocks": obs_b,      # [block, N], or the observable pytree
-            # the samples the gate measures: the indices 1..nevalperblock
-            # that measurefreq divides
-            "norm_blocks": np.full(self.block, float(self.nevalperblock // self.measurefreq)),
-            "hists": hists,           # per-leaf histogram sums
-            "neval": self.block * self.nevalperblock,
-            "sig": sig.cpu().numpy(),  # [ncubes], this rank's blocks
-        }
+        with tracing.span("mct.issue"):
+            tab = lay.tables(params)
+            kd = self.seeds(kd)
+            cube, cfac = self.cube_tables()
+            obs_parts, sig, hist = [], 0.0, 0.0
+            for t0 in range(0, self.nchunks, self.chunks_per_launch):
+                T = min(self.chunks_per_launch, self.nchunks - t0)
+                obs_part, sig_part, hist_part = self.launch(tab, kd, cube, cfac, t0, T)
+                obs_parts.append(obs_part)
+                sig, hist = sig + sig_part, hist + hist_part
+            obs_b = tree_sum(torch.cat(obs_parts, dim=1), 1)                 # [B, ncomp]
+        with tracing.span("mct.wait"):
+            obs_b = obs_b.cpu()
+        with tracing.span("mct.collect"):
+            obs_b = obs_tree(obs_b.numpy(), spec,
+                             self.obs_proto if self.measure is not None else None)
+            hist = hist.cpu().numpy()
+            hists = []
+            for li, off in zip(spec.leaves, lay.hist_off):
+                hists.append(hist[off:off + li.nhist].copy() if off >= 0
+                             else np.zeros(li.nhist, np.float64))
+            return {
+                "obs_blocks": obs_b,      # [block, N], or the observable pytree
+                # the samples the gate measures: the indices 1..nevalperblock
+                # that measurefreq divides
+                "norm_blocks": np.full(self.block,
+                                       float(self.nevalperblock // self.measurefreq)),
+                "hists": hists,           # per-leaf histogram sums
+                "neval": self.block * self.nevalperblock,
+                "sig": sig.cpu().numpy(),  # [ncubes], this rank's blocks
+            }
