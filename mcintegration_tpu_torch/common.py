@@ -73,6 +73,21 @@ def onehot(idx, lo, hi, dtype=None, *, like=None):
 # (pallas_chain.py:459-471, pallas_mcmc.py:526-551)
 # ----------------------------------------------------------------------
 
+def finite_guard(w: torch.Tensor) -> torch.Tensor:
+    """Zero out non-finite integrand values.
+
+    In float32 a singular integrand can overflow to inf within ~1 ulp of its
+    singular point; an inf/NaN weight would poison every accumulator.  The
+    zeroed region is O(ulp)-measure, far below the statistical error.  A
+    complex value is kept only if both parts are finite (``torch.isfinite``
+    of a complex tensor; ``mcintegration_tpu/solvers/engine.py:260-271``).
+    The :vegas and :vegasplus kernels guard each weight as they load it
+    (``csrc/real.cuh``: ``finite_or_zero``) and their plain versions call
+    this on ``w``; the Markov solvers call it on the integrand's output.
+    """
+    return torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+
+
 def weight_abs(w: torch.Tensor) -> torch.Tensor:
     """``|w|``: a real weight's ``abs``; a complex weight's ``sqrt(re*re +
     im*im)``, correctly rounded as ``__fsqrt_rn`` (through float64, which

@@ -137,6 +137,10 @@ template <typename R> struct Weight<false, R> {
     return {p[i]};
   }
   __device__ __forceinline__ void store(R* p, long long i) const { p[i] = v; }
+  // the weight, or 0 where it is not finite: the guard of the K1 and K4
+  // kernels' loads of w (real.cuh: finite_or_zero); load itself returns
+  // what memory holds, as the chain and mcmc kernels read it
+  __device__ __forceinline__ Weight finite() const { return {finite_or_zero(v)}; }
   __device__ __forceinline__ R abs() const { return abs_of(v); }
   __device__ __forceinline__ R abs2() const { return mul_rn(v, v); }
   __device__ __forceinline__ Weight scale(R f) const { return {mul_rn(v, f)}; }
@@ -155,6 +159,11 @@ template <typename R> struct Weight<true, R> {
   }
   __device__ __forceinline__ void store(float* p, long long i) const {
     reinterpret_cast<float2*>(p)[i] = make_float2(re, im);
+  }
+  // the weight if both parts are finite, else 0 + 0i (torch.isfinite of a
+  // complex value)
+  __device__ __forceinline__ Weight finite() const {
+    return is_finite(re) && is_finite(im) ? *this : Weight{0.0f, 0.0f};
   }
   __device__ __forceinline__ float abs2() const {
     return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));

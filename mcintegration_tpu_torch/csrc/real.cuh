@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -22,6 +23,17 @@ __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, 
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 __device__ __forceinline__ float abs_of(float a) { return fabsf(a); }
 __device__ __forceinline__ double abs_of(double a) { return fabs(a); }
+
+// The weights' non-finite guard, where a kernel loads w: a value is kept
+// only if it is finite, else read as +0 (torch.where(torch.isfinite(w), w,
+// 0)); a complex value is kept only if both of its parts are finite
+// (chain_common.cuh: Weight::finite).  |a| < inf is false for an infinity
+// and for a NaN: one comparison and one select a value.
+__device__ __forceinline__ bool is_finite(float a) { return fabsf(a) < CUDART_INF_F; }
+__device__ __forceinline__ bool is_finite(double a) { return fabs(a) < CUDART_INF; }
+template <typename R> __device__ __forceinline__ R finite_or_zero(R a) {
+  return is_finite(a) ? a : (R)0;
+}
 
 // The element of w (and of a measure's output m) beside tables of R: R for
 // real weights, float for complex64 ones, read as (re, im) float pairs

@@ -76,6 +76,11 @@
 // how many components there are (the real parts of w + 0i then sum as the real
 // run's, given a measure too).
 //
+// Every mode reads w through the weights' non-finite guard (chain_common.cuh:
+// Weight::finite): a value that is not finite, or a complex one with a part
+// that is not, is read as 0, the reference's guard of the integrand's output
+// (mcintegration_tpu/solvers/engine.py:260-273); m is summed as it comes.
+//
 // Instantiations of the one body: kCplx (w complex64, read as (re, im) pairs
 // through chain_common.cuh:Weight, |w| = sqrt(re*re + im*im), Re and Im of
 // w_i*factor_i in components 2i and 2i+1, so w + 0i gives the real run's
@@ -394,7 +399,10 @@ __global__ void __launch_bounds__(kThreads) vegas_reduce_mixed_kernel(
       Weight<kCplx, Fp> wi[kPerThread], relw[kPerThread];
       load_weights<kCplx>(w, i * plane + at, n, full, wi);
 #pragma unroll
-      for (int v = 0; v < kPerThread; ++v) relw[v] = wi[v].scale(f[v]);
+      for (int v = 0; v < kPerThread; ++v) {
+        wi[v] = wi[v].finite();   // the guard: a non-finite weight is read as 0
+        relw[v] = wi[v].scale(f[v]);
+      }
       if constexpr (kMode == kRelw) {
         store_weights<kCplx>(relw_out, i * plane + at, n, full, relw);
       } else {

@@ -19,6 +19,11 @@
 // sums bit for bit), and the histogram still comes from w and jac.
 // The JAX kernel also masks the strata rows that pad a chunk up to its L x L
 // square (rowmask, :394 and :501); the port draws no padded rows.
+// Both kernels guard each w they load: a non-finite value is read as 0 (a
+// complex one with a non-finite part as 0 + 0i; real.cuh: finite_or_zero),
+// the reference's guard of the integrand's output (mcintegration_tpu/
+// solvers/engine.py:260-273), so the integrand's output reaches them as it
+// comes; m, a measure's output, is summed as it comes.
 //
 // Two branches serve the reference's XLA route (mcintegration_tpu/solvers/
 // vegas.py:201-357), which K1 never runs:
@@ -30,8 +35,8 @@
 //   histogram only and m stays real.  A complex "quad" is four samples (two
 //   16-byte loads), so a lane adds the same samples in the same order as the
 //   real kernel and the real parts of f + 0i are the real sums bit for bit.
-//   vegas_relw's complex entry scales each part alone: the real kernel on the
-//   float view of 2m values a row.
+//   vegas_relw's complex entry reads a sample's (re, im) pair at once, for
+//   the guard, and scales each part alone.
 // - measurefreq = mf > 1 (kMask): sample j of stratum row p of chunk t (t0
 //   plus the chunk's index in the launch) counts in the observable sums, of
 //   w or of m, only if (t*nb*m + p*m + j + 1) % mf == 0 (vegas.py:327-335);
@@ -218,6 +223,7 @@ struct Gate {
 template <int kTerms, bool kMask, typename V, typename J>
 __device__ __forceinline__ void add_sample(V v, int e, const Gate& g, V f, J jac,
                                            double& so, double& sh) {
+  if (kTerms != kObs) v = finite_or_zero(v);   // a w column: the guard
   if (kMask && g.shut(e)) {
     if (kTerms == kObs) v = (V)0;
     f = (V)0;
@@ -242,12 +248,14 @@ __device__ __forceinline__ void add_batch(const Q (&v)[kUnroll], int j0, int G, 
   }
 }
 
-// A complex sample (re, im): kWeighted adds Re and Im of w * f into so and
-// si (a zero where the gate is shut), and both modes add the histogram term
-// of |w|, as the real kernel adds that of |v|.
+// A complex sample (re, im), 0 + 0i unless both parts are finite (the
+// guard): kWeighted adds Re and Im of w * f into so and si (a zero where
+// the gate is shut), and both modes add the histogram term of |w|, as the
+// real kernel adds that of |v|.
 template <int kTerms, bool kMask, typename J>
 __device__ __forceinline__ void add_csample(float re, float im, int e, const Gate& g, float f,
                                             J jac, double& so, double& si, double& sh) {
+  if (!(is_finite(re) && is_finite(im))) re = im = 0.0f;
   if (kTerms == kWeighted) {
     const float fe = kMask && g.shut(e) ? 0.0f : f;
     so += (double)__fmul_rn(re, fe);
@@ -405,14 +413,16 @@ __device__ __forceinline__ Fp row_factors(const Fp* __restrict__ invp,
   return jac;
 }
 
-// shared memory: factor [N] of E, the element of w and relw
-template <typename Fp, typename E>
-__global__ void vegas_relw_kernel(const E* __restrict__ w,
+// shared memory: factor [N] of E = elem_t<kCplx, Fp>, the element of w and
+// relw (a complex sample: an (re, im) pair of E, read and written at once)
+template <typename Fp, bool kCplx>
+__global__ void vegas_relw_kernel(const elem_t<kCplx, Fp>* __restrict__ w,
                                   const Fp* __restrict__ invp,
                                   const int32_t* __restrict__ pad,
                                   const int32_t* __restrict__ pair_slots,
                                   int N, int nslots, int npair, int maxmem,
-                                  long long R, int m, E* __restrict__ relw) {
+                                  long long R, int m, elem_t<kCplx, Fp>* __restrict__ relw) {
+  using E = elem_t<kCplx, Fp>;
   extern __shared__ __align__(8) unsigned char factor_bytes[];
   E* factor = reinterpret_cast<E*>(factor_bytes);
   const long long r = blockIdx.x;
@@ -420,8 +430,15 @@ __global__ void vegas_relw_kernel(const E* __restrict__ w,
   for (int i = 0; i < N; ++i) {
     const long long base = ((long long)i * R + r) * m;
     const E f = factor[i];
-    for (int q = threadIdx.x; q < m; q += blockDim.x)
-      relw[base + q] = mul_rn(w[base + q], f);
+    for (int q = threadIdx.x; q < m; q += blockDim.x) {
+      if constexpr (kCplx) {
+        float2 z = reinterpret_cast<const float2*>(w)[base + q];
+        if (!(is_finite(z.x) && is_finite(z.y))) z = make_float2(0.0f, 0.0f);
+        reinterpret_cast<float2*>(relw)[base + q] = make_float2(mul_rn(z.x, f), mul_rn(z.y, f));
+      } else {
+        relw[base + q] = mul_rn(finite_or_zero(w[base + q]), f);
+      }
+    }
   }
 }
 
@@ -480,13 +497,14 @@ int reduce_entry(const void* w, const void* invp, const void* perm, const void* 
                   (double*)obs_rows, (double*)hrow, (cudaStream_t)stream);
 }
 
-// relw of rows of m values of E (a complex row: 2m floats)
-template <typename Fp, typename E>
+// relw of rows of m samples (a complex sample: two floats)
+template <typename Fp, bool kCplx>
 int relw_entry(const void* w, const void* invp, const void* pad, const void* pair_slots,
                int N, int nslots, int npair, int maxmem, long long R, int m, void* relw,
                void* stream) {
-  vegas_relw_kernel<Fp, E><<<(unsigned)R, row_threads(m), (size_t)N * sizeof(E),
-                             (cudaStream_t)stream>>>(
+  using E = elem_t<kCplx, Fp>;
+  vegas_relw_kernel<Fp, kCplx><<<(unsigned)R, row_threads(m), (size_t)N * sizeof(E),
+                                 (cudaStream_t)stream>>>(
       (const E*)w, (const Fp*)invp, (const int32_t*)pad, (const int32_t*)pair_slots, N, nslots,
       npair, maxmem, R, m, (E*)relw);
   return (int)cudaGetLastError();
@@ -512,39 +530,19 @@ MCI_VEGAS_REDUCE(mci_vegas_reduce_f64, double, false)
 MCI_VEGAS_REDUCE(mci_vegas_reduce_complex_f64, double, true)
 #undef MCI_VEGAS_REDUCE
 
-extern "C" int mci_vegas_relw(const void* w, const void* invp, const void* pad,
-                              const void* pair_slots, int N, int nslots, int npair,
-                              int maxmem, long long R, int m, void* relw, void* stream) {
-  return relw_entry<float, float>(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, m,
-                                  relw, stream);
-}
+#define MCI_VEGAS_RELW(name, Fp, kCplx)                                                    \
+  extern "C" int name(const void* w, const void* invp, const void* pad,                      \
+                      const void* pair_slots, int N, int nslots, int npair, int maxmem,      \
+                      long long R, int m, void* relw, void* stream) {                        \
+    return relw_entry<Fp, kCplx>(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, m,   \
+                                 relw, stream);                                              \
+  }
 
-// complex64 w and relw: each part scaled alone by the real factor, so the
-// real kernel on the float view, 2m floats a row
-extern "C" int mci_vegas_relw_complex(const void* w, const void* invp, const void* pad,
-                                      const void* pair_slots, int N, int nslots, int npair,
-                                      int maxmem, long long R, int m, void* relw,
-                                      void* stream) {
-  if (m > 0x3fffffff) return (int)cudaErrorInvalidValue;
-  return mci_vegas_relw(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, 2 * m, relw,
-                        stream);
-}
-
+MCI_VEGAS_RELW(mci_vegas_relw, float, false)
+// complex64 w and relw: each part scaled alone by the real factor
+MCI_VEGAS_RELW(mci_vegas_relw_complex, float, true)
 // invp, w and relw float64
-extern "C" int mci_vegas_relw_f64(const void* w, const void* invp, const void* pad,
-                                  const void* pair_slots, int N, int nslots, int npair,
-                                  int maxmem, long long R, int m, void* relw, void* stream) {
-  return relw_entry<double, double>(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, m,
-                                    relw, stream);
-}
-
-// invp float64, w and relw complex64: the float view with the factor
-// rounded to float32
-extern "C" int mci_vegas_relw_complex_f64(const void* w, const void* invp, const void* pad,
-                                          const void* pair_slots, int N, int nslots, int npair,
-                                          int maxmem, long long R, int m, void* relw,
-                                          void* stream) {
-  if (m > 0x3fffffff) return (int)cudaErrorInvalidValue;
-  return relw_entry<double, float>(w, invp, pad, pair_slots, N, nslots, npair, maxmem, R, 2 * m,
-                                   relw, stream);
-}
+MCI_VEGAS_RELW(mci_vegas_relw_f64, double, false)
+// invp float64, w and relw complex64: the factor rounded to float32
+MCI_VEGAS_RELW(mci_vegas_relw_complex_f64, double, true)
+#undef MCI_VEGAS_RELW

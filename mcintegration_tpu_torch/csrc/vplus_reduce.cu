@@ -130,6 +130,13 @@
 //   the positions per (block, chunk) measures each cube at the rate 1/mf in
 //   expectation and keeps the count of each chunk.
 //
+// Every kernel here reads w through the weights' non-finite guard
+// (chain_common.cuh: Weight::finite), at each of its loads: a weight that is
+// not finite, or a complex one with a part that is not, is read as 0, the
+// reference's guard of the integrand's output (mcintegration_tpu/solvers/
+// engine.py:260-273), so the relw a measure reads is guarded too; m is
+// summed as it comes.
+//
 // Built with --fmad=false (ops/_build.py); the _rn intrinsics pin every
 // rounding.
 //
@@ -350,7 +357,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<Fp>(kMode, kMask)) vplus_
           }
           pad_i = mul_rn(pad_i, gp);
         }
-        const Weight<kCplx, Fp> wi = Weight<kCplx, Fp>::load(w, i * plane + at);
+        const Weight<kCplx, Fp> wi = Weight<kCplx, Fp>::load(w, i * plane + at).finite();
         const Weight<kCplx, Fp> relw = wi.scale(mul_rn(jac, pad_i));
         score = add_rn(score, mul_rn((Fp)wi.abs(), pad_i));
         if (kMode == kDefault && on) so = (double)re_of(relw);
@@ -559,7 +566,8 @@ vplus_reduce_chunks_kernel(
         t[u] = sq[u] = (E)0;
         if constexpr (kCplx) t[kU + u] = (E)0;
         if (!(ok >> u & 1)) continue;
-        const Weight<kCplx, Fp> wi = Weight<kCplx, Fp>::load(w, i * plane + at0 + u * cstep);
+        const Weight<kCplx, Fp> wi =
+            Weight<kCplx, Fp>::load(w, i * plane + at0 + u * cstep).finite();
         const Weight<kCplx, Fp> relw = wi.scale(mul_rn(jac[u], pad_i[u]));
         score[u] = add_rn(score[u], mul_rn((Fp)wi.abs(), pad_i[u]));
         if (on >> u & 1) {
@@ -685,7 +693,7 @@ __global__ void __launch_bounds__(kRelwThreads, f64_halved<Fp>(kRelwBlocks)) vpl
     Weight<kCplx, Fp> r[kQuad];
     load_weights(w, i * plane + at, n, full, r);
 #pragma unroll
-    for (int v = 0; v < kQuad; ++v) r[v] = r[v].scale(mul_rn(jac[v], pad_i[v]));
+    for (int v = 0; v < kQuad; ++v) r[v] = r[v].finite().scale(mul_rn(jac[v], pad_i[v]));
     store_weights(relw, i * plane + at, n, full, r);
   }
 }

@@ -10,8 +10,9 @@ the ranks.  The messages are the JAX package's, word for word.
 The probe draws its samples from a generator of its own
 (:meth:`Spec.probe_leaf_values`), so ``debug=True`` leaves the run's
 random stream, and the result's bits, as they are.  It looks at the values
-the integrand returns before the non-finite guard of the evaluation zeroes
-them (``engine._finite_guard``), and before a complex value is cast to
+the integrand returns before the non-finite guard zeroes them
+(``common.finite_guard``'s law, in the kernels' loads of the weights on
+:vegas and :vegasplus), and before a complex value is cast to
 float32: the JAX package's probe looks after both, so its non-finite
 warning and its complex-weights error never fire (ROADMAP.md, known faults
 in the reference).  At ``dtype=torch.float64`` the probe runs as it does

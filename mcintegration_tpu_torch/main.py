@@ -452,9 +452,11 @@ def integrate(integrand: Callable, *,
     ``tracing.spans()`` returns, each with its parent and the id of its call;
     under a profiler they also appear on its host timeline and in its chrome
     trace.  ``mct.call`` is the whole call, its ``cache`` attribute ``hit``,
-    ``miss``, ``uncacheable`` or ``off``; within it ``mct.cache_key``,
-    ``mct.build`` (on a miss), ``mct.iteration`` each iteration and
-    ``mct.result``.  An iteration holds the solver's ``mct.issue`` (its
+    ``miss``, ``uncacheable`` or ``off``, its ``guard`` attribute where the
+    weights' non-finite guard runs (``kernel`` on :vegas and :vegasplus, in
+    the loads of their kernels; ``torch`` on :vegasmc and :mcmc); within it
+    ``mct.cache_key``, ``mct.build`` (on a miss), ``mct.iteration`` each
+    iteration and ``mct.result``.  An iteration holds the solver's ``mct.issue`` (its
     launches), ``mct.wait`` (its first read of the statistics, which blocks
     until the device drains) and ``mct.collect`` (the rest of the copy and
     shaping), then ``mct.ranks.gather`` over ranks (the wait for the slowest
@@ -528,6 +530,8 @@ def integrate(integrand: Callable, *,
                     nevalperblock=nevalperblock, nwalkers=nwalkers,
                     min_steps_per_walker=min_steps_per_walker, warmup=warmup,
                     thermal_ratio=thermal_ratio, nranks=nranks)
+        # where the weights' non-finite guard runs: "kernel" or "torch"
+        call.set(guard=it_kernel.guard)
         backend_reason = it_kernel.backend_reason
         if verbose >= 0 and backend_reason and lead:
             sys.stdout.write(yellow(f"{solver}: {backend_reason}\n"))

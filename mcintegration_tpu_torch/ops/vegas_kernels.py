@@ -19,6 +19,11 @@ reference's XLA route again: ``vegas_sample_mixed``, ``vegas_relw_mixed``
 and ``vegas_reduce_mixed`` (``csrc/vegas_mixed.cu``), at the end of this
 module with their notes.
 
+Every kernel that reads ``w`` reads it through the non-finite guard: a
+weight that is not finite, or a complex one with a part that is not, counts
+as 0 (``common.finite_guard``, which each plain version applies to ``w``),
+so the integrand's output reaches them as it comes.
+
 Each wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel (``csrc/*.cu``, built by ``ops/_build.py``)
 or raises; there is no fallback.  ``launch_counts`` counts the kernel
@@ -68,7 +73,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
-from ..common import weight_abs, weight_parts, weight_scale
+from ..common import finite_guard, weight_abs, weight_parts, weight_scale
 from ..models.variable import Discrete
 from . import _build
 from ._build import check_tensor as _check
@@ -210,7 +215,9 @@ def _row_factors(invp, pad, pair_slots):
 
 def vegas_relw_plain(w, invp, pad, pair_slots):
     """Plain torch version of ``vegas_relw`` (``csrc/vegas_reduce.cu``): the
-    same products, each part of a complex weight scaled alone."""
+    same products, each part of a complex weight scaled alone, of ``w``
+    through the non-finite guard."""
+    w = finite_guard(w)
     _, factors = _row_factors(invp, pad, pair_slots)
     return torch.stack([weight_scale(w[i], f[..., None]) for i, f in enumerate(factors)])
 
@@ -258,7 +265,9 @@ def measured_mask(T: int, nb: int, m: int, mf: int, t0: int, device):
 def vegas_reduce_plain(w, invp, perm, pad, pair_slots, used, m=None, mf=1, t0=0):
     """Plain torch version of ``csrc/vegas_reduce.cu``: the same products
     (in ``invp``'s dtype; a complex weight's |w| in float32), summed in
-    float64 in another order (a sample the gate shuts adds a zero)."""
+    float64 in another order (a sample the gate shuts adds a zero), of
+    ``w`` through the non-finite guard."""
+    w = finite_guard(w)
     N, nslots = w.shape[0], invp.shape[0]
     used = used.tolist()
     jac, factors = _row_factors(invp, pad, pair_slots)
@@ -578,7 +587,9 @@ def _mixed_invp(lay: MixedLayout, tab, gidx):
 
 def vegas_relw_mixed_plain(lay: MixedLayout, tab, w, gidx):
     """Plain torch version of ``vegas_relw_mixed``: the same products, each
-    part of a complex weight scaled alone."""
+    part of a complex weight scaled alone, of ``w`` through the non-finite
+    guard."""
+    w = finite_guard(w)
     _, factors = _row_factors(_mixed_invp(lay, tab, gidx), lay.pad, lay.pair_slots)
     return torch.stack([weight_scale(w[i], f) for i, f in enumerate(factors)])
 
@@ -586,7 +597,8 @@ def vegas_relw_mixed_plain(lay: MixedLayout, tab, w, gidx):
 def vegas_reduce_mixed_plain(lay: MixedLayout, tab, w, gidx, m=None, mf=1, t0=0):
     """Plain torch version of ``vegas_reduce_mixed``: the same terms (in
     ``tab``'s dtype), summed in float64 in another order (a sample the gate
-    shuts adds a zero)."""
+    shuts adds a zero), of ``w`` through the non-finite guard."""
+    w = finite_guard(w)
     N, B, T, c = w.shape
     dev = w.device
     jac, factors = _row_factors(_mixed_invp(lay, tab, gidx), lay.pad, lay.pair_slots)

@@ -15,6 +15,11 @@ a coarsened map, the pow2 shadow maps, ``HIST_EVERY`` and the Kahan pairs
 are not carried over; K4's law is the special case ``counts = lanes * spp``
 on the grid ``leaf.grid[::k]``.
 
+``vplus_reduce`` and ``vplus_relw`` read ``w`` through the non-finite
+guard: a weight that is not finite, or a complex one with a part that is
+not, counts as 0 (``common.finite_guard``, which their plain versions apply
+to ``w``).
+
 Each wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel (``csrc/vplus_*.cu``, built by
 ``ops/_build.py``) or raises; there is no fallback.  ``launch_counts``
@@ -85,7 +90,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
-from ..common import weight_abs, weight_parts, weight_scale
+from ..common import finite_guard, weight_abs, weight_parts, weight_scale
 from ..models.variable import Discrete
 from . import _build
 from ._build import check_tensor as _check
@@ -383,7 +388,9 @@ def _density(lay: VplusLayout, tab, gidx, cube, cfac):
 
 def vplus_relw_plain(lay: VplusLayout, tab, w, gidx, cube, cfac):
     """Plain torch version of ``vplus_relw`` (``csrc/vplus_reduce.cu``):
-    ``w_i * (jac * pad_i)``, each part of a complex weight scaled alone."""
+    ``w_i * (jac * pad_i)``, each part of a complex weight scaled alone,
+    of ``w`` through the non-finite guard."""
+    w = finite_guard(w)
     jac, _, pads = _density(lay, tab, gidx, cube, cfac)
     return torch.stack([weight_scale(w[i], jac * pads[i]) for i in range(w.shape[0])])
 
@@ -414,7 +421,9 @@ def vplus_reduce_plain(lay: VplusLayout, tab, w, gidx, cube, cfac, m=None, mf=1,
                        shift=None):
     """Plain torch version of ``csrc/vplus_reduce.cu``: the same products
     (in ``tab``'s dtype; a complex relw's |relw| in float32), summed in
-    float64 in another order (a sample the gate shuts adds a zero)."""
+    float64 in another order (a sample the gate shuts adds a zero), of
+    ``w`` through the non-finite guard."""
+    w = finite_guard(w)
     N, B, T, c = w.shape
     dev = w.device
     g = gidx.long()

@@ -18,7 +18,11 @@ and then evaluated per sample under ``torch.func.vmap``.
 Weights are of the run's ``dtype`` (float32, or float64 for
 ``integrate(dtype=torch.float64)``), or complex64 for
 ``Configuration(type=complex)`` at either dtype (``Spec.wdtype``, as
-``mcintegration_tpu/main.py:341``).  A complex
+``mcintegration_tpu/main.py:341``).  The evaluations return the integrand's
+values as they come, non-finite ones included: the kernels of :vegas and
+:vegasplus read each weight through the non-finite guard
+(``common.finite_guard``'s law), and the Markov solvers apply the guard to
+the evaluation's output.  A complex
 observable leaf is two groups of real components, all its real parts and
 then all its imaginary parts (``pallas_chain.py:447-458``); the solvers
 accumulate real float64 sums and :func:`obs_tree` recombines them.
@@ -32,7 +36,7 @@ from typing import Any, Callable, List
 import numpy as np
 import torch
 
-from ..common import weight_abs
+from ..common import finite_guard, weight_abs
 from ..configuration import Configuration
 from ..models.variable import CompositeVar, Discrete, FermiK, leaves_of
 from ..ops._build import tree_sum
@@ -253,7 +257,7 @@ class Spec:
         """Per-sample evaluation: f(leaf_vals [ndraw]) -> weights [N]."""
         def _eval(leaf_vals):
             w = self._call(integrand, inplace, leaf_vals)
-            return _finite_guard(pack_weights(w, self.N, self.device, self.wdtype))
+            return pack_weights(w, self.N, self.device, self.wdtype)
 
         return _eval
 
@@ -262,6 +266,9 @@ class Spec:
 
         Reference-style integrands are elementwise in the sample axes, so
         one call on the batched tensors evaluates every sample at once.
+        With one integrand the result is a view of its output (broadcast to
+        the batch where it is smaller), which the solvers make contiguous;
+        several are stacked.
         """
         n = self.N
 
@@ -273,10 +280,9 @@ class Spec:
                 ws = [ws[0][i] for i in range(n)]
             if len(ws) != n:
                 raise ValueError(f"integrand returned {len(ws)} weights, want {n}")
-            return torch.stack([
-                torch.broadcast_to(_finite_guard(_as_weight(wi, self.device, self.wdtype)),
-                                   shape)
-                for wi in ws])
+            ws = [torch.broadcast_to(_as_weight(wi, self.device, self.wdtype), shape)
+                  for wi in ws]
+            return ws[0][None] if n == 1 else torch.stack(ws)
 
         return _eval
 
@@ -284,6 +290,19 @@ class Spec:
         """Per-sample evaluation under ``torch.func.vmap`` over the batch:
         f(leaf_vals [ndraw, *batch]) -> [N, *batch]."""
         return self._vmapped(self.make_eval(integrand, inplace), (self.N,))
+
+    def pick_eval(self, integrand: Callable, inplace: bool):
+        """``(evaluate, reason)``: the batched evaluation where the probe
+        reproduces the per-sample one, else the evaluation under
+        ``torch.func.vmap``, and why (empty when batched).  The probe
+        compares the two after the non-finite guard, which every run applies
+        to the weights, so a value the guard zeroes does not decide the
+        route."""
+        eval_b = self.make_eval_batched(integrand, inplace)
+        eval_v = self.make_eval_vmapped(integrand, inplace)
+        ok, why = self.probe_batched(lambda v: finite_guard(eval_b(v)),
+                                     lambda v: finite_guard(eval_v(v)))
+        return (eval_b if ok else eval_v), why
 
     # ---- leaf shapes: a leaf is [ndraw, *batch], a FermiK leaf [ndraw, D, *batch]
     def _lead(self, lidx: int) -> int:
@@ -316,7 +335,7 @@ class Spec:
         def make(i):
             def _eval(leaf_vals):
                 w = integrand(i, self.view(leaf_vals), self.uconfig)
-                return torch.broadcast_to(_finite_guard(_as_weight(w, self.device, self.wdtype)),
+                return torch.broadcast_to(finite_guard(_as_weight(w, self.device, self.wdtype)),
                                           self.batch_shape(leaf_vals))
             return _eval
 
@@ -327,7 +346,7 @@ class Spec:
         def make(i):
             def per_sample(leaf_vals):
                 w = integrand(i, self.view(leaf_vals), self.uconfig)
-                return _finite_guard(_as_weight(w, self.device, self.wdtype).reshape(()))
+                return finite_guard(_as_weight(w, self.device, self.wdtype).reshape(()))
             return self._vmapped(per_sample, ())
 
         return [make(i) for i in range(self.N)]
@@ -569,18 +588,6 @@ def _as_weight(w, device, dtype=torch.float32):
     if isinstance(w, torch.Tensor):
         return w.to(device=device, dtype=dtype)
     return torch.tensor(w, dtype=dtype, device=device)
-
-
-def _finite_guard(w):
-    """Zero out non-finite integrand values.
-
-    In float32 a singular integrand can overflow to inf within ~1 ulp of its
-    singular point; an inf/NaN weight would poison every accumulator.  The
-    zeroed region is O(ulp)-measure, far below the statistical error.  A
-    complex value is kept only if both parts are finite (``torch.isfinite``
-    of a complex tensor; ``mcintegration_tpu/solvers/engine.py:260-271``).
-    """
-    return torch.where(torch.isfinite(w), w, torch.zeros_like(w))
 
 
 def pack_weights(w, n: int, device, dtype=torch.float32):

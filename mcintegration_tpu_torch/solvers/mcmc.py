@@ -72,6 +72,8 @@ def check_supported(spec: Spec):
 class MCMCIteration:
     """One :mcmc iteration over ``block`` blocks on ``spec.device``."""
 
+    guard = "torch"      # where the weights' non-finite guard runs (``mct.call``)
+
     def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
                  measurefreq=1, block=16, nevalperblock=10000, nwalkers=None,
                  min_steps_per_walker=256, thermal_ratio=0.1, nranks=1):

@@ -149,11 +149,9 @@ def _evaluators(spec: Spec, integrand: Callable, inplace: bool, measure, obs_pro
     """``(evaluate, measure, backend_reason)``: the integrand and the measure
     batched, or per sample under ``torch.func.vmap`` where the probe finds
     the batched call wrong, and why."""
-    eval_b = spec.make_eval_batched(integrand, inplace)
-    eval_v = spec.make_eval_vmapped(integrand, inplace)
-    ok, why = spec.probe_batched(eval_b, eval_v)
+    evaluate, why = spec.pick_eval(integrand, inplace)
     m, why_m = (None, "") if measure is None else spec.pick_measure(measure, obs_proto)
-    return eval_b if ok else eval_v, m, "; ".join(r for r in (why, why_m) if r)
+    return evaluate, m, "; ".join(r for r in (why, why_m) if r)
 
 
 def _leaf_hists(spec: Spec, hsum: torch.Tensor) -> list:
@@ -172,6 +170,8 @@ def _leaf_hists(spec: Spec, hsum: torch.Tensor) -> list:
 
 class VegasIteration:
     """One :vegas iteration over ``block`` blocks on ``spec.device``."""
+
+    guard = "kernel"     # where the weights' non-finite guard runs (``mct.call``)
 
     def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
                  inplace=False, measurefreq=1, block=16, nevalperblock=10000):
@@ -337,6 +337,8 @@ class VegasMixedIteration:
     in leaf order, each coprime to its own nb) are the reference XLA
     route's; so are complex weights and ``measurefreq``.
     """
+
+    guard = "kernel"     # where the weights' non-finite guard runs (``mct.call``)
 
     def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
                  inplace=False, measurefreq=1, block=16, nevalperblock=10000):

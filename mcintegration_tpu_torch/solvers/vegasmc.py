@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import tracing
+from ..common import finite_guard
 from ..models.variable import Discrete
 from ..ops import chain_kernels
 from ..ops.chain_kernels import ChainLayout, ChainState
@@ -67,6 +68,8 @@ def check_supported(spec: Spec):
 class VegasMCIteration:
     """One :vegasmc iteration over ``block`` blocks on ``spec.device``."""
 
+    guard = "torch"      # where the weights' non-finite guard runs (``mct.call``)
+
     def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
                  inplace=False, measurefreq=1, block=16, nevalperblock=10000,
                  nwalkers=None, min_steps_per_walker=256, warmup=0.01, nranks=1):
@@ -95,10 +98,7 @@ class VegasMCIteration:
                                         obs_components(spec, self.obs_proto), measure is not None)
 
         # ---- the integrand and the measure: batched, or per sample under vmap ----
-        eval_b = spec.make_eval_batched(integrand, inplace)
-        eval_v = spec.make_eval_vmapped(integrand, inplace)
-        ok, why = spec.probe_batched(eval_b, eval_v)
-        self.evaluate = eval_b if ok else eval_v
+        self.evaluate, why = spec.pick_eval(integrand, inplace)
         self.measure, why_m = (None, "") if measure is None else \
             spec.pick_measure(measure, obs_proto)
         self.backend_reason = "; ".join(r for r in (why, why_m) if r)
@@ -119,8 +119,9 @@ class VegasMCIteration:
 
     def weights(self, st: ChainState) -> torch.Tensor:
         """The integrand on the proposed state: ``[N, W]`` float32, or
-        complex64 with ``type=complex``."""
-        return self.evaluate(self.leaf_values(st.prp_val)).contiguous()
+        complex64 with ``type=complex``, each non-finite value zeroed in
+        torch (the chain kernels read the weights as they are)."""
+        return finite_guard(self.evaluate(self.leaf_values(st.prp_val))).contiguous()
 
     def seeds(self, kd: np.ndarray) -> torch.Tensor:
         """Per-block seeds ``kd [block, 2]`` uint32 as the int32 bit

@@ -92,6 +92,8 @@ class VegasPlusIteration:
     samples each cube gets in every chunk of the next ``run``.
     """
 
+    guard = "kernel"     # where the weights' non-finite guard runs (``mct.call``)
+
     def __init__(self, spec: Spec, integrand: Callable, *, measure=None, obs_proto=None,
                  inplace=False, measurefreq=1, block=16, nevalperblock=10000, nstrat=None,
                  max_cubes=16384, beta=0.75, max_chunk=131072):
@@ -124,10 +126,7 @@ class VegasPlusIteration:
         self.layout = VplusLayout.build(spec, self.nstrat)
 
         # ---- the integrand and the measure: batched, or per sample under vmap ----
-        eval_b = spec.make_eval_batched(integrand, inplace)
-        eval_v = spec.make_eval_vmapped(integrand, inplace)
-        ok, why = spec.probe_batched(eval_b, eval_v)
-        self.evaluate = eval_b if ok else eval_v
+        self.evaluate, why = spec.pick_eval(integrand, inplace)
         self.obs_proto = obs_proto
         self.measure, why_m = (None, "") if measure is None else \
             spec.pick_measure(measure, obs_proto)

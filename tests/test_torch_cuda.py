@@ -22,10 +22,15 @@ custom measure, ``chain_accept`` writing ``relw``, ``chain_measure`` and
 measure's output ``m`` to rel 1e-9.  With complex weights (``type=complex``)
 ``chain_accept_complex`` and ``mcmc_accept_complex`` match their plain
 versions bit for bit, both parts of every complex field included (the chain
-histogram to rel 1e-9).
+histogram to rel 1e-9).  Every kernel that reads ``w`` of the :vegas and
+:vegasplus routes reads it through the non-finite guard: with inf, -inf and
+NaN planted in ``w`` each matches its plain version as above, and its
+output is the one of ``w`` guarded in torch first (bit for bit where its
+sums have a fixed order).
 """
 
 import importlib.util
+import math
 from pathlib import Path
 
 import numpy as np
@@ -1222,3 +1227,166 @@ def test_cuda_float64_integrates_e100(cuda, solver):
     assert not any(vk.launch_counts.values()) and not any(vp.launch_counts.values())
     mod = vk if solver == "vegas" else vp
     assert mod.launch_counts_f64[f"{'vegas' if solver == 'vegas' else 'vplus'}_sample"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The weights' non-finite guard, in every kernel's loads of w
+# ---------------------------------------------------------------------------
+
+def _plant(w):
+    """A copy of ``w`` with non-finite values at known places: inf, -inf and
+    NaN in turn at every 5th sample; a complex ``w`` also gets a NaN
+    imaginary part at every 7th sample from the 3rd and an infinite real
+    part at every 11th from the 1st, the other part finite."""
+    out = w.clone()
+    z = torch.view_as_real(out).view(-1, 2) if w.is_complex() else out.view(-1, 1)
+    n, dev = z.shape[0], w.device
+    at = torch.arange(0, n, 5, device=dev)
+    vals = torch.tensor([math.inf, -math.inf, math.nan], dtype=z.dtype, device=dev)
+    z[at, 0] = vals[torch.arange(at.numel(), device=dev) % 3]
+    if w.is_complex():
+        z[torch.arange(3, n, 7, device=dev), 1] = math.nan
+        z[torch.arange(1, n, 11, device=dev), 0] = math.inf
+    return out
+
+
+def _guarded(w):
+    return torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+
+
+def _all_finite(*ts):
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+@pytest.mark.parametrize("real", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("k", range(3), ids=[str(e[:2]) for e in cs.REDUCE_EDGES[:3]])
+def test_guard_vegas_reduce_and_relw(cuda, k, cplx, real):
+    """vegas_relw and vegas_reduce (default and given m, ungated and gated)
+    of w with non-finite values planted: relw bit for bit its plain version
+    and the kernel's of the guarded w; the reduce within rel 1e-9 of plain
+    and bit for bit the kernel's of the guarded w; every output finite."""
+    m, N, ncomp, B, T, nb = cs.REDUCE_EDGES[k]
+    args, mobs = cs.reduce_inputs(m, N, ncomp, B, T, nb, device=cuda, cplx=cplx, real=real)
+    w = _plant(args[0])
+    wg, rest = _guarded(w), args[1:]
+    assert not torch.isfinite(w).all()
+    invp, _, pad, pair_slots, _ = rest
+    relw = vk.vegas_relw(w, invp, pad, pair_slots)
+    assert _bits_equal(relw, vk.vegas_relw_plain(w, invp, pad, pair_slots))
+    assert _bits_equal(relw, vk.vegas_relw(wg, invp, pad, pair_slots))
+    assert _all_finite(relw)
+    for given in (None, mobs):
+        for mf, t0 in ((1, 0), (3, 2)):
+            got = vk.vegas_reduce(w, *rest, given, mf, t0)
+            want = vk.vegas_reduce_plain(w, *rest, given, mf, t0)
+            clean = vk.vegas_reduce(wg, *rest, given, mf, t0)
+            torch.cuda.synchronize()
+            assert _all_finite(*got)
+            for g, p, c in zip(got, want, clean):
+                torch.testing.assert_close(g, p, rtol=1e-9, atol=0)
+                assert _bits_equal(g, c)
+
+
+@pytest.mark.parametrize("real", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("k", [1, 2], ids=[cs.MIXED_SPECS[k][0] for k in (1, 2)])
+def test_guard_vegas_mixed(cuda, k, cplx, real):
+    """vegas_relw_mixed and vegas_reduce_mixed (default and given m,
+    ungated and gated; chunks a multiple of 4 and not) of w with non-finite
+    values planted: relw bit for bit its plain version and the kernel's of
+    the guarded w; the reduce's obs within rel 1e-9 of plain and bit for bit
+    the guarded w's, its histograms within their float64 rounding of both;
+    every output finite."""
+    name, var, dof, f, npb, _, T = cs.MIXED_SPECS[k]
+    it, lay, tab, kd, t0, T, x, gidx, w = cs.mixed_launch(mt, var(mt), dof, f, min(npb, 2 ** 20),
+                                                          2, T, cplx=cplx, real=real)
+    w = _plant(w)
+    wg = _guarded(w)
+    relw = vk.vegas_relw_mixed(lay, tab, w, gidx)
+    assert _bits_equal(relw, vk.vegas_relw_mixed_plain(lay, tab, w, gidx))
+    assert _bits_equal(relw, vk.vegas_relw_mixed(lay, tab, wg, gidx))
+    assert _all_finite(relw)
+    m = cs._measure_of(relw)
+    tol = 1e-12 if real == torch.float32 else 1e-10
+    for mf in (1, 4):
+        for given in (None, m):
+            obs, hist = vk.vegas_reduce_mixed(lay, tab, w, gidx, given, mf, t0)
+            obs_p, hist_p = vk.vegas_reduce_mixed_plain(lay, tab, w, gidx, given, mf, t0)
+            obs_c, hist_c = vk.vegas_reduce_mixed(lay, tab, wg, gidx, given, mf, t0)
+            torch.cuda.synchronize()
+            assert _all_finite(obs, hist)
+            torch.testing.assert_close(obs, obs_p, rtol=1e-9, atol=0)
+            assert _bits_equal(obs, obs_c)
+            torch.testing.assert_close(hist, hist_p, rtol=tol, atol=0)
+            torch.testing.assert_close(hist, hist_c, rtol=tol, atol=0)
+
+
+@pytest.mark.parametrize("real", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_guard_vplus_reduce_and_relw(cuda, cplx, real):
+    """vplus_relw and vplus_reduce (its default body at float32, the chunked
+    body of the complex and float64 defaults, given m; ungated and gated
+    with shifts) of w with non-finite values planted: relw bit for bit its
+    plain version and the kernel's of the guarded w; the reduce's obs
+    within rel 1e-9 of plain and bit for bit the guarded w's, sig and hist
+    within their float64 rounding of both; every output finite."""
+    lay, tab, w, gidx, cube, cfac = cs.vplus_reduce_inputs(mt, 100, 3, device=cuda, cplx=cplx,
+                                                           real=real)
+    w = _plant(w)
+    wg = _guarded(w)
+    B, T = w.shape[1:3]
+    shift = torch.as_tensor(np.random.default_rng(5).integers(0, w.shape[-1], (B, T)),
+                            dtype=torch.int32, device=cuda)
+    args, gargs = (lay, tab, w, gidx, cube, cfac), (lay, tab, wg, gidx, cube, cfac)
+    relw = vp.vplus_relw(*args)
+    assert _bits_equal(relw, vp.vplus_relw_plain(*args))
+    assert _bits_equal(relw, vp.vplus_relw(*gargs))
+    assert _all_finite(relw)
+    mobs = cs.relw_components(relw)
+    tol = 1e-12 if real == torch.float32 else 1e-10
+    for mf, sh in ((1, None), (4, shift)):
+        for given in (None, mobs):
+            got = vp.vplus_reduce(*args, given, mf, 1, sh)
+            want = vp.vplus_reduce_plain(*args, given, mf, 1, sh)
+            clean = vp.vplus_reduce(*gargs, given, mf, 1, sh)
+            torch.cuda.synchronize()
+            assert _all_finite(*got)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-9, atol=0)
+            assert _bits_equal(got[0], clean[0])
+            for g, p, c in zip(got[1:], want[1:], clean[1:]):
+                torch.testing.assert_close(g, p, rtol=tol, atol=0)
+                torch.testing.assert_close(g, c, rtol=tol, atol=0)
+
+
+@pytest.mark.parametrize("solver", ["vegas", "vegasplus"])
+def test_guard_nan_at_a_probe_point_keeps_the_batched_route(cuda, solver):
+    """NaN wherever x0 < 0.5, which the probe's points reach: the run stays
+    batched on the card's kernels and integrates the rest, 3/4, within 7
+    sigma."""
+    f = lambda x, c: torch.where(x[0] < 0.5, math.nan, 1.0 + x[1])
+    res = mt.integrate(f, var=mt.Continuous(0.0, 1.0), dof=[[2]], neval=2 ** 22, niter=4,
+                       solver=solver, seed=5, verbose=-2, device="cuda")
+    assert res.backend == "cuda" and res.backend_reason == ""
+    assert abs(float(res.mean[0]) - 0.75) < 7 * float(res.stdev[0])
+
+
+@pytest.mark.parametrize("route", ["uniform", "mixed"])
+def test_guard_vegas_run_is_the_users_guarded_run(cuda, route):
+    """inf, -inf and NaN on known regions: a :vegas run on the card gives,
+    bit for bit, the Result of the integrand guarded by the user."""
+    def f(x, c):
+        a, b = (x[0], x[1]) if route == "uniform" else (x[0][0], x[1][0] / 4.5)
+        v = torch.where(a < 0.1, math.inf, torch.where(a < 0.2, -math.inf, 1.0 + a * b))
+        return torch.where(b > 0.9, math.nan, v)
+
+    g = lambda x, c: _guarded(f(x, c))
+    var = (lambda: mt.Continuous(0.0, 1.0)) if route == "uniform" else \
+        (lambda: (mt.Continuous(0.0, 1.0), mt.Discrete(1, 4)))
+    dof = [[2]] if route == "uniform" else [[1, 1]]
+    kw = dict(dof=dof, neval=2 ** 22, niter=4, solver="vegas", seed=5, verbose=-2,
+              device="cuda", cache=False)
+    a, b = mt.integrate(f, var=var(), **kw), mt.integrate(g, var=var(), **kw)
+    assert a.backend == "cuda" and a.backend_reason == ""
+    assert np.all(np.isfinite(a.mean)) and np.all(np.isfinite(a.stdev))
+    assert np.array_equal(a.mean, b.mean) and np.array_equal(a.stdev, b.stdev)

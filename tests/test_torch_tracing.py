@@ -10,6 +10,8 @@ on every route, on the CPU.
   span inside its parent and all sharing the call's id; an iteration's span
   lasts its ``Result.iteration_times`` entry;
 - the ``cache`` attribute counts the iteration cache's hits and misses;
+- the ``guard`` attribute says where the weights' non-finite guard runs:
+  in the kernels on :vegas and :vegasplus, in torch on the Markov solvers;
 - under a ``torch.profiler`` profile the spans are recorded without
   ``enable()`` and appear among the profiler's host events;
 - the buffer keeps its last ``MAXLEN`` records, and threads keep their own
@@ -59,6 +61,8 @@ ROUTES = {
     "vegasmc": dict(solver="vegasmc"),
     "mcmc": dict(solver="mcmc", f=_pi_idx),
 }
+GUARDS = {"vegas": "kernel", "vegas-mixed": "kernel", "vegasplus": "kernel",
+          "vegasmc": "torch", "mcmc": "torch"}
 KINDS = {"vegas": "VegasIteration", "vegas-mixed": "VegasMixedIteration",
          "vegasplus": "VegasPlusIteration", "vegasmc": "VegasMCIteration",
          "mcmc": "MCMCIteration"}
@@ -137,7 +141,8 @@ def test_a_call_is_one_tree(route):
     assert len(calls) == 1
     call = calls[0]
     assert call["parent"] is None and call["call"] == call["id"]
-    assert call["attrs"] == {"solver": ROUTES[route]["solver"], "niter": NITER, "cache": "miss"}
+    assert call["attrs"] == {"solver": ROUTES[route]["solver"], "niter": NITER, "cache": "miss",
+                             "guard": GUARDS[route]}
     assert all(s["call"] == call["id"] for s in recs)
     assert {s["name"] for s in kids[call["id"]]} == {
         "mct.cache_key", "mct.build", "mct.iteration", "mct.result"}
@@ -168,6 +173,21 @@ def test_the_cache_attribute_counts_hits_and_misses(route):
     tracing.disable()
     got = [s["attrs"]["cache"] for s in tracing.spans() if s["name"] == "mct.call"]
     assert got == ["miss", "hit", "off", "uncacheable"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_the_guard_attribute_names_where_the_guard_runs(route):
+    """``kernel`` where the kernels guard each weight they load (:vegas on
+    both routes, :vegasplus), ``torch`` where the solver guards the
+    integrand's output (:vegasmc, :mcmc); a cache hit says the same."""
+    mt.clear_kernel_cache()
+    tracing.enable()
+    _run(route)
+    _run(route)
+    tracing.disable()
+    calls = [s["attrs"] for s in tracing.spans() if s["name"] == "mct.call"]
+    assert [c["cache"] for c in calls] == ["miss", "hit"]
+    assert [c["guard"] for c in calls] == [GUARDS[route]] * 2
 
 
 def test_a_profiler_turns_recording_on_and_shows_the_spans():
